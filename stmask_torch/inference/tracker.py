@@ -1,0 +1,308 @@
+"""Fixed-capacity video instance tracker, TF variant (port of
+``stmask_tpu/inference/tracker.py``; reference ``track_TF.py:50-181``).
+
+Previous tracks are shifted onto the current frame by the TemporalNet
+(CandidateShift, ``TF_utils.py:12-51``), then matched against new
+detections with a mixed score (embedding cosine + mask IoU + box IoU,
+``TF_utils.py:99-120``).  The state is a fixed bank of ``track_capacity``
+slots with a validity mask and a global id counter; the sequential greedy
+id assignment is resolved in closed form (``resolve_assignment``).  Every
+branch runs every frame and is blended with ``torch.where``, so a frame
+needs no host synchronisation.
+
+Tie rules follow the JAX package: top-k by stable descending sort (lower
+index first), ``argmax`` returns the first maximum, scatter-max/min via
+``scatter_reduce``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import STMaskConfig
+from ..ops.boxes import (center_size, decode, jaccard, mask_iou,
+                         sanitize_coordinates_hw)
+from ..ops.correlation import correlate
+from ..ops.masks import generate_mask
+from ..ops.nms import _top_k_padded
+from ..ops.roi_align import roi_align
+from .candidates import Detections
+
+NEG = -1e10
+
+TemporalNetFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+class TrackState(NamedTuple):
+    """Per-video persistent state (all fixed capacity T)."""
+    box: torch.Tensor          # [T, 4]
+    score: torch.Tensor        # [T]
+    cls: torch.Tensor          # [T] int64
+    mask_coeff: torch.Tensor   # [T, 32]
+    track: torch.Tensor        # [T, E]
+    centerness: torch.Tensor   # [T]
+    mask: torch.Tensor         # [T, Hp, Wp] soft masks on current frame
+    age: torch.Tensor          # [T] int64 frames since last detection
+    valid: torch.Tensor        # [T] bool slot in use
+    obj_id: torch.Tensor       # [T] int64 global instance id (0-based)
+    next_id: torch.Tensor      # [] int64
+    # previous-frame features for the temporal shift
+    fpn_feat: torch.Tensor     # [H4, W4, C]
+    t2s_feat: torch.Tensor     # [H4, W4, C]
+
+
+def init_state(cfg: STMaskConfig, feat_shape: Tuple[int, int],
+               proto_shape: Tuple[int, int], feat_ch: int = 256,
+               embed_dim: int | None = None,
+               device: torch.device | str = 'cpu') -> TrackState:
+    """An empty bank (every field zero / False)."""
+    t = cfg.track_capacity
+    e = embed_dim or cfg.embed_dim
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.long, device=device)
+    return TrackState(
+        box=torch.zeros((t, 4), **f32), score=torch.zeros((t,), **f32),
+        cls=torch.zeros((t,), **i64),
+        mask_coeff=torch.zeros((t, cfg.mask_proto_n), **f32),
+        track=torch.zeros((t, e), **f32),
+        centerness=torch.zeros((t,), **f32),
+        mask=torch.zeros((t, *proto_shape), **f32),
+        age=torch.zeros((t,), **i64),
+        valid=torch.zeros((t,), dtype=torch.bool, device=device),
+        obj_id=torch.zeros((t,), **i64),
+        next_id=torch.zeros((), **i64),
+        fpn_feat=torch.zeros((*feat_shape, feat_ch), **f32),
+        t2s_feat=torch.zeros((*feat_shape, feat_ch), **f32))
+
+
+def _blend(cond: torch.Tensor, a: TrackState, b: TrackState) -> TrackState:
+    """Field-wise ``where(cond, a, b)`` for a scalar bool tensor ``cond``."""
+    return TrackState(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+def candidate_shift(cfg: STMaskConfig, temporal_net_fn: TemporalNetFn,
+                    state: TrackState, cur_fpn_feat: torch.Tensor,
+                    cur_t2s_feat: torch.Tensor,
+                    cur_proto: torch.Tensor) -> TrackState:
+    """Shift track boxes/coeffs/masks to the current frame (reference
+    TF_utils.py:12-51).  The TemporalNet runs on the first
+    ``shift_capacity`` *active* slots only; decay and aging apply to all."""
+    h4, w4, _ = cur_fpn_feat.shape
+    x_corr = correlate(state.fpn_feat[None].contiguous(),
+                       cur_fpn_feat[None].contiguous(),
+                       patch_size=cfg.correlation_patch_size)[0]
+    concat = F.relu(torch.cat([x_corr, state.t2s_feat, cur_t2s_feat],
+                              dim=-1))
+
+    s_cap = min(cfg.shift_capacity, cfg.track_capacity)
+    active = state.valid & ~((state.score <= cfg.eval_conf_thresh)
+                             & (state.age > cfg.max_tracked_mask_age))
+    _, sel = _top_k_padded(active.float(), s_cap)   # ties: lower slot first
+    sel_valid = active[sel]                                       # [S]
+
+    boxes_sel = state.box[sel]
+    boxes_feat = sanitize_coordinates_hw(boxes_sel, h4, w4)
+    pooled = roi_align(concat, boxes_feat, pool_size=7)           # [S,7,7,C]
+    loc_shift, coeff_shift = temporal_net_fn(pooled)
+
+    box_shift_sel = decode(loc_shift, center_size(boxes_sel))
+    coeff_sel = state.mask_coeff[sel] + coeff_shift
+
+    pred = sel_valid[:, None]
+    box = state.box.clone()
+    box[sel] = torch.where(pred, box_shift_sel, boxes_sel)
+    coeff = state.mask_coeff.clone()
+    coeff[sel] = torch.where(pred, coeff_sel, state.mask_coeff[sel])
+    masks = generate_mask(cur_proto, coeff, box)                  # [T,Hp,Wp]
+    return state._replace(box=box, score=state.score * cfg.score_decay,
+                          mask_coeff=coeff, mask=masks, age=state.age + 1)
+
+
+def _comp_scores(cfg: STMaskConfig, det: Detections, det_masks: torch.Tensor,
+                 state: TrackState) -> torch.Tensor:
+    """Mixed matching score matrix [D, T+1]; column 0 is the new-object
+    dummy (reference TF_utils.py:99-120 compute_comp_scores)."""
+    d = det.track.shape[0]
+    dev = det.track.device
+    cos = det.track @ state.track.T                              # [D, T]
+    cos = torch.cat([torch.zeros((d, 1), device=dev), cos], dim=1)
+    cos = (cos + 1.0) / 2.0
+
+    bbox_ious = jaccard(det.box, state.box)                      # [D, T]
+    prev_masks = (state.mask > 0.5).float()
+    mask_ious = mask_iou(det_masks, prev_masks)                  # [D, T]
+    label_delta = (state.cls[None, :] == det.cls[:, None]).float()
+
+    dummy = torch.full((d, 1), cfg.bbox_dummy_iou, device=dev)
+    bbox_ious = torch.cat([dummy, bbox_ious], dim=1)
+    mask_ious = torch.cat([dummy, mask_ious], dim=1)
+    label_delta = torch.cat([torch.ones((d, 1), device=dev), label_delta],
+                            dim=1)
+
+    c = cfg.match_coeff
+    comp = (cos + c[0] * det.score[:, None] + c[1] * mask_ious
+            + c[2] * bbox_ious + c[3] * label_delta)
+    # invalid track slots can never be matched
+    col_valid = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                           state.valid])
+    return torch.where(col_valid[None, :], comp, NEG)
+
+
+def _free_slots(cfg: STMaskConfig, state: TrackState) -> torch.Tensor:
+    """Slots reusable for new tracks: unused, or permanently un-outputtable."""
+    dead = (state.score <= cfg.eval_conf_thresh) & \
+           (state.age > cfg.max_tracked_mask_age)
+    return ~state.valid | dead
+
+
+class Assignment(NamedTuple):
+    """Vectorized resolution of the greedy det->track assignment."""
+    has_winner: torch.Tensor   # [T] slot receives a matched detection
+    winner_src: torch.Tensor   # [T] det index feeding the slot (clamped)
+    alloc_slot: torch.Tensor   # [D] slot each det would allocate (clamped)
+    can_alloc: torch.Tensor    # [D] det actually allocates a new track
+    new_rank: torch.Tensor     # [D] rank among allocating dets
+    det_slot: torch.Tensor     # [D] slot of this det's track (-1 if none)
+    num_new: torch.Tensor      # [] number of allocated tracks
+
+
+def resolve_assignment(cfg: STMaskConfig, match_ids: torch.Tensor,
+                       det_valid: torch.Tensor, det_scores: torch.Tensor,
+                       state: TrackState) -> Assignment:
+    """Closed-form equivalent of the reference's sequential greedy loop
+    (track_TF.py:132-156): each track keeps the earliest-index detection
+    attaining its best score; displaced dets get no id and never allocate;
+    new-track slots follow cumulative rank over the free-slot order."""
+    d = match_ids.shape[0]
+    t = state.valid.shape[0]
+    dev = match_ids.device
+    det_idx = torch.arange(d, device=dev)
+    big = d + 1
+
+    is_match = det_valid & (match_ids > 0)
+    slot_of_det = torch.where(is_match, match_ids - 1, 0)
+    best = torch.full((t,), float('-inf'), device=dev).scatter_reduce(
+        0, slot_of_det, torch.where(is_match, det_scores, float('-inf')),
+        'amax', include_self=True)
+    is_best = is_match & (det_scores == best[slot_of_det])
+    key = torch.where(is_best, det_idx, big)
+    winner = torch.full((t,), big, dtype=torch.long, device=dev
+                        ).scatter_reduce(0, slot_of_det, key, 'amin',
+                                         include_self=True)
+    has_winner = winner < big
+    winner_src = torch.clamp(winner, max=d - 1)
+
+    # new-track allocation: free slots ordered (never-used first, then
+    # recyclable), excluding slots just refreshed by a match
+    is_new = det_valid & (match_ids == 0)
+    free = _free_slots(cfg, state) & ~has_winner
+    prio = free.long() + (free & ~state.valid).long()
+    slot_order = torch.argsort(-prio, stable=True)     # [T] best first
+    num_free = free.sum()
+    rank = torch.cumsum(is_new.long(), dim=0) - 1      # [D]
+    rank = torch.where(is_new, rank, 0)
+    alloc_slot = slot_order[torch.clamp(rank, max=t - 1)]
+    can_alloc = is_new & (rank < num_free)
+
+    det_slot = torch.where(can_alloc, alloc_slot, -1)
+    det_is_winner = is_match & (winner[slot_of_det] == det_idx)
+    det_slot = torch.where(det_is_winner, slot_of_det, det_slot)
+    return Assignment(has_winner, winner_src, alloc_slot, can_alloc, rank,
+                      det_slot, can_alloc.sum())
+
+
+def _scatter_drop(field: torch.Tensor, slot: torch.Tensor,
+                  values) -> torch.Tensor:
+    """``field.at[slot].set(values, mode='drop')`` for slots in [0, T]:
+    rows written to index T (non-allocating dets) are dropped."""
+    buf = torch.cat([field, field[:1]])
+    buf[slot] = torch.as_tensor(values, dtype=buf.dtype, device=buf.device)
+    return buf[:-1]
+
+
+def _apply_assignment(state: TrackState, det: Detections,
+                      det_masks: torch.Tensor, asn: Assignment,
+                      update_winners: torch.Tensor) -> TrackState:
+    """Bulk-apply matched refreshes + new-track writes."""
+    uw = update_winners
+    t = state.valid.shape[0]
+    safe_slot = torch.where(asn.can_alloc, asn.alloc_slot, t)
+
+    def upd(field_state, field_det):
+        cond = uw.reshape((-1,) + (1,) * (field_state.dim() - 1))
+        out = torch.where(cond, field_det[asn.winner_src], field_state)
+        return _scatter_drop(out, safe_slot, field_det)
+
+    new_age = _scatter_drop(torch.where(uw, 0, state.age), safe_slot, 0)
+    new_valid = _scatter_drop(state.valid, safe_slot, True)
+    new_ids = _scatter_drop(state.obj_id, safe_slot,
+                            state.next_id + asn.new_rank)
+    return state._replace(
+        box=upd(state.box, det.box),
+        score=upd(state.score, det.score),
+        cls=upd(state.cls, det.cls),
+        mask_coeff=upd(state.mask_coeff, det.mask_coeff),
+        track=upd(state.track, det.track),
+        centerness=upd(state.centerness, det.centerness),
+        mask=upd(state.mask, det_masks),
+        age=new_age, valid=new_valid, obj_id=new_ids,
+        next_id=state.next_id + asn.num_new)
+
+
+def assign_ids(cfg: STMaskConfig, det: Detections,
+               det_masks_match: torch.Tensor, det_masks_bank: torch.Tensor,
+               state: TrackState) -> TrackState:
+    """Greedy detection->track assignment with conflict resolution
+    (reference track_TF.py:125-156).  Match scoring uses the binarized det
+    masks; the bank stores the soft ones."""
+    comp = _comp_scores(cfg, det, det_masks_match, state)        # [D, T+1]
+    match_ids = torch.argmax(comp, dim=1)          # first maximum on ties
+    asn = resolve_assignment(cfg, match_ids, det.valid, det.score, state)
+    return _apply_assignment(state, det, det_masks_bank, asn, asn.has_winner)
+
+
+class FrameOutput(NamedTuple):
+    """Per-frame tracked detections (fixed capacity T, masked by keep)."""
+    box: torch.Tensor       # [T, 4] normalized point form
+    score: torch.Tensor     # [T]
+    cls: torch.Tensor       # [T]
+    mask: torch.Tensor      # [T, Hp, Wp] soft masks at proto resolution
+    obj_id: torch.Tensor    # [T]
+    keep: torch.Tensor      # [T] bool
+
+
+def track_step_tf(cfg: STMaskConfig, temporal_net_fn: TemporalNetFn,
+                  state: TrackState, det: Detections,
+                  cur_proto: torch.Tensor, cur_fpn_feat: torch.Tensor,
+                  cur_t2s_feat: torch.Tensor, is_first: torch.Tensor
+                  ) -> Tuple[TrackState, FrameOutput]:
+    """One frame of Track_TF (reference track_TF.py:50-181).
+
+    ``is_first`` is a bool (scalar tensor or Python bool): the bank is
+    reset on the first frame of a video.  The shift always runs (one
+    correlation launch per frame) and is kept only when the bank had a
+    valid track."""
+    dev = cur_proto.device
+    is_first = torch.as_tensor(is_first, dtype=torch.bool, device=dev)
+    empty = TrackState(*(torch.zeros_like(s) for s in state))
+    state = _blend(is_first, empty, state)
+
+    shifted = candidate_shift(cfg, temporal_net_fn, state, cur_fpn_feat,
+                              cur_t2s_feat, cur_proto)
+    state = _blend(state.valid.any(), shifted, state)
+
+    det_masks_soft = generate_mask(cur_proto, det.mask_coeff, det.box)
+    det_masks = (det_masks_soft > 0.5).float()
+    state = assign_ids(cfg, det, det_masks, det_masks_soft, state)
+
+    # output keep conditions (reference track_TF.py:158-165)
+    mask_area = (state.mask > 0.5).sum(dim=(1, 2))
+    keep = ((state.age <= cfg.max_tracked_mask_age) & (mask_area > 1)
+            & (state.score > cfg.eval_conf_thresh) & state.valid)
+    out = FrameOutput(box=state.box, score=state.score, cls=state.cls,
+                      mask=state.mask, obj_id=state.obj_id, keep=keep)
+    state = state._replace(fpn_feat=cur_fpn_feat, t2s_feat=cur_t2s_feat)
+    return state, out
