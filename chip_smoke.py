@@ -4,19 +4,27 @@
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and exits non-zero):
-  1. build the CUDA kernels from stmask_torch/kernels/csrc with nvcc;
+  1. build the CUDA kernels from stmask_torch/kernels/csrc with nvcc (one
+     process per source, in parallel) and print ptxas's registers, shared
+     memory and spills of the correlation and the fused deformable conv;
   2. K1 (correlation) against its plain PyTorch version, main-path and
      ragged shapes;
   3. K2 (deformable gather) against its plain version at the 7 DCN sites'
-     shapes of a 384x640 input, alone and after the fp32 matmul;
+     shapes of a 384x640 input, alone and after the fp32 matmul; then the
+     fused deformable conv against its plain version at the 7 sites and at
+     ragged, rectangular and dilated shapes, at a tolerance that a single
+     TF32 product (emulated at the 7 sites as a control) fails;
   4. the eval video step of STMask_plus_resnet50 at 360x640 (seeded random
      weights, two synthetic 8-frame videos) through build_video_step,
      postprocess_frame and results2json_videoseg, with kernel launch
-     counts; the model's outputs are also held against the CPU path (the
-     plain versions, which tests/ hold against the JAX package) on a small
+     counts (the DCN sites run the fused kernel, K2 not at all); the
+     model's outputs are also held against the CPU path (the plain
+     versions, which tests/ hold against the JAX package) on a small
      input; then a torch.profiler window over steady frames (device busy
      share, top kernels) and each stage's time on its own;
-  5. kernel times (CUDA events) beside their plain versions and bounds.
+  5. kernel times (CUDA events) beside their plain versions and bounds;
+     per DCN site the fused kernel beside K2 + matmul + bias (the path it
+     replaced) and, as a size reference only, a dense cuDNN 3x3 conv.
 
 Prints a JSON kernel table and the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.  Without a GPU it prints no result
@@ -34,6 +42,10 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32, non-tensor-core
+PEAK_TF32_FLOPS = 495e12       # H100 SXM TF32 tensor cores, dense
+# the fused deformable conv against its fp32 plain version: 3xTF32 holds
+# ~3e-7 there, a single TF32 product (weights scaled by 1/K) 2e-5 to 5e-5
+FUSED_ATOL = 5e-6
 FRAMES_PER_VIDEO = 8
 N_VIDEOS = 2
 WARMUP_FRAMES = 3
@@ -115,10 +127,22 @@ def _device_events(fn, iters: int):
     return rows
 
 
-def _bound_ms(nbytes: float, flops: float):
+def _ops_s(flops: float, tf32_flops: float = 0.0) -> float:
+    """Seconds of arithmetic: fp32 flops on the CUDA cores plus TF32 flops
+    on the tensor cores, each at its peak."""
+    return flops / PEAK_FP32_FLOPS + tf32_flops / PEAK_TF32_FLOPS
+
+
+def _bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = _ops_s(flops, tf32_flops) * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def _tf32_hi(torch, t):
+    """``t`` with its 13 low mantissa bits cleared: the TF32 value a tensor
+    core reads."""
+    return (t.view(torch.int32) & -8192).view(torch.float32)
 
 
 def _synthetic_clip(h: int, w: int, n: int, seed: int) -> np.ndarray:
@@ -132,13 +156,21 @@ def _synthetic_clip(h: int, w: int, n: int, seed: int) -> np.ndarray:
                      for i in range(n)])
 
 
-def _dcn_inputs(torch, dev, h, w, cin, stride, seed):
+def _dcn_inputs(torch, dev, h, w, cin, stride, seed, kh=3, kw=3):
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(1, h, w, cin, device=dev, generator=g)
-    off = torch.randn(1, ho, wo, 18, device=dev, generator=g) * 2.0
-    mask = torch.rand(1, ho, wo, 9, device=dev, generator=g)
+    off = torch.randn(1, ho, wo, 2 * kh * kw, device=dev, generator=g) * 2.0
+    mask = torch.rand(1, ho, wo, kh * kw, device=dev, generator=g)
     return x, off, mask
+
+
+def _dcn_weight(torch, dev, kh, kw, cin, cout, seed):
+    """[Cout, kh, kw, Cin] weight scaled by 1/(kh*kw*Cin) and a bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = kh * kw * cin
+    return (torch.randn(cout, kh, kw, cin, device=dev, generator=g) / k,
+            torch.randn(cout, device=dev, generator=g))
 
 
 def _dcn_cost(torch, x, off, stride):
@@ -221,6 +253,7 @@ def main() -> int:
                                         results2json_videoseg)
     from stmask_torch.kernels import KERNELS, build
     from stmask_torch.kernels import correlation as K1
+    from stmask_torch.kernels import deform_conv as KD
     from stmask_torch.kernels import deform_im2col as K2
     from stmask_torch.models import build_model
     from stmask_torch.utils.device import resolve_device
@@ -232,15 +265,19 @@ def main() -> int:
           f'device {name} ({smi})', flush=True)
 
     # ---- 1. build ---------------------------------------------------------
-    secs = build.build(['correlation', 'deform_im2col'])
-    print(f'[build] correlation + deform_im2col with nvcc '
+    secs = build.build(['correlation', 'deform_im2col', 'deform_conv'])
+    print(f'[build] correlation + deform_im2col + deform_conv with nvcc '
           f'{" ".join(build.NVCC_FLAGS)}: {secs:.2f} s', flush=True)
+    for lib in ('correlation', 'deform_conv'):
+        for line in build.ptxas_report(lib):
+            print(f'[ptxas] {lib}: {line}')
 
     # ---- 2. K1 vs plain ---------------------------------------------------
-    err = {'correlation': 0.0, 'deform_im2col': 0.0}
+    err = {'correlation': 0.0, 'deform_im2col': 0.0, 'deform_conv': 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
     for shape, patch in (((1, 24, 40, 256), 11), ((2, 7, 9, 96), 11),
-                         ((2, 7, 9, 96), 5)):
+                         ((2, 7, 9, 96), 5), ((1, 5, 70, 40), 11),
+                         ((2, 7, 9, 96), 17), ((1, 20, 40, 64), 31)):
         x1 = torch.randn(shape, device=dev, generator=g)
         x2 = torch.randn(shape, device=dev, generator=g)
         got = K1.correlate_cuda(x1, x2, patch)
@@ -267,6 +304,48 @@ def main() -> int:
               '(atol 1e-4)', flush=True)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
         torch.testing.assert_close(got @ wt, want @ wt, atol=1e-4, rtol=0)
+
+    # the fused kernel: the 7 sites (v2, bias), then ragged channels and
+    # strides, v1 and v2, bias and none, FCB's 3x5 / 5x3 v1 taps, dilation.
+    # At the 7 sites a control, the same product with both operands cut to
+    # TF32 (what one TF32 MMA computes), must miss the tolerance.
+    fused_cases = [(site, h, w, cin, cin, 3, 3, stride, 1, True, True)
+                   for site, (h, w, cin), stride in DCN_SITES]
+    fused_cases += [
+        (f'ragged Cin {cin} stride {st} {"v2" if v2 else "v1"} '
+         f'{"bias" if bias else "no bias"}', 9, 11, cin, 5, 3, 3, st, 1, v2,
+         bias)
+        for cin in (3, 6) for st in (1, 2) for v2 in (True, False)
+        for bias in (True, False)]
+    fused_cases += [('v1 3x5', 24, 40, 256, 256, 3, 5, 1, 1, False, True),
+                    ('v1 5x3', 24, 40, 256, 256, 5, 3, 1, 1, False, True),
+                    ('v1 3x5 ragged', 9, 11, 6, 5, 3, 5, 2, 1, False, False),
+                    ('v1 5x3 ragged', 9, 11, 6, 5, 5, 3, 1, 1, False, True),
+                    ('v2 dilation 2', 13, 7, 64, 36, 3, 3, 1, 2, True, True)]
+    for i, (label, h, w, cin, cout, kh, kw, st, dil, v2, bias) in enumerate(
+            fused_cases):
+        x, off, mask = _dcn_inputs(torch, dev, h, w, cin, st, 100 + i, kh, kw)
+        wt, b = _dcn_weight(torch, dev, kh, kw, cin, cout, 200 + i)
+        args = (x, off, wt, mask if v2 else None, b if bias else None, st,
+                dil)
+        got = KD.deform_conv_cuda(*args)
+        want = KD.deform_conv_reference(*args)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        err['deform_conv'] = max(err['deform_conv'], d)
+        control = ''
+        if i < len(DCN_SITES):
+            cols = K2.deform_im2col_reference(x, off, mask, kh, kw, st, dil)
+            tf32 = (_tf32_hi(torch, cols)
+                    @ _tf32_hi(torch, wt.reshape(cout, -1)).t()
+                    + b).reshape(want.shape)
+            d_tf32 = float((tf32 - want).abs().max())
+            control = f'; single TF32 product {d_tf32:.3e} (must exceed it)'
+            assert d_tf32 > FUSED_ATOL, (label, d_tf32)
+        print(f'[fused] {label}: x {(h, w, cin)} Cout {cout} {kh}x{kw} '
+              f'stride {st} dilation {dil}: max|diff| {d:.3e} (atol '
+              f'{FUSED_ATOL}){control}', flush=True)
+        torch.testing.assert_close(got, want, atol=FUSED_ATOL, rtol=0)
 
     # ---- 4. main path -----------------------------------------------------
     cfg = get_config('STMask_plus_resnet50')
@@ -297,7 +376,8 @@ def main() -> int:
     n_frames = N_VIDEOS * FRAMES_PER_VIDEO
     print(f'[main] launches {launches} over {n_frames} frames', flush=True)
     assert launches['correlation'] == n_frames, launches
-    assert launches['deform_im2col'] == 7 * n_frames, launches
+    assert launches['deform_conv'] == 7 * n_frames, launches
+    assert launches['deform_im2col'] == 0, launches
     assert any(bool(b) for b in bank_nonempty), \
         'candidate_shift never ran with a non-empty track bank'
     for v, f, ndet, nkeep, nvalid in per_frame:
@@ -388,27 +468,73 @@ def main() -> int:
           f'(device, CUDA events over 200 queued launches), per wrapper call '
           f'{k1_call:.5f} ms (500 back-to-back calls), plain {k1_plain:.5f} '
           f'ms, bound {k1_bound:.5f} ms ({k1_by})')
-    k2 = {'ms': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
-          'bytes_s': 0.0, 'ops_s': 0.0}
+    def tally(acc, ms, call, plain, nbytes, flops, tf32_flops=0.0):
+        bound, by = _bound_ms(nbytes, flops, tf32_flops)
+        for key, v in (('ms', ms), ('call_ms', call), ('plain_ms', plain),
+                       ('bound_ms', bound),
+                       ('bytes_s', nbytes / PEAK_BYTES_PER_S),
+                       ('ops_s', _ops_s(flops, tf32_flops))):
+            acc[key] = acc.get(key, 0.0) + v
+        return bound, by
+
+    k2, kd, before, dense = {}, {}, 0.0, 0.0
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
         x, off, mask = _dcn_inputs(torch, dev, h, w, cin, stride, i)
+        wt, bias = _dcn_weight(torch, dev, 3, 3, cin, cin, i)
+        nbytes, flops = _dcn_cost(torch, x, off, stride)
         ms = _device_ms(lambda: K2.deform_im2col_cuda(x, off, mask, 3, 3,
                                                       stride), 200)
         call = _time_ms(lambda: K2.deform_im2col_cuda(x, off, mask, 3, 3,
                                                       stride), 200)
         plain = _time_ms(lambda: K2.deform_im2col_reference(
             x, off, mask, 3, 3, stride), 20)
-        nbytes, flops = _dcn_cost(torch, x, off, stride)
-        bound, by = _bound_ms(nbytes, flops)
-        k2['ms'] += ms
-        k2['call_ms'] += call
-        k2['plain_ms'] += plain
-        k2['bound_ms'] += bound
-        k2['bytes_s'] += nbytes / PEAK_BYTES_PER_S
-        k2['ops_s'] += flops / PEAK_FP32_FLOPS
+        bound, by = tally(k2, ms, call, plain, nbytes, flops)
         print(f'[time] deform_im2col {site}: kernel {ms:.5f} ms (device), '
               f'per wrapper call {call:.5f} ms, plain {plain:.5f} ms, bound '
               f'{bound:.5f} ms ({by}; {nbytes} B, {flops} flop)')
+
+        # the fused kernel; bound: x, offset, mask, weight, bias read once,
+        # out written once; the gather's fp32 flops on the CUDA cores plus
+        # the product 2*M*N*K as the three TF32 products of an fp32-accurate
+        # result on the tensor cores
+        m_sites = off.shape[1] * off.shape[2]
+        f_bytes = 4 * (x.numel() + off.numel() + mask.numel() + wt.numel()
+                       + bias.numel() + m_sites * cin)
+        f_tf32 = 3 * 2 * m_sites * cin * 9 * cin
+        f_ms = _device_ms(lambda: KD.deform_conv_cuda(
+            x, off, wt, mask, bias, stride), 200)
+        f_call = _time_ms(lambda: KD.deform_conv_cuda(
+            x, off, wt, mask, bias, stride), 200)
+        f_plain = _time_ms(lambda: KD.deform_conv_reference(
+            x, off, wt, mask, bias, stride), 20)
+        f_bound, f_by = tally(kd, f_ms, f_call, f_plain, f_bytes, flops,
+                              f_tf32)
+        wt_kn = wt.permute(1, 2, 3, 0).reshape(9 * cin, cin).contiguous()
+        b_ms = _device_ms(lambda: K2.deform_im2col_cuda(
+            x, off, mask, 3, 3, stride) @ wt_kn + bias, 200)
+        before += b_ms
+        conv_x = x.permute(0, 3, 1, 2)              # NCHW, channels-last
+        conv_w = wt.permute(0, 3, 1, 2)             # OIHW, channels-last
+        d_ms = _device_ms(lambda: torch.nn.functional.conv2d(
+            conv_x, conv_w, bias, stride, 1), 200)
+        dense += d_ms
+        print(f'[time] deform_conv {site}: fused kernel {f_ms:.5f} ms '
+              f'(device), per wrapper call {f_call:.5f} ms; before (K2 + '
+              f'matmul + bias) {b_ms:.5f} ms (device); plain {f_plain:.5f} '
+              f'ms; bound {f_bound:.5f} ms ({f_by}; {f_bytes} B, {flops} '
+              f'fp32 flop, {f_tf32} TF32 flop); dense 3x3 cuDNN conv of the '
+              f'same size (not the same function) {d_ms:.5f} ms')
+    print(f'[time] deform_conv, 7 sites summed: fused {kd["ms"]:.5f} ms '
+          f'(device), per call {kd["call_ms"]:.5f} ms, before (K2 + matmul + '
+          f'bias) {before:.5f} ms, plain {kd["plain_ms"]:.5f} ms, bound '
+          f'{kd["bound_ms"]:.5f} ms; dense 3x3 cuDNN conv (not the same '
+          f'function) {dense:.5f} ms ({smi})')
+
+    def by_of(acc):
+        return 'bytes' if acc['bytes_s'] >= acc['ops_s'] else 'operations'
+
+    sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
+             'are their sum')
     table = {'kernels': [
         {'name': 'correlation', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/correlation.cu',
@@ -426,11 +552,17 @@ def main() -> int:
          'max_abs_err': err['deform_im2col'], 'ms': k2['ms'],
          'call_ms': k2['call_ms'],
          'plain_ms': k2['plain_ms'], 'bound_ms': k2['bound_ms'],
-         'bound_by': ('bytes' if k2['bytes_s'] >= k2['ops_s']
-                      else 'operations'),
-         'library_ms': None,
-         'shape': 'the 7 DCN sites of one 384x640 frame, one launch each; '
-                  'times are their sum'}]}
+         'bound_by': by_of(k2), 'library_ms': None,
+         'shape': sites + '; off the main path'},
+        {'name': 'deform_conv', 'route': 'cuda',
+         'source': 'stmask_torch/kernels/csrc/deform_conv.cu',
+         'replaces': 'stmask_tpu/ops/deform_conv.py:31',
+         'launches': launches['deform_conv'],
+         'max_abs_err': err['deform_conv'], 'ms': kd['ms'],
+         'call_ms': kd['call_ms'],
+         'plain_ms': kd['plain_ms'], 'bound_ms': kd['bound_ms'],
+         'bound_by': by_of(kd), 'library_ms': None,
+         'before_ms': before, 'shape': sites}]}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

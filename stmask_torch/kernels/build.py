@@ -5,12 +5,16 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/lib<name>_<digest>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>_<digest>.so
+         csrc/<name>.cu
 
 ``<digest>`` hashes the sources and flags, so an edited source is rebuilt
-and a finished build is reused.  The build directory ``_build/`` sits next
-to this file and is listed in ``.gitignore``.  A failed build raises with
-nvcc's output; nothing falls back to another implementation.
+and a finished build is reused.  nvcc's output (ptxas's registers, shared
+memory and spills of each kernel) is kept beside the library as
+``lib<name>_<digest>.log`` and read back by ``ptxas_report``.  The build
+directory ``_build/`` sits next to this file and is listed in
+``.gitignore``.  A failed build raises with nvcc's output; nothing falls
+back to another implementation.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -75,10 +79,21 @@ def build(names: Iterable[str]) -> float:
         if proc.returncode != 0:
             failed.append(f'{name}: nvcc exited {proc.returncode}\n{log}')
             continue
+        out.with_suffix('.log').write_text(log)
         os.replace(tmp, out)   # atomic: concurrent builders never see half
     if failed:
         raise RuntimeError('CUDA kernel build failed:\n' + '\n'.join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> list:
+    """ptxas's resource lines (registers, shared memory, spills) from the
+    build of ``csrc/<name>.cu``, built if needed."""
+    build([name])
+    log = library_path(name).with_suffix('.log')
+    lines = log.read_text().splitlines() if log.exists() else []
+    return [ln.strip() for ln in lines
+            if 'Used' in ln or 'spill' in ln or 'entry function' in ln]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -120,9 +135,11 @@ class CudaKernel:
         self.launches += 1
 
 
-def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor on one
-    device that needs no gradient (the kernels have no backward yet)."""
+def check_cuda_f32(name: str, *tensors: torch.Tensor,
+                   contiguous: bool = True) -> None:
+    """Raise unless every tensor is a float32 CUDA tensor on one device
+    that needs no gradient (the kernels have no backward yet), and a
+    contiguous one unless ``contiguous`` is False."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != 'cuda' or t.device != dev:
@@ -130,7 +147,7 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
                              f'got {t.device} and {dev}')
         if t.dtype != torch.float32:
             raise TypeError(f'{name}: expected float32, got {t.dtype}')
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f'{name}: expected contiguous tensors')
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(

@@ -42,6 +42,9 @@ def correlate_cuda(x1: torch.Tensor, x2: torch.Tensor, patch_size: int = 11,
     if x1.dim() != 4 or x1.shape != x2.shape:
         raise ValueError(f'correlate_cuda: x1 {tuple(x1.shape)} and x2 '
                          f'{tuple(x2.shape)} must be equal [B, H, W, C]')
+    if patch_size not in range(1, 32, 2):
+        raise ValueError(f'correlate_cuda: patch {patch_size} is not odd '
+                         'in 1..31')
     b, h, w, c = x1.shape
     out = torch.empty((b, h, w, patch_size * patch_size),
                       dtype=torch.float32, device=x1.device)

@@ -13,114 +13,254 @@
 // What bounds it on an H100: at the main-path shape (B 1, 24 x 40, C 256,
 // P 11) it does 2 * 960 * 121 * 256 = 59.5 MFLOP and must move
 // 2 * 983 KB in + 465 KB out = 2.4 MB: 0.9 us of fp32 ALU time, 0.7 us of
-// HBM time.  Both are far below a kernel launch, so the kernel is launch-
-// and latency-bound, and the design aims at being simple and right.
+// HBM time.  Both are below a kernel launch, so what counts is latency:
+// enough blocks for every SM, few barriers, and few shared-memory loads
+// per FMA.
 //
-// Design: one block per (b, y, tile of TILE_X columns); one thread per
-// (column in tile, displacement), so TILE_X * P^2 threads (968 for P 11).
-// The channels are walked in chunks of 32: each chunk stages x1's row tile
-// and the P x (TILE_X + P - 1) window of x2 in shared memory (zero-filled
-// outside the image, so the inner loop has no bounds tests), then every
-// thread accumulates its dot product in fp32 registers.  Rows in shared
-// memory are padded to 33 floats so that threads with neighbouring
-// displacements read different banks.  The block's outputs are one
-// contiguous run of TILE_X * P^2 floats, written coalesced.
+// Design: for one (b, y, dy) the P dx outputs at every x are a band
+// |x' - x| <= r of the product of x1's row [W, C] with x2's row y + dy - r
+// [W + 2r, C].  One block per (b, y, dy, tile of up to 64 columns): 264
+// blocks at the main shape.  The block stages x1's row tile and x2's
+// padded row tile in shared memory with 16-byte cp.async copies (4-byte
+// ones when C % 4 != 0), zero-filled outside the image, in chunks of 128
+// channels, double-buffered so that the next chunk's copies overlap this
+// chunk's math.  A row of x2 outside the image makes the whole block's
+// output zero, written without staging.
+// Each thread owns a register tile of 2 columns x P displacements and a
+// slice of the channels (CL threads share a column group, CL a power of
+// two): per 4 channels it reads 2 + 2 + P - 1 float4 for 8 * P FMAs.
+// Rows are padded by 4 floats so that the 8 threads of a quarter-warp,
+// which read neighbouring channels of one row, hit distinct banks.  The
+// CL partial tiles are summed by an xor-butterfly of shuffles, level by
+// level (a fixed order: deterministic), and each output is written once
+// by one of the CL threads.  (Run as P dependent chains, one value at a
+// time, the butterfly's shuffle latency cost more than the math.)
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kChunk = 32;             // channels staged per pass
-constexpr int kRow = kChunk + 1;       // padded shared-memory row stride
+constexpr int TX = 2;            // columns per thread
+constexpr int MAX_TILE = 64;     // columns per block
+constexpr int THREADS = 512;
+constexpr int CHUNK = 128;       // channels staged per pass
 
-__global__ void correlation_kernel(const float* __restrict__ x1,
-                                   const float* __restrict__ x2,
-                                   float* __restrict__ out, int H, int W,
-                                   int C, int patch, int tile_x,
-                                   int apply_activation) {
-  extern __shared__ float smem[];
-  const int r = (patch - 1) / 2;
-  const int pp = patch * patch;
-  const int win_w = tile_x + patch - 1;
-  float* s1 = smem;                      // [tile_x][kRow]
-  float* s2 = smem + tile_x * kRow;      // [patch][win_w][kRow]
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
+}
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+struct Args {
+  const float* x1;
+  const float* x2;
+  float* out;
+  int H, W, C, tile, cc, ldc, cl, act, vec4;
+};
+
+// Stage channels [c0, c0 + cc) of x1's row tile [tile] and x2's row tile
+// [tile + 2r] (columns x0 - r ...) into one buffer, rows ldc floats apart.
+template <int P>
+__device__ __forceinline__ void stage(const Args& a, float* s, int b, int y,
+                                      int gy, int x0, int c0) {
+  constexpr int R = (P - 1) / 2;
+  const int rows1 = a.tile, rows = 2 * a.tile + 2 * R;
+  const int64_t row1 = (static_cast<int64_t>(b) * a.H + y) * a.W;
+  const int64_t row2 = (static_cast<int64_t>(b) * a.H + gy) * a.W;
+  if (a.vec4) {
+    const int per_row = a.cc / 4;
+    for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+      const int rr = e / per_row, c = c0 + (e - rr * per_row) * 4;
+      const int gx = rr < rows1 ? x0 + rr : x0 - R + rr - rows1;
+      const bool ok = gx >= 0 && gx < a.W && c < a.C;
+      const float* src = rr < rows1 ? a.x1 + (row1 + gx) * a.C + c
+                                    : a.x2 + (row2 + gx) * a.C + c;
+      cp_async16(s + rr * a.ldc + c - c0, ok ? src : a.x1, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * a.cc; e += blockDim.x) {
+      const int rr = e / a.cc, c = c0 + (e - rr * a.cc);
+      const int gx = rr < rows1 ? x0 + rr : x0 - R + rr - rows1;
+      const bool ok = gx >= 0 && gx < a.W && c < a.C;
+      const float* src = rr < rows1 ? a.x1 + (row1 + gx) * a.C + c
+                                    : a.x2 + (row2 + gx) * a.C + c;
+      cp_async4(s + rr * a.ldc + c - c0, ok ? src : a.x1, ok);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+    correlation_kernel(const Args a) {
+  constexpr int R = (P - 1) / 2;
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z;
-  const int y = blockIdx.y;
-  const int x0 = blockIdx.x * tile_x;
-  const int tid = threadIdx.x;
-  const int xl = tid / pp;
-  const int d = tid - xl * pp;
-  const int dy = d / patch;
-  const int dx = d - dy * patch;
-  const bool active = xl < tile_x && x0 + xl < W;
-  const size_t img = static_cast<size_t>(b) * H * W * C;
+  const int y = blockIdx.y / P, dy = blockIdx.y % P;
+  const int gy = y + dy - R;
+  const int x0 = blockIdx.x * a.tile;
+  const int ncol = min(a.tile, a.W - x0);
+  const int pp = P * P;
 
-  float acc = 0.f;
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
-    const int cn = min(kChunk, C - c0);
-    for (int i = tid; i < tile_x * kChunk; i += blockDim.x) {
-      const int c = i % kChunk;
-      const int gx = x0 + i / kChunk;
-      float v = 0.f;
-      if (gx < W && c < cn)
-        v = x1[img + (static_cast<size_t>(y) * W + gx) * C + c0 + c];
-      s1[(i / kChunk) * kRow + c] = v;
+  if (gy < 0 || gy >= a.H) {         // x2's row is outside: all zero
+    for (int e = threadIdx.x; e < ncol * P; e += blockDim.x) {
+      const int xl = e / P, dx = e - xl * P;
+      a.out[((static_cast<int64_t>(b) * a.H + y) * a.W + x0 + xl) * pp +
+            dy * P + dx] = 0.f;
     }
-    for (int i = tid; i < patch * win_w * kChunk; i += blockDim.x) {
-      const int c = i % kChunk;
-      const int cell = i / kChunk;
-      const int wy = cell / win_w;
-      const int wx = cell - wy * win_w;
-      const int gy = y + wy - r;
-      const int gx = x0 + wx - r;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < cn)
-        v = x2[img + (static_cast<size_t>(gy) * W + gx) * C + c0 + c];
-      s2[cell * kRow + c] = v;
+    return;
+  }
+
+  const int cl = a.cl;               // threads per column group
+  const int g = threadIdx.x / cl;    // columns TX*g .. TX*g + TX - 1
+  const int lane_c = threadIdx.x % cl;
+  const int stage_floats = (2 * a.tile + 2 * R) * a.ldc;
+  const int nchunk = (a.C + a.cc - 1) / a.cc;
+
+  float acc[TX][P];
+#pragma unroll
+  for (int i = 0; i < TX; ++i)
+#pragma unroll
+    for (int d = 0; d < P; ++d) acc[i][d] = 0.f;
+
+  stage<P>(a, smem, b, y, gy, x0, 0);
+  for (int k = 0; k < nchunk; ++k) {
+    if (k + 1 < nchunk) {
+      stage<P>(a, smem + ((k + 1) % 2) * stage_floats, b, y, gy, x0,
+               (k + 1) * a.cc);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
-    if (active) {
-      const float* a = s1 + xl * kRow;
-      const float* q = s2 + (dy * win_w + xl + dx) * kRow;
-#pragma unroll 8
-      for (int c = 0; c < cn; ++c) acc += a[c] * q[c];
+    const float* s1 = smem + (k % 2) * stage_floats + TX * g * a.ldc;
+    const float* s2 = s1 + a.tile * a.ldc;   // x2 column TX*g - R + j
+    if (TX * g < ncol) {
+      for (int c = 4 * lane_c; c < a.cc; c += 4 * cl) {
+        float4 u[TX];
+#pragma unroll
+        for (int i = 0; i < TX; ++i)
+          u[i] = *reinterpret_cast<const float4*>(s1 + i * a.ldc + c);
+#pragma unroll
+        for (int j = 0; j < TX + P - 1; ++j) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(s2 + j * a.ldc + c);
+#pragma unroll
+          for (int i = 0; i < TX; ++i) {
+            const int d = j - i;
+            if (d >= 0 && d < P)
+              acc[i][d] += u[i].x * v.x + u[i].y * v.y + u[i].z * v.z +
+                           u[i].w * v.w;
+          }
+        }
+      }
     }
-    __syncthreads();
+    __syncthreads();                 // the buffer is refilled next round
   }
-  if (active) {
-    float v = acc / static_cast<float>(C);
-    if (apply_activation && v < 0.f) v *= 0.1f;
-    out[((static_cast<size_t>(b) * H + y) * W + x0 + xl) * pp + d] = v;
+
+  // Sum the cl channel slices (lanes of one column group are adjacent and
+  // cl divides 32), level by level so that the TX * P shuffles of a level
+  // are independent, and write each output once.
+  for (int o = cl / 2; o > 0; o /= 2) {
+#pragma unroll
+    for (int i = 0; i < TX; ++i)
+#pragma unroll
+      for (int d = 0; d < P; ++d)
+        acc[i][d] += __shfl_xor_sync(0xffffffffu, acc[i][d], o);
   }
+  const float inv_c = 1.f / static_cast<float>(a.C);
+#pragma unroll
+  for (int i = 0; i < TX; ++i) {
+#pragma unroll
+    for (int d = 0; d < P; ++d) {
+      float v = acc[i][d];
+      const int xl = TX * g + i;
+      if ((i * P + d) % cl == lane_c && xl < ncol) {
+        v *= inv_c;
+        if (a.act && v < 0.f) v *= 0.1f;
+        a.out[((static_cast<int64_t>(b) * a.H + y) * a.W + x0 + xl) * pp +
+              dy * P + d] = v;
+      }
+    }
+  }
+}
+
+template <int P>
+cudaError_t launch(const Args& base, int B, cudaStream_t stream) {
+  constexpr int R = (P - 1) / 2;
+  Args a = base;
+  // a whole number of column groups, so a group never reads past x2's tile
+  a.tile = min((a.W + TX - 1) / TX * TX, MAX_TILE);
+  const int groups = (a.tile + TX - 1) / TX;
+  // channel slices per column group: a power of two, at most 32, that
+  // keeps the block within THREADS threads
+  a.cl = 1;
+  while (a.cl < 32 && groups * a.cl * 2 <= THREADS &&
+         a.cl * 4 < (a.C + 3) / 4 * 4)
+    a.cl *= 2;
+  // channel chunks of up to CHUNK, double-buffered when there are several
+  const int rows = 2 * a.tile + 2 * R;
+  a.cc = min((a.C + 3) / 4 * 4, CHUNK);
+  a.ldc = a.cc + 4;
+  const int nchunk = (a.C + a.cc - 1) / a.cc;
+  const size_t smem = static_cast<size_t>(nchunk > 1 ? 2 : 1) * rows *
+                      a.ldc * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        correlation_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int threads = (groups * a.cl + 31) / 32 * 32;
+  const dim3 grid((a.W + a.tile - 1) / a.tile, a.H * P, B);
+  correlation_kernel<P><<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x1, x2: [B, H, W, C] fp32 contiguous; out: [B, H, W, patch^2].
-// Returns cudaGetLastError() after the launch (0 on success).
+// x1, x2: [B, H, W, C] fp32 contiguous; out: [B, H, W, patch^2]; patch odd,
+// 1 to 31.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int stmask_correlation(const float* x1, const float* x2,
                                   float* out, int B, int H, int W, int C,
                                   int patch, int apply_activation,
                                   void* stream) {
-  const int pp = patch * patch;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || patch <= 0 || patch % 2 == 0
-      || pp > 1024)
+      || patch > 31 || static_cast<int64_t>(H) * patch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tile_x = max(1, min(8, 1024 / pp));
-  const int threads = (tile_x * pp + 31) / 32 * 32;
-  const size_t smem =
-      static_cast<size_t>(tile_x + patch * (tile_x + patch - 1)) * kRow *
-      sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        correlation_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(x2) % 16 == 0;
+  const Args a{x1, x2, out, H, W, C, 0, 0, 0, 0, apply_activation,
+               vec4 ? 1 : 0};
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (patch) {
+    case 1: e = launch<1>(a, B, s); break;
+    case 3: e = launch<3>(a, B, s); break;
+    case 5: e = launch<5>(a, B, s); break;
+    case 7: e = launch<7>(a, B, s); break;
+    case 9: e = launch<9>(a, B, s); break;
+    case 11: e = launch<11>(a, B, s); break;
+    case 13: e = launch<13>(a, B, s); break;
+    case 15: e = launch<15>(a, B, s); break;
+    case 17: e = launch<17>(a, B, s); break;
+    case 19: e = launch<19>(a, B, s); break;
+    case 21: e = launch<21>(a, B, s); break;
+    case 23: e = launch<23>(a, B, s); break;
+    case 25: e = launch<25>(a, B, s); break;
+    case 27: e = launch<27>(a, B, s); break;
+    case 29: e = launch<29>(a, B, s); break;
+    default: e = launch<31>(a, B, s); break;
   }
-  const dim3 grid((W + tile_x - 1) / tile_x, H, B);
-  correlation_kernel<<<grid, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x1, x2, out, H, W, C, patch, tile_x, apply_activation);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

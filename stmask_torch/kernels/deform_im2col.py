@@ -4,7 +4,10 @@ version.
 Replaces the gather of ``stmask_tpu/ops/deform_conv.py::deform_conv2d``
 (``deform_conv.py:50-84`` with ``ops/sampling.py:48-85``).  ``deform_im2col``
 dispatches on the device: CPU tensors take ``deform_im2col_reference``,
-CUDA tensors take the kernel in ``csrc/deform_im2col.cu`` or raise.
+CUDA tensors take the kernel in ``csrc/deform_im2col.cu`` or raise.  The
+main path runs the fused ``deform_conv`` instead; K2 stays for the exact
+DCN backward (its ``cols`` feed the weight gradient) and as the yardstick
+the fused kernel is timed against.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import BackboneConfig
-from ..ops.deform_conv import dcn_v2_offsets, deform_conv2d
+from ..kernels.deform_conv import deform_conv
+from ..ops.deform_conv import dcn_v2_offsets
 from .layers import FrozenBatchNorm
 
 
@@ -25,7 +26,11 @@ class DCNConv(nn.Module):
     """Modulated deformable conv v2, 3x3, as in CharlesShang DCNv2
     (parameters ``weight`` [out, in, 3, 3], ``bias`` and the offset+mask
     predictor ``conv_offset_mask``).  Exact unclamped gather: the eval path
-    of the JAX package (``backbone.py:127`` sets radius 0 at eval)."""
+    of the JAX package (``backbone.py:127`` sets radius 0 at eval).
+
+    The fused kernel reads ``weight`` as [out, 3, 3, in]; in the
+    channels-last layout the model is kept in (``build_model``,
+    ``build_video_step``) that permutation is a view, so no copy is made."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  dilation: int = 1):
@@ -40,10 +45,9 @@ class DCNConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)     # NHWC
         offset, mask = dcn_v2_offsets(om, 9)
-        out = deform_conv2d(x.permute(0, 2, 3, 1), offset,
-                            self.weight.permute(2, 3, 1, 0), mask=mask,
-                            bias=self.bias, stride=self.stride,
-                            dilation=self.dilation)
+        out = deform_conv(x.permute(0, 2, 3, 1).contiguous(), offset,
+                          self.weight.permute(0, 2, 3, 1).contiguous(), mask,
+                          self.bias, self.stride, self.dilation)
         return out.permute(0, 3, 1, 2)
 
 

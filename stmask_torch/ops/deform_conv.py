@@ -2,10 +2,11 @@
 ``stmask_tpu/ops/deform_conv.py::deform_conv2d`` and ``dcn_v2_offsets``).
 
 Per kernel tap k, sample x bilinearly at ``p*stride - pad + k*dilation +
-offset_k`` (zero outside the image), scale by the modulation m_k, and
-contract the [K*Cin] gathered values with the weight in one matmul.  The
-gather is ``kernels.deform_im2col`` (CUDA kernel K2 on the card, its plain
-version on the CPU); the matmul is ``torch.matmul``.  The window-clamped
+offset_k`` (zero outside the image), scale by the modulation m_k, contract
+the [K*Cin] gathered values with the weight and add the bias.  On the card
+that is one fused kernel (``kernels.deform_conv``, no ``cols`` matrix in
+device memory); on the CPU its plain version, the gather of
+``kernels.deform_im2col_reference`` and one matmul.  The window-clamped
 training path and its custom backward are not ported (ROADMAP B1b).
 """
 
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.deform_im2col import deform_im2col
+from ..kernels.deform_conv import deform_conv
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
@@ -31,17 +32,15 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
       mask: optional [B, Ho, Wo, K] modulation (already sigmoid-ed).
     Returns:
       [B, Ho, Wo, Cout].
+
+    The kernel reads the weight as [Cout, kh, kw, Cin]; a module that keeps
+    its weight in that layout calls ``kernels.deform_conv.deform_conv``
+    directly and copies nothing.
     """
-    b = x.shape[0]
-    kh, kw, cin, cout = weight.shape
-    _, ho, wo, _ = offset.shape
-    cols = deform_im2col(x.contiguous(), offset.contiguous(),
-                         None if mask is None else mask.contiguous(),
-                         kh, kw, stride, dilation)
-    out = cols @ weight.reshape(kh * kw * cin, cout)
-    if bias is not None:
-        out = out + bias
-    return out.reshape(b, ho, wo, cout)
+    return deform_conv(x.contiguous(), offset,
+                       weight.permute(3, 0, 1, 2).contiguous(), mask,
+                       None if bias is None else bias.contiguous(), stride,
+                       dilation)
 
 
 def dcn_v2_offsets(conv_out: torch.Tensor, k: int

@@ -3,7 +3,7 @@
 The plain PyTorch form of the gather inside the deformable conv: the same
 result as ``bilinear_sample_block`` (each corner outside the image weighs
 zero), written as four corner gathers.  On the card the deformable conv
-runs kernel K2 (``kernels/deform_im2col.py``) instead.
+runs the fused kernel (``kernels/deform_conv.py``) instead.
 """
 
 from __future__ import annotations

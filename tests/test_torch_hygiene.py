@@ -59,6 +59,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never compute on the CPU; only the dispatchers
     route CPU tensors to the plain versions."""
     from stmask_torch.kernels.correlation import correlate_cuda
+    from stmask_torch.kernels.deform_conv import deform_conv_cuda
     from stmask_torch.kernels.deform_im2col import deform_im2col_cuda
 
     x = torch.zeros(1, 4, 5, 8)
@@ -66,6 +67,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         correlate_cuda(x, x)
     with pytest.raises(ValueError, match='CUDA'):
         deform_im2col_cuda(x, torch.zeros(1, 4, 5, 18), None, 3, 3)
+    with pytest.raises(ValueError, match='CUDA'):
+        deform_conv_cuda(x, torch.zeros(1, 4, 5, 18),
+                         torch.zeros(3, 3, 3, 8), None, None)
 
 
 def test_unported_paths_raise():

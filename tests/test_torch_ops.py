@@ -23,6 +23,7 @@ from stmask_tpu.ops.deform_conv import (dcn_v2_offsets as j_dcn_offsets,
 from stmask_tpu.ops.masks import generate_mask as j_generate_mask
 from stmask_tpu.ops.roi_align import roi_align as j_roi_align
 
+from stmask_torch.kernels.deform_conv import deform_conv_reference
 from stmask_torch.models.layers import resize_bilinear as t_resize
 from stmask_torch.ops import boxes as TB
 from stmask_torch.ops import nms as TN
@@ -141,6 +142,51 @@ def test_deform_conv2d(stride, modulated):
                    None if mask is None else jnp.asarray(mask),
                    jnp.asarray(bias), stride)
     _close(port, ref, 1e-5)
+
+
+# (kh, kw, stride, dilation, modulated, bias, max |offset|)
+FUSED_DCN_CASES = {
+    'v2_3x3_s1': (3, 3, 1, 1, True, True, 4.0),
+    'v2_3x3_s2': (3, 3, 2, 1, True, True, 4.0),
+    'v1_3x5': (3, 5, 1, 1, False, True, 3.0),
+    'v1_5x3': (5, 3, 1, 1, False, True, 3.0),
+    'v1_5x3_s2': (5, 3, 2, 1, False, False, 3.0),
+    'v2_dilation2': (3, 3, 1, 2, True, True, 3.0),
+    'v2_no_bias': (3, 3, 1, 1, True, False, 3.0),
+    'v2_far_outside': (3, 3, 1, 1, True, True, 15.0),
+}
+
+
+@pytest.mark.parametrize('case', sorted(FUSED_DCN_CASES))
+def test_fused_deform_conv_plain_version(case):
+    """The fused kernel's plain version (weight as [Cout, kh, kw, Cin]) and
+    the public op on CPU tensors against the JAX deform_conv2d.  The largest
+    offsets put whole samples outside the image on every side."""
+    kh, kw, stride, dil, modulated, with_bias, reach = FUSED_DCN_CASES[case]
+    rng = np.random.RandomState(20 + sorted(FUSED_DCN_CASES).index(case))
+    b, h, w, cin, cout = 2, 9, 11, 6, 5
+    k = kh * kw
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    off = rng.uniform(-reach, reach, (b, ho, wo, 2 * k)).astype(np.float32)
+    mask = rng.rand(b, ho, wo, k).astype(np.float32) if modulated else None
+    wt = rng.randn(kh, kw, cin, cout).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32) if with_bias else None
+
+    def opt(a):
+        return None if a is None else _t(a)
+
+    def jopt(a):
+        return None if a is None else jnp.asarray(a)
+
+    ref = j_deform(jnp.asarray(x), jnp.asarray(off), jnp.asarray(wt),
+                   jopt(mask), jopt(bias), stride, dil)
+    plain = deform_conv_reference(_t(x), _t(off),
+                                  _t(wt.transpose(3, 0, 1, 2).copy()),
+                                  opt(mask), opt(bias), stride, dil)
+    _close(plain, ref, 1e-5)
+    _close(t_deform(_t(x), _t(off), _t(wt), opt(mask), opt(bias), stride,
+                    dil), ref, 1e-5)
 
 
 def test_dcn_v2_offsets_not_permuted():
