@@ -24,7 +24,17 @@ Phases, in order (any failure raises and exits non-zero):
      share, top kernels) and each stage's time on its own;
   5. kernel times (CUDA events) beside their plain versions and bounds;
      per DCN site the fused kernel beside K2 + matmul + bias (the path it
-     replaced) and, as a size reference only, a dense cuDNN 3x3 conv.
+     replaced) and, as a size reference only, a dense cuDNN 3x3 conv;
+  6. the training step of STMask_plus_resnet50 at 360x640 (seeded random
+     weights, 4 clips = 8 frames a step, synthetic batches in ClipLoader's
+     format) through build_train_step: 6 steps (2 warm-up), launch counts
+     per step (the fused conv, K2, K4 at the 7 DCN sites, K1 and K3 once),
+     a step from the zero-offset state, one step of the loop with a
+     checkpoint save and restore, the card against the CPU path at 96x128,
+     a profile of one step, and the times of K3 and K4.
+
+K3 (correlation backward) and K4 (deformable col2im) are checked against
+their plain versions in phases 2 and 3, beside K1, K2 and the fused conv.
 
 Prints a JSON kernel table and the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.  Without a GPU it prints no result
@@ -34,8 +44,10 @@ and exits non-zero.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +61,14 @@ FUSED_ATOL = 5e-6
 FRAMES_PER_VIDEO = 8
 N_VIDEOS = 2
 WARMUP_FRAMES = 3
+TRAIN_CLIPS = 4                # the recipe's baseline batch: 8 frames
+TRAIN_STEPS = 6
+TRAIN_WARMUP = 2
+# launches of each kernel in one training step of the flagship
+TRAIN_LAUNCHES = {'deform_conv': 7, 'deform_im2col': 7, 'deform_col2im': 7,
+                  'correlation': 1, 'correlation_bwd': 1}
+KERNEL_NAMES = ('correlation', 'deform_im2col', 'deform_conv',
+                'correlation_bwd', 'deform_col2im')
 DCN_SITES = [  # name, (H, W, Cin) of the DCN input at 384x640, stride
     ('layer1_0', (96, 160, 128), 2), ('layer1_2', (48, 80, 128), 1),
     ('layer2_0', (48, 80, 256), 2), ('layer2_2', (24, 40, 256), 1),
@@ -178,7 +198,7 @@ def _dcn_cost(torch, x, off, stride):
     read once, cols written once; 2 flops per channel for every in-image
     bilinear corner, plus 1 per output element for the modulation."""
     _, h, w, cin = x.shape
-    _, ho, wo, _ = off.shape
+    b, ho, wo, _ = off.shape
     k = torch.arange(3, device=x.device)
     oy = torch.arange(ho, device=x.device) * stride - 1      # pad 1
     ox = torch.arange(wo, device=x.device) * stride - 1
@@ -186,14 +206,14 @@ def _dcn_cost(torch, x, off, stride):
         ho, wo, 3, 3).reshape(ho, wo, 9)
     base_x = (ox[None, :, None, None] + k[None, None, None, :]).expand(
         ho, wo, 3, 3).reshape(ho, wo, 9)
-    o = off.reshape(ho, wo, 9, 2)
+    o = off.reshape(b, ho, wo, 9, 2)
     y0 = torch.floor(base_y + o[..., 0])
     x0 = torch.floor(base_x + o[..., 1])
     corners = sum(int((((y0 + dy) >= 0) & ((y0 + dy) < h) & ((x0 + dx) >= 0)
                        & ((x0 + dx) < w)).sum())
                   for dy in (0, 1) for dx in (0, 1))
-    n_out = ho * wo * 9 * cin
-    nbytes = 4 * (x.numel() + off.numel() + ho * wo * 9 + n_out)
+    n_out = b * ho * wo * 9 * cin
+    nbytes = 4 * (x.numel() + off.numel() + b * ho * wo * 9 + n_out)
     return nbytes, 2 * cin * corners + n_out
 
 
@@ -241,6 +261,119 @@ def _stage_ms(torch, cfg, model, state, frame, n: int):
                   lambda: postprocess_frame(cfg, out, meta))
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
+def _train_batch(cfg, seed: int, clips: int = TRAIN_CLIPS) -> dict:
+    """A training batch as ClipLoader(image_u8=True) yields it: uint8
+    frames [clips, 2, img_h, img_w, 3] from _synthetic_clip; 2-4 boxes a
+    frame, one id persisting, one vanishing after the ref frame, one new in
+    the next frame and 0-2 more persisting; box masks at prototype
+    resolution packed with np.packbits; the crowd arrays present, empty."""
+    from stmask_torch.data.transforms import pad_gt
+    rng = np.random.RandomState(seed)
+    hp, wp = cfg.pad_h // 4, cfg.pad_w // 4
+    out = []
+    for c in range(clips):
+        imgs = _synthetic_clip(cfg.img_h, cfg.img_w, 2, seed * 100 + c)
+        extra = list(range(4, 4 + rng.randint(0, 3)))
+        objs = {}
+        for gid in [1, 2, 3] + extra:
+            w, h = rng.uniform(0.15, 0.5, 2)
+            x1, y1 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+            objs[gid] = (np.array([x1, y1, x1 + w, y1 + h], np.float32),
+                         rng.randint(1, cfg.num_classes))
+        frames = []
+        for f, ids in enumerate(([1, 2] + extra, [1, 3] + extra)):
+            boxes = np.stack([objs[i][0] + np.float32(0.01 * f)
+                              for i in ids]).clip(0, 1)
+            masks = np.zeros((len(ids), hp, wp), np.uint8)
+            for j, (x1, y1, x2, y2) in enumerate(boxes):
+                masks[j, int(y1 * cfg.img_h / 4):int(y2 * cfg.img_h / 4) + 1,
+                      int(x1 * cfg.img_w / 4):int(x2 * cfg.img_w / 4) + 1] = 1
+            frames.append(pad_gt(cfg, {
+                'image': imgs[f], 'boxes': boxes,
+                'labels': np.array([objs[i][1] for i in ids], np.int32),
+                'ids': np.array([c * 100000 + i for i in ids], np.int32),
+                'masks_proto': masks,
+                'crowd_boxes': np.zeros((0, 4), np.float32)}))
+        out.append({k: np.stack([fr[k] for fr in frames])
+                    for k in frames[0]})
+    batch = {k: np.stack([o[k] for o in out]) for k in out[0]}
+    batch['images'] = batch.pop('image')
+    batch['masks_proto'] = np.packbits(batch['masks_proto'], axis=-1)
+    return batch
+
+
+def _corr_bwd_cost(shape, patch: int):
+    """(bytes, flops) of K3: g, x1, x2 read once, dx1, dx2 written once; 2
+    flops per channel for every in-image (pixel, displacement) term of
+    each output."""
+    b, h, w, c = shape
+    r = (patch - 1) // 2
+    terms = sum((h - abs(dy)) * (w - abs(dx)) for dy in range(-r, r + 1)
+                for dx in range(-r, r + 1) if abs(dy) < h and abs(dx) < w)
+    nbytes = 4 * (b * h * w * patch * patch + 4 * b * h * w * c)
+    return nbytes, 2 * 2 * c * b * terms
+
+
+def _col2im_cost(torch, x, off, stride, radius: int = 2):
+    """(bytes, flops) of K4 for these inputs: dcols, x, offset, mask read
+    once, dx, d_offset, d_mask written once; per channel, 2 flops for each
+    in-image corner pair with a weight or a weight derivative (the dot
+    product S) and 2 more where the corner gets a dx update."""
+    from stmask_torch.kernels.deform_col2im import _hat
+    b, h, w, cin = x.shape
+    _, ho, wo, _ = off.shape
+    dev = x.device
+    k = torch.arange(3, device=dev)
+    oy = torch.arange(ho, device=dev) * stride - 1
+    ox = torch.arange(wo, device=dev) * stride - 1
+    by = (oy[:, None, None, None] + k[None, None, :, None]).expand(
+        ho, wo, 3, 3).reshape(1, ho, wo, 9)
+    bx = (ox[None, :, None, None] + k[None, None, None, :]).expand(
+        ho, wo, 3, 3).reshape(1, ho, wo, 9)
+    o = off.reshape(b, ho, wo, 9, 2)
+    fy, fx = torch.floor(o[..., 0]).long(), torch.floor(o[..., 1]).long()
+    ys = [_hat(o[..., 0], fy - 1 + j, radius) + (by + fy - 1 + j,)
+          for j in range(3)]
+    xs = [_hat(o[..., 1], fx - 1 + i, radius) + (bx + fx - 1 + i,)
+          for i in range(3)]
+    n_s = n_w = 0
+    for hy, dhy, row in ys:
+        for hx, dhx, col in xs:
+            inside = (row >= 0) & (row < h) & (col >= 0) & (col < w)
+            wgt = hy * hx
+            act = inside & ((wgt != 0) | (dhy * hx != 0) | (hy * dhx != 0))
+            n_s += int(act.sum())
+            n_w += int((inside & (wgt != 0)).sum())
+    m = b * ho * wo * 9
+    nbytes = 4 * (m * cin + 2 * x.numel() + 2 * off.numel() + 2 * m)
+    return nbytes, 2 * cin * (n_s + n_w)
+
+
+def _dcn_train_inputs(torch, dev, h, w, cin, stride, frames, kind, seed):
+    """K4's inputs at one DCN site: x, dcols and the mask random; the
+    offsets random (std 1.5, so some pass +-2 and are clamped, as the
+    window op clamps them before K4), all 0, or all +-1 / +-2."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(frames, h, w, cin, device=dev, generator=g)
+    shape = (frames, ho, wo, 18)
+    if kind == 'random':
+        off = torch.randn(shape, device=dev, generator=g) * 1.5
+    elif kind == 'zero':
+        off = torch.zeros(shape, device=dev)
+    else:
+        vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=dev)
+        off = vals[torch.randint(0, 4, shape, device=dev, generator=g)]
+    off = off.clamp(-2, 2)
+    mask = torch.rand(frames, ho, wo, 9, device=dev, generator=g)
+    dcols = torch.randn(frames * ho * wo, 9 * cin, device=dev, generator=g)
+    return dcols, x, off, mask
+
+
+def _params_moved(torch, before, model, which):
+    return all(not torch.equal(before[n], p.detach())
+               for n, p in model.named_parameters() if which in n)
+
 
 def main() -> int:
     import torch
@@ -253,6 +386,8 @@ def main() -> int:
                                         results2json_videoseg)
     from stmask_torch.kernels import KERNELS, build
     from stmask_torch.kernels import correlation as K1
+    from stmask_torch.kernels import correlation_bwd as K3
+    from stmask_torch.kernels import deform_col2im as K4
     from stmask_torch.kernels import deform_conv as KD
     from stmask_torch.kernels import deform_im2col as K2
     from stmask_torch.models import build_model
@@ -265,15 +400,15 @@ def main() -> int:
           f'device {name} ({smi})', flush=True)
 
     # ---- 1. build ---------------------------------------------------------
-    secs = build.build(['correlation', 'deform_im2col', 'deform_conv'])
-    print(f'[build] correlation + deform_im2col + deform_conv with nvcc '
+    secs = build.build(KERNEL_NAMES)
+    print(f'[build] {" + ".join(KERNEL_NAMES)} with nvcc '
           f'{" ".join(build.NVCC_FLAGS)}: {secs:.2f} s', flush=True)
-    for lib in ('correlation', 'deform_conv'):
+    for lib in KERNEL_NAMES:
         for line in build.ptxas_report(lib):
             print(f'[ptxas] {lib}: {line}')
 
     # ---- 2. K1 vs plain ---------------------------------------------------
-    err = {'correlation': 0.0, 'deform_im2col': 0.0, 'deform_conv': 0.0}
+    err = {n: 0.0 for n in KERNEL_NAMES}
     g = torch.Generator(device=dev).manual_seed(0)
     for shape, patch in (((1, 24, 40, 256), 11), ((2, 7, 9, 96), 11),
                          ((2, 7, 9, 96), 5), ((1, 5, 70, 40), 11),
@@ -288,6 +423,25 @@ def main() -> int:
         print(f'[K1] correlation {shape} patch {patch}: max|diff| {d:.3e} '
               '(atol 1e-5, rtol 1e-5)', flush=True)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+    # K3 at the training shape (4 clips at 384x640) and ragged ones (odd H
+    # and W, C not a multiple of 32, patch 5), upstream gradient of both
+    # signs; gather form, so the sums differ only in their order
+    for shape, patch in (((4, 24, 40, 256), 11), ((2, 7, 9, 40), 5),
+                         ((1, 5, 7, 5), 11), ((2, 9, 13, 100), 5)):
+        x1 = torch.randn(shape, device=dev, generator=g)
+        x2 = torch.randn(shape, device=dev, generator=g)
+        up = torch.randn(shape[:3] + (patch * patch,), device=dev,
+                         generator=g)
+        got = K3.correlation_bwd_cuda(up, x1, x2, patch)
+        want = K3.correlation_bwd_reference(up, x1, x2, patch)
+        torch.cuda.synchronize()
+        d = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        err['correlation_bwd'] = max(err['correlation_bwd'], d)
+        print(f'[K3] correlation_bwd {shape} patch {patch}: max|diff| '
+              f'{d:.3e} (atol 1e-5, rtol 1e-5)', flush=True)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
     # ---- 3. K2 vs plain ---------------------------------------------------
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
@@ -347,6 +501,58 @@ def main() -> int:
               f'{FUSED_ATOL}){control}', flush=True)
         torch.testing.assert_close(got, want, atol=FUSED_ATOL, rtol=0)
 
+    # K4 at the 7 sites with 8 frames and three offset sets.  dx sums with
+    # fp32 atomics and d_offset / d_mask with a warp butterfly, so the
+    # tolerance is 1e-5 of max|ref|.
+    for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
+        for kind in ('random', 'zero', 'integer'):
+            args = _dcn_train_inputs(torch, dev, h, w, cin, stride,
+                                     2 * TRAIN_CLIPS, kind, 300 + i)
+            got = K4.deform_col2im_cuda(*args, 3, 3, stride)
+            want = K4.deform_col2im_reference(*args, 3, 3, stride)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for out_name, a, b in zip(('dx', 'd_offset', 'd_mask'), got,
+                                      want):
+                scale = max(float(b.abs().max()), 1.0)
+                d = float((a - b).abs().max())
+                worst = max(worst, d / scale)
+                torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0,
+                                           msg=f'{site} {kind} {out_name}')
+            err['deform_col2im'] = max(err['deform_col2im'], worst)
+            print(f'[K4] {site} x {(2 * TRAIN_CLIPS, h, w, cin)} stride '
+                  f'{stride}, {kind} offsets: max|diff| / max|ref| '
+                  f'{worst:.3e} (atol 1e-5 of max|ref|)', flush=True)
+            del args, got, want
+
+    # the whole window DCN op (clamp, fused forward, K2, two matmuls, K4)
+    # on the card against its CPU plain path: five gradients
+    from stmask_torch.ops.deform_conv import deform_conv_window
+    for site, (h, w, cin), stride in (DCN_SITES[3], DCN_SITES[5]):
+        gc = torch.Generator().manual_seed(11)
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        host = [torch.randn(2, h, w, cin, generator=gc),
+                torch.randn(2, ho, wo, 18, generator=gc) * 1.5,
+                torch.randn(cin, 3, 3, cin, generator=gc) / (3 * cin),
+                torch.rand(2, ho, wo, 9, generator=gc),
+                torch.randn(cin, generator=gc)]
+        host[1][0, 0, 0, :4] = torch.tensor([2.0, -2.0, 0.0, 1.0])
+        cot = torch.randn(2, ho, wo, cin, generator=gc)
+        grads = []
+        for d_ in (torch.device('cpu'), dev):
+            ts = [t.detach().to(d_).requires_grad_(True) for t in host]
+            (deform_conv_window(*ts, stride=stride) * cot.to(d_)).sum(
+                ).backward()
+            grads.append([t.grad.cpu() for t in ts])
+        for nm, a, b in zip(('dx', 'd_offset', 'dW', 'd_mask', 'db'),
+                            grads[1], grads[0]):
+            scale = max(float(b.abs().max()), 1.0)
+            d = float((a - b).abs().max())
+            print(f'[dcn op] {site} card vs CPU {nm}: max|diff| {d:.3e} '
+                  f'(max|ref| {scale:.3e}, atol 1e-4 of max|ref|)')
+            assert d <= 1e-4 * scale, (site, nm, d, scale)
+        del ts, grads
+
     # ---- 4. main path -----------------------------------------------------
     cfg = get_config('STMask_plus_resnet50')
     model = build_model(cfg, dev, seed=0)
@@ -378,6 +584,8 @@ def main() -> int:
     assert launches['correlation'] == n_frames, launches
     assert launches['deform_conv'] == 7 * n_frames, launches
     assert launches['deform_im2col'] == 0, launches
+    assert launches['correlation_bwd'] == launches['deform_col2im'] == 0, \
+        launches
     assert any(bool(b) for b in bank_nonempty), \
         'candidate_shift never ran with a non-empty track bank'
     for v, f, ndet, nkeep, nvalid in per_frame:
@@ -530,16 +738,207 @@ def main() -> int:
           f'{kd["bound_ms"]:.5f} ms; dense 3x3 cuDNN conv (not the same '
           f'function) {dense:.5f} ms ({smi})')
 
+    # ---- 6. the training step ----------------------------------------------
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.train.loop import train
+    from stmask_torch.train.train_step import build_train_step
+    model = build_model(cfg, dev, seed=0)
+    step, init = build_train_step(cfg, model, dev)
+    hosts = [_train_batch(cfg, 10 + i) for i in range(TRAIN_STEPS + 2)]
+    batches = [prepare_batch(cfg, h_, dev) for h_ in hosts[:TRAIN_STEPS]]
+    before_p = {n: p.detach().clone() for n, p in model.named_parameters()}
+    before_b = {n: b.clone() for n, b in model.named_buffers()}
+    n_gt = [int(b_['valid'].sum()) for b_ in batches]
+    state = init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k.launches = 0
+    step_ms, metrics = [], []
+    for b_ in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b_)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    train_launches = {n: k.launches for n, k in KERNELS.items()}
+    train_peak = torch.cuda.max_memory_allocated()
+    print(f'[train] launches {train_launches} over {TRAIN_STEPS} steps '
+          f'(gt boxes per step {n_gt})', flush=True)
+    for n_, per in TRAIN_LAUNCHES.items():
+        assert train_launches[n_] == per * TRAIN_STEPS, (n_, train_launches)
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        print(f'[train] step {i}: ' + ', '.join(
+            f'{k} {v:.5f}' for k, v in vals.items()))
+        assert all(np.isfinite(v) for v in vals.values()), (i, vals)
+    offset_grads = [float(p.grad.abs().max()) for n_, p in
+                     model.named_parameters() if 'conv_offset_mask' in n_]
+    assert len(offset_grads) == 14 and min(offset_grads) > 0, offset_grads
+    assert _params_moved(torch, before_p, model, 'conv_offset_mask.weight')
+    n_moved = sum(not torch.equal(before_p[n_], p.detach())
+                  for n_, p in model.named_parameters())
+    for n_, b_ in model.named_buffers():
+        assert torch.equal(b_, before_b[n_]), n_
+    steady = sorted(step_ms[TRAIN_WARMUP:])
+    train_med = (steady[len(steady) // 2 - 1] + steady[len(steady) // 2]) / 2
+    print(f'[train] STMask_plus_resnet50 {cfg.img_h}x{cfg.img_w} fp32 (TF32 '
+          f'off), {TRAIN_CLIPS} clips = {2 * TRAIN_CLIPS} frames a step: '
+          f'median {train_med:.3f} ms/step over {len(steady)} steps after '
+          f'{TRAIN_WARMUP} warm-up ({2 * TRAIN_CLIPS * 1e3 / train_med:.2f} '
+          f'frames/s), all steps {[round(t, 3) for t in step_ms]}; peak '
+          f'memory {train_peak / 2**20:.1f} MiB ({name}, {smi}); '
+          f'{n_moved} of {len(before_p)} parameters moved, every '
+          f'conv_offset_mask with a gradient (max |grad| '
+          f'{min(offset_grads):.3e} to {max(offset_grads):.3e}) and moved; '
+          f'BN buffers unchanged', flush=True)
+
+    # the from-scratch state: every offset predictor zero, every offset on
+    # the bilinear kink
+    with torch.no_grad():
+        for n_, p in model.named_parameters():
+            if 'conv_offset_mask' in n_:
+                p.zero_()
+    state, m = step(state, batches[0])
+    vals = {k: float(v) for k, v in m.items()}
+    print('[train] zero-offset step: ' + ', '.join(
+        f'{k} {v:.5f}' for k, v in vals.items()), flush=True)
+    assert all(np.isfinite(v) for v in vals.values()), vals
+
+    # one step of the loop with a checkpoint, then a resumed step
+    with tempfile.TemporaryDirectory() as tmp:
+        save_dir, log_dir = f'{tmp}/weights', f'{tmp}/logs'
+        s1 = train(cfg.replace(max_iter=1), model, iter(hosts[-2:-1]),
+                   save_dir, log_dir, save_interval=1, device=dev)
+        saved = sorted(os.listdir(save_dir))
+        s2 = train(cfg.replace(max_iter=2), model, iter(hosts[-1:]),
+                   save_dir, log_dir, resume='latest', device=dev)
+        n_log = sum(1 for _ in open(f'{log_dir}/{cfg.name}.log'))
+        print(f'[loop] checkpoints {saved}, then {sorted(os.listdir(save_dir))}'
+              f'; steps {s1.step} then {s2.step} (resumed); {n_log} log lines',
+              flush=True)
+        assert saved == [f'{cfg.name}_0_1.pth'] and s1.step == 1
+        assert s2.step == 2 and int(s2.count) == 2
+
+    # the card against the CPU path: one step at 96x128, full depth.
+    # Losses rtol 2e-3; gradients: relative L2 error 2e-3 over all
+    # parameters and 2e-2 per parameter (cuDNN and CPU convolutions sum in
+    # another order, the fused conv is 3xTF32 and K4 adds with atomics, so
+    # a ReLU whose input lies within rounding of 0 can switch on one side)
+    small = cfg.replace(img_h=96, img_w=128)
+    host = _train_batch(small, 99, clips=1)
+    res = {}
+    for d_ in (torch.device('cpu'), dev):
+        mdl = build_model(small, d_, seed=0)
+        st_, in_ = build_train_step(small, mdl, d_)
+        _, m = st_(in_(), prepare_batch(small, host, d_))
+        res[d_.type] = ({k: float(v) for k, v in m.items()},
+                        {n: p.grad.detach().cpu().double()
+                         for n, p in mdl.named_parameters()})
+        del mdl, st_, in_
+    (cm, cg), (gm, gg) = res['cpu'], res['cuda']
+    for k in cm:
+        print(f'[check] train card vs CPU {k}: {gm[k]:.6f} vs {cm[k]:.6f}')
+        assert abs(gm[k] - cm[k]) <= 2e-3 * abs(cm[k]) + 1e-7, k
+    rel = {n: float((gg[n] - cg[n]).norm() / cg[n].norm().clamp(min=1e-30))
+           for n in cg}
+    tot = float(sum((gg[n] - cg[n]).norm() ** 2 for n in cg) ** 0.5
+                / sum(cg[n].norm() ** 2 for n in cg) ** 0.5)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    print(f'[check] train card vs CPU gradients: relative L2 error over '
+          f'{len(cg)} parameters {tot:.3e} (limit 2e-3); worst '
+          f'{[(n, round(v, 6)) for n, v in worst]} (limit 2e-2 each)',
+          flush=True)
+    assert tot <= 2e-3 and worst[0][1] <= 2e-2, (tot, worst)
+
+    # one steady training step under torch.profiler
+    rows = _device_events(lambda: step(state, batches[1]), 1)
+    if rows:
+        dev_ms = sum(us for _, _, us in rows) / 1e3
+        n_kern = sum(c for _, c, _ in rows)
+        print(f'[profile] train step: device busy {dev_ms:.3f} ms of '
+              f'{train_med:.3f} ms wall (idle share '
+              f'{1 - dev_ms / train_med:.3f}), {n_kern} kernel launches')
+        for key, cnt, us in sorted(rows, key=lambda r: -r[2])[:15]:
+            print(f'[profile]   {us / 1e3:8.4f} ms/step {cnt:6d}x  '
+                  f'{key[:100]}')
+    else:
+        print('[profile] torch.profiler recorded no device time for the '
+              'train step: device busy share not measured')
+    del model, step, state, batches
+
+    # K3 and K4 (and K2, whose training shapes are 8 frames) times
+    tshape = (TRAIN_CLIPS, 24, 40, 256)
+    x1 = torch.randn(tshape, device=dev, generator=g)
+    x2 = torch.randn(tshape, device=dev, generator=g)
+    up = torch.randn(tshape[:3] + (121,), device=dev, generator=g)
+    k3_ms = _device_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11), 200)
+    k3_call = _time_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11), 200)
+    k3_plain = _time_ms(lambda: K3.correlation_bwd_reference(up, x1, x2, 11),
+                        10)
+    k3_bytes, k3_flops = _corr_bwd_cost(tshape, 11)
+    k3_bound, k3_by = _bound_ms(k3_bytes, k3_flops)
+    print(f'[time] correlation_bwd {list(tshape)} P 11: kernel {k3_ms:.5f} '
+          f'ms (device), per wrapper call {k3_call:.5f} ms, plain '
+          f'{k3_plain:.5f} ms, bound {k3_bound:.5f} ms ({k3_by}; {k3_bytes} '
+          f'B, {k3_flops} flop)')
+    k4, k2t = {}, {}
+    for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
+        dcols, x, off, mask = _dcn_train_inputs(
+            torch, dev, h, w, cin, stride, 2 * TRAIN_CLIPS, 'random', 400 + i)
+        nbytes, flops = _col2im_cost(torch, x, off, stride)
+        ms = _device_ms(lambda: K4.deform_col2im_cuda(dcols, x, off, mask,
+                                                      3, 3, stride), 50)
+        call = _time_ms(lambda: K4.deform_col2im_cuda(dcols, x, off, mask,
+                                                      3, 3, stride), 50)
+        plain = _time_ms(lambda: K4.deform_col2im_reference(
+            dcols, x, off, mask, 3, 3, stride), 5)
+        bound, by = tally(k4, ms, call, plain, nbytes, flops)
+        print(f'[time] deform_col2im {site} x 8 frames: kernel {ms:.5f} ms '
+              f'(device, with the zeroing of dx), per wrapper call '
+              f'{call:.5f} ms, plain {plain:.5f} ms, bound {bound:.5f} ms '
+              f'({by}; {nbytes} B, {flops} flop)')
+        got = K2.deform_im2col_cuda(x, off, mask, 3, 3, stride)
+        want = K2.deform_im2col_reference(x, off, mask, 3, 3, stride)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        err['deform_im2col'] = max(err['deform_im2col'], d)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        del got, want
+        nbytes, flops = _dcn_cost(torch, x, off, stride)
+        ms = _device_ms(lambda: K2.deform_im2col_cuda(x, off, mask, 3, 3,
+                                                      stride), 50)
+        call = _time_ms(lambda: K2.deform_im2col_cuda(x, off, mask, 3, 3,
+                                                      stride), 50)
+        plain = _time_ms(lambda: K2.deform_im2col_reference(
+            x, off, mask, 3, 3, stride), 5)
+        bound, by = tally(k2t, ms, call, plain, nbytes, flops)
+        print(f'[time] deform_im2col {site} x 8 frames: max|diff| {d:.3e} '
+              f'(atol 1e-5), kernel {ms:.5f} ms (device), per wrapper call '
+              f'{call:.5f} ms, plain {plain:.5f} ms, bound {bound:.5f} ms '
+              f'({by})')
+        del dcols, x, off, mask
+    print(f'[time] 7 sites x 8 frames summed: deform_col2im {k4["ms"]:.5f} '
+          f'ms (device), per call {k4["call_ms"]:.5f} ms, plain '
+          f'{k4["plain_ms"]:.5f} ms, bound {k4["bound_ms"]:.5f} ms; '
+          f'deform_im2col {k2t["ms"]:.5f} ms, bound {k2t["bound_ms"]:.5f} ms '
+          f'({smi})', flush=True)
+
     def by_of(acc):
         return 'bytes' if acc['bytes_s'] >= acc['ops_s'] else 'operations'
 
     sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
              'are their sum')
+    eval_path = (f'eval video step, {N_VIDEOS} videos x {FRAMES_PER_VIDEO} '
+                 'frames')
+    train_path = (f'training step, {TRAIN_STEPS} steps of {TRAIN_CLIPS} '
+                  'clips')
     table = {'kernels': [
         {'name': 'correlation', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/correlation.cu',
          'replaces': 'stmask_tpu/kernels/correlation_pallas.py:35',
-         'launches': launches['correlation'],
+         'launches': launches['correlation'], 'launches_path': eval_path,
+         'train_launches': train_launches['correlation'],
          'max_abs_err': err['correlation'], 'ms': k1_ms,
          'call_ms': k1_call,
          'plain_ms': k1_plain, 'bound_ms': k1_bound, 'bound_by': k1_by,
@@ -548,21 +947,49 @@ def main() -> int:
         {'name': 'deform_im2col', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/deform_im2col.cu',
          'replaces': 'stmask_tpu/ops/deform_conv.py:31',
-         'launches': launches['deform_im2col'],
-         'max_abs_err': err['deform_im2col'], 'ms': k2['ms'],
-         'call_ms': k2['call_ms'],
-         'plain_ms': k2['plain_ms'], 'bound_ms': k2['bound_ms'],
-         'bound_by': by_of(k2), 'library_ms': None,
-         'shape': sites + '; off the main path'},
+         'launches': train_launches['deform_im2col'],
+         'launches_path': train_path,
+         'eval_launches': launches['deform_im2col'],
+         'max_abs_err': err['deform_im2col'], 'ms': k2t['ms'],
+         'call_ms': k2t['call_ms'],
+         'plain_ms': k2t['plain_ms'], 'bound_ms': k2t['bound_ms'],
+         'bound_by': by_of(k2t), 'library_ms': None,
+         'shape': sites.replace('one 384x640 frame', '8 384x640 frames')
+         + '; rebuilds cols in the DCN backward'},
         {'name': 'deform_conv', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/deform_conv.cu',
          'replaces': 'stmask_tpu/ops/deform_conv.py:31',
-         'launches': launches['deform_conv'],
+         'launches': launches['deform_conv'], 'launches_path': eval_path,
+         'train_launches': train_launches['deform_conv'],
          'max_abs_err': err['deform_conv'], 'ms': kd['ms'],
          'call_ms': kd['call_ms'],
          'plain_ms': kd['plain_ms'], 'bound_ms': kd['bound_ms'],
          'bound_by': by_of(kd), 'library_ms': None,
-         'before_ms': before, 'shape': sites}]}
+         'before_ms': before, 'shape': sites},
+        {'name': 'correlation_bwd', 'route': 'cuda',
+         'source': 'stmask_torch/kernels/csrc/correlation_bwd.cu',
+         'replaces': 'stmask_tpu/ops/correlation.py:22 (its XLA transpose; '
+                     'forward kernels/correlation_pallas.py:35)',
+         'launches': train_launches['correlation_bwd'],
+         'launches_path': train_path,
+         'max_abs_err': err['correlation_bwd'], 'ms': k3_ms,
+         'call_ms': k3_call, 'plain_ms': k3_plain, 'bound_ms': k3_bound,
+         'bound_by': k3_by, 'library_ms': None,
+         'shape': f'g [{TRAIN_CLIPS},24,40,121], x1, x2 [{TRAIN_CLIPS},24,40,'
+                  '256] fp32; one launch'},
+        {'name': 'deform_col2im', 'route': 'cuda',
+         'source': 'stmask_torch/kernels/csrc/deform_col2im.cu',
+         'replaces': 'stmask_tpu/ops/deform_conv.py:152 '
+                     '(_make_window_gather VJP, with deform_conv2d_window '
+                     ':270)',
+         'launches': train_launches['deform_col2im'],
+         'launches_path': train_path,
+         'max_abs_err': err['deform_col2im'],
+         'max_abs_err_is': 'relative to max|ref|', 'ms': k4['ms'],
+         'call_ms': k4['call_ms'], 'plain_ms': k4['plain_ms'],
+         'bound_ms': k4['bound_ms'], 'bound_by': by_of(k4),
+         'library_ms': None,
+         'shape': sites.replace('one 384x640 frame', '8 384x640 frames')}]}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -7,7 +7,10 @@ kernels become ``[out, in]``, and FrozenBatchNorm ``scale/bias/mean/var``
 become ``weight/bias/running_mean/running_var`` (plus the reference's
 ``num_batches_tracked``).  So a released reference checkpoint loads into
 the port with plain ``load_state_dict``, and a flax tree converts with
-``state_dict_from_flax``.
+``state_dict_from_flax``.  The same mapping carries a flax gradient (or
+an updated parameter tree) onto the port's keys; ``include_bn=False``
+leaves out the FrozenBatchNorm entries, which are buffers in the port and
+have no gradient.
 """
 
 from __future__ import annotations
@@ -74,9 +77,12 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(params: Mapping, include_bn: bool = True
+                         ) -> Dict[str, torch.Tensor]:
     """flax param tree (``{'params': ...}`` or the bare tree; numpy or jax
-    arrays) -> the port's ``state_dict`` (reference key names)."""
+    arrays) -> the port's ``state_dict`` (reference key names); with
+    ``include_bn=False`` only the entries that are parameters in the
+    port."""
     if 'params' in params:
         params = params['params']
     sd: Dict[str, torch.Tensor] = {}
@@ -85,6 +91,8 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         key, kind = _module_key(path[:-1])
         name = path[-1]
         if kind == 'bn':
+            if not include_bn:
+                continue
             sd[f'{key}.{_BN_NAMES[name]}'] = torch.tensor(arr)
             sd[f'{key}.num_batches_tracked'] = torch.zeros((),
                                                            dtype=torch.long)

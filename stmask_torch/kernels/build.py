@@ -137,9 +137,12 @@ class CudaKernel:
 
 def check_cuda_f32(name: str, *tensors: torch.Tensor,
                    contiguous: bool = True) -> None:
-    """Raise unless every tensor is a float32 CUDA tensor on one device
-    that needs no gradient (the kernels have no backward yet), and a
-    contiguous one unless ``contiguous`` is False."""
+    """Raise unless every tensor is a float32 CUDA tensor on one device,
+    and a contiguous one unless ``contiguous`` is False.  A tensor that
+    needs a gradient is refused while autograd records: the kernels are
+    differentiated only through the ``torch.autograd.Function``s of
+    ``ops.correlation`` and ``ops.deform_conv``, whose forward runs with
+    recording off."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != 'cuda' or t.device != dev:
@@ -150,5 +153,6 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor,
         if contiguous and not t.is_contiguous():
             raise ValueError(f'{name}: expected contiguous tensors')
         if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f'{name}: no backward kernel yet (ROADMAP B1b/B2b)')
+            raise RuntimeError(
+                f'{name}: a wrapper records no gradient; call the '
+                'differentiable op in stmask_torch.ops instead')

@@ -1,3 +1,3 @@
-"""The STMask network in PyTorch (eval branch)."""
+"""The STMask network in PyTorch (eval and train branches)."""
 
 from .stmask import STMask, build_model, init_random  # noqa: F401

@@ -1,5 +1,5 @@
 """ResNet-50/101 backbone with interval deformable-conv stages (port of
-``stmask_tpu/models/backbone.py``, eval path).
+``stmask_tpu/models/backbone.py``).
 
 Bottleneck stacks where ``use_dcn`` swaps the 3x3 conv2 for the modulated
 deformable conv v2, applied to the last ``dcn_layers[s]`` blocks of each
@@ -18,19 +18,23 @@ import torch.nn.functional as F
 
 from ..config import BackboneConfig
 from ..kernels.deform_conv import deform_conv
-from ..ops.deform_conv import dcn_v2_offsets
+from ..ops.deform_conv import dcn_v2_offsets, deform_conv_window
 from .layers import FrozenBatchNorm
 
 
 class DCNConv(nn.Module):
     """Modulated deformable conv v2, 3x3, as in CharlesShang DCNv2
     (parameters ``weight`` [out, in, 3, 3], ``bias`` and the offset+mask
-    predictor ``conv_offset_mask``).  Exact unclamped gather: the eval path
-    of the JAX package (``backbone.py:127`` sets radius 0 at eval).
+    predictor ``conv_offset_mask``).  ``radius`` 0 takes the exact
+    unclamped gather (the JAX package's eval path); ``radius`` > 0 the
+    window-clamped one with its backward (training, or eval under
+    ``dcn_window_eval``; ``backbone.py:127``).
 
     The fused kernel reads ``weight`` as [out, 3, 3, in]; in the
     channels-last layout the model is kept in (``build_model``,
-    ``build_video_step``) that permutation is a view, so no copy is made."""
+    ``build_video_step``, ``build_train_step``) that permutation is a view,
+    so no copy is made, and the weight's gradient comes back in the same
+    layout."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  dilation: int = 1):
@@ -42,12 +46,17 @@ class DCNConv(nn.Module):
                                           padding=dilation,
                                           dilation=dilation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, radius: int = 0) -> torch.Tensor:
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)     # NHWC
         offset, mask = dcn_v2_offsets(om, 9)
-        out = deform_conv(x.permute(0, 2, 3, 1).contiguous(), offset,
-                          self.weight.permute(0, 2, 3, 1).contiguous(), mask,
-                          self.bias, self.stride, self.dilation)
+        x = x.permute(0, 2, 3, 1).contiguous()
+        weight = self.weight.permute(0, 2, 3, 1).contiguous()
+        if radius > 0:
+            out = deform_conv_window(x, offset, weight, mask, self.bias,
+                                     self.stride, self.dilation, radius)
+        else:
+            out = deform_conv(x, offset, weight, mask, self.bias,
+                              self.stride, self.dilation)
         return out.permute(0, 3, 1, 2)
 
 
@@ -74,9 +83,11 @@ class Bottleneck(nn.Module):
                           bias=False),
                 FrozenBatchNorm(planes * 4))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, radius: int = 0) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        conv2 = self.conv2(out, radius) if isinstance(
+            self.conv2, DCNConv) else self.conv2(out)
+        out = F.relu(self.bn2(conv2))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
@@ -95,6 +106,7 @@ class ResNetBackbone(nn.Module):
 
     def __init__(self, cfg: BackboneConfig):
         super().__init__()
+        self.cfg = cfg
         name = cfg.name.lower()
         if not name.startswith('resnet') or 'gn' in name:
             raise NotImplementedError(
@@ -116,11 +128,17 @@ class ResNetBackbone(nn.Module):
             self.layers.append(nn.Sequential(*mods))
             planes *= 2
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, ...]:
+        # training always takes the window-clamped DCN; eval opts in via
+        # dcn_window_eval (reference backbone.py:127)
+        c = self.cfg
+        radius = c.dcn_window_radius if (train or c.dcn_window_eval) else 0
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for layer in self.layers:
-            x = layer(x)
+            for block in layer:
+                x = block(x, radius)
             outs.append(x)
         return tuple(outs)

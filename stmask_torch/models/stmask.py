@@ -1,4 +1,4 @@
-"""STMask model assembly, eval branch (port of
+"""STMask model assembly, eval and train branches (port of
 ``stmask_tpu/models/stmask.py``; reference ``STMask.py:19-330``).
 
 backbone -> FPN(P3..P7) -> { ProtoNet on P3, shared FCA head per level,
@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import STMaskConfig
+from ..ops.correlation import correlate
 from .backbone import DCNConv, ResNetBackbone
 from .fpn import FPN
 from .heads import PredictionHead
@@ -58,16 +59,12 @@ class STMask(nn.Module):
         self.TemporalNet = TemporalNet(
             2 * nf + cfg.correlation_patch_size ** 2, cfg.mask_proto_n)
 
-    def forward(self, x: torch.Tensor, train: bool = False
-                ) -> Dict[str, torch.Tensor]:
-        """Eval forward of NHWC frames [B, H, W, 3] (mirrors the JAX eval
-        branch, ``stmask.py:152-174``)."""
-        if train:
-            raise NotImplementedError(
-                'the training forward is not ported yet (ROADMAP A.9)')
+    def _forward_single(self, x: torch.Tensor, train: bool):
+        """NHWC frames [B, H, W, 3] -> (fpn_outs, flat predictions, NCHW
+        T2S features per level) (``stmask.py:74-105``)."""
         c = self.cfg
         x = x.permute(0, 3, 1, 2)      # channels-last NCHW view, no copy
-        bb = self.backbone(x)
+        bb = self.backbone(x, train=train)
         fpn_outs = self.fpn([bb[i] for i in c.backbone.selected_layers])
         proto = F.relu(self.proto_net(fpn_outs[c.mask_proto_src]))
 
@@ -80,9 +77,32 @@ class STMask(nn.Module):
             for k, v in p.items():
                 preds.setdefault(k, []).append(v)
         out = {k: torch.cat(v, dim=1).float() for k, v in preds.items()}
-        out['conf'] = torch.softmax(out['conf'], dim=-1)
         out['proto'] = _nhwc(proto).float()
+        return fpn_outs, out, t2s
+
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        """Eval: NHWC frames [B, H, W, 3] -> decode-ready outputs (softmaxed
+        conf, ``fpn_feat``; ``stmask.py:152-174``).  Train: two-frame clips
+        [B, 2, H, W, 3], flattened clip-major, -> raw conf logits and
+        ``T2S_concat_feat`` = relu(cat[correlation(ref, next), T2S_ref,
+        T2S_next]) on FPN level ``correlation_selected_layer``
+        (``stmask.py:126-151``); even rows are the ref frames."""
+        c = self.cfg
         sel = c.correlation_selected_layer
+        if train:
+            b, nf, h, w, _ = x.shape
+            fpn_outs, out, t2s = self._forward_single(
+                x.reshape(b * nf, h, w, 3), train=True)
+            f = fpn_outs[sel].permute(0, 2, 3, 1)     # NHWC view
+            corr = correlate(f[0::2].contiguous(), f[1::2].contiguous(),
+                             c.correlation_patch_size)
+            t = t2s[sel].permute(0, 2, 3, 1)
+            out['T2S_concat_feat'] = F.relu(torch.cat(
+                [corr, t[0::2], t[1::2]], dim=-1))
+            return out
+        fpn_outs, out, t2s = self._forward_single(x, train=False)
+        out['conf'] = torch.softmax(out['conf'], dim=-1)
         out['T2S_feat'] = _nhwc(t2s[sel])
         out['fpn_feat'] = _nhwc(fpn_outs[sel])
         return out

@@ -1,8 +1,11 @@
 """Box geometry on tensors (port of ``stmask_tpu/ops/boxes.py``).
 
 Same math as the JAX package (reference ``layers/box_utils.py``): SSD
-variance decode, vectorized crop, pairwise IoU.  Static shapes throughout;
-no in-place mutation of inputs.
+variance encode/decode, vectorized crop, pairwise IoU, the DIoU terms of
+the box and centerness losses.  Static shapes throughout; no in-place
+mutation of inputs.  Where a gradient flows, min/max are ``torch.minimum``
+/ ``torch.maximum`` against tensors, which split a tie 0.5/0.5 as JAX
+does (``torch.clamp`` gives the whole gradient to the input).
 
 Conventions: point-form boxes are [x1, y1, x2, y2]; priors are
 [cx, cy, w, h]; all normalized to [0, 1].
@@ -57,6 +60,28 @@ def jaccard(box_a: torch.Tensor, box_b: torch.Tensor,
     union = area_a + area_b - inter
     denom = area_a.expand_as(inter) if iscrowd else union
     return _safe_div(inter, denom)
+
+
+def elemwise_box_iou(box_a: torch.Tensor, box_b: torch.Tensor
+                     ) -> torch.Tensor:
+    """IoU of aligned box pairs, [..., 4] x [..., 4] -> [...]."""
+    max_xy = torch.minimum(box_a[..., 2:], box_b[..., 2:])
+    min_xy = torch.maximum(box_a[..., :2], box_b[..., :2])
+    inter = torch.maximum(max_xy - min_xy, max_xy.new_zeros(()))
+    inter = inter[..., 0] * inter[..., 1]
+    return _safe_div(inter, area(box_a) + area(box_b) - inter)
+
+
+def encode(matched: torch.Tensor, priors: torch.Tensor) -> torch.Tensor:
+    """Encode point-form gt against [cx, cy, w, h] priors with SSD
+    variances; ``encode(decode(x, p), p) == x`` (reference
+    box_utils.py:199-235)."""
+    v0, v1 = VARIANCES
+    g_cxcy = (matched[..., :2] + matched[..., 2:]) / 2 - priors[..., :2]
+    g_cxcy = g_cxcy / (v0 * priors[..., 2:])
+    g_wh = (matched[..., 2:] - matched[..., :2]) / priors[..., 2:]
+    g_wh = torch.log(torch.maximum(g_wh, g_wh.new_tensor(1e-12))) / v1
+    return torch.cat([g_cxcy, g_wh], dim=-1)
 
 
 def decode(loc: torch.Tensor, priors: torch.Tensor) -> torch.Tensor:
@@ -120,3 +145,42 @@ def mask_iou(mask1: torch.Tensor, mask2: torch.Tensor) -> torch.Tensor:
     a1 = m1.sum(dim=1)[:, None]
     a2 = m2.sum(dim=1)[None, :]
     return _safe_div(inter, a1 + a2 - inter)
+
+
+def diou_distance(det_bbox: torch.Tensor, prev_det_bbox: torch.Tensor
+                  ) -> torch.Tensor:
+    """Pairwise DIoU center-distance penalty d^2/c^2, [n, 4] x [m, 4] ->
+    [n, m] (reference box_utils.py:450-470)."""
+    a, b = det_bbox[:, None, :], prev_det_bbox[None, :, :]
+    x_min = torch.minimum(torch.minimum(a[..., 0], a[..., 2]),
+                          torch.minimum(b[..., 0], b[..., 2]))
+    x_max = torch.maximum(torch.maximum(a[..., 0], a[..., 2]),
+                          torch.maximum(b[..., 0], b[..., 2]))
+    y_min = torch.minimum(torch.minimum(a[..., 1], a[..., 3]),
+                          torch.minimum(b[..., 1], b[..., 3]))
+    y_max = torch.maximum(torch.maximum(a[..., 1], a[..., 3]),
+                          torch.maximum(b[..., 1], b[..., 3]))
+    c2 = (x_max - x_min) ** 2 + (y_max - y_min) ** 2
+    det_c = (det_bbox[:, :2] + det_bbox[:, 2:]) / 2
+    prev_c = (prev_det_bbox[:, :2] + prev_det_bbox[:, 2:]) / 2
+    d2 = ((det_c[:, None, :] - prev_c[None, :, :]) ** 2).sum(dim=2)
+    return _safe_div(d2, c2)
+
+
+def elemwise_diou(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """DIoU = IoU - d^2/c^2 for aligned pairs [..., 4] -> [...] (reference
+    multibox_loss.py:227-245 get_DIoU)."""
+    iou = elemwise_box_iou(pred, gt)
+    x_min = torch.minimum(torch.minimum(pred[..., 0], pred[..., 2]),
+                          torch.minimum(gt[..., 0], gt[..., 2]))
+    x_max = torch.maximum(torch.maximum(pred[..., 0], pred[..., 2]),
+                          torch.maximum(gt[..., 0], gt[..., 2]))
+    y_min = torch.minimum(torch.minimum(pred[..., 1], pred[..., 3]),
+                          torch.minimum(gt[..., 1], gt[..., 3]))
+    y_max = torch.maximum(torch.maximum(pred[..., 1], pred[..., 3]),
+                          torch.maximum(gt[..., 1], gt[..., 3]))
+    c2 = (x_max - x_min) ** 2 + (y_max - y_min) ** 2
+    pc = (pred[..., :2] + pred[..., 2:]) / 2
+    gc = (gt[..., :2] + gt[..., 2:]) / 2
+    d2 = ((pc - gc) ** 2).sum(dim=-1)
+    return iou - _safe_div(d2, c2)

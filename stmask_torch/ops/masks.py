@@ -10,6 +10,15 @@ import torch
 from .boxes import crop
 
 
+def coeff_activation(coeff: torch.Tensor, kind: str = 'tanh'
+                     ) -> torch.Tensor:
+    if kind == 'tanh':
+        return torch.tanh(coeff)
+    if kind == 'none':
+        return coeff
+    raise ValueError(kind)
+
+
 def generate_mask(proto: torch.Tensor, mask_coeff: torch.Tensor,
                   bbox: Optional[torch.Tensor] = None,
                   apply_coeff_activation: bool = True) -> torch.Tensor:

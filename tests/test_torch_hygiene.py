@@ -50,21 +50,32 @@ def test_default_device_is_cuda_and_raises_without_gpu():
 
     if torch.cuda.is_available():
         pytest.skip('a GPU is present: the default device is usable')
+    from stmask_torch.train.train_step import build_train_step
+
     cfg = get_config('STMask_plus_resnet50').replace(img_h=96, img_w=128)
     with pytest.raises(RuntimeError, match='CUDA'):
         build_video_step(cfg, STMask(cfg))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_train_step(cfg, STMask(cfg))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never compute on the CPU; only the dispatchers
     route CPU tensors to the plain versions."""
     from stmask_torch.kernels.correlation import correlate_cuda
+    from stmask_torch.kernels.correlation_bwd import correlation_bwd_cuda
+    from stmask_torch.kernels.deform_col2im import deform_col2im_cuda
     from stmask_torch.kernels.deform_conv import deform_conv_cuda
     from stmask_torch.kernels.deform_im2col import deform_im2col_cuda
 
     x = torch.zeros(1, 4, 5, 8)
     with pytest.raises(ValueError, match='CUDA'):
         correlate_cuda(x, x)
+    with pytest.raises(ValueError, match='CUDA'):
+        correlation_bwd_cuda(torch.zeros(1, 4, 5, 121), x, x)
+    with pytest.raises(ValueError, match='CUDA'):
+        deform_col2im_cuda(torch.zeros(20, 72), x, torch.zeros(1, 4, 5, 18),
+                           None, 3, 3)
     with pytest.raises(ValueError, match='CUDA'):
         deform_im2col_cuda(x, torch.zeros(1, 4, 5, 18), None, 3, 3)
     with pytest.raises(ValueError, match='CUDA'):
@@ -73,17 +84,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_unported_paths_raise():
-    """Paths outside this slice raise instead of running something else."""
+    """Paths outside the ported slices raise instead of running something
+    else."""
     from stmask_torch.config import get_config
     from stmask_torch.inference.candidates import detect_frame
     from stmask_torch.models import STMask
+    from stmask_torch.train.train_step import build_train_step
 
     small = dict(img_h=96, img_w=128)
     with pytest.raises(NotImplementedError, match='ROADMAP A.10'):
         STMask(get_config('STMask_plus_resnet50_ada').replace(**small))
     cfg = get_config('STMask_plus_resnet50').replace(**small)
+    for kw in (dict(remat=True), dict(compute_dtype=torch.bfloat16)):
+        with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
+            build_train_step(cfg, STMask(cfg), device='cpu', **kw)
     with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
-        STMask(cfg)(torch.zeros(1, cfg.pad_h, cfg.pad_w, 3), train=True)
+        build_train_step(cfg.replace(freeze_bn=False), STMask(cfg),
+                         device='cpu')
     for method in ('per_class', 'greedy'):
         with pytest.raises(NotImplementedError, match='ROADMAP A.11'):
             detect_frame(cfg.replace(eval_nms_method=method), {}, None)

@@ -1,5 +1,6 @@
-"""CUDA kernels K1 (correlation), K2 (deformable gather) and the fused
-deformable conv against their plain PyTorch versions, on the card.  Marked
+"""CUDA kernels K1 (correlation), K2 (deformable gather), the fused
+deformable conv, K3 (correlation backward) and K4 (deformable col2im)
+against their plain PyTorch versions, on the card.  Marked
 ``cuda``; without a GPU every test skips with its reason.  Run on a GPU
 machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
@@ -8,9 +9,12 @@ import pytest
 import torch
 
 from stmask_torch.kernels import correlation as K1
+from stmask_torch.kernels import correlation_bwd as K3
+from stmask_torch.kernels import deform_col2im as K4
 from stmask_torch.kernels import deform_conv as KD
 from stmask_torch.kernels import deform_im2col as K2
-from stmask_torch.ops.deform_conv import deform_conv2d
+from stmask_torch.ops.correlation import correlate
+from stmask_torch.ops.deform_conv import deform_conv2d, deform_conv_window
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +155,100 @@ def test_wrappers_reject_bad_inputs(device):
                             None)
     with pytest.raises(ValueError):
         K1.correlate_cuda(x, x, 33)
+
+
+# K3: the training shape (4 clips at 384x640) and ragged ones
+CORR_BWD_SHAPES = [((4, 24, 40, 256), 11), ((2, 7, 9, 96), 11),
+                   ((1, 5, 7, 40), 5), ((2, 9, 5, 5), 11)]
+
+
+@pytest.mark.parametrize('shape,patch', CORR_BWD_SHAPES)
+def test_correlation_bwd_kernel(device, shape, patch):
+    g = torch.Generator(device=device).manual_seed(5)
+    x1 = torch.randn(shape, device=device, generator=g)
+    x2 = torch.randn(shape, device=device, generator=g)
+    up = torch.randn(shape[:3] + (patch * patch,), device=device,
+                     generator=g)
+    launches = K3.KERNEL.launches
+    got = K3.correlation_bwd_cuda(up, x1, x2, patch)
+    assert K3.KERNEL.launches == launches + 1
+    want = K3.correlation_bwd_reference(up, x1, x2, patch)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def _col2im_case(device, h, w, cin, stride, kind, seed):
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(2, h, w, cin, device=device, generator=g)
+    if kind == 'random':
+        off = torch.randn(2, ho, wo, 18, device=device, generator=g) * 1.5
+    elif kind == 'zero':
+        off = torch.zeros(2, ho, wo, 18, device=device)
+    else:
+        vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=device)
+        off = vals[torch.randint(0, 4, (2, ho, wo, 18), device=device,
+                                 generator=g)]
+    off = off.clamp(-2, 2)
+    mask = torch.rand(2, ho, wo, 9, device=device, generator=g)
+    dcols = torch.randn(2 * ho * wo, 9 * cin, device=device, generator=g)
+    return dcols, x, off, mask
+
+
+@pytest.mark.parametrize('kind', ['random', 'zero', 'integer'])
+@pytest.mark.parametrize('shape', [(9, 11, 6, 1), (9, 11, 6, 2),
+                                   (24, 40, 256, 1), (24, 40, 512, 2),
+                                   (7, 5, 3, 1)])
+def test_deform_col2im_kernel(device, shape, kind):
+    """dx sums with fp32 atomics, so its tolerance is relative to
+    max|ref|; d_offset and d_mask are summed in a fixed order."""
+    h, w, cin, stride = shape
+    dcols, x, off, mask = _col2im_case(device, h, w, cin, stride, kind, 6)
+    for m in (mask, None):
+        launches = K4.KERNEL.launches
+        got = K4.deform_col2im_cuda(dcols, x, off, m, 3, 3, stride)
+        assert K4.KERNEL.launches == launches + 1
+        want = K4.deform_col2im_reference(dcols, x, off, m, 3, 3, stride)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if b is None:
+                assert a is None
+                continue
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a, b, atol=1e-5 * max(scale, 1.0),
+                                       rtol=0)
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+def test_correlation_and_dcn_functions_match_cpu(device, stride):
+    """The autograd Functions on the card (K1 + K3; the fused kernel, K2,
+    two matmuls and K4) against their CPU plain paths."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 24, 40, 64, generator=g)
+    ho, wo = (24 - 1) // stride + 1, (40 - 1) // stride + 1
+    off = torch.randn(2, ho, wo, 18, generator=g) * 1.5
+    off[0, 0, 0, :4] = torch.tensor([2.0, -2.0, 0.0, 1.0])
+    mask = torch.rand(2, ho, wo, 9, generator=g)
+    wt = torch.randn(64, 3, 3, 64, generator=g) / 24
+    bias = torch.randn(64, generator=g)
+    cot = torch.randn(2, ho, wo, 64, generator=g)
+    grads = []
+    for dev in ('cpu', device):
+        ts = [t.detach().to(dev).requires_grad_(True)
+              for t in (x, off, wt, mask, bias)]
+        (deform_conv_window(*ts, stride=stride) * cot.to(dev)).sum(
+            ).backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a, b, atol=2e-4 * max(
+            float(b.abs().max()), 1.0), rtol=0)
+    x1, x2 = (torch.randn(2, 24, 40, 64, generator=g) for _ in range(2))
+    up = torch.randn(2, 24, 40, 121, generator=g)
+    grads = []
+    for dev in ('cpu', device):
+        ts = [t.detach().to(dev).requires_grad_(True) for t in (x1, x2)]
+        (correlate(*ts) * up.to(dev)).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
