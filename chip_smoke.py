@@ -8,12 +8,14 @@ Phases, in order (any failure raises and exits non-zero):
      process per source, in parallel) and print ptxas's registers, shared
      memory and spills of the correlation and the fused deformable conv;
   2. K1 (correlation) against its plain PyTorch version, main-path and
-     ragged shapes;
+     ragged shapes, with fp32 and with bf16 inputs;
   3. K2 (deformable gather) against its plain version at the 7 DCN sites'
      shapes of a 384x640 input, alone and after the fp32 matmul; then the
      fused deformable conv against its plain version at the 7 sites and at
      ragged, rectangular and dilated shapes, at a tolerance that a single
-     TF32 product (emulated at the 7 sites as a control) fails;
+     TF32 product (emulated at the 7 sites as a control) fails; then its
+     bf16 variant at the 7 sites with 8 frames (the batched eval's shapes)
+     and at ragged shapes, against the plain bf16 version;
   4. the eval video step of STMask_plus_resnet50 at 360x640 (seeded random
      weights, two synthetic 8-frame videos) through build_video_step,
      postprocess_frame and results2json_videoseg, with kernel launch
@@ -24,14 +26,23 @@ Phases, in order (any failure raises and exits non-zero):
      share, top kernels) and each stage's time on its own;
   5. kernel times (CUDA events) beside their plain versions and bounds;
      per DCN site the fused kernel beside K2 + matmul + bias (the path it
-     replaced) and, as a size reference only, a dense cuDNN 3x3 conv;
+     replaced) and, as a size reference only, a dense cuDNN 3x3 conv; the
+     bf16 K1 and the bf16 fused conv (8 frames) beside their fp32 siblings;
   6. the training step of STMask_plus_resnet50 at 360x640 (seeded random
      weights, 4 clips = 8 frames a step, synthetic batches in ClipLoader's
      format) through build_train_step: 6 steps (2 warm-up), launch counts
      per step (the fused conv, K2, K4 at the 7 DCN sites, K1 and K3 once),
      a step from the zero-offset state, one step of the loop with a
      checkpoint save and restore, the card against the CPU path at 96x128,
-     a profile of one step, and the times of K3 and K4.
+     a profile of one step, and the times of K3 and K4;
+  7. the eval CLI (``stmask_torch.eval``) with its default flags (bf16, 8
+     lockstep streams x 4-frame chunks) over a synthetic YouTube-VIS set of
+     16 videos x 12 PNG frames at 1280x720, with --eval_metrics, then again
+     with --time_device: launch counts (the bf16 fused conv 7 times a step
+     of 8 frames, the bf16 K1 once a lane-frame), frames/s end to end and
+     device-only, peak memory, mAP; a profile of steady chunks (idle share,
+     launches a frame); one bf16 batched chunk on the card against the CPU
+     path at 96x128.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv.
@@ -55,6 +66,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32, non-tensor-core
 PEAK_TF32_FLOPS = 495e12       # H100 SXM TF32 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12       # H100 SXM bf16 tensor cores, dense
 # the fused deformable conv against its fp32 plain version: 3xTF32 holds
 # ~3e-7 there, a single TF32 product (weights scaled by 1/K) 2e-5 to 5e-5
 FUSED_ATOL = 5e-6
@@ -68,7 +80,13 @@ TRAIN_WARMUP = 2
 TRAIN_LAUNCHES = {'deform_conv': 7, 'deform_im2col': 7, 'deform_col2im': 7,
                   'correlation': 1, 'correlation_bwd': 1}
 KERNEL_NAMES = ('correlation', 'deform_im2col', 'deform_conv',
-                'correlation_bwd', 'deform_col2im')
+                'correlation_bwd', 'deform_col2im')   # the libraries
+# the bf16 kernels against their plain bf16 versions: the same rounding
+# points, the fp32 sums in another order, so a sum near a rounding boundary
+# may round the other way: 2^-6 of max|ref| (two to four bf16 ulps)
+BF16_REL_ATOL = 2.0 ** -6
+EVAL_SET = (16, 12, 720, 1280)    # videos, frames each, frame height, width
+EVAL_LANES, EVAL_CHUNK = 8, 4     # the eval CLI's defaults
 DCN_SITES = [  # name, (H, W, Cin) of the DCN input at 384x640, stride
     ('layer1_0', (96, 160, 128), 2), ('layer1_2', (48, 80, 128), 1),
     ('layer2_0', (48, 80, 256), 2), ('layer2_2', (24, 40, 256), 1),
@@ -147,15 +165,18 @@ def _device_events(fn, iters: int):
     return rows
 
 
-def _ops_s(flops: float, tf32_flops: float = 0.0) -> float:
-    """Seconds of arithmetic: fp32 flops on the CUDA cores plus TF32 flops
-    on the tensor cores, each at its peak."""
-    return flops / PEAK_FP32_FLOPS + tf32_flops / PEAK_TF32_FLOPS
+def _ops_s(flops: float, tf32_flops: float = 0.0,
+           bf16_flops: float = 0.0) -> float:
+    """Seconds of arithmetic: fp32 flops on the CUDA cores plus TF32 and
+    bf16 flops on the tensor cores, each at its peak."""
+    return (flops / PEAK_FP32_FLOPS + tf32_flops / PEAK_TF32_FLOPS
+            + bf16_flops / PEAK_BF16_FLOPS)
 
 
-def _bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0):
+def _bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0,
+              bf16_flops: float = 0.0):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = _ops_s(flops, tf32_flops) * 1e3
+    t_ops = _ops_s(flops, tf32_flops, bf16_flops) * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
@@ -176,12 +197,12 @@ def _synthetic_clip(h: int, w: int, n: int, seed: int) -> np.ndarray:
                      for i in range(n)])
 
 
-def _dcn_inputs(torch, dev, h, w, cin, stride, seed, kh=3, kw=3):
+def _dcn_inputs(torch, dev, h, w, cin, stride, seed, kh=3, kw=3, b=1):
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(1, h, w, cin, device=dev, generator=g)
-    off = torch.randn(1, ho, wo, 2 * kh * kw, device=dev, generator=g) * 2.0
-    mask = torch.rand(1, ho, wo, kh * kw, device=dev, generator=g)
+    x = torch.randn(b, h, w, cin, device=dev, generator=g)
+    off = torch.randn(b, ho, wo, 2 * kh * kw, device=dev, generator=g) * 2.0
+    mask = torch.rand(b, ho, wo, kh * kw, device=dev, generator=g)
     return x, off, mask
 
 
@@ -375,6 +396,172 @@ def _params_moved(torch, before, model, which):
                for n, p in model.named_parameters() if which in n)
 
 
+def _dcn_sites(cfg) -> int:
+    """DCN sites of the backbone (7 in the flagship)."""
+    from stmask_torch.models.backbone import _dcn_flags
+    return sum(sum(_dcn_flags(n, d, cfg.backbone.dcn_interval))
+               for n, d in zip(cfg.backbone.layers, cfg.backbone.dcn_layers))
+
+
+def _eval_cli(torch, dev, smi: str, name: str, tmp: str) -> dict:
+    """Phase 7: the eval CLI with its default flags on a synthetic
+    YouTube-VIS set, then the profile of steady chunks and the card
+    against the CPU path."""
+    import math
+
+    from stmask_torch import eval as cli
+    from stmask_torch.config import get_config
+    from stmask_torch.data.synthetic import write_ytvis_set
+    from stmask_torch.inference.pipeline import (build_video_step_batched,
+                                                 cast_model, normalize_pad)
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+
+    n_vid, n_fr, h, w = EVAL_SET
+    cfg = get_config('STMask_plus_resnet50')
+    size = (cfg.img_h, cfg.img_w)
+    t0 = time.perf_counter()
+    # gt at the model's input size, the size the eval CLI writes masks at
+    ann, prefix = write_ytvis_set(tmp, n_vid, n_fr, h, w, seed=5, gt_hw=size)
+    print(f'[eval] wrote {n_vid} videos x {n_fr} PNG frames at {w}x{h} in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    argv = ['--ann_file', ann, '--img_prefix', prefix, '--eval_metrics',
+            '--mask_det_file', f'{tmp}/results.json']
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k.launches = 0
+    stats = cli.evaluate(argv)          # bf16, 8 lanes x 4 frames, cuda
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = (stats['n_chunks'] + 1) * EVAL_CHUNK     # and the warm-up chunk
+    print(f'[eval] launches {launches} over {stats["n_chunks"]} chunks and '
+          f'the warm-up chunk ({steps} steps of {EVAL_LANES} lanes)',
+          flush=True)
+    assert launches['deform_conv_bf16'] == _dcn_sites(cfg) * steps, \
+        launches
+    assert launches['correlation_bf16'] == EVAL_LANES * steps, launches
+    assert sum(v for n, v in launches.items() if not n.endswith('bf16')) \
+        == 0, launches
+    assert stats['n_frames'] == n_vid * n_fr, stats
+    for key in ('mAP', 'AP50', 'AP75', 'AR'):
+        assert math.isfinite(stats[key]), stats
+    with open(f'{tmp}/results.json') as fh:
+        tracks = json.load(fh)
+    assert tracks, 'no track in the results JSON'
+    for tr in tracks:
+        assert len(tr['segmentations']) == n_fr
+        for seg in tr['segmentations']:
+            assert seg is None or seg['size'] == list(size)
+    print(f'[eval] STMask_plus_resnet50 bf16, {EVAL_LANES} streams x '
+          f'{EVAL_CHUNK}-frame chunks, {n_vid} videos x {n_fr} frames of '
+          f'{w}x{h} PNG: {stats["e2e_fps"]:.2f} frames/s end to end (decode, '
+          f'resize, device, postprocess; {stats["seconds"]:.3f} s), peak '
+          f'memory {peak / 2**20:.1f} MiB, {len(tracks)} tracks, mAP '
+          f'{stats["mAP"]:.6f} AP50 {stats["AP50"]:.6f} ({name}, {smi})',
+          flush=True)
+    print('[eval] main thread ms a chunk (decode wait, upload and resize in '
+          'next_chunk; the dispatch\'s launches; waiting for the fetch; '
+          'waiting for the postprocess pool): ' + ', '.join(
+              f'{st} {v:.3f}' for st, v in stats['host_ms_per_chunk'].items()),
+          flush=True)
+    timed = cli.evaluate(argv[:-1] + [f'{tmp}/timed.json', '--time_device'])
+    print(f'[eval] --time_device: {timed["device_fps"]:.2f} frames/s '
+          f'device-only, {timed["device_ms_per_chunk"]:.3f} ms a chunk of '
+          f'{EVAL_LANES} x {EVAL_CHUNK} frames (host clock, each dispatch '
+          f'waited for), {timed["e2e_fps"]:.2f} frames/s end to end without '
+          'overlap', flush=True)
+
+    # steady chunks under torch.profiler: device busy share and launches
+    args = cli.parse_args(argv)
+    cfg, model = cli.load_model(args)
+    chunk, make_states = build_video_step_batched(
+        cfg, model, EVAL_LANES, EVAL_CHUNK, uint8_input=True, device=dev,
+        compute_dtype=torch.bfloat16)
+    clip = _synthetic_clip(cfg.img_h, cfg.img_w, EVAL_CHUNK * 4, seed=7)
+    # 4 chunks, every lane on the same frame of the clip
+    frames = torch.from_numpy(np.repeat(clip[:, None], EVAL_LANES, axis=1)
+                              ).to(dev).reshape(4, EVAL_CHUNK, EVAL_LANES,
+                                                cfg.img_h, cfg.img_w, 3)
+    first = torch.zeros(EVAL_CHUNK, EVAL_LANES, dtype=torch.bool)
+    states = make_states()
+    states, _ = chunk(states, frames[0], ~first)
+    states, _ = chunk(states, frames[1], first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in (2, 3):
+        states, _ = chunk(states, frames[c], first)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 2
+
+    def steady():
+        nonlocal states
+        for c in (2, 3):
+            states, _ = chunk(states, frames[c], first)
+
+    rows = _device_events(steady, 1)
+    prof = {'chunk_ms': wall}
+    if rows:
+        busy = sum(us for _, _, us in rows) / 2 / 1e3
+        n_kern = sum(c for _, c, _ in rows) / 2
+        prof.update(busy_ms=busy, idle=1 - busy / wall,
+                    launches_per_frame=n_kern / (EVAL_LANES * EVAL_CHUNK))
+        print(f'[profile] eval chunk ({EVAL_LANES} x {EVAL_CHUNK} frames, '
+              f'bf16): device busy {busy:.3f} ms of {wall:.3f} ms wall (idle '
+              f'share {1 - busy / wall:.3f}), '
+              f'{prof["launches_per_frame"]:.1f} kernel launches a frame')
+        for key, cnt, us in sorted(rows, key=lambda r: -r[2])[:12]:
+            print(f'[profile]   {us / 2 / 1e3:8.4f} ms/chunk {cnt / 2:6.1f}x  '
+                  f'{key[:100]}')
+    else:
+        print('[profile] torch.profiler recorded no device time: device '
+              'busy share not measured')
+    del model, chunk, states, frames
+
+    # the card against the CPU path at 96x128: the bf16 model's outputs,
+    # each within twice the CPU's own bf16-vs-fp32 gap; then one bf16
+    # batched chunk (2 lanes x 2 frames, a new video in lane 1 at step 1)
+    small = cfg.replace(img_h=96, img_w=128)
+    clip = _synthetic_clip(96, 128, 4, seed=9)
+    x = normalize_pad(small, torch.from_numpy(clip[:1]))
+    cpu = torch.device('cpu')
+    with torch.inference_mode():
+        ref32 = build_model(small, cpu, seed=0)(x)
+        ref16 = cast_model(build_model(small, cpu, seed=0), torch.bfloat16)(
+            x.bfloat16())
+        got16 = cast_model(build_model(small, dev, seed=0), torch.bfloat16)(
+            x.to(dev).bfloat16())
+    for key in ('loc', 'conf', 'centerness', 'mask_coeff', 'track', 'proto',
+                'T2S_feat', 'fpn_feat'):
+        gap = float((ref16[key].float() - ref32[key]).abs().max())
+        d = float((got16[key].float().cpu() - ref16[key].float()).abs().max())
+        print(f'[check] bf16 card vs CPU {key}: max|diff| {d:.3e} (limit '
+              f'twice the CPU bf16-vs-fp32 gap {gap:.3e})')
+        assert d <= 2 * gap, (key, d, gap)
+    fr = np.stack([clip[:2], clip[2:]], axis=1)          # [K 2, B 2]
+    fi = np.array([[True, True], [False, True]])
+    outs = []
+    for d_ in (dev, cpu):
+        ch, mk = build_video_step_batched(
+            small, build_model(small, d_, seed=0), 2, 2, uint8_input=True,
+            device=d_, compute_dtype=torch.bfloat16)
+        _, o = ch(mk(), fr, fi)
+        outs.append(type(o)(*(t.cpu() for t in o)))
+    a, b = outs
+    for t in a:
+        if t.is_floating_point():
+            assert bool(torch.isfinite(t).all())
+    same_keep = float((a.keep == b.keep).float().mean())
+    both = a.keep & b.keep
+    box_d = float((a.box - b.box)[both].abs().max()) if both.any() else 0.0
+    print(f'[check] bf16 batched chunk card vs CPU at 96x128: keep flags '
+          f'agree on {same_keep:.4f} of {a.keep.numel()} slots, '
+          f'{int(a.keep.sum())} / {int(b.keep.sum())} kept, max|box diff| '
+          f'{box_d:.3e} where both keep', flush=True)
+    return dict(stats=stats, timed=timed, launches=launches, peak=peak,
+                prof=prof)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -408,7 +595,7 @@ def main() -> int:
             print(f'[ptxas] {lib}: {line}')
 
     # ---- 2. K1 vs plain ---------------------------------------------------
-    err = {n: 0.0 for n in KERNEL_NAMES}
+    err = {n: 0.0 for n in KERNELS}
     g = torch.Generator(device=dev).manual_seed(0)
     for shape, patch in (((1, 24, 40, 256), 11), ((2, 7, 9, 96), 11),
                          ((2, 7, 9, 96), 5), ((1, 5, 70, 40), 11),
@@ -422,6 +609,23 @@ def main() -> int:
         err['correlation'] = max(err['correlation'], d)
         print(f'[K1] correlation {shape} patch {patch}: max|diff| {d:.3e} '
               '(atol 1e-5, rtol 1e-5)', flush=True)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+    # K1 on bf16 inputs: the batched eval's shape (one lane-frame) and
+    # ragged ones; both sides round every product to bf16 and sum in fp32,
+    # so only the order of the fp32 sum differs
+    for shape, patch in (((1, 24, 40, 256), 11), ((2, 7, 9, 96), 11),
+                         ((2, 7, 9, 96), 5), ((1, 5, 70, 40), 11),
+                         ((1, 3, 2, 5), 11)):
+        x1 = torch.randn(shape, device=dev, generator=g).bfloat16()
+        x2 = torch.randn(shape, device=dev, generator=g).bfloat16()
+        got = K1.correlate_cuda(x1, x2, patch)
+        want = K1.correlate_reference(x1, x2, patch)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        err['correlation_bf16'] = max(err['correlation_bf16'], d)
+        print(f'[K1 bf16] correlation {shape} patch {patch}: max|diff| '
+              f'{d:.3e} (atol 1e-5, rtol 1e-5)', flush=True)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
     # K3 at the training shape (4 clips at 384x640) and ragged ones (odd H
@@ -500,6 +704,39 @@ def main() -> int:
               f'stride {st} dilation {dil}: max|diff| {d:.3e} (atol '
               f'{FUSED_ATOL}){control}', flush=True)
         torch.testing.assert_close(got, want, atol=FUSED_ATOL, rtol=0)
+
+    # the bf16 variant: the 7 sites with 8 frames (one step of the batched
+    # eval), then ragged channels, v1, no bias, 3x5 and dilation 2
+    bf16_cases = [(site, h, w, cin, cin, 3, 3, stride, 1, True, True,
+                   EVAL_LANES) for site, (h, w, cin), stride in DCN_SITES]
+    bf16_cases += [('ragged Cin 6 stride 2 v1 no bias', 9, 11, 6, 5, 3, 3, 2,
+                    1, False, False, 2),
+                   ('ragged Cin 3 stride 1 v2', 9, 11, 3, 6, 3, 3, 1, 1,
+                    True, True, 1),
+                   ('v1 3x5', 24, 40, 256, 256, 3, 5, 1, 1, False, True, 1),
+                   ('v2 dilation 2', 13, 7, 64, 36, 3, 3, 1, 2, True, True,
+                    2)]
+    for i, (label, h, w, cin, cout, kh, kw, st, dil, v2, bias, b) in \
+            enumerate(bf16_cases):
+        x, off, mask = _dcn_inputs(torch, dev, h, w, cin, st, 500 + i, kh, kw,
+                                   b)
+        wt, bs = _dcn_weight(torch, dev, kh, kw, cin, cout, 600 + i)
+        args = tuple(None if t is None else t.bfloat16() for t in (
+            x, off, wt, mask if v2 else None, bs if bias else None)) + (
+                st, dil)
+        got = KD.deform_conv_cuda(*args)
+        want = KD.deform_conv_reference(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        d = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        err['deform_conv_bf16'] = max(err['deform_conv_bf16'], d)
+        print(f'[fused bf16] {label}: x {(b, h, w, cin)} Cout {cout} '
+              f'{kh}x{kw} stride {st} dilation {dil}: max|diff| {d:.3e} '
+              f'(max|ref| {scale:.3e}, atol {BF16_REL_ATOL:.4f} of it)',
+              flush=True)
+        assert d <= BF16_REL_ATOL * scale, (label, d, scale)
+        del x, off, mask, args, got, want
 
     # K4 at the 7 sites with 8 frames and three offset sets.  dx sums with
     # fp32 atomics and d_offset / d_mask with a warp butterfly, so the
@@ -586,6 +823,8 @@ def main() -> int:
     assert launches['deform_im2col'] == 0, launches
     assert launches['correlation_bwd'] == launches['deform_col2im'] == 0, \
         launches
+    assert launches['correlation_bf16'] == launches['deform_conv_bf16'] == 0, \
+        launches                              # an fp32 path
     assert any(bool(b) for b in bank_nonempty), \
         'candidate_shift never ran with a non-empty track bank'
     for v, f, ndet, nkeep, nvalid in per_frame:
@@ -676,6 +915,27 @@ def main() -> int:
           f'(device, CUDA events over 200 queued launches), per wrapper call '
           f'{k1_call:.5f} ms (500 back-to-back calls), plain {k1_plain:.5f} '
           f'ms, bound {k1_bound:.5f} ms ({k1_by})')
+    # RoIAlign (plain PyTorch, two einsums) at the tracker's shape: the
+    # [24, 40, 633] concatenation (121 correlation + 2 x 256 T2S channels)
+    # and the 32 shifted slots' boxes; device time of its ~30 launches a
+    # call (20 calls, so that the queue behind the sleep kernel holds them)
+    from stmask_torch.ops.roi_align import roi_align
+    feats = torch.randn(24, 40, 633, device=dev, generator=g)
+    lo = torch.rand(32, 2, device=dev, generator=g) * torch.tensor(
+        [30.0, 16.0], device=dev)
+    boxes = torch.cat([lo, lo + 2 + torch.rand(32, 2, device=dev,
+                                               generator=g) * 8], dim=1)
+    ra_ms = _device_ms(lambda: roi_align(feats, boxes), 20)
+    ra_call = _time_ms(lambda: roi_align(feats, boxes), 200)
+    # features read once, the [32, 7, 7, 633] output written once; the
+    # two contractions' flops (7 x H x W x C, then 7 x 7 x W x C per box)
+    ra_flops = 2 * 32 * (7 * 24 * 40 * 633 + 7 * 7 * 40 * 633)
+    ra_bound, ra_by = _bound_ms(4 * (feats.numel() + 32 * 49 * 633),
+                                ra_flops)
+    print(f'[time] roi_align [24,40,633], 32 boxes, fp32 (plain PyTorch): '
+          f'{ra_ms:.5f} ms (device), per call {ra_call:.5f} ms, bound '
+          f'{ra_bound:.5f} ms ({ra_by})')
+
     def tally(acc, ms, call, plain, nbytes, flops, tf32_flops=0.0):
         bound, by = _bound_ms(nbytes, flops, tf32_flops)
         for key, v in (('ms', ms), ('call_ms', call), ('plain_ms', plain),
@@ -737,6 +997,62 @@ def main() -> int:
           f'bias) {before:.5f} ms, plain {kd["plain_ms"]:.5f} ms, bound '
           f'{kd["bound_ms"]:.5f} ms; dense 3x3 cuDNN conv (not the same '
           f'function) {dense:.5f} ms ({smi})')
+
+    # the bf16 variants.  K1 on bf16 [1,24,40,256] (one lane-frame of the
+    # batched eval): half the input bytes, the same fp32 flops.
+    x1b, x2b = x1.bfloat16(), x2.bfloat16()
+    k1b_ms = _device_ms(lambda: K1.correlate_cuda(x1b, x2b, 11), 200)
+    k1b_call = _time_ms(lambda: K1.correlate_cuda(x1b, x2b, 11), 500)
+    k1b_plain = _time_ms(lambda: K1.correlate_reference(x1b, x2b, 11), 50)
+    k1b_bound, k1b_by = _bound_ms(2 * 2 * x1.numel() + 4 * 960 * 121,
+                                  2 * 960 * 121 * 256)
+    print(f'[time] correlation bf16 [1,24,40,256] P 11: kernel {k1b_ms:.5f} '
+          f'ms (device), per wrapper call {k1b_call:.5f} ms, plain '
+          f'{k1b_plain:.5f} ms, bound {k1b_bound:.5f} ms ({k1b_by}); fp32 '
+          f'sibling {k1_ms:.5f} ms')
+    # the fused conv at the 7 sites with 8 frames (one step of the batched
+    # eval): bf16 beside fp32.  Bound of bf16: x, offset, mask, weight,
+    # bias read once and out written once at 2 bytes; the gather's flops at
+    # the fp32 peak plus 2*M*N*K at the bf16 tensor-core peak.
+    kdb, kd8 = {}, {}
+    for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
+        x, off, mask = _dcn_inputs(torch, dev, h, w, cin, stride, i,
+                                   b=EVAL_LANES)
+        wt, bias = _dcn_weight(torch, dev, 3, 3, cin, cin, i)
+        _, flops = _dcn_cost(torch, x, off, stride)
+        m_sites = off.shape[0] * off.shape[1] * off.shape[2]
+        n_el = (x.numel() + off.numel() + mask.numel() + wt.numel()
+                + bias.numel() + m_sites * cin)
+        mm = 2 * m_sites * cin * 9 * cin
+        ms8 = _device_ms(lambda: KD.deform_conv_cuda(
+            x, off, wt, mask, bias, stride), 50)
+        call8 = _time_ms(lambda: KD.deform_conv_cuda(
+            x, off, wt, mask, bias, stride), 50)
+        tally(kd8, ms8, call8, 0.0, 4 * n_el, flops, 3 * mm)
+        xb, offb, wtb, maskb, biasb = (t.bfloat16() for t in (
+            x, off, wt, mask, bias))
+        ms = _device_ms(lambda: KD.deform_conv_cuda(
+            xb, offb, wtb, maskb, biasb, stride), 100)
+        call = _time_ms(lambda: KD.deform_conv_cuda(
+            xb, offb, wtb, maskb, biasb, stride), 100)
+        plain = _time_ms(lambda: KD.deform_conv_reference(
+            xb, offb, wtb, maskb, biasb, stride), 3, warmup=1)
+        bound, by = _bound_ms(2 * n_el, flops, bf16_flops=mm)
+        for key, v in (('ms', ms), ('call_ms', call), ('plain_ms', plain),
+                       ('bound_ms', bound), ('bytes_s',
+                                             2 * n_el / PEAK_BYTES_PER_S),
+                       ('ops_s', _ops_s(flops, bf16_flops=mm))):
+            kdb[key] = kdb.get(key, 0.0) + v
+        print(f'[time] deform_conv bf16 {site} x {EVAL_LANES} frames: kernel '
+              f'{ms:.5f} ms (device), per wrapper call {call:.5f} ms, plain '
+              f'{plain:.5f} ms, bound {bound:.5f} ms ({by}; {2 * n_el} B, '
+              f'{flops} fp32 flop, {mm} bf16 flop); fp32 sibling {ms8:.5f} ms')
+        del x, off, mask, xb, offb, maskb
+    print(f'[time] deform_conv bf16, 7 sites x {EVAL_LANES} frames summed: '
+          f'{kdb["ms"]:.5f} ms (device), per call {kdb["call_ms"]:.5f} ms, '
+          f'plain {kdb["plain_ms"]:.5f} ms, bound {kdb["bound_ms"]:.5f} ms; '
+          f'fp32 sibling {kd8["ms"]:.5f} ms (bound {kd8["bound_ms"]:.5f} ms) '
+          f'({smi})', flush=True)
 
     # ---- 6. the training step ----------------------------------------------
     from stmask_torch.data.transforms import prepare_batch
@@ -924,6 +1240,11 @@ def main() -> int:
           f'deform_im2col {k2t["ms"]:.5f} ms, bound {k2t["bound_ms"]:.5f} ms '
           f'({smi})', flush=True)
 
+    # ---- 7. the eval CLI --------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = _eval_cli(torch, dev, smi, name, tmp)
+    eval_launches = ev['launches']
+
     def by_of(acc):
         return 'bytes' if acc['bytes_s'] >= acc['ops_s'] else 'operations'
 
@@ -933,6 +1254,9 @@ def main() -> int:
                  'frames')
     train_path = (f'training step, {TRAIN_STEPS} steps of {TRAIN_CLIPS} '
                   'clips')
+    cli_path = (f'eval CLI (bf16, {EVAL_LANES} streams x {EVAL_CHUNK}-frame '
+                f'chunks), {ev["stats"]["n_chunks"]} chunks and a warm-up '
+                'chunk')
     table = {'kernels': [
         {'name': 'correlation', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/correlation.cu',
@@ -944,6 +1268,16 @@ def main() -> int:
          'plain_ms': k1_plain, 'bound_ms': k1_bound, 'bound_by': k1_by,
          'library_ms': None,
          'shape': 'x1, x2 [1,24,40,256] fp32, patch 11; one launch'},
+        {'name': 'correlation_bf16', 'route': 'cuda',
+         'source': 'stmask_torch/kernels/csrc/correlation.cu',
+         'replaces': 'stmask_tpu/kernels/correlation_pallas.py:35',
+         'launches': eval_launches['correlation_bf16'],
+         'launches_path': cli_path,
+         'max_abs_err': err['correlation_bf16'], 'ms': k1b_ms,
+         'call_ms': k1b_call, 'plain_ms': k1b_plain, 'bound_ms': k1b_bound,
+         'bound_by': k1b_by, 'library_ms': None, 'fp32_ms': k1_ms,
+         'shape': 'x1, x2 [1,24,40,256] bf16, patch 11, fp32 out; one '
+                  'launch'},
         {'name': 'deform_im2col', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/deform_im2col.cu',
          'replaces': 'stmask_tpu/ops/deform_conv.py:31',
@@ -966,6 +1300,17 @@ def main() -> int:
          'plain_ms': kd['plain_ms'], 'bound_ms': kd['bound_ms'],
          'bound_by': by_of(kd), 'library_ms': None,
          'before_ms': before, 'shape': sites},
+        {'name': 'deform_conv_bf16', 'route': 'cuda',
+         'source': 'stmask_torch/kernels/csrc/deform_conv.cu',
+         'replaces': 'stmask_tpu/ops/deform_conv.py:31',
+         'launches': eval_launches['deform_conv_bf16'],
+         'launches_path': cli_path,
+         'max_abs_err': err['deform_conv_bf16'], 'ms': kdb['ms'],
+         'call_ms': kdb['call_ms'], 'plain_ms': kdb['plain_ms'],
+         'bound_ms': kdb['bound_ms'], 'bound_by': by_of(kdb),
+         'library_ms': None, 'fp32_ms': kd8['ms'],
+         'shape': sites.replace('one 384x640 frame',
+                                f'{EVAL_LANES} 384x640 frames in bf16')},
         {'name': 'correlation_bwd', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/correlation_bwd.cu',
          'replaces': 'stmask_tpu/ops/correlation.py:22 (its XLA transpose; '

@@ -2,8 +2,10 @@
 
 A second package beside the JAX reference (``stmask_tpu``); it imports
 neither JAX nor ``stmask_tpu``.  Entry points run on ``cuda`` unless the
-caller passes ``device='cpu'``.  The eval video step of the flagship
-preset ``STMask_plus_resnet50`` is ported; ROADMAP.md lists the rest.
+caller passes ``device='cpu'``.  The flagship preset
+``STMask_plus_resnet50`` is ported for eval (the video steps, fp32 and
+bf16, and the eval CLI ``python -m stmask_torch.eval``) and for training;
+ROADMAP.md lists the rest.
 """
 
 __version__ = '0.1.0'

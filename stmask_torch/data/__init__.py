@@ -1,2 +1,2 @@
-"""Device-side batch preparation for training (the torch half of
-``stmask_tpu/data/transforms.py``)."""
+"""Frame decoding, the YouTube-VIS annotation accessors, frame and batch
+preparation on the device, and a synthetic YouTube-VIS writer."""

@@ -1,9 +1,12 @@
-"""Device-side preparation of training batches (port of the ``*_device``
-functions and ``pad_gt`` of ``stmask_tpu/data/transforms.py``).
+"""Device-side preparation of frames and training batches (port of
+``preprocess_frame_u8``, the ``*_device`` functions and ``pad_gt`` of
+``stmask_tpu/data/transforms.py``).
 
-A batch in ``ClipLoader``'s format (``image_u8=True``) carries uint8 frames
-[B, 2, img_h, img_w, 3] and bit-packed gt masks; the card normalizes and
-pads the frames and unpacks the masks.
+An eval frame is resized on the device to (img_w, img_h) and stays uint8;
+the video step normalizes and pads it.  A batch in ``ClipLoader``'s format
+(``image_u8=True``) carries uint8 frames [B, 2, img_h, img_w, 3] and
+bit-packed gt masks; the card normalizes and pads the frames and unpacks
+the masks.
 """
 
 from __future__ import annotations
@@ -12,9 +15,36 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import STMaskConfig
 from ..inference.pipeline import normalize_pad
+
+
+def resize_u8(img: torch.Tensor, size_hw) -> torch.Tensor:
+    """uint8 [H, W, C] -> uint8 [h, w, C], bilinear as cv2 ``INTER_LINEAR``
+    computes it: half-pixel centres, the edge pixel repeated, no
+    antialiasing, rounded half up.  cv2 sums 8-bit images in fixed point
+    (11-bit weights), this in float32, so a pixel can differ by one grey
+    level."""
+    h, w = size_hw
+    if tuple(img.shape[:2]) == (h, w):
+        return img
+    x = img.permute(2, 0, 1)[None].float()
+    y = F.interpolate(x, size=(h, w), mode='bilinear', align_corners=False)
+    y = torch.floor(y + 0.5).clamp_(0, 255).to(torch.uint8)
+    return y[0].permute(1, 2, 0).contiguous()
+
+
+def preprocess_frame_u8(cfg: STMaskConfig, img_rgb,
+                        device: torch.device | str = 'cpu') -> Dict:
+    """An RGB uint8 frame of any size (numpy or tensor) -> its (img_w,
+    img_h) resize on ``device``, still uint8 (``transforms.py:115-125``);
+    normalization and padding happen in the video step."""
+    img = torch.as_tensor(img_rgb).to(device, non_blocking=True)
+    return {'image': resize_u8(img, (cfg.img_h, cfg.img_w)),
+            'img_shape': (cfg.img_h, cfg.img_w),
+            'pad_shape': (cfg.pad_h, cfg.pad_w)}
 
 
 def train_base_transform(cfg: STMaskConfig, images: torch.Tensor

@@ -57,8 +57,10 @@ class TrackState(NamedTuple):
 def init_state(cfg: STMaskConfig, feat_shape: Tuple[int, int],
                proto_shape: Tuple[int, int], feat_ch: int = 256,
                embed_dim: int | None = None,
-               device: torch.device | str = 'cpu') -> TrackState:
-    """An empty bank (every field zero / False)."""
+               device: torch.device | str = 'cpu',
+               feat_dtype: torch.dtype = torch.float32) -> TrackState:
+    """An empty bank (every field zero / False); the previous-frame
+    features in ``feat_dtype`` (the compute dtype, ``tracker.py:66-80``)."""
     t = cfg.track_capacity
     e = embed_dim or cfg.embed_dim
     f32 = dict(dtype=torch.float32, device=device)
@@ -74,8 +76,10 @@ def init_state(cfg: STMaskConfig, feat_shape: Tuple[int, int],
         valid=torch.zeros((t,), dtype=torch.bool, device=device),
         obj_id=torch.zeros((t,), **i64),
         next_id=torch.zeros((), **i64),
-        fpn_feat=torch.zeros((*feat_shape, feat_ch), **f32),
-        t2s_feat=torch.zeros((*feat_shape, feat_ch), **f32))
+        fpn_feat=torch.zeros((*feat_shape, feat_ch), dtype=feat_dtype,
+                             device=device),
+        t2s_feat=torch.zeros((*feat_shape, feat_ch), dtype=feat_dtype,
+                             device=device))
 
 
 def _blend(cond: torch.Tensor, a: TrackState, b: TrackState) -> TrackState:
@@ -89,13 +93,18 @@ def candidate_shift(cfg: STMaskConfig, temporal_net_fn: TemporalNetFn,
                     cur_proto: torch.Tensor) -> TrackState:
     """Shift track boxes/coeffs/masks to the current frame (reference
     TF_utils.py:12-51).  The TemporalNet runs on the first
-    ``shift_capacity`` *active* slots only; decay and aging apply to all."""
+    ``shift_capacity`` *active* slots only; decay and aging apply to all.
+
+    With bf16 features the correlation (bf16 in, fp32 out, as the TPU's
+    Pallas kernel) promotes the concatenation to fp32, so RoIAlign and the
+    TemporalNet run in fp32, as ``jnp.concatenate`` promotes in the JAX
+    package."""
     h4, w4, _ = cur_fpn_feat.shape
     x_corr = correlate(state.fpn_feat[None].contiguous(),
                        cur_fpn_feat[None].contiguous(),
                        patch_size=cfg.correlation_patch_size)[0]
-    concat = F.relu(torch.cat([x_corr, state.t2s_feat, cur_t2s_feat],
-                              dim=-1))
+    concat = F.relu(torch.cat([x_corr, state.t2s_feat.to(x_corr.dtype),
+                               cur_t2s_feat.to(x_corr.dtype)], dim=-1))
 
     s_cap = min(cfg.shift_capacity, cfg.track_capacity)
     active = state.valid & ~((state.score <= cfg.eval_conf_thresh)

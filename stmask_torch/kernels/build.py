@@ -135,11 +135,12 @@ class CudaKernel:
         self.launches += 1
 
 
-def check_cuda_f32(name: str, *tensors: torch.Tensor,
-                   contiguous: bool = True) -> None:
-    """Raise unless every tensor is a float32 CUDA tensor on one device,
-    and a contiguous one unless ``contiguous`` is False.  A tensor that
-    needs a gradient is refused while autograd records: the kernels are
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtype: torch.dtype = torch.float32,
+               contiguous: bool = True) -> None:
+    """Raise unless every tensor is a CUDA tensor of ``dtype`` on one
+    device, and a contiguous one unless ``contiguous`` is False.  A tensor
+    that needs a gradient is refused while autograd records: the kernels are
     differentiated only through the ``torch.autograd.Function``s of
     ``ops.correlation`` and ``ops.deform_conv``, whose forward runs with
     recording off."""
@@ -148,8 +149,8 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor,
         if t.device.type != 'cuda' or t.device != dev:
             raise ValueError(f'{name}: expected CUDA tensors on one device, '
                              f'got {t.device} and {dev}')
-        if t.dtype != torch.float32:
-            raise TypeError(f'{name}: expected float32, got {t.dtype}')
+        if t.dtype != dtype:
+            raise TypeError(f'{name}: expected {dtype}, got {t.dtype}')
         if contiguous and not t.is_contiguous():
             raise ValueError(f'{name}: expected contiguous tensors')
         if t.requires_grad and torch.is_grad_enabled():

@@ -17,7 +17,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .build import CudaKernel, check_cuda_f32
+from .build import CudaKernel, check_cuda
 
 KERNEL = CudaKernel('correlation_bwd', 'stmask_correlation_bwd',
                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -46,7 +46,7 @@ def correlation_bwd_cuda(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
                          patch_size: int = 11
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K3 on contiguous fp32 CUDA tensors (shapes as above)."""
-    check_cuda_f32('correlation_bwd_cuda', g, x1, x2)
+    check_cuda('correlation_bwd_cuda', g, x1, x2)
     if x1.dim() != 4 or x1.shape != x2.shape:
         raise ValueError(f'correlation_bwd_cuda: x1 {tuple(x1.shape)} and x2 '
                          f'{tuple(x2.shape)} must be equal [B, H, W, C]')

@@ -1,4 +1,5 @@
-// K1: cross-frame local correlation (cost volume), fp32, NHWC.
+// K1: cross-frame local correlation (cost volume), NHWC, fp32 or bf16
+// inputs (one kernel template), fp32 output.
 //
 // Replaces: stmask_tpu/kernels/correlation_pallas.py::correlate_pallas
 // (_corr_kernel), the JAX package's Pallas kernel, called by the tracker's
@@ -35,19 +36,35 @@
 // level (a fixed order: deterministic), and each output is written once
 // by one of the CL threads.  (Run as P dependent chains, one value at a
 // time, the butterfly's shuffle latency cost more than the math.)
+//
+// bf16 inputs (the tracker's bf16 features in the JAX package's bf16 eval;
+// the Pallas kernel's arithmetic, correlation_pallas.py:28-30): the rows
+// are staged as bf16 (half the bytes, 16-byte copies of 8 channels) and
+// widened to fp32 in registers; each product of two bf16 values (exact in
+// fp32) is rounded to bf16, and the products are summed in fp32, scaled by
+// 1/C and written as fp32.  Tiling, chunks and the butterfly are those of
+// fp32; rows are padded by 8 bf16 (16 bytes).
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int TX = 2;            // columns per thread
 constexpr int MAX_TILE = 64;     // columns per block
 constexpr int THREADS = 512;
 constexpr int CHUNK = 128;       // channels staged per pass
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -61,30 +78,48 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(pred ? 4 : 0));
 }
 
+// Four neighbouring channels from shared memory, as fp32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// x rounded to bf16 (round to nearest even), as an fp32 value
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T>
 struct Args {
-  const float* x1;
-  const float* x2;
+  const T* x1;
+  const T* x2;
   float* out;
-  int H, W, C, tile, cc, ldc, cl, act, vec4;
+  int H, W, C, tile, cc, ldc, cl, act, vec;
 };
 
 // Stage channels [c0, c0 + cc) of x1's row tile [tile] and x2's row tile
-// [tile + 2r] (columns x0 - r ...) into one buffer, rows ldc floats apart.
-template <int P>
-__device__ __forceinline__ void stage(const Args& a, float* s, int b, int y,
+// [tile + 2r] (columns x0 - r ...) into one buffer, rows ldc elements apart.
+template <int P, typename T>
+__device__ __forceinline__ void stage(const Args<T>& a, T* s, int b, int y,
                                       int gy, int x0, int c0) {
   constexpr int R = (P - 1) / 2;
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   const int rows1 = a.tile, rows = 2 * a.tile + 2 * R;
   const int64_t row1 = (static_cast<int64_t>(b) * a.H + y) * a.W;
   const int64_t row2 = (static_cast<int64_t>(b) * a.H + gy) * a.W;
-  if (a.vec4) {
-    const int per_row = a.cc / 4;
+  if (a.vec) {
+    const int per_row = a.cc / VEC;
     for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
-      const int rr = e / per_row, c = c0 + (e - rr * per_row) * 4;
+      const int rr = e / per_row, c = c0 + (e - rr * per_row) * VEC;
       const int gx = rr < rows1 ? x0 + rr : x0 - R + rr - rows1;
       const bool ok = gx >= 0 && gx < a.W && c < a.C;
-      const float* src = rr < rows1 ? a.x1 + (row1 + gx) * a.C + c
-                                    : a.x2 + (row2 + gx) * a.C + c;
+      const T* src = rr < rows1 ? a.x1 + (row1 + gx) * a.C + c
+                                : a.x2 + (row2 + gx) * a.C + c;
       cp_async16(s + rr * a.ldc + c - c0, ok ? src : a.x1, ok);
     }
   } else {
@@ -92,19 +127,26 @@ __device__ __forceinline__ void stage(const Args& a, float* s, int b, int y,
       const int rr = e / a.cc, c = c0 + (e - rr * a.cc);
       const int gx = rr < rows1 ? x0 + rr : x0 - R + rr - rows1;
       const bool ok = gx >= 0 && gx < a.W && c < a.C;
-      const float* src = rr < rows1 ? a.x1 + (row1 + gx) * a.C + c
-                                    : a.x2 + (row2 + gx) * a.C + c;
-      cp_async4(s + rr * a.ldc + c - c0, ok ? src : a.x1, ok);
+      const T* src = rr < rows1 ? a.x1 + (row1 + gx) * a.C + c
+                                : a.x2 + (row2 + gx) * a.C + c;
+      if constexpr (kF32<T>) {
+        cp_async4(s + rr * a.ldc + c - c0, ok ? src : a.x1, ok);
+      } else {
+        // no 2-byte cp.async: a plain copy (this buffer is read after the
+        // next barrier)
+        s[rr * a.ldc + c - c0] = ok ? __ldg(src) : __float2bfloat16_rn(0.f);
+      }
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int P>
+template <int P, typename T>
 __global__ void __launch_bounds__(THREADS)
-    correlation_kernel(const Args a) {
+    correlation_kernel(const Args<T> a) {
   constexpr int R = (P - 1) / 2;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
   const int b = blockIdx.z;
   const int y = blockIdx.y / P, dy = blockIdx.y % P;
   const int gy = y + dy - R;
@@ -124,7 +166,7 @@ __global__ void __launch_bounds__(THREADS)
   const int cl = a.cl;               // threads per column group
   const int g = threadIdx.x / cl;    // columns TX*g .. TX*g + TX - 1
   const int lane_c = threadIdx.x % cl;
-  const int stage_floats = (2 * a.tile + 2 * R) * a.ldc;
+  const int stage_elems = (2 * a.tile + 2 * R) * a.ldc;
   const int nchunk = (a.C + a.cc - 1) / a.cc;
 
   float acc[TX][P];
@@ -136,31 +178,34 @@ __global__ void __launch_bounds__(THREADS)
   stage<P>(a, smem, b, y, gy, x0, 0);
   for (int k = 0; k < nchunk; ++k) {
     if (k + 1 < nchunk) {
-      stage<P>(a, smem + ((k + 1) % 2) * stage_floats, b, y, gy, x0,
+      stage<P>(a, smem + ((k + 1) % 2) * stage_elems, b, y, gy, x0,
                (k + 1) * a.cc);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
-    const float* s1 = smem + (k % 2) * stage_floats + TX * g * a.ldc;
-    const float* s2 = s1 + a.tile * a.ldc;   // x2 column TX*g - R + j
+    const T* s1 = smem + (k % 2) * stage_elems + TX * g * a.ldc;
+    const T* s2 = s1 + a.tile * a.ldc;   // x2 column TX*g - R + j
     if (TX * g < ncol) {
       for (int c = 4 * lane_c; c < a.cc; c += 4 * cl) {
         float4 u[TX];
 #pragma unroll
-        for (int i = 0; i < TX; ++i)
-          u[i] = *reinterpret_cast<const float4*>(s1 + i * a.ldc + c);
+        for (int i = 0; i < TX; ++i) u[i] = load4(s1 + i * a.ldc + c);
 #pragma unroll
         for (int j = 0; j < TX + P - 1; ++j) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(s2 + j * a.ldc + c);
+          const float4 v = load4(s2 + j * a.ldc + c);
 #pragma unroll
           for (int i = 0; i < TX; ++i) {
             const int d = j - i;
-            if (d >= 0 && d < P)
-              acc[i][d] += u[i].x * v.x + u[i].y * v.y + u[i].z * v.z +
-                           u[i].w * v.w;
+            if (d >= 0 && d < P) {
+              if constexpr (kF32<T>)
+                acc[i][d] += u[i].x * v.x + u[i].y * v.y + u[i].z * v.z +
+                             u[i].w * v.w;
+              else
+                acc[i][d] += rbf(u[i].x * v.x) + rbf(u[i].y * v.y) +
+                             rbf(u[i].z * v.z) + rbf(u[i].w * v.w);
+            }
           }
         }
       }
@@ -195,10 +240,11 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int P>
-cudaError_t launch(const Args& base, int B, cudaStream_t stream) {
+template <int P, typename T>
+cudaError_t launch(const Args<T>& base, int B, cudaStream_t stream) {
   constexpr int R = (P - 1) / 2;
-  Args a = base;
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  Args<T> a = base;
   // a whole number of column groups, so a group never reads past x2's tile
   a.tile = min((a.W + TX - 1) / TX * TX, MAX_TILE);
   const int groups = (a.tile + TX - 1) / TX;
@@ -208,40 +254,40 @@ cudaError_t launch(const Args& base, int B, cudaStream_t stream) {
   while (a.cl < 32 && groups * a.cl * 2 <= THREADS &&
          a.cl * 4 < (a.C + 3) / 4 * 4)
     a.cl *= 2;
-  // channel chunks of up to CHUNK, double-buffered when there are several
+  // channel chunks of up to CHUNK (a whole number of 16-byte copies when
+  // vectorised), double-buffered when there are several; rows padded by
+  // 16 bytes
   const int rows = 2 * a.tile + 2 * R;
-  a.cc = min((a.C + 3) / 4 * 4, CHUNK);
-  a.ldc = a.cc + 4;
+  const int step = a.vec ? VEC : 4;
+  a.cc = min((a.C + step - 1) / step * step, CHUNK);
+  a.ldc = a.cc + VEC;
   const int nchunk = (a.C + a.cc - 1) / a.cc;
   const size_t smem = static_cast<size_t>(nchunk > 1 ? 2 : 1) * rows *
-                      a.ldc * sizeof(float);
+                      a.ldc * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        correlation_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        correlation_kernel<P, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int threads = (groups * a.cl + 31) / 32 * 32;
   const dim3 grid((a.W + a.tile - 1) / a.tile, a.H * P, B);
-  correlation_kernel<P><<<grid, threads, smem, stream>>>(a);
+  correlation_kernel<P, T><<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x1, x2: [B, H, W, C] fp32 contiguous; out: [B, H, W, patch^2]; patch odd,
-// 1 to 31.  Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int stmask_correlation(const float* x1, const float* x2,
-                                  float* out, int B, int H, int W, int C,
-                                  int patch, int apply_activation,
-                                  void* stream) {
+template <typename T>
+int run(const T* x1, const T* x2, float* out, int B, int H, int W, int C,
+        int patch, int apply_activation, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || patch <= 0 || patch % 2 == 0
       || patch > 31 || static_cast<int64_t>(H) * patch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(x2) % 16 == 0;
-  const Args a{x1, x2, out, H, W, C, 0, 0, 0, 0, apply_activation,
-               vec4 ? 1 : 0};
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const bool vec = C % VEC == 0 &&
+                   reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x2) % 16 == 0;
+  const Args<T> a{x1, x2, out, H, W, C, 0, 0, 0, 0, apply_activation,
+                  vec ? 1 : 0};
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (patch) {
@@ -263,4 +309,24 @@ extern "C" int stmask_correlation(const float* x1, const float* x2,
     default: e = launch<31>(a, B, s); break;
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// x1, x2: [B, H, W, C] contiguous, fp32 (stmask_correlation) or bf16
+// (stmask_correlation_bf16); out: [B, H, W, patch^2] fp32; patch odd, 1 to
+// 31.  Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int stmask_correlation(const float* x1, const float* x2,
+                                  float* out, int B, int H, int W, int C,
+                                  int patch, int apply_activation,
+                                  void* stream) {
+  return run<float>(x1, x2, out, B, H, W, C, patch, apply_activation, stream);
+}
+
+extern "C" int stmask_correlation_bf16(const void* x1, const void* x2,
+                                       float* out, int B, int H, int W, int C,
+                                       int patch, int apply_activation,
+                                       void* stream) {
+  return run<bf16>(static_cast<const bf16*>(x1), static_cast<const bf16*>(x2),
+                   out, B, H, W, C, patch, apply_activation, stream);
 }

@@ -1,5 +1,5 @@
 // Fused modulated deformable conv (gather, GEMM and bias in one kernel),
-// fp32, NHWC.
+// NHWC, in fp32 or bf16 (one kernel template, two element types).
 //
 // Replaces: stmask_tpu/ops/deform_conv.py::deform_conv2d (deform_conv.py:31,
 // with ops/sampling.py::bilinear_sample_block), the exact deformable conv
@@ -68,10 +68,27 @@
 //   multiple of 4, unaligned pointers) take the same pipeline with one
 //   scalar sample per A element and 4-byte copies: right, and slow.
 // - Registers: 128 a thread (two blocks an SM), no spill.
+//
+// bf16 (the JAX package's bf16 eval, deform_conv.py:84-88 with
+// sampling.py:83): the same tiles, ring, clusters and epilogue order, with
+// the rounding points of the JAX path.  Each corner weight wy * wx is
+// computed in fp32 and rounded to bf16, each weight * sample product is
+// rounded to bf16, the four are summed in fp32 and rounded, and the
+// modulation multiply is rounded again; the sample is stored to shared
+// memory as bf16.  The weight ring holds bf16, and one
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 per 16 columns makes the
+// product exactly (no hi/lo split: bf16 x bf16 is exact in fp32), summed in
+// fp32.  The fp32 sum is rounded to bf16 and then the bias added in bf16.
+// A and B rows are BK + 8 bf16 apart (80 bytes): 16-byte aligned for
+// cp.async, and the 32 lanes' fragment words fall on 32 banks.  Bound: the
+// product's 2*M*N*K flops at 989 TFLOP/s, the gather's at 67 TFLOP/s, or
+// the bytes (half of fp32's) at 3.35 TB/s.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -79,33 +96,53 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int BM = 64;          // output sites per tile
 constexpr int BN = 128;         // output channels per tile
 constexpr int BK = 32;          // (tap, channel) columns per chunk
 constexpr int THREADS = 256;
-constexpr int A_LD = BK + 4;    // A tile [BM][A_LD] row stride
-constexpr int B_LD = BK + 4;    // B tile [BN][B_LD] row stride
 constexpr int B_STAGES = 3;
 constexpr int MAX_SPLIT = 16;   // blocks of a K-split cluster (non-portable)
-constexpr int A_STAGE = 2 * BM * A_LD;  // hi then lo parts of one A tile
-constexpr int A_FLOATS = 2 * A_STAGE;
-constexpr int B_STAGE = BN * B_LD;
-constexpr int B_FLOATS = B_STAGES * B_STAGE;
-constexpr int SMEM_BYTES = (A_FLOATS + B_FLOATS) * 4;
-static_assert(BM * BN <= A_FLOATS + B_FLOATS, "partial tile must fit");
 
+// Shared-memory geometry per element type, in elements of T.  fp32 keeps
+// the hi and lo parts of each A tile; bf16 one part.
+template <typename T>
+struct Tile {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int LD = F32 ? BK + 4 : BK + 8;   // A and B row stride
+  static constexpr int A_STAGE = (F32 ? 2 : 1) * BM * LD;
+  static constexpr int A_ELEMS = 2 * A_STAGE;
+  static constexpr int B_STAGE = BN * LD;
+  static constexpr int B_ELEMS = B_STAGES * B_STAGE;
+  static constexpr int SMEM_BYTES =
+      (A_ELEMS + B_ELEMS) * static_cast<int>(sizeof(T));
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per cp.async
+  static_assert(BM * BN * 4 <= SMEM_BYTES, "partial tile must fit");
+};
+
+template <typename T>
 struct Params {
-  const float* x;        // [B, H, W, Cin]
-  const float* offset;   // [B, Ho, Wo, >= 2K], site stride off_ld
-  const float* mask;     // [B, Ho, Wo, >= K], site stride mask_ld, or null
-  const float* weight;   // [Cout, K * Cin]
-  const float* bias;     // [Cout] or null
-  float* out;            // [B, Ho, Wo, Cout]
+  const T* x;            // [B, H, W, Cin]
+  const T* offset;       // [B, Ho, Wo, >= 2K], site stride off_ld
+  const T* mask;         // [B, Ho, Wo, >= K], site stride mask_ld, or null
+  const T* weight;       // [Cout, K * Cin]
+  const T* bias;         // [Cout] or null
+  T* out;                // [B, Ho, Wo, Cout]
   int H, W, Cin, Ho, Wo, kh, kw, stride, dilation;
   int M, N, Ktot, off_ld, mask_ld;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(__ldg(p));
+}
+// x rounded to bf16 (round to nearest even), as an fp32 value
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -143,14 +180,29 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+// d += a * b on a 16 x 8 x 16 bf16 tile (fp32 accumulate).  a[0..3]: rows
+// g, g + 8, g, g + 8 at columns 2 t4 + {0, 1}, + {0, 1}, + 8 + {0, 1},
+// + 8 + {0, 1}; b[0..1]: column g at rows 2 t4 + {0, 1} and + 8 + {0, 1};
+// the lower-index element in the low half of each register.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 // The four bilinear corners of one (site, tap): element index of each
 // corner's first channel within the site's image (-1 when outside) and its
-// weight, the modulation folded in.
+// weight.  fp32 folds the modulation into the weight; bf16 keeps the
+// weight rounded to bf16 and applies the modulation m after the sum.
+template <typename T>
 struct Corners {
-  const float* img;
+  const T* img;
   int idx[4];
   float w[4];
+  float m;
 };
 
 // One (site, tap)'s offset (dy, dx) and modulation, as read from memory.
@@ -158,18 +210,22 @@ struct TapIn {
   float dy, dx, m;
 };
 
-__device__ __forceinline__ TapIn tap_in(const Params& p, int m, int tap) {
+template <typename T>
+__device__ __forceinline__ TapIn tap_in(const Params<T>& p, int m, int tap) {
   if (m >= p.M) return TapIn{0.f, 0.f, 0.f};
-  const float* off = p.offset + static_cast<int64_t>(m) * p.off_ld + 2 * tap;
-  return TapIn{__ldg(off), __ldg(off + 1),
+  const T* off = p.offset + static_cast<int64_t>(m) * p.off_ld + 2 * tap;
+  return TapIn{ld(off), ld(off + 1),
                p.mask != nullptr
-                   ? __ldg(p.mask + static_cast<int64_t>(m) * p.mask_ld + tap)
+                   ? ld(p.mask + static_cast<int64_t>(m) * p.mask_ld + tap)
                    : 1.f};
 }
 
-__device__ __forceinline__ void corners_from(const Params& p, int m, int tap,
-                                             const TapIn& in, Corners& cn) {
+template <typename T>
+__device__ __forceinline__ void corners_from(const Params<T>& p, int m,
+                                             int tap, const TapIn& in,
+                                             Corners<T>& cn) {
   cn.img = p.x;
+  cn.m = in.m;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     cn.idx[j] = -1;
@@ -202,41 +258,63 @@ __device__ __forceinline__ void corners_from(const Params& p, int m, int tap,
     const int yy = y0 + (j >> 1), xx = x0 + (j & 1);
     if (yy >= 0 && yy < p.H && xx >= 0 && xx < p.W) {
       cn.idx[j] = (yy * p.W + xx) * p.Cin;
-      cn.w[j] = wy[j >> 1] * wx[j & 1] * mk;
+      if constexpr (Tile<T>::F32)
+        cn.w[j] = wy[j >> 1] * wx[j & 1] * mk;
+      else
+        cn.w[j] = rbf(wy[j >> 1] * wx[j & 1]);
     }
   }
 }
 
+// One channel of a bf16 sample: the rounded corner products summed in
+// fp32, rounded, times the modulation, rounded.
+__device__ __forceinline__ float bf16_sample(const float (&w)[4],
+                                             const float (&v)[4], float m) {
+  const float s = rbf(w[0] * v[0]) + rbf(w[1] * v[1]) + rbf(w[2] * v[2]) +
+                  rbf(w[3] * v[3]);
+  return rbf(rbf(s) * m);
+}
+
 // One scalar A element (site m, column k), for the shapes off the fast
 // path.
-__device__ __forceinline__ float sample_scalar(const Params& p, int m,
+template <typename T>
+__device__ __forceinline__ float sample_scalar(const Params<T>& p, int m,
                                                int k) {
   if (m >= p.M || k >= p.Ktot) return 0.f;
   const int tap = k / p.Cin, c = k - tap * p.Cin;
-  Corners cn;
+  Corners<T> cn;
   corners_from(p, m, tap, tap_in(p, m, tap), cn);
-  float v = 0.f;
+  if constexpr (Tile<T>::F32) {
+    float v = 0.f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (cn.idx[j] >= 0) v += cn.w[j] * __ldg(cn.img + cn.idx[j] + c);
-  return v;
+    for (int j = 0; j < 4; ++j)
+      if (cn.idx[j] >= 0) v += cn.w[j] * __ldg(cn.img + cn.idx[j] + c);
+    return v;
+  } else {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = cn.idx[j] >= 0 ? ld(cn.img + cn.idx[j] + c) : 0.f;
+    return bf16_sample(cn.w, v, cn.m);
+  }
 }
 
 // Weight columns [k0, k0 + BK) of output channels [n0, n0 + BN) into one
-// ring stage, [BN][B_LD]; 8 threads copy one channel's 128-byte run.
-template <bool FAST>
-__device__ __forceinline__ void load_b(const Params& p, float* bs, int k0,
+// ring stage, [BN][LD]; a channel's BK-column run comes in 16-byte copies.
+template <typename T, bool FAST>
+__device__ __forceinline__ void load_b(const Params<T>& p, T* bs, int k0,
                                        int n0) {
+  constexpr int LD = Tile<T>::LD, VEC = Tile<T>::VEC;
   const int tid = threadIdx.x;
   if (FAST) {
 #pragma unroll
-    for (int i = 0; i < BK * BN / 4 / THREADS; ++i) {
+    for (int i = 0; i < BK * BN / VEC / THREADS; ++i) {
       const int e = tid + i * THREADS;
-      const int r = e / (BK / 4), c4 = (e % (BK / 4)) * 4;
-      const bool ok = n0 + r < p.N && k0 + c4 < p.Ktot;
-      cp_async16(bs + r * B_LD + c4,
+      const int r = e / (BK / VEC), c = (e % (BK / VEC)) * VEC;
+      const bool ok = n0 + r < p.N && k0 + c < p.Ktot;
+      cp_async16(bs + r * LD + c,
                  ok ? p.weight + static_cast<int64_t>(n0 + r) * p.Ktot + k0 +
-                          c4
+                          c
                     : p.weight,
                  ok);
     }
@@ -246,30 +324,61 @@ __device__ __forceinline__ void load_b(const Params& p, float* bs, int k0,
       const int e = tid + i * THREADS;
       const int r = e / BK, c = e % BK;
       const bool ok = n0 + r < p.N && k0 + c < p.Ktot;
-      cp_async4(bs + r * B_LD + c,
-                ok ? p.weight + static_cast<int64_t>(n0 + r) * p.Ktot + k0 + c
-                   : p.weight,
-                ok);
+      const T* src =
+          ok ? p.weight + static_cast<int64_t>(n0 + r) * p.Ktot + k0 + c
+             : p.weight;
+      if constexpr (Tile<T>::F32) {
+        cp_async4(bs + r * LD + c, src, ok);
+      } else {
+        // no 2-byte cp.async: a plain copy (the stage it fills is read two
+        // chunks later, after two barriers)
+        bs[r * LD + c] = ok ? __ldg(src) : __float2bfloat16_rn(0.f);
+      }
     }
   }
 }
 
-// The A chunk held in registers between its loads and its store.
+// The A chunk held in registers between its loads and its store (bf16
+// values already rounded).
 struct AStage {
   float v[8];
 };
 
-template <bool FAST>
+// The four corner runs of one site: 4 channels each.
+template <typename T>
+struct Raw;
+template <>
+struct Raw<float> {
+  float4 r[4];
+};
+template <>
+struct Raw<bf16> {
+  uint2 r[4];
+};
+
+__device__ __forceinline__ float4 widen(const float4& v) { return v; }
+__device__ __forceinline__ float4 widen(const uint2& v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T, bool FAST>
 struct Gather {
   // fast path: thread -> sites (tid / 8) and (tid / 8 + 32), channels
   // c .. c + 3 of the chunk, c = (tid % 8) * 4 within it; corners cached
   // per tap, and the next tap's offsets and modulation read one tap ahead.
-  Corners cn[2];
+  Corners<T> cn[2];
   TapIn next[2];
   int tap = -1, next_tap = -1, c = 0;
 
   // fast path: make chunk k0 the one that issue() and combine() read.
-  __device__ __forceinline__ void begin(const Params& p, int m0, int k0) {
+  __device__ __forceinline__ void begin(const Params<T>& p, int m0, int k0) {
     const int tid = threadIdx.x;
     const int t = k0 / p.Cin;
     if (t != tap) {
@@ -287,25 +396,43 @@ struct Gather {
   }
 
   // fast path: the four corner runs of site s (zero outside the image).
-  __device__ __forceinline__ void issue(int s, float4 (&raw)[4]) const {
+  __device__ __forceinline__ void issue(int s, Raw<T>& raw) const {
+    using V = decltype(raw.r[0]);
+    using VT = typename std::remove_reference<V>::type;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      raw[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      raw.r[j] = VT{};
       if (cn[s].idx[j] >= 0)
-        raw[j] = __ldg(
-            reinterpret_cast<const float4*>(cn[s].img + cn[s].idx[j] + c));
+        raw.r[j] = __ldg(
+            reinterpret_cast<const VT*>(cn[s].img + cn[s].idx[j] + c));
     }
   }
 
-  __device__ __forceinline__ void combine(int s, const float4 (&raw)[4],
+  __device__ __forceinline__ void combine(int s, const Raw<T>& raw,
                                           AStage& st) const {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (Tile<T>::F32) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v.x += cn[s].w[j] * raw[j].x;
-      v.y += cn[s].w[j] * raw[j].y;
-      v.z += cn[s].w[j] * raw[j].z;
-      v.w += cn[s].w[j] * raw[j].w;
+      for (int j = 0; j < 4; ++j) {
+        v.x += cn[s].w[j] * raw.r[j].x;
+        v.y += cn[s].w[j] * raw.r[j].y;
+        v.z += cn[s].w[j] * raw.r[j].z;
+        v.w += cn[s].w[j] * raw.r[j].w;
+      }
+    } else {
+      float q[4][4];               // [channel][corner]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 f = widen(raw.r[j]);
+        q[0][j] = f.x;
+        q[1][j] = f.y;
+        q[2][j] = f.z;
+        q[3][j] = f.w;
+      }
+      v.x = bf16_sample(cn[s].w, q[0], cn[s].m);
+      v.y = bf16_sample(cn[s].w, q[1], cn[s].m);
+      v.z = bf16_sample(cn[s].w, q[2], cn[s].m);
+      v.w = bf16_sample(cn[s].w, q[3], cn[s].m);
     }
     st.v[4 * s] = v.x;
     st.v[4 * s + 1] = v.y;
@@ -314,8 +441,8 @@ struct Gather {
   }
 
   // other shapes: one scalar sample per element.
-  __device__ __forceinline__ void load_scalar(const Params& p, int m0, int k0,
-                                              AStage& st) const {
+  __device__ __forceinline__ void load_scalar(const Params<T>& p, int m0,
+                                              int k0, AStage& st) const {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int e = threadIdx.x + i * THREADS;
@@ -323,42 +450,79 @@ struct Gather {
     }
   }
 
-  // Store the chunk split into its hi and lo parts (as[0 .. BM*A_LD) and
-  // as[BM*A_LD ..)).
-  __device__ __forceinline__ void store(const AStage& st, float* as) const {
+  // Store the chunk: fp32 split into its hi and lo parts (as[0 .. BM*LD)
+  // and as[BM*LD ..)), bf16 as it is.
+  __device__ __forceinline__ void store(const AStage& st, T* as) const {
+    constexpr int LD = Tile<T>::LD;
     const int tid = threadIdx.x;
-    float hi[8], lo[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      hi[i] = tf32_hi(st.v[i]);
-      lo[i] = st.v[i] - hi[i];
-    }
-    if (FAST) {
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        float* a = as + (tid / 8 + 32 * s) * A_LD + (tid % 8) * 4;
-        *reinterpret_cast<float4*>(a) = make_float4(
-            hi[4 * s], hi[4 * s + 1], hi[4 * s + 2], hi[4 * s + 3]);
-        *reinterpret_cast<float4*>(a + BM * A_LD) = make_float4(
-            lo[4 * s], lo[4 * s + 1], lo[4 * s + 2], lo[4 * s + 3]);
-      }
-    } else {
+    if constexpr (Tile<T>::F32) {
+      float hi[8], lo[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int e = tid + i * THREADS;
-        as[(e / BK) * A_LD + e % BK] = hi[i];
-        as[BM * A_LD + (e / BK) * A_LD + e % BK] = lo[i];
+        hi[i] = tf32_hi(st.v[i]);
+        lo[i] = st.v[i] - hi[i];
+      }
+      if (FAST) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          float* a = as + (tid / 8 + 32 * s) * LD + (tid % 8) * 4;
+          *reinterpret_cast<float4*>(a) = make_float4(
+              hi[4 * s], hi[4 * s + 1], hi[4 * s + 2], hi[4 * s + 3]);
+          *reinterpret_cast<float4*>(a + BM * LD) = make_float4(
+              lo[4 * s], lo[4 * s + 1], lo[4 * s + 2], lo[4 * s + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = tid + i * THREADS;
+          as[(e / BK) * LD + e % BK] = hi[i];
+          as[BM * LD + (e / BK) * LD + e % BK] = lo[i];
+        }
+      }
+    } else {
+      if (FAST) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          *reinterpret_cast<uint2*>(as + (tid / 8 + 32 * s) * LD +
+                                    (tid % 8) * 4) =
+              make_uint2(pack_bf16(st.v[4 * s], st.v[4 * s + 1]),
+                         pack_bf16(st.v[4 * s + 2], st.v[4 * s + 3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = tid + i * THREADS;
+          as[(e / BK) * LD + e % BK] = __float2bfloat16_rn(st.v[i]);
+        }
       }
     }
   }
 };
 
-template <bool FAST>
+// The output value of one site and channel from its fp32 sum: fp32 adds
+// the bias; bf16 rounds the sum to bf16, then adds the bias in bf16.
+template <typename T>
+__device__ __forceinline__ float epilogue(const Params<T>& p, float acc,
+                                          int n) {
+  const float b = p.bias != nullptr ? ld(p.bias + n) : 0.f;
+  if constexpr (Tile<T>::F32)
+    return acc + b;
+  else
+    return p.bias != nullptr ? rbf(rbf(acc) + b) : rbf(acc);
+}
+
+__device__ __forceinline__ void store_out(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store_out(bf16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+template <typename T, bool FAST>
 __global__ void __launch_bounds__(THREADS, 2)
-    deform_conv_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* const a_s = smem;
-  float* const b_s = smem + A_FLOATS;
+    deform_conv_kernel(const Params<T> p) {
+  using TT = Tile<T>;
+  constexpr int LD = TT::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const a_s = reinterpret_cast<T*>(smem_raw);
+  T* const b_s = a_s + TT::A_ELEMS;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -381,49 +545,72 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  // 3xTF32 products of K columns [kk0, kk0 + 16) of the current A and B
-  // stages.
-  auto mma_steps = [&](const float* as, const float* bs, int kk0) {
+  // The products of K columns [kk0, kk0 + 16) of the current A and B
+  // stages: fp32 as 3xTF32 (two k8 steps), bf16 as one k16 step.
+  auto mma_steps = [&](const T* as, const T* bs, int kk0) {
+    if constexpr (TT::F32) {
 #pragma unroll
-    for (int kk = kk0; kk < kk0 + 16; kk += 8) {
-      uint32_t ahi[2][4], alo[2][4];
+      for (int kk = kk0; kk < kk0 + 16; kk += 8) {
+        uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* a = as + mt * 16 * LD + kk;
+          const int at[4] = {0, 8 * LD, 4, 8 * LD + 4};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            ahi[mt][r] = __float_as_uint(a[at[r]]);
+            alo[mt][r] = __float_as_uint(a[BM * LD + at[r]]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t bhi[2], blo[2];
+          const float* b = bs + nt * 8 * LD + kk;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float x = b[r * 4], hi = tf32_hi(x);
+            bhi[r] = __float_as_uint(hi);
+            blo[r] = __float_as_uint(x - hi);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(acc[mt][nt], alo[mt], bhi);
+            mma_tf32(acc[mt][nt], ahi[mt], blo);
+            mma_tf32(acc[mt][nt], ahi[mt], bhi);
+          }
+        }
+      }
+    } else {
+      uint32_t a[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        const float* a = as + mt * 16 * A_LD + kk;
-        const int at[4] = {0, 8 * A_LD, 4, 8 * A_LD + 4};
+        const T* ap = as + mt * 16 * LD + kk0;
+        const int at[4] = {0, 8 * LD, 8, 8 * LD + 8};
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          ahi[mt][r] = __float_as_uint(a[at[r]]);
-          alo[mt][r] = __float_as_uint(a[BM * A_LD + at[r]]);
-        }
+        for (int r = 0; r < 4; ++r)
+          a[mt][r] = *reinterpret_cast<const uint32_t*>(ap + at[r]);
       }
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        uint32_t bhi[2], blo[2];
-        const float* b = bs + nt * 8 * B_LD + kk;
+        const T* bp = bs + nt * 8 * LD + kk0;
+        const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(bp),
+                               *reinterpret_cast<const uint32_t*>(bp + 8)};
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float x = b[r * 4], hi = tf32_hi(x);
-          bhi[r] = __float_as_uint(hi);
-          blo[r] = __float_as_uint(x - hi);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_tf32(acc[mt][nt], alo[mt], bhi);
-          mma_tf32(acc[mt][nt], ahi[mt], blo);
-          mma_tf32(acc[mt][nt], ahi[mt], bhi);
-        }
+        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
       }
     }
   };
+  // a thread's first fragment column within a chunk: t4 of a TF32 k8
+  // fragment, 2 t4 of a bf16 k16 one
+  const int kq = TT::F32 ? t4 : 2 * t4;
 
   if (kb < ke) {
-    Gather<FAST> gather;
+    Gather<T, FAST> gather;
     AStage st;
-    float4 raw[4];
-    load_b<FAST>(p, b_s, kb * BK, n0);
+    Raw<T> raw;
+    load_b<T, FAST>(p, b_s, kb * BK, n0);
     cp_async_commit();
-    if (kb + 1 < ke) load_b<FAST>(p, b_s + B_STAGE, (kb + 1) * BK, n0);
+    if (kb + 1 < ke) load_b<T, FAST>(p, b_s + TT::B_STAGE, (kb + 1) * BK, n0);
     cp_async_commit();
     if (FAST) {
       gather.begin(p, m0, kb * BK);
@@ -443,12 +630,11 @@ __global__ void __launch_bounds__(THREADS, 2)
       cp_async_wait<1>();          // weight chunk kc has landed
       __syncthreads();             // ... for every thread, and A chunk kc too
       if (kc + 2 < ke)
-        load_b<FAST>(p, b_s + ((i + 2) % B_STAGES) * B_STAGE, (kc + 2) * BK,
-                     n0);
+        load_b<T, FAST>(p, b_s + ((i + 2) % B_STAGES) * TT::B_STAGE,
+                        (kc + 2) * BK, n0);
       cp_async_commit();
-      const float* as = a_s + (i % 2) * A_STAGE + (wm + g) * A_LD + t4;
-      const float* bs =
-          b_s + (i % B_STAGES) * B_STAGE + (wn + g) * B_LD + t4;
+      const T* as = a_s + (i % 2) * TT::A_STAGE + (wm + g) * LD + kq;
+      const T* bs = b_s + (i % B_STAGES) * TT::B_STAGE + (wn + g) * LD + kq;
       if (FAST) {
         // The next chunk's corner loads for one site are in flight while
         // half of this chunk's products run.  (On the last chunk the
@@ -466,7 +652,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         mma_steps(as, bs, 0);
         mma_steps(as, bs, 16);
       }
-      if (more) gather.store(st, a_s + ((i + 1) % 2) * A_STAGE);
+      if (more) gather.store(st, a_s + ((i + 1) % 2) * TT::A_STAGE);
     }
     cp_async_wait<0>();
   }
@@ -478,15 +664,14 @@ __global__ void __launch_bounds__(THREADS, 2)
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + wm + mt * 16 + g + 8 * h;
         if (m >= p.M) continue;
-        float* o = p.out + static_cast<int64_t>(m) * p.N;
+        T* o = p.out + static_cast<int64_t>(m) * p.N;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const int n = n0 + wn + nt * 8 + 2 * t4;
 #pragma unroll
           for (int j = 0; j < 2; ++j)
             if (n + j < p.N)
-              o[n + j] = acc[mt][nt][2 * h + j] +
-                         (p.bias != nullptr ? __ldg(p.bias + n + j) : 0.f);
+              store_out(o + n + j, epilogue(p, acc[mt][nt][2 * h + j], n + j));
         }
       }
     return;
@@ -497,7 +682,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   // in flight before the sum.
   cg::cluster_group cluster = cg::this_cluster();
   __syncthreads();                 // every thread is done with a_s / b_s
-  float* part = smem;              // [BM][BN]
+  float* part = reinterpret_cast<float*>(smem_raw);   // [BM][BN]
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -531,16 +716,20 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     const int m = m0 + rl, n = n0 + c;
     if (m >= p.M) continue;
-    float* o = p.out + static_cast<int64_t>(m) * p.N + n;
+    T* o = p.out + static_cast<int64_t>(m) * p.N + n;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (p.bias != nullptr && n + j < p.N) v[j] += __ldg(p.bias + n + j);
+      if (n + j < p.N) v[j] = epilogue(p, v[j], n + j);
     if (FAST && n < p.N) {
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      if constexpr (TT::F32)
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      else
+        *reinterpret_cast<uint2*>(o) =
+            make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (n + j < p.N) o[j] = v[j];
+        if (n + j < p.N) store_out(o + j, v[j]);
     }
   }
   cluster.sync();                  // keep every partial tile alive until read
@@ -558,19 +747,12 @@ int sm_count() {
   return count;
 }
 
-}  // namespace
-
-// x: [B, H, W, Cin]; offset: [B, Ho, Wo, 2*kh*kw] (dy, dx)-interleaved per
-// tap, sites off_ld floats apart; mask: [B, Ho, Wo, kh*kw], sites mask_ld
-// floats apart, or null (v1); weight: [Cout, kh, kw, Cin]; bias: [Cout] or
-// null; out: [B, Ho, Wo, Cout].  All fp32; x, weight and out contiguous.
-// Returns cudaGetLastError() after the launch.
-extern "C" int stmask_deform_conv(const float* x, const float* offset,
-                                  const float* mask, const float* weight,
-                                  const float* bias, float* out, int B, int H,
-                                  int W, int Cin, int Ho, int Wo, int Cout,
-                                  int kh, int kw, int stride, int dilation,
-                                  int off_ld, int mask_ld, void* stream) {
+template <typename T>
+int launch(const T* x, const T* offset, const T* mask, const T* weight,
+           const T* bias, T* out, int B, int H, int W, int Cin, int Ho,
+           int Wo, int Cout, int kh, int kw, int stride, int dilation,
+           int off_ld, int mask_ld, void* stream) {
+  using TT = Tile<T>;
   if (B < 0 || H <= 0 || W <= 0 || Cin <= 0 || Ho < 0 || Wo < 0 ||
       Cout <= 0 || kh <= 0 || kw <= 0 || stride <= 0 || dilation <= 0 ||
       off_ld < 2 * kh * kw || (mask != nullptr && mask_ld < kh * kw) ||
@@ -578,9 +760,9 @@ extern "C" int stmask_deform_conv(const float* x, const float* offset,
       static_cast<int64_t>(B) * Ho * Wo > INT32_MAX ||
       static_cast<int64_t>(kh) * kw * Cin > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{x, offset, mask, weight, bias, out, H, W, Cin, Ho, Wo, kh, kw,
-           stride, dilation, B * Ho * Wo, Cout, kh * kw * Cin, off_ld,
-           mask_ld};
+  Params<T> p{x, offset, mask, weight, bias, out, H, W, Cin, Ho, Wo, kh, kw,
+              stride, dilation, B * Ho * Wo, Cout, kh * kw * Cin, off_ld,
+              mask_ld};
   if (p.M == 0) return static_cast<int>(cudaSuccess);
   const bool fast = Cin % BK == 0 && Cout % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -598,7 +780,7 @@ extern "C" int stmask_deform_conv(const float* x, const float* offset,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(mt, nt, split);
   cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.dynamicSmemBytes = TT::SMEM_BYTES;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -609,10 +791,11 @@ extern "C" int stmask_deform_conv(const float* x, const float* offset,
   cfg.numAttrs = 1;
   static bool smem_set = false;
   if (!smem_set) {
-    for (const auto kernel : {deform_conv_kernel<true>,
-                              deform_conv_kernel<false>}) {
+    for (const auto kernel : {deform_conv_kernel<T, true>,
+                              deform_conv_kernel<T, false>}) {
       cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          TT::SMEM_BYTES);
       if (e == cudaSuccess)
         e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -621,8 +804,41 @@ extern "C" int stmask_deform_conv(const float* x, const float* offset,
     smem_set = true;
   }
   const cudaError_t e =
-      fast ? cudaLaunchKernelEx(&cfg, deform_conv_kernel<true>, p)
-           : cudaLaunchKernelEx(&cfg, deform_conv_kernel<false>, p);
+      fast ? cudaLaunchKernelEx(&cfg, deform_conv_kernel<T, true>, p)
+           : cudaLaunchKernelEx(&cfg, deform_conv_kernel<T, false>, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x: [B, H, W, Cin]; offset: [B, Ho, Wo, 2*kh*kw] (dy, dx)-interleaved per
+// tap, sites off_ld elements apart; mask: [B, Ho, Wo, kh*kw], sites mask_ld
+// elements apart, or null (v1); weight: [Cout, kh, kw, Cin]; bias: [Cout]
+// or null; out: [B, Ho, Wo, Cout].  All of one type (fp32 for
+// stmask_deform_conv, bf16 for stmask_deform_conv_bf16); x, weight and out
+// contiguous.  Returns cudaGetLastError() after the launch.
+extern "C" int stmask_deform_conv(const float* x, const float* offset,
+                                  const float* mask, const float* weight,
+                                  const float* bias, float* out, int B, int H,
+                                  int W, int Cin, int Ho, int Wo, int Cout,
+                                  int kh, int kw, int stride, int dilation,
+                                  int off_ld, int mask_ld, void* stream) {
+  return launch<float>(x, offset, mask, weight, bias, out, B, H, W, Cin, Ho,
+                       Wo, Cout, kh, kw, stride, dilation, off_ld, mask_ld,
+                       stream);
+}
+
+extern "C" int stmask_deform_conv_bf16(const void* x, const void* offset,
+                                       const void* mask, const void* weight,
+                                       const void* bias, void* out, int B,
+                                       int H, int W, int Cin, int Ho, int Wo,
+                                       int Cout, int kh, int kw, int stride,
+                                       int dilation, int off_ld, int mask_ld,
+                                       void* stream) {
+  return launch<bf16>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(offset),
+      static_cast<const bf16*>(mask), static_cast<const bf16*>(weight),
+      static_cast<const bf16*>(bias), static_cast<bf16*>(out), B, H, W, Cin,
+      Ho, Wo, Cout, kh, kw, stride, dilation, off_ld, mask_ld, stream);
 }

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import CudaKernel, check_cuda_f32
+from .build import CudaKernel, check_cuda
 
 KERNEL = CudaKernel('deform_col2im', 'stmask_deform_col2im',
                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
@@ -116,7 +116,7 @@ def deform_col2im_cuda(dcols: torch.Tensor, x: torch.Tensor,
                                   Optional[torch.Tensor]]:
     """Kernel K4 on contiguous fp32 CUDA tensors (shapes as above)."""
     tensors = (dcols, x, offset) + (() if mask is None else (mask,))
-    check_cuda_f32('deform_col2im_cuda', *tensors)
+    check_cuda('deform_col2im_cuda', *tensors)
     b, h, w, cin = x.shape
     k = kh * kw
     if offset.dim() != 4 or offset.shape[0] != b or offset.shape[3] != 2 * k:

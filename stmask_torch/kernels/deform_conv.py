@@ -1,13 +1,14 @@
-"""Fused modulated deformable conv (gather, GEMM and bias in one kernel) and
-its plain version.
+"""Fused modulated deformable conv (gather, GEMM and bias in one kernel),
+fp32 and bf16, and its plain versions.
 
 Replaces ``stmask_tpu/ops/deform_conv.py::deform_conv2d``
 (``deform_conv.py:31-89`` with ``ops/sampling.py:48-85``).  ``deform_conv``
-dispatches on the device: CPU tensors take ``deform_conv_reference`` (the
-gather of ``deform_im2col_reference`` contracted with one matmul), CUDA
-tensors take the kernel in ``csrc/deform_conv.cu`` or raise.  The weight is
-given as ``[Cout, kh, kw, Cin]``: a DCN module's OIHW weight in the
-channels-last layout, which the kernel reads in place.
+dispatches on the device and type: CPU tensors take
+``deform_conv_reference`` (fp32: the gather of ``deform_im2col_reference``
+contracted with one matmul; bf16: the JAX package's bf16 rounding points),
+CUDA tensors take the kernel of their type in ``csrc/deform_conv.cu`` or
+raise.  The weight is given as ``[Cout, kh, kw, Cin]``: a DCN module's OIHW
+weight in the channels-last layout, which the kernel reads in place.
 """
 
 from __future__ import annotations
@@ -17,12 +18,63 @@ from typing import Optional
 
 import torch
 
-from .build import CudaKernel, check_cuda_f32
+from .build import CudaKernel, check_cuda
 from .deform_im2col import deform_im2col_reference
 
-KERNEL = CudaKernel('deform_conv', 'stmask_deform_conv',
-                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
-                    + [ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+KERNEL = CudaKernel('deform_conv', 'stmask_deform_conv', _ARGTYPES)
+KERNEL_BF16 = CudaKernel('deform_conv', 'stmask_deform_conv_bf16', _ARGTYPES)
+
+
+def _rb(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (round to nearest even), kept as fp32."""
+    return t.to(torch.bfloat16).float()
+
+
+def deform_cols_bf16(x: torch.Tensor, offset: torch.Tensor,
+                     mask: Optional[torch.Tensor], kh: int, kw: int,
+                     stride: int = 1, dilation: int = 1) -> torch.Tensor:
+    """The bf16 gather as the JAX package computes it in bf16
+    (``deform_conv.py:64-81``, ``sampling.py:48-85``), held in fp32:
+    coordinates are the fp32 base grid plus the bf16 offset; the block of
+    2x2 corners starts at ``clip(floor(p), 0, size - 2)`` with hat weights
+    ``clip(1 - |p - corner|, 0, 1)`` (zero for every corner off the image);
+    each weight ``wy * wx`` is rounded to bf16, each weight * sample
+    product to bf16, the four products are summed in fp32 and rounded, and
+    the modulation multiply is rounded.  Returns [B*Ho*Wo, K*Cin] in (tap,
+    channel) order."""
+    b, h, w, cin = x.shape
+    _, ho, wo, _ = offset.shape
+    k = kh * kw
+    pad_h = (kh - 1) // 2 * dilation
+    pad_w = (kw - 1) // 2 * dilation
+    f32 = dict(dtype=torch.float32, device=x.device)
+    oy = torch.arange(ho, **f32) * stride - pad_h
+    ox = torch.arange(wo, **f32) * stride - pad_w
+    ky = torch.arange(kh, **f32) * dilation
+    kx = torch.arange(kw, **f32) * dilation
+    base_y = (oy[:, None, None, None] + ky[None, None, :, None]).expand(
+        ho, wo, kh, kw).reshape(ho, wo, k)
+    base_x = (ox[None, :, None, None] + kx[None, None, None, :]).expand(
+        ho, wo, kh, kw).reshape(ho, wo, k)
+    off = offset.float().reshape(b, ho, wo, k, 2)
+    ys = (base_y + off[..., 0]).reshape(b, -1)
+    xs = (base_x + off[..., 1]).reshape(b, -1)
+    y0 = torch.clamp(torch.floor(ys), 0, max(h - 2, 0))
+    x0 = torch.clamp(torch.floor(xs), 0, max(w - 2, 0))
+    flat = x.float().reshape(b, h * w, cin)
+    total = 0.0
+    for dy in range(min(2, h)):
+        wy = torch.clamp(1.0 - torch.abs(ys - (y0 + dy)), 0, 1)
+        for dx in range(min(2, w)):
+            wx = torch.clamp(1.0 - torch.abs(xs - (x0 + dx)), 0, 1)
+            idx = ((y0 + dy) * w + (x0 + dx)).long()
+            vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, cin))
+            total = total + _rb(vals * _rb(wy * wx)[..., None])
+    vals = _rb(total).reshape(b, ho, wo, k, cin)
+    if mask is not None:
+        vals = _rb(vals * mask.float()[..., None])
+    return vals.reshape(b * ho * wo, k * cin)
 
 
 def deform_conv_reference(x: torch.Tensor, offset: torch.Tensor,
@@ -35,22 +87,28 @@ def deform_conv_reference(x: torch.Tensor, offset: torch.Tensor,
       x: [B, H, W, Cin]; offset: [B, Ho, Wo, 2K] with (dy, dx) interleaved
         per tap, taps row-major (K = kh*kw); weight: [Cout, kh, kw, Cin];
         mask: [B, Ho, Wo, K] (already sigmoid-ed) or None; bias: [Cout] or
-        None.
+        None.  All fp32, or all bf16.
     Returns:
-      [B, Ho, Wo, Cout].
+      [B, Ho, Wo, Cout] in x's type.  In bf16 the product sums in fp32, is
+      rounded to bf16 and then the bias is added in bf16
+      (``deform_conv.py:84-88``).
     """
     cout, kh, kw, _ = weight.shape
     b = x.shape[0]
     _, ho, wo, _ = offset.shape
-    out = deform_im2col_reference(x, offset, mask, kh, kw, stride,
-                                  dilation) @ weight.reshape(cout, -1).t()
+    if x.dtype == torch.bfloat16:
+        out = (deform_cols_bf16(x, offset, mask, kh, kw, stride, dilation)
+               @ weight.float().reshape(cout, -1).t()).to(torch.bfloat16)
+    else:
+        out = deform_im2col_reference(x, offset, mask, kh, kw, stride,
+                                      dilation) @ weight.reshape(cout, -1).t()
     if bias is not None:
         out = out + bias
     return out.reshape(b, ho, wo, cout)
 
 
 def _site_stride(t: torch.Tensor, ho: int, wo: int, width: int) -> int:
-    """Floats between neighbouring sites of ``t`` [B, Ho, Wo, >= width]
+    """Elements between neighbouring sites of ``t`` [B, Ho, Wo, >= width]
     whose sites are evenly spaced with contiguous channels (as a slice of a
     contiguous NHWC tensor is), else -1."""
     s = t.stride(2)
@@ -64,15 +122,22 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
                      weight: torch.Tensor, mask: Optional[torch.Tensor],
                      bias: Optional[torch.Tensor], stride: int = 1,
                      dilation: int = 1) -> torch.Tensor:
-    """The fused kernel on fp32 CUDA tensors (shapes as above).  ``x``,
-    ``weight`` and ``bias`` are contiguous (a channels-last OIHW weight
-    permuted to [Cout, kh, kw, Cin] is); ``offset`` and ``mask`` may be
-    channel slices of a contiguous NHWC tensor."""
-    check_cuda_f32('deform_conv_cuda', *(t for t in (x, weight, bias)
-                                         if t is not None))
-    check_cuda_f32('deform_conv_cuda', x, *(t for t in (offset, mask)
-                                            if t is not None),
-                   contiguous=False)
+    """The fused kernel on CUDA tensors (shapes as above), all fp32 or all
+    bf16; a bf16 tensor takes the bf16 kernel.  ``x``, ``weight`` and
+    ``bias`` are contiguous (a channels-last OIHW weight permuted to [Cout,
+    kh, kw, Cin] is); ``offset`` and ``mask`` may be channel slices of a
+    contiguous NHWC tensor (the kernel reads them element by element, so a
+    bf16 slice of the 27-channel ``conv_offset_mask`` output needs no
+    alignment)."""
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'deform_conv_cuda: {dt} is neither float32 nor '
+                        'bfloat16')
+    check_cuda('deform_conv_cuda', *(t for t in (x, weight, bias)
+                                     if t is not None), dtype=dt)
+    check_cuda('deform_conv_cuda', x, *(t for t in (offset, mask)
+                                        if t is not None),
+               dtype=dt, contiguous=False)
     b, h, w, cin = x.shape
     if weight.dim() != 4 or weight.shape[3] != cin:
         raise ValueError(f'deform_conv_cuda: weight {tuple(weight.shape)} '
@@ -99,9 +164,9 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
         if mask_ld < 0:
             mask = mask.contiguous()
             mask_ld = k
-    out = torch.empty((b, ho, wo, cout), dtype=torch.float32,
-                      device=x.device)
-    KERNEL(x.data_ptr(), offset.data_ptr(),
+    out = torch.empty((b, ho, wo, cout), dtype=dt, device=x.device)
+    kernel = KERNEL_BF16 if dt == torch.bfloat16 else KERNEL
+    kernel(x.data_ptr(), offset.data_ptr(),
            None if mask is None else mask.data_ptr(), weight.data_ptr(),
            None if bias is None else bias.data_ptr(), out.data_ptr(),
            b, h, w, cin, ho, wo, cout, kh, kw, stride, dilation, off_ld,

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from ..ops.sampling import bilinear_sample
-from .build import CudaKernel, check_cuda_f32
+from .build import CudaKernel, check_cuda
 
 KERNEL = CudaKernel('deform_im2col', 'stmask_deform_im2col',
                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
@@ -64,7 +64,7 @@ def deform_im2col_cuda(x: torch.Tensor, offset: torch.Tensor,
                        stride: int = 1, dilation: int = 1) -> torch.Tensor:
     """Kernel K2 on contiguous fp32 CUDA tensors (shapes as above)."""
     tensors = (x, offset) if mask is None else (x, offset, mask)
-    check_cuda_f32('deform_im2col_cuda', *tensors)
+    check_cuda('deform_im2col_cuda', *tensors)
     b, h, w, cin = x.shape
     k = kh * kw
     if offset.dim() != 4 or offset.shape[0] != b or offset.shape[3] != 2 * k:

@@ -23,10 +23,20 @@ class TemporalNet(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: [N, 7, 7, C] NHWC -> (box_shift [N, 4], coeff_shift [N, 32])."""
+        """x: [N, 7, 7, C] NHWC -> (box_shift [N, 4], coeff_shift [N, 32]).
+
+        Computes in x's dtype, the weights cast to it, as flax promotes a
+        layer's parameters to its input: with bf16 weights the tracker
+        hands it fp32 features (``tracker.candidate_shift``), so it runs
+        in fp32 on the bf16-rounded weights, as on the TPU."""
+        def conv(m: nn.Conv2d, t: torch.Tensor) -> torch.Tensor:
+            return F.relu(F.conv2d(t, m.weight.to(t.dtype),
+                                   m.bias.to(t.dtype), padding=1))
+
+        def fc(m: nn.Linear, t: torch.Tensor) -> torch.Tensor:
+            return F.linear(t, m.weight.to(t.dtype), m.bias.to(t.dtype))
+
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.conv1(x))
-        x = F.relu(self.conv2(x))
-        x = F.relu(self.conv3(x))
+        x = conv(self.conv3, conv(self.conv2, conv(self.conv1, x)))
         x = x.mean(dim=(2, 3))        # 7x7 avg pool, stride 1 == mean
-        return self.fc(x), self.fc_coeff(x)
+        return fc(self.fc, x), fc(self.fc_coeff, x)

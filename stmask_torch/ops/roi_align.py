@@ -30,11 +30,17 @@ def _pooled_weights(lo: torch.Tensor, bin_sz: torch.Tensor, pool_size: int,
 def roi_align(features: torch.Tensor, boxes: torch.Tensor,
               pool_size: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
     """features [H, W, C]; boxes [N, 4] unnormalized (x1, y1, x2, y2) in
-    feature coords -> [N, P, P, C]."""
+    feature coords -> [N, P, P, C] in the features' dtype.
+
+    As in the JAX package, the weights are rounded to the features' dtype
+    and both contractions accumulate in fp32 (the products of two bf16
+    values are exact in fp32)."""
     h, w, _ = features.shape
     p = pool_size
     x1, y1, x2, y2 = boxes.unbind(dim=-1)
+    dt = features.dtype
     wy = _pooled_weights(y1, (y2 - y1) / p, p, sampling_ratio, h)
     wx = _pooled_weights(x1, (x2 - x1) / p, p, sampling_ratio, w)
-    t = torch.einsum('nph,hwc->npwc', wy, features)
-    return torch.einsum('nqw,npwc->npqc', wx, t)
+    wy, wx = wy.to(dt).float(), wx.to(dt).float()
+    t = torch.einsum('nph,hwc->npwc', wy, features.float())
+    return torch.einsum('nqw,npwc->npqc', wx, t).to(dt)

@@ -57,6 +57,27 @@ def test_default_device_is_cuda_and_raises_without_gpu():
         build_video_step(cfg, STMask(cfg))
     with pytest.raises(RuntimeError, match='CUDA'):
         build_train_step(cfg, STMask(cfg))
+    from stmask_torch.inference.pipeline import build_video_step_batched
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_video_step_batched(cfg, STMask(cfg), 2, 2,
+                                 compute_dtype=torch.bfloat16)
+
+
+def test_eval_cli_default_device_raises_without_gpu(tmp_path):
+    """``python -m stmask_torch.eval`` runs on the card unless asked for
+    the CPU: without a GPU, the default flags raise."""
+    from stmask_torch import eval as t_eval
+    from stmask_torch.data.synthetic import write_ytvis_set
+
+    if torch.cuda.is_available():
+        pytest.skip('a GPU is present: the default device is usable')
+    ann, prefix = write_ytvis_set(str(tmp_path), 1, 2, 24, 32)
+    argv = ['--ann_file', ann, '--img_prefix', prefix, '--img_h', '96',
+            '--img_w', '128', '--mask_det_file', str(tmp_path / 'r.json')]
+    for mode in ([], ['--sequential']):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            t_eval.main(argv + mode)
+    assert not (tmp_path / 'r.json').exists()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -81,6 +102,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         deform_conv_cuda(x, torch.zeros(1, 4, 5, 18),
                          torch.zeros(3, 3, 3, 8), None, None)
+    xb = x.bfloat16()           # the bf16 variants alike
+    with pytest.raises(ValueError, match='CUDA'):
+        correlate_cuda(xb, xb)
+    with pytest.raises(ValueError, match='CUDA'):
+        deform_conv_cuda(xb, torch.zeros(1, 4, 5, 18).bfloat16(),
+                         torch.zeros(3, 3, 3, 8).bfloat16(), None, None)
 
 
 def test_unported_paths_raise():

@@ -1,6 +1,6 @@
-"""CUDA kernels K1 (correlation), K2 (deformable gather), the fused
-deformable conv, K3 (correlation backward) and K4 (deformable col2im)
-against their plain PyTorch versions, on the card.  Marked
+"""CUDA kernels K1 (correlation, fp32 and bf16), K2 (deformable gather),
+the fused deformable conv (fp32 and bf16), K3 (correlation backward) and K4
+(deformable col2im) against their plain PyTorch versions, on the card.  Marked
 ``cuda``; without a GPU every test skips with its reason.  Run on a GPU
 machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
@@ -138,6 +138,64 @@ def test_deform_conv2d_takes_the_fused_kernel(device, shape):
     torch.testing.assert_close(got, want, atol=FUSED_ATOL, rtol=0)
 
 
+def _bf16_atol(want: torch.Tensor) -> float:
+    """Two to four bf16 ulps of max|want|: the kernel and the plain bf16
+    version round at the same points and sum the product in fp32 in another
+    order, so a sum near a rounding boundary can round the other way."""
+    return float(want.float().abs().max()) * 2.0 ** -6
+
+
+@pytest.mark.parametrize('shape', CORR_SHAPES)
+@pytest.mark.parametrize('patch', [5, 11])
+def test_correlation_kernel_bf16(device, shape, patch):
+    """bf16 inputs: every product rounded to bf16 on both sides, so only
+    the fp32 sum's order differs (fp32 tolerance)."""
+    g = torch.Generator(device=device).manual_seed(5)
+    x1 = torch.randn(shape, device=device, generator=g).bfloat16()
+    x2 = torch.randn(shape, device=device, generator=g).bfloat16()
+    for act in (True, False):
+        fp32, bf16 = K1.KERNEL.launches, K1.KERNEL_BF16.launches
+        got = K1.correlate_cuda(x1, x2, patch, act)
+        assert (K1.KERNEL.launches, K1.KERNEL_BF16.launches) == (fp32,
+                                                                 bf16 + 1)
+        want = K1.correlate_reference(x1, x2, patch, act)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize('shape', FUSED_SHAPES)
+def test_fused_deform_conv_kernel_bf16(device, shape):
+    h, w, cin, cout, kh, kw, stride, dil = shape
+    x, off, mask, wt, bias = (t.bfloat16() for t in _dcn_case(
+        device, h, w, cin, cout, kh, kw, stride, dil, 6))
+    for m in (mask, None):
+        for b in (bias, None):
+            fp32, bf16 = KD.KERNEL.launches, KD.KERNEL_BF16.launches
+            got = KD.deform_conv_cuda(x, off, wt, m, b, stride, dil)
+            assert (KD.KERNEL.launches, KD.KERNEL_BF16.launches) == (
+                fp32, bf16 + 1)
+            want = KD.deform_conv_reference(x, off, wt, m, b, stride, dil)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bfloat16
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=_bf16_atol(want), rtol=0)
+
+
+def test_fused_kernel_bf16_reads_strided_offset_and_mask(device):
+    """bf16 offset and mask as channel slices of one [.., 27] tensor: site
+    rows 54 bytes apart, not 16-byte aligned."""
+    x, _, _, wt, bias = (t.bfloat16() for t in _dcn_case(
+        device, 24, 40, 256, 256, 3, 3, 1, 1, 7))
+    om = torch.randn(1, 24, 40, 27, device=device).bfloat16()
+    off, mask = om[..., :18], torch.sigmoid(om[..., 18:])
+    for m in (om[..., 18:], mask):
+        got = KD.deform_conv_cuda(x, off, wt, m, bias)
+        want = KD.deform_conv_reference(x, off, wt, m, bias)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=_bf16_atol(want), rtol=0)
+
+
 def test_wrappers_reject_bad_inputs(device):
     x = torch.zeros(1, 4, 5, 8, device=device)
     with pytest.raises(TypeError):
@@ -155,6 +213,13 @@ def test_wrappers_reject_bad_inputs(device):
                             None)
     with pytest.raises(ValueError):
         K1.correlate_cuda(x, x, 33)
+    with pytest.raises(TypeError):              # mixed fp32 and bf16
+        K1.correlate_cuda(x, x.bfloat16())
+    with pytest.raises(TypeError):
+        KD.deform_conv_cuda(x.bfloat16(),
+                            torch.zeros(1, 4, 5, 18, device=device),
+                            torch.zeros(3, 3, 3, 8, device=device), None,
+                            None)
 
 
 # K3: the training shape (4 clips at 384x640) and ragged ones
