@@ -6,9 +6,11 @@
 Phases, in order (any failure raises and exits non-zero):
   1. build the CUDA kernels from stmask_torch/kernels/csrc with nvcc (one
      process per source, in parallel) and print ptxas's registers, shared
-     memory and spills of the correlation and the fused deformable conv;
-  2. K1 (correlation) against its plain PyTorch version, main-path and
-     ragged shapes, with fp32 and with bf16 inputs;
+     memory and spills of every kernel (K4 must not spill);
+  2. the frame resize (``resize_u8``) on the card against the machine's cv2
+     INTER_LINEAR, bit for bit, at the sizes of RESIZES; K1 (correlation)
+     against its plain PyTorch version, main-path and ragged shapes, with
+     fp32 and with bf16 inputs;
   3. K2 (deformable gather) against its plain version at the 7 DCN sites'
      shapes of a 384x640 input, alone and after the fp32 matmul; then the
      fused deformable conv against its plain version at the 7 sites and at
@@ -45,7 +47,11 @@ Phases, in order (any failure raises and exits non-zero):
      path at 96x128.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
-their plain versions in phases 2 and 3, beside K1, K2 and the fused conv.
+their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
+K4 at the 7 DCN sites x 8 frames with random, zero and integer offsets and
+at the shapes of K4_SHAPES (v1, 3x5 and 5x3 taps, dilation 2, ragged Cin,
+H and W off the tile, images inside the border band), with d_offset and
+d_mask bit-identical over two launches.
 
 Prints a JSON kernel table and the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}.  Without a GPU it prints no result
@@ -56,6 +62,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -87,6 +94,20 @@ KERNEL_NAMES = ('correlation', 'deform_im2col', 'deform_conv',
 BF16_REL_ATOL = 2.0 ** -6
 EVAL_SET = (16, 12, 720, 1280)    # videos, frames each, frame height, width
 EVAL_LANES, EVAL_CHUNK = 8, 4     # the eval CLI's defaults
+# K4's shapes beside the 7 sites: (H, W, Cin, stride, kh, kw, dilation,
+# v1): FCB's 3x5 and 5x3 v1 taps, dilation 2, ragged Cin, H and W off the
+# tile, images inside the border band (each footprint past every edge)
+K4_SHAPES = [(24, 40, 64, 1, 3, 5, 1, True), (24, 40, 64, 1, 5, 3, 1, True),
+             (24, 40, 256, 1, 3, 3, 1, True), (24, 40, 64, 1, 3, 3, 2, False),
+             (19, 37, 3, 1, 3, 3, 1, False), (19, 37, 6, 2, 3, 3, 1, False),
+             (13, 21, 40, 1, 3, 3, 1, False), (3, 4, 8, 1, 3, 3, 1, False),
+             (2, 3, 36, 2, 3, 3, 1, False)]
+# frame sizes (H, W) that resize_u8 takes to (360, 640), and two more
+# resizes: all bit for bit cv2's INTER_LINEAR
+RESIZES = [((h, w), (360, 640)) for h, w in (
+    (100, 77), (240, 320), (480, 640), (481, 853), (500, 500), (720, 960),
+    (720, 1280), (1080, 1440), (1080, 1920))] + [
+    ((1080, 1920), (720, 1280)), ((360, 640), (384, 640))]
 DCN_SITES = [  # name, (H, W, Cin) of the DCN input at 384x640, stride
     ('layer1_0', (96, 160, 128), 2), ('layer1_2', (48, 80, 128), 1),
     ('layer2_0', (48, 80, 256), 2), ('layer2_2', (24, 40, 256), 1),
@@ -370,14 +391,16 @@ def _col2im_cost(torch, x, off, stride, radius: int = 2):
     return nbytes, 2 * cin * (n_s + n_w)
 
 
-def _dcn_train_inputs(torch, dev, h, w, cin, stride, frames, kind, seed):
+def _dcn_train_inputs(torch, dev, h, w, cin, stride, frames, kind, seed,
+                      kh=3, kw=3):
     """K4's inputs at one DCN site: x, dcols and the mask random; the
     offsets random (std 1.5, so some pass +-2 and are clamped, as the
     window op clamps them before K4), all 0, or all +-1 / +-2."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    k = kh * kw
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(frames, h, w, cin, device=dev, generator=g)
-    shape = (frames, ho, wo, 18)
+    shape = (frames, ho, wo, 2 * k)
     if kind == 'random':
         off = torch.randn(shape, device=dev, generator=g) * 1.5
     elif kind == 'zero':
@@ -386,9 +409,27 @@ def _dcn_train_inputs(torch, dev, h, w, cin, stride, frames, kind, seed):
         vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=dev)
         off = vals[torch.randint(0, 4, shape, device=dev, generator=g)]
     off = off.clamp(-2, 2)
-    mask = torch.rand(frames, ho, wo, 9, device=dev, generator=g)
-    dcols = torch.randn(frames * ho * wo, 9 * cin, device=dev, generator=g)
+    mask = torch.rand(frames, ho, wo, k, device=dev, generator=g)
+    dcols = torch.randn(frames * ho * wo, k * cin, device=dev, generator=g)
     return dcols, x, off, mask
+
+
+def _resize_vs_cv2(torch, dev) -> None:
+    """``resize_u8`` on the card against the machine's cv2 INTER_LINEAR:
+    uint8 frames, bit for bit."""
+    import cv2
+    from stmask_torch.data.transforms import resize_u8
+    rng = np.random.RandomState(5)
+    for (h, w), (dh, dw) in RESIZES:
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        want = cv2.resize(img, (dw, dh), interpolation=cv2.INTER_LINEAR)
+        got = resize_u8(torch.from_numpy(img).to(dev), (dh, dw))
+        assert got.device.type == 'cuda' and got.dtype == torch.uint8
+        diff = np.abs(got.cpu().numpy().astype(int) - want.astype(int))
+        print(f'[resize] {h}x{w} -> {dh}x{dw} on the card vs cv2 '
+              f'{cv2.__version__}: {int((diff > 0).sum())} of {diff.size} '
+              'values differ', flush=True)
+        assert diff.max() == 0, ((h, w), (dh, dw), int(diff.max()))
 
 
 def _params_moved(torch, before, model, which):
@@ -593,8 +634,15 @@ def main() -> int:
     for lib in KERNEL_NAMES:
         for line in build.ptxas_report(lib):
             print(f'[ptxas] {lib}: {line}')
+    k4_spills = [ln for ln in build.ptxas_report('deform_col2im')
+                 if 'spill' in ln]
+    assert k4_spills and all(
+        re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
+        for ln in k4_spills), k4_spills
 
-    # ---- 2. K1 vs plain ---------------------------------------------------
+    # ---- 2. the frame resize against cv2, then K1 vs plain ----------------
+    _resize_vs_cv2(torch, dev)
+
     err = {n: 0.0 for n in KERNELS}
     g = torch.Generator(device=dev).manual_seed(0)
     for shape, patch in (((1, 24, 40, 256), 11), ((2, 7, 9, 96), 11),
@@ -738,29 +786,50 @@ def main() -> int:
         assert d <= BF16_REL_ATOL * scale, (label, d, scale)
         del x, off, mask, args, got, want
 
-    # K4 at the 7 sites with 8 frames and three offset sets.  dx sums with
-    # fp32 atomics and d_offset / d_mask with a warp butterfly, so the
-    # tolerance is 1e-5 of max|ref|.
+    # K4 at the 7 sites with 8 frames and three offset sets, then v1, FCB's
+    # 3x5 / 5x3 taps, dilation 2, ragged Cin, H and W off the tile, and
+    # images inside the border band.  dx sums with shared and global fp32
+    # atomics, so its tolerance is 1e-5 of max|ref|; d_offset and d_mask
+    # are summed in a fixed order: a second launch gives them bit for bit.
+    def check_k4(label, args, kh, kw, stride, dilation=1):
+        got = K4.deform_col2im_cuda(*args, kh, kw, stride, dilation)
+        again = K4.deform_col2im_cuda(*args, kh, kw, stride, dilation)
+        want = K4.deform_col2im_reference(*args, kh, kw, stride, dilation)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for out_name, a, b in zip(('dx', 'd_offset', 'd_mask'), got, want):
+            if b is None:
+                assert a is None, label
+                continue
+            scale = max(float(b.abs().max()), 1.0)
+            d = float((a - b).abs().max())
+            worst = max(worst, d / scale)
+            torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0,
+                                       msg=f'{label} {out_name}')
+        assert torch.equal(got[1], again[1]), f'{label}: d_offset varies'
+        assert (got[2] is None or torch.equal(got[2], again[2])), \
+            f'{label}: d_mask varies'
+        err['deform_col2im'] = max(err['deform_col2im'], worst)
+        print(f'[K4] {label}: max|diff| / max|ref| {worst:.3e} (atol 1e-5 '
+              'of max|ref|); d_offset, d_mask bit-identical over two '
+              'launches', flush=True)
+
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
         for kind in ('random', 'zero', 'integer'):
             args = _dcn_train_inputs(torch, dev, h, w, cin, stride,
                                      2 * TRAIN_CLIPS, kind, 300 + i)
-            got = K4.deform_col2im_cuda(*args, 3, 3, stride)
-            want = K4.deform_col2im_reference(*args, 3, 3, stride)
-            torch.cuda.synchronize()
-            worst = 0.0
-            for out_name, a, b in zip(('dx', 'd_offset', 'd_mask'), got,
-                                      want):
-                scale = max(float(b.abs().max()), 1.0)
-                d = float((a - b).abs().max())
-                worst = max(worst, d / scale)
-                torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0,
-                                           msg=f'{site} {kind} {out_name}')
-            err['deform_col2im'] = max(err['deform_col2im'], worst)
-            print(f'[K4] {site} x {(2 * TRAIN_CLIPS, h, w, cin)} stride '
-                  f'{stride}, {kind} offsets: max|diff| / max|ref| '
-                  f'{worst:.3e} (atol 1e-5 of max|ref|)', flush=True)
-            del args, got, want
+            check_k4(f'{site} x {(2 * TRAIN_CLIPS, h, w, cin)} stride '
+                     f'{stride}, {kind} offsets', args, 3, 3, stride)
+            del args
+    for (h, w, cin, stride, kh, kw, dil, v1) in K4_SHAPES:
+        for kind in ('random', 'integer'):
+            dcols, x, off, mask = _dcn_train_inputs(
+                torch, dev, h, w, cin, stride, 2, kind, 7, kh, kw)
+            check_k4(f'{(2, h, w, cin)} {kh}x{kw} stride {stride} dilation '
+                     f'{dil}{" v1" if v1 else ""}, {kind} offsets',
+                     (dcols, x, off, None if v1 else mask), kh, kw, stride,
+                     dil)
+            del dcols, x, off, mask
 
     # the whole window DCN op (clamp, fused forward, K2, two matmuls, K4)
     # on the card against its CPU plain path: five gradients
@@ -1198,7 +1267,7 @@ def main() -> int:
           f'ms (device), per wrapper call {k3_call:.5f} ms, plain '
           f'{k3_plain:.5f} ms, bound {k3_bound:.5f} ms ({k3_by}; {k3_bytes} '
           f'B, {k3_flops} flop)')
-    k4, k2t = {}, {}
+    k4, k2t, k4_zero = {}, {}, 0.0
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
         dcols, x, off, mask = _dcn_train_inputs(
             torch, dev, h, w, cin, stride, 2 * TRAIN_CLIPS, 'random', 400 + i)
@@ -1209,11 +1278,14 @@ def main() -> int:
                                                       3, 3, stride), 50)
         plain = _time_ms(lambda: K4.deform_col2im_reference(
             dcols, x, off, mask, 3, 3, stride), 5)
+        zero = _device_ms(lambda: torch.zeros_like(x), 50)
+        k4_zero += zero
         bound, by = tally(k4, ms, call, plain, nbytes, flops)
         print(f'[time] deform_col2im {site} x 8 frames: kernel {ms:.5f} ms '
-              f'(device, with the zeroing of dx), per wrapper call '
-              f'{call:.5f} ms, plain {plain:.5f} ms, bound {bound:.5f} ms '
-              f'({by}; {nbytes} B, {flops} flop)')
+              f'(device, with the zeroing of dx: {zero:.5f} ms alone), per '
+              f'wrapper call {call:.5f} ms, plain {plain:.5f} ms, bound '
+              f'{bound:.5f} ms ({by}; {nbytes} B, {flops} flop); plan '
+              f'{K4.col2im_plan(*off.shape[:3], cin, 3, 3, stride)}')
         got = K2.deform_im2col_cuda(x, off, mask, 3, 3, stride)
         want = K2.deform_im2col_reference(x, off, mask, 3, 3, stride)
         torch.cuda.synchronize()
@@ -1235,7 +1307,8 @@ def main() -> int:
               f'({by})')
         del dcols, x, off, mask
     print(f'[time] 7 sites x 8 frames summed: deform_col2im {k4["ms"]:.5f} '
-          f'ms (device), per call {k4["call_ms"]:.5f} ms, plain '
+          f'ms (device; the zeroing of dx {k4_zero:.5f} ms of it), per call '
+          f'{k4["call_ms"]:.5f} ms, plain '
           f'{k4["plain_ms"]:.5f} ms, bound {k4["bound_ms"]:.5f} ms; '
           f'deform_im2col {k2t["ms"]:.5f} ms, bound {k2t["bound_ms"]:.5f} ms '
           f'({smi})', flush=True)

@@ -11,37 +11,73 @@ the masks.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import STMaskConfig
 from ..inference.pipeline import normalize_pad
+from ..utils.device import resolve_device
+
+
+_COEF = 2048   # cv2's INTER_RESIZE_COEF_SCALE: 11-bit weights
+
+
+@functools.lru_cache(maxsize=32)
+def _taps(src: int, dst: int, cols: bool, device: torch.device):
+    """Per destination index: the two source indices and their 11-bit
+    weights along one axis, as cv2's ``resize`` sets them up for
+    ``INTER_LINEAR`` (the source coordinate in float32, from cv2's double
+    scale; columns clamp the coordinate at the edges, rows only the
+    indices)."""
+    scale = 1.0 / (dst / src)
+    f = ((torch.arange(dst, dtype=torch.float64) + 0.5) * scale
+         - 0.5).float()
+    s = torch.floor(f)
+    f = f - s
+    s = s.long()
+    if cols:
+        f = torch.where((s < 0) | (s >= src - 1), 0.0, f)
+        s = s.clamp(0, src - 1)
+    w1 = torch.round(f * _COEF).int()          # round half to even
+    w0 = torch.round((1.0 - f) * _COEF).int()
+    s0 = s.clamp(0, src - 1)
+    s1 = (s + 1).clamp(0, src - 1)
+    return tuple(t.to(device) for t in (s0, s1, w0, w1))
 
 
 def resize_u8(img: torch.Tensor, size_hw) -> torch.Tensor:
-    """uint8 [H, W, C] -> uint8 [h, w, C], bilinear as cv2 ``INTER_LINEAR``
-    computes it: half-pixel centres, the edge pixel repeated, no
-    antialiasing, rounded half up.  cv2 sums 8-bit images in fixed point
-    (11-bit weights), this in float32, so a pixel can differ by one grey
-    level."""
+    """uint8 [H, W, C] -> uint8 [h, w, C], bit for bit what cv2's
+    ``resize(..., INTER_LINEAR)`` gives an 8-bit image: half-pixel
+    centres, 11-bit fixed-point weights, a horizontal pass in int32 and
+    cv2's vertical pass ``((H0 >> 4) * b0 >> 16) + ((H1 >> 4) * b1 >> 16)
+    + 2 >> 2``.  Integer tensor code on the frame's own device."""
     h, w = size_hw
-    if tuple(img.shape[:2]) == (h, w):
+    src_h, src_w = img.shape[:2]
+    if (src_h, src_w) == (h, w):
         return img
-    x = img.permute(2, 0, 1)[None].float()
-    y = F.interpolate(x, size=(h, w), mode='bilinear', align_corners=False)
-    y = torch.floor(y + 0.5).clamp_(0, 255).to(torch.uint8)
-    return y[0].permute(1, 2, 0).contiguous()
+    ys0, ys1, b0, b1 = _taps(src_h, h, False, img.device)
+    xs0, xs1, a0, a1 = _taps(src_w, w, True, img.device)
+    a0, a1 = a0[:, None], a1[:, None]
+
+    def hpass(rows):                          # [h, W, C] -> [h, w, C] >> 4
+        rows = rows.int()
+        return (rows[:, xs0] * a0 + rows[:, xs1] * a1) >> 4
+
+    out = (((hpass(img[ys0]) * b0[:, None, None]) >> 16)
+           + ((hpass(img[ys1]) * b1[:, None, None]) >> 16) + 2) >> 2
+    return out.clamp_(0, 255).to(torch.uint8)
 
 
 def preprocess_frame_u8(cfg: STMaskConfig, img_rgb,
-                        device: torch.device | str = 'cpu') -> Dict:
+                        device: torch.device | str = 'cuda') -> Dict:
     """An RGB uint8 frame of any size (numpy or tensor) -> its (img_w,
     img_h) resize on ``device``, still uint8 (``transforms.py:115-125``);
     normalization and padding happen in the video step."""
-    img = torch.as_tensor(img_rgb).to(device, non_blocking=True)
+    img = torch.as_tensor(img_rgb).to(resolve_device(device),
+                                      non_blocking=True)
     return {'image': resize_u8(img, (cfg.img_h, cfg.img_w)),
             'img_shape': (cfg.img_h, cfg.img_w),
             'pad_shape': (cfg.pad_h, cfg.pad_w)}

@@ -17,7 +17,7 @@
 // (by, bx: the tap's grid position; pixels outside the image are zero),
 // and wrote cols[s, k * Cin + c] = m * v[c].  Given dcols = dL/dcols:
 //
-//   dx[b, by + u, bx + w, c] += m * hy_u * hx_w * dcols[s, k, c]   (atomic)
+//   dx[b, by + u, bx + w, c] += m * hy_u * hx_w * dcols[s, k, c]
 //   d_mask[s, k]     = sum_c dcols * v            = sum_{u,w} hy hx S_uw
 //   d_offset[s, k, 0] = m * sum_{u,w} dhy_u hx_w S_uw
 //   d_offset[s, k, 1] = m * sum_{u,w} hy_u dhx_w S_uw
@@ -33,15 +33,42 @@
 //
 // What bounds it on an H100: bytes.  dcols ([B*Ho*Wo, K*Cin]) is read once:
 // 17.7 M floats a frame over the 7 sites, 566 MB a step at 8 frames
-// (0.17 ms at 3.35 TB/s); x's corners come from L2.
+// (0.17 ms at 3.35 TB/s).  A scatter with one fp32 atomic in device memory
+// per (site, tap, corner, channel) cannot get near that (~0.57 G atomics a
+// step ran at ~0.2 G/ms), and neither can atomics in shared memory: sm_90
+// has no fp32 add there, so each is a compare-and-swap loop.
 //
-// Design (a first, simple kernel): one warp per (site, tap).  The corner
-// weights are computed once per warp; the lanes walk the channels (float4
-// when Cin % 4 == 0), read dcols once and each in-image corner pixel once,
-// add into dx with fp32 atomics (so dx's low bits depend on the order of
-// the adds) and keep a partial S per corner pair.  The S are summed by a
-// warp shuffle butterfly and lane 0 writes d_mask and d_offset, so those
-// two are deterministic.
+// Design: one block per output tile of TY x TX sites of one image, all K
+// taps ("items": (site, tap) pairs), walking Cin in chunks of CC = 32
+// channels (blockIdx.z may take a share of the chunks: the channel split
+// that fills the card at the small sites).  Every corner of the tile's
+// windows lies in the footprint, the FH x FW input pixels from
+// (oy0 * stride - pad_h - r, ox0 * stride - pad_w - r); the wrapper
+// computes the tile and the footprint (deform_col2im.py: col2im_plan) and
+// this file only checks them.  256 threads and at most 64 registers, so
+// that 4 blocks share an SM and one block's loads overlap another's work.
+//
+// Once per block, each item's corner weights are computed and the items
+// are sorted by their anchor, the corner (fy, fx): an item's weighted
+// corners are the anchor and its right, lower and lower-right neighbours.
+// The sort is a counting sort, stable (one warp ranks 32 items at a time),
+// so every launch takes the same order.  Per chunk, cp.async brings x over
+// the footprint and the items' dcols rows (read once, coalesced, in bucket
+// order) into shared memory, and two passes read only shared memory:
+//   items:  4 lanes an item, 8 channels a lane: per corner the lane's part
+//           of S, folded into the three sums by the corner's weights; a
+//           fixed butterfly reduces them and the leader adds them to the
+//           item's sums, in chunk order;
+//   pixels: 4 lanes a footprint pixel gather its dx from two contiguous
+//           runs of buckets (its own and its left neighbour's, then the row
+//           above's), and add it to device memory with two float4
+//           reductions (atomicAdd on float4, sm_90).
+// Each pixel has one owner, so dx needs no atomic in shared memory; tiles
+// overlap by their halo, so its reduction into device memory stays atomic
+// and dx's low bits depend on the order of the adds.  d_mask and d_offset
+// are written once at the end (under a channel split, the splits' partials
+// are summed in split order by a second small kernel), so they are
+// bit-identical across launches.
 
 #include <cstdint>
 
@@ -49,16 +76,12 @@
 
 namespace {
 
-constexpr int WARPS = 8;
-
-__device__ __forceinline__ float dot(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int CC = 32;            // channels per chunk
+constexpr int LANES = 4;          // lanes an item or a pixel, 8 channels each
+constexpr int THREADS = 256;      // 4 blocks an SM: at most 64 registers
+constexpr int GROUPS = THREADS / LANES;
+constexpr int GEO = 4;            // float4s of geometry per item
+constexpr int VALID = 1 << 20;    // item flag beside the 9 corner bits
 
 // hat weight and JAX's derivative of it for the corner u of the coordinate
 // offset d (see above); ``in_win`` false zeroes both.
@@ -71,130 +94,413 @@ __device__ __forceinline__ void hat(float d_off, int u, bool in_win,
   *dh = in_win ? (d >= 0.f ? -fac : fac) : 0.f;
 }
 
+__device__ __forceinline__ float dot(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& v) {
+  acc.x += a * v.x;
+  acc.y += a * v.y;
+  acc.z += a * v.z;
+  acc.w += a * v.w;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+struct Shape {
+  int H, W, Cin, Ho, Wo, kh, kw, stride, dilation, radius;
+  int ty, tx, fh, fw, tiles_x, chunks_per_split, n_chunks;
+};
+
+// item it (tap-major: it = k * ts + site of the tile) -> its output site
+// (b, oy, ox), or -1 past the image's last row or column
+__device__ __forceinline__ int64_t item_site(const Shape& g, int b, int oy0,
+                                             int ox0, int it, int* k) {
+  const int ts = g.ty * g.tx;
+  *k = it / ts;
+  const int st = it - *k * ts;
+  const int oy = oy0 + st / g.tx, ox = ox0 + st % g.tx;
+  if (oy >= g.Ho || ox >= g.Wo) return -1;
+  return (static_cast<int64_t>(b) * g.Ho + oy) * g.Wo + ox;
+}
+
+// One channel chunk [c0, c0 + CC) into shared memory, rows [r0, r1) of
+// the rows that are first the footprint's pixels (x) and then the tile's
+// items (dcols).  src[row] is the row's first element in x or dcols, or -1
+// (zeros: outside the image, or past its last output site); zeros past
+// Cin.  VEC 4: cp.async, left in flight; VEC 1: plain loads.
 template <int VEC>
-__global__ void __launch_bounds__(WARPS * 32) deform_col2im_kernel(
+__device__ __forceinline__ void load_chunk(const float* __restrict__ img,
+                                           const float* __restrict__ dcols,
+                                           float* sx, const int64_t* src,
+                                           int npix, int cin, int c0, int r0,
+                                           int r1) {
+  constexpr int PER = CC / VEC;
+  for (int q = threadIdx.x + r0 * PER; q < r1 * PER; q += THREADS) {
+    const int row = q / PER;
+    const int c = c0 + (q % PER) * VEC;
+    const int64_t off = src[row];
+    const bool in = off >= 0 && c < cin;
+    const float* from = in ? (row < npix ? img : dcols) + off + c : img;
+    float* dst = sx + q * VEC;          // sdc follows sx: rows are contiguous
+    if constexpr (VEC == 4) {
+      cp_async16(dst, from, in ? 16 : 0);
+    } else {
+      *dst = in ? *from : 0.f;
+    }
+  }
+}
+
+// 4 channels of dx at dst[c, c + 4) (n: the channels left in Cin), one
+// reduction into device memory unless all 4 are zero
+template <int VEC>
+__device__ __forceinline__ void add_dx(float* dst, int c, int n,
+                                       const float4& v) {
+  if (c >= n || (v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f))
+    return;
+  if constexpr (VEC == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst + c), v);
+  } else {
+    for (int i = 0; i < 4 && c + i < n; ++i) atomicAdd(dst + c + i,
+                                                      comp(v, i));
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
     const float* __restrict__ dcols, const float* __restrict__ x,
     const float* __restrict__ offset, const float* __restrict__ mask,
     float* __restrict__ dx, float* __restrict__ doffset,
-    float* __restrict__ dmask, int H, int W, int Cin, int Ho, int Wo, int kh,
-    int kw, int stride, int dilation, int radius, int64_t items) {
-  const int lane = threadIdx.x & 31;
-  const int K = kh * kw;
-  const int pad_h = (kh - 1) / 2 * dilation;
-  const int pad_w = (kw - 1) / 2 * dilation;
-  for (int64_t item = static_cast<int64_t>(blockIdx.x) * WARPS +
-                      (threadIdx.x >> 5);
-       item < items; item += static_cast<int64_t>(gridDim.x) * WARPS) {
-    const int k = static_cast<int>(item % K);
-    const int64_t site = item / K;              // (b * Ho + oy) * Wo + ox
-    const int ox = static_cast<int>(site % Wo);
-    const int64_t bo = site / Wo;
-    const int oy = static_cast<int>(bo % Ho);
-    const int64_t b = bo / Ho;
-    const float oyf = offset[site * 2 * K + 2 * k];
-    const float oxf = offset[site * 2 * K + 2 * k + 1];
-    const float m = mask != nullptr ? mask[site * K + k] : 1.f;
-    const int by = oy * stride - pad_h + (k / kw) * dilation;
-    const int bx = ox * stride - pad_w + (k % kw) * dilation;
-    const int fy = static_cast<int>(floorf(oyf));
-    const int fx = static_cast<int>(floorf(oxf));
+    float* __restrict__ dmask, float* __restrict__ part, Shape g) {
+  extern __shared__ float4 smem4[];
+  const int K = g.kh * g.kw;
+  const int n_items = g.ty * g.tx * K;
+  const int npix = g.fh * g.fw;
+  // in bucket order (sorted by anchor): everything but the counts
+  float* sx = reinterpret_cast<float*>(smem4);        // [npix][CC]
+  float* sdc = sx + npix * CC;                        // [n_items][CC]
+  float4* sgeo = reinterpret_cast<float4*>(sdc + n_items * CC);
+  float4* sw = sgeo + n_items * GEO;                  // corner weights
+  float* ss = reinterpret_cast<float*>(sw + n_items);  // 3 sums an item
+  int* sorted = reinterpret_cast<int*>(ss + n_items * 3);  // the item
+  // before the sort, each item's geometry and weights wait in sdc
+  float4* tmp = reinterpret_cast<float4*>(sdc);
+  int* bstart = sorted + n_items;                     // [npix + 1]
+  int* cursor = bstart + npix + 1;                    // [npix]
+  // the rows' sources: after 4 * n_items + 2 * npix + 1 words and one of
+  // padding, 8-byte aligned
+  int64_t* src = reinterpret_cast<int64_t*>(cursor + npix + 1);
 
-    float hy[3], dhy[3], hx[3], dhx[3];
-    int row[3], col[3];
-    bool rin[3], cin_[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int u = fy - 1 + j;
-      hat(oyf, u, u >= -radius && u <= radius + 1, &hy[j], &dhy[j]);
-      row[j] = by + u;
-      rin[j] = row[j] >= 0 && row[j] < H;
-      const int v = fx - 1 + j;
-      hat(oxf, v, v >= -radius && v <= radius + 1, &hx[j], &dhx[j]);
-      col[j] = bx + v;
-      cin_[j] = col[j] >= 0 && col[j] < W;
-    }
-    // corner pairs that carry a weight and lie in the image (warp-uniform)
-    float wgt[9];
-    unsigned active = 0;
-#pragma unroll
-    for (int p = 0; p < 9; ++p) {
-      const int j = p / 3, i = p % 3;
-      wgt[p] = hy[j] * hx[i];
-      if ((wgt[p] != 0.f || dhy[j] * hx[i] != 0.f || hy[j] * dhx[i] != 0.f)
-          && rin[j] && cin_[i])
-        active |= 1u << p;
-    }
+  const int b = blockIdx.y;
+  const int oy0 = (blockIdx.x / g.tiles_x) * g.ty;
+  const int ox0 = (blockIdx.x % g.tiles_x) * g.tx;
+  const int pad_h = (g.kh - 1) / 2 * g.dilation;
+  const int pad_w = (g.kw - 1) / 2 * g.dilation;
+  const int y0 = oy0 * g.stride - pad_h - g.radius;   // footprint origin
+  const int x0 = ox0 * g.stride - pad_w - g.radius;
+  const int ch_begin = blockIdx.z * g.chunks_per_split;
+  const int ch_end = min(ch_begin + g.chunks_per_split, g.n_chunks);
+  const float* img = x + static_cast<int64_t>(b) * g.H * g.W * g.Cin;
+  float* dimg = dx + static_cast<int64_t>(b) * g.H * g.W * g.Cin;
 
-    float S[9];
+  for (int row = threadIdx.x; row < npix; row += THREADS) {
+    const int gy = y0 + row / g.fw, gx = x0 + row % g.fw;
+    src[row] = gy >= 0 && gy < g.H && gx >= 0 && gx < g.W
+                   ? (static_cast<int64_t>(gy) * g.W + gx) * g.Cin
+                   : -1;
+  }
+  for (int i = threadIdx.x; i <= npix; i += THREADS) bstart[i] = 0;
+  __syncthreads();
+  if (ch_begin < ch_end)
+    load_chunk<VEC>(img, dcols, sx, src, npix, g.Cin, ch_begin * CC, 0,
+                    npix);
+  // Each item's corner weights, once per block: the footprint index of its
+  // corner (fy - 1, fx - 1), the corners with a weight or a derivative
+  // (bits 0-8), m, hy, dhy, hx, dhx, and m * hy * hx at the four corners
+  // (fy, fx) .. (fy + 1, fx + 1) that can carry a weight.  Items are
+  // counted by their anchor, the corner (fy, fx) (clamped into the
+  // footprint), for the scatter's buckets.
+  for (int it = threadIdx.x; it < n_items; it += THREADS) {
+    int k;
+    const int64_t site = item_site(g, b, oy0, ox0, it, &k);
+    float4 g0 = make_float4(0.f, 0.f, 0.f, 0.f), g1 = g0, g2 = g0, g3 = g0;
+    if (site >= 0) {
+      const int st = it - k * g.ty * g.tx;
+      const int oy = oy0 + st / g.tx, ox = ox0 + st % g.tx;
+      const float oyf = offset[site * 2 * K + 2 * k];
+      const float oxf = offset[site * 2 * K + 2 * k + 1];
+      const float m = mask != nullptr ? mask[site * K + k] : 1.f;
+      const int fy = static_cast<int>(floorf(oyf));
+      const int fx = static_cast<int>(floorf(oxf));
+      const int ry = oy * g.stride - pad_h + (k / g.kw) * g.dilation + fy -
+                     1 - y0;
+      const int rx = ox * g.stride - pad_w + (k % g.kw) * g.dilation + fx -
+                     1 - x0;
+      float hy[3], dhy[3], hx[3], dhx[3];
 #pragma unroll
-    for (int p = 0; p < 9; ++p) S[p] = 0.f;
-    if (active != 0) {
-      const float* dc_row = dcols + item * Cin;
-      const float* img = x + b * H * W * Cin;
-      float* dimg = dx + b * H * W * Cin;
-      for (int c = lane * VEC; c < Cin; c += 32 * VEC) {
-        float4 dc;
-        if constexpr (VEC == 4) {
-          dc = *reinterpret_cast<const float4*>(dc_row + c);
-        } else {
-          dc = make_float4(dc_row[c], 0.f, 0.f, 0.f);
-        }
+      for (int j = 0; j < 3; ++j) {
+        const int u = fy - 1 + j;
+        hat(oyf, u, u >= -g.radius && u <= g.radius + 1, &hy[j], &dhy[j]);
+        const int v = fx - 1 + j;
+        hat(oxf, v, v >= -g.radius && v <= g.radius + 1, &hx[j], &dhx[j]);
+      }
+      int bits = VALID;
 #pragma unroll
-        for (int p = 0; p < 9; ++p) {
-          if (!(active & (1u << p))) continue;
-          const int64_t q =
-              (static_cast<int64_t>(row[p / 3]) * W + col[p % 3]) * Cin + c;
-          float4 xv;
-          if constexpr (VEC == 4) {
-            xv = *reinterpret_cast<const float4*>(img + q);
-          } else {
-            xv = make_float4(img[q], 0.f, 0.f, 0.f);
-          }
-          S[p] += dot(dc, xv);
-          if (wgt[p] != 0.f) {
-            const float a = m * wgt[p];
-            atomicAdd(dimg + q, a * dc.x);
-            if constexpr (VEC == 4) {
-              atomicAdd(dimg + q + 1, a * dc.y);
-              atomicAdd(dimg + q + 2, a * dc.z);
-              atomicAdd(dimg + q + 3, a * dc.w);
-            }
-          }
+      for (int p = 0; p < 9; ++p) {
+        const int j = p / 3, i = p % 3;
+        if (hy[j] * hx[i] != 0.f || dhy[j] * hx[i] != 0.f ||
+            hy[j] * dhx[i] != 0.f)
+          bits |= 1 << p;
+      }
+      // the anchor and the weights of the corners anchor + (a, e); a
+      // corner row or column before the footprint lies outside the window
+      // (weight 0), so the anchor moves onto the next one
+      float w[2][2] = {{m * (hy[1] * hx[1]), m * (hy[1] * hx[2])},
+                       {m * (hy[2] * hx[1]), m * (hy[2] * hx[2])}};
+      int ay = ry + 1, ax = rx + 1;
+      if (ay < 0) {
+        for (int e = 0; e < 2; ++e) {
+          w[0][e] = ay == -1 ? w[1][e] : 0.f;
+          w[1][e] = 0.f;
         }
       }
+      if (ax < 0) {
+        for (int a = 0; a < 2; ++a) {
+          w[a][0] = ax == -1 ? w[a][1] : 0.f;
+          w[a][1] = 0.f;
+        }
+      }
+      ay = min(max(ay, 0), g.fh - 1);      // past the end: all weights 0
+      ax = min(max(ax, 0), g.fw - 1);
+      g0 = make_float4(__int_as_float(ry * g.fw + rx), __int_as_float(bits),
+                       __int_as_float(ay * g.fw + ax), hy[0]);
+      g1 = make_float4(hy[1], hy[2], dhy[0], dhy[1]);
+      g2 = make_float4(dhy[2], hx[0], hx[1], hx[2]);
+      g3 = make_float4(dhx[0], dhx[1], dhx[2], m);
+      tmp[it * (GEO + 1) + GEO] =
+          make_float4(w[0][0], w[0][1], w[1][0], w[1][1]);
+      atomicAdd(bstart + ay * g.fw + ax + 1, 1);
     }
-    float s_m = 0.f, s_y = 0.f, s_x = 0.f;
+    tmp[it * (GEO + 1)] = g0;
+    tmp[it * (GEO + 1) + 1] = g1;
+    tmp[it * (GEO + 1) + 2] = g2;
+    tmp[it * (GEO + 1) + 3] = g3;
+    ss[it * 3] = ss[it * 3 + 1] = ss[it * 3 + 2] = 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {                  // bucket starts: a prefix sum
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int base = 0; base <= npix; base += 32) {
+      int v = base + lane <= npix ? bstart[base + lane] : 0;
 #pragma unroll
-    for (int p = 0; p < 9; ++p) {
-      if (!(active & (1u << p))) continue;
-      const float sp = warp_sum(S[p]);
-      const int j = p / 3, i = p % 3;
-      s_m += wgt[p] * sp;
-      s_y += dhy[j] * hx[i] * sp;
-      s_x += hy[j] * dhx[i] * sp;
-    }
-    if (lane == 0) {
-      if (dmask != nullptr) dmask[site * K + k] = s_m;
-      doffset[site * 2 * K + 2 * k] = m * s_y;
-      doffset[site * 2 * K + 2 * k + 1] = m * s_x;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
+      }
+      if (base + lane <= npix) bstart[base + lane] = v + carry;
+      carry += __shfl_sync(0xffffffffu, v, 31);
     }
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < npix; i += THREADS) cursor[i] = bstart[i];
+  __syncthreads();
+  // the sort, stable so that every launch takes the same order: one warp
+  // walks the items 32 at a time; lanes with one anchor rank by lane.
+  // Each item's slot receives the item, its weights and its dcols row.
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    for (int base = 0; base < n_items; base += 32) {
+      const int it = base + lane;
+      int anchor = -1;
+      if (it < n_items) {
+        const float4 g0 = tmp[it * (GEO + 1)];
+        if (__float_as_int(g0.y) & VALID) anchor = __float_as_int(g0.z);
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, anchor);
+      const int rank = __popc(peers & ((1u << lane) - 1));
+      const int pos = anchor >= 0 ? cursor[anchor] + rank : 0;
+      __syncwarp();
+      if (anchor >= 0 && rank == 0) cursor[anchor] += __popc(peers);
+      __syncwarp();
+      if (anchor < 0) continue;
+      sorted[pos] = it;
+      for (int i = 0; i < GEO; ++i)
+        sgeo[pos * GEO + i] = tmp[it * (GEO + 1) + i];
+      sw[pos] = tmp[it * (GEO + 1) + GEO];
+      int k;
+      src[npix + pos] = (item_site(g, b, oy0, ox0, it, &k) * K + k) * g.Cin;
+    }
+  }
+  __syncthreads();
+  const int n_valid = bstart[npix];
+  if (ch_begin < ch_end)
+    load_chunk<VEC>(img, dcols, sx, src, npix, g.Cin, ch_begin * CC, npix,
+                    npix + n_valid);
+
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (LANES - 1);           // lane within the group
+  const int gi = lane / LANES;                // group within the warp
+  const int group = threadIdx.x / LANES;      // a warp's groups: in a row
+  const unsigned gmask = ((1u << LANES) - 1) << (LANES * gi);
+  // a lane's 8 channels as two float4s, at ca and cb of the chunk: odd
+  // groups take them in the other order, so that the two groups of a
+  // quarter warp read 32 distinct banks
+  const int ca = l * 8 + 4 * (gi & 1), cb = l * 8 + 4 * (1 - (gi & 1));
+
+  for (int ch = ch_begin; ch < ch_end; ++ch) {
+    const int c0 = ch * CC;
+    if constexpr (VEC == 4) cp_async_wait_all();
+    __syncthreads();                 // the chunk, the geometry, the buckets
+    // the dot products S, one item per group: d_mask and d_offset's sums
+    for (int pos = group; pos < n_valid; pos += GROUPS) {
+      const float4 g0 = sgeo[pos * GEO], g1 = sgeo[pos * GEO + 1],
+                   g2 = sgeo[pos * GEO + 2], g3 = sgeo[pos * GEO + 3];
+      const int bits = __float_as_int(g0.y);
+      const float hy[3] = {g0.w, g1.x, g1.y}, dhy[3] = {g1.z, g1.w, g2.x};
+      const float hx[3] = {g2.y, g2.z, g2.w}, dhx[3] = {g3.x, g3.y, g3.z};
+      const int q0 = __float_as_int(g0.x);
+      const float* dci = sdc + pos * CC;
+      const float4 da = *reinterpret_cast<const float4*>(dci + ca);
+      const float4 db = *reinterpret_cast<const float4*>(dci + cb);
+      // per corner the lane's part of S, then its three weights
+      float s_m = 0.f, s_y = 0.f, s_x = 0.f;
+#pragma unroll
+      for (int p = 0; p < 9; ++p) {
+        if (!(bits & (1 << p))) continue;               // group-uniform
+        const int j = p / 3, i = p % 3;
+        const float* xp = sx + (q0 + j * g.fw + i) * CC;
+        // lo channels first in every group, so the sum's order is fixed
+        const float4 xa = *reinterpret_cast<const float4*>(xp + ca);
+        const float4 xb = *reinterpret_cast<const float4*>(xp + cb);
+        const float sa = dot(da, xa), sb = dot(db, xb);
+        const float sp = (gi & 1) ? sb + sa : sa + sb;
+        s_m += hy[j] * hx[i] * sp;
+        s_y += dhy[j] * hx[i] * sp;
+        s_x += hy[j] * dhx[i] * sp;
+      }
+#pragma unroll
+      for (int o = LANES / 2; o > 0; o >>= 1) {
+        s_m += __shfl_xor_sync(gmask, s_m, o, LANES);
+        s_y += __shfl_xor_sync(gmask, s_y, o, LANES);
+        s_x += __shfl_xor_sync(gmask, s_x, o, LANES);
+      }
+      if (l == 0) {
+        ss[pos * 3] += s_m;
+        ss[pos * 3 + 1] += s_y;
+        ss[pos * 3 + 2] += s_x;
+      }
+    }
+    __syncthreads();                 // sx read: the next chunk's x may come
+    if (ch + 1 < ch_end)
+      load_chunk<VEC>(img, dcols, sx, src, npix, g.Cin, c0 + CC, 0, npix);
+    // dx, one footprint pixel per group: the sum over the items anchored
+    // at the pixel and at its left, upper and upper-left neighbours (per
+    // row, two adjacent buckets: one contiguous run), then one reduction
+    // into device memory
+    for (int pix = group; pix < npix; pix += GROUPS) {
+      const int py = pix / g.fw, px = pix - py * g.fw;
+      const int gy = y0 + py, gx = x0 + px;
+      if (gy < 0 || gy >= g.H || gx < 0 || gx >= g.W) continue;
+      float4 acca = make_float4(0.f, 0.f, 0.f, 0.f), accb = acca;
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {      // the anchor's row: pixel - a rows
+        if (py < a) continue;
+        const int own = pix - a * g.fw;
+        const int mid = bstart[own];
+        const int lo = px > 0 ? bstart[own - 1] : mid;
+        const int hi = bstart[own + 1];
+        for (int s = lo; s < hi; ++s) {  // before mid: the left neighbour's
+          const float4 w4 = sw[s];
+          const float w = s < mid ? (a ? w4.w : w4.y) : (a ? w4.z : w4.x);
+          if (w == 0.f) continue;
+          fma4(acca, w, *reinterpret_cast<const float4*>(sdc + s * CC + ca));
+          fma4(accb, w, *reinterpret_cast<const float4*>(sdc + s * CC + cb));
+        }
+      }
+      float* dst = dimg + (static_cast<int64_t>(gy) * g.W + gx) * g.Cin + c0;
+      add_dx<VEC>(dst, ca, g.Cin - c0, acca);
+      add_dx<VEC>(dst, cb, g.Cin - c0, accb);
+    }
+    __syncthreads();                 // sdc read
+    if (ch + 1 < ch_end)
+      load_chunk<VEC>(img, dcols, sx, src, npix, g.Cin, c0 + CC, npix,
+                      npix + n_valid);
+  }
+  __syncthreads();
+
+  for (int pos = threadIdx.x; pos < n_valid; pos += THREADS) {
+    int k;
+    const int64_t item = item_site(g, b, oy0, ox0, sorted[pos], &k) * K + k;
+    if (part != nullptr) {                    // channel split: partials
+      float* dst = part + (static_cast<int64_t>(blockIdx.z) * gridDim.y *
+                               g.Ho * g.Wo * K + item) * 3;
+      dst[0] = ss[pos * 3];
+      dst[1] = ss[pos * 3 + 1];
+      dst[2] = ss[pos * 3 + 2];
+    } else {
+      const float m = sgeo[pos * GEO + 3].w;
+      if (dmask != nullptr) dmask[item] = ss[pos * 3];
+      doffset[2 * item] = m * ss[pos * 3 + 1];
+      doffset[2 * item + 1] = m * ss[pos * 3 + 2];
+    }
+  }
+}
+
+// the splits' partials summed in split order: d_mask, d_offset
+__global__ void deform_col2im_finish_kernel(const float* __restrict__ part,
+                                            const float* __restrict__ mask,
+                                            float* __restrict__ doffset,
+                                            float* __restrict__ dmask,
+                                            int64_t items, int n_split) {
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  if (item >= items) return;
+  float s_m = 0.f, s_y = 0.f, s_x = 0.f;
+  for (int z = 0; z < n_split; ++z) {
+    const float* p = part + (z * items + item) * 3;
+    s_m += p[0];
+    s_y += p[1];
+    s_x += p[2];
+  }
+  const float m = mask != nullptr ? mask[item] : 1.f;
+  if (dmask != nullptr) dmask[item] = s_m;
+  doffset[2 * item] = m * s_y;
+  doffset[2 * item + 1] = m * s_x;
 }
 
 template <int VEC>
 cudaError_t launch(const float* dcols, const float* x, const float* offset,
                    const float* mask, float* dx, float* doffset, float* dmask,
-                   int B, int H, int W, int Cin, int Ho, int Wo, int kh,
-                   int kw, int stride, int dilation, int radius,
+                   float* part, int B, const Shape& g, int n_split, int smem,
                    cudaStream_t stream) {
-  const int64_t items = static_cast<int64_t>(B) * Ho * Wo * kh * kw;
-  if (items == 0) return cudaSuccess;
-  const int64_t need = (items + WARPS - 1) / WARPS;
-  const int64_t blocks = need < (int64_t(1) << 30) ? need : int64_t(1) << 30;
-  deform_col2im_kernel<VEC><<<static_cast<unsigned>(blocks), WARPS * 32, 0,
-                              stream>>>(dcols, x, offset, mask, dx, doffset,
-                                        dmask, H, W, Cin, Ho, Wo, kh, kw,
-                                        stride, dilation, radius, items);
+  auto* kern = deform_col2im_tile_kernel<VEC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles_y = (g.Ho + g.ty - 1) / g.ty;
+  const dim3 grid(tiles_y * g.tiles_x, B, n_split);
+  kern<<<grid, THREADS, smem, stream>>>(dcols, x, offset, mask, dx, doffset,
+                                        dmask, part, g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || part == nullptr) return e;
+  const int64_t items = static_cast<int64_t>(B) * g.Ho * g.Wo * g.kh * g.kw;
+  deform_col2im_finish_kernel<<<static_cast<unsigned>((items + 255) / 256),
+                                256, 0, stream>>>(part, mask, doffset, dmask,
+                                                  items, n_split);
   return cudaGetLastError();
 }
 
@@ -204,26 +510,42 @@ cudaError_t launch(const float* dcols, const float* x, const float* offset,
 // cols); x, dx: [B, H, W, Cin] (dx zeroed by the caller, then accumulated);
 // offset, doffset: [B, Ho, Wo, 2*kh*kw] (dy, dx)-interleaved, offset
 // already clamped to [-radius, radius]; mask, dmask: [B, Ho, Wo, kh*kw] or
-// both null (v1).  All fp32 contiguous.  Returns cudaGetLastError().
+// both null (v1).  All fp32 contiguous.  The plan (deform_col2im.py:
+// col2im_plan): tiles of ty x tx sites, footprints of fh x fw pixels,
+// n_split channel splits (part: [n_split, B*Ho*Wo*kh*kw, 3] scratch when
+// n_split > 1, else null), smem bytes of dynamic shared memory.  Returns
+// cudaGetLastError().
 extern "C" int stmask_deform_col2im(const float* dcols, const float* x,
                                     const float* offset, const float* mask,
                                     float* dx, float* doffset, float* dmask,
-                                    int B, int H, int W, int Cin, int Ho,
-                                    int Wo, int kh, int kw, int stride,
-                                    int dilation, int radius, void* stream) {
+                                    float* part, int B, int H, int W, int Cin,
+                                    int Ho, int Wo, int kh, int kw,
+                                    int stride, int dilation, int radius,
+                                    int ty, int tx, int fh, int fw,
+                                    int n_split, int smem, void* stream) {
   if (B < 0 || H <= 0 || W <= 0 || Cin <= 0 || Ho < 0 || Wo < 0 || kh <= 0 ||
-      kw <= 0 || stride <= 0 || dilation <= 0 || radius <= 0 ||
-      (mask == nullptr) != (dmask == nullptr))
+      kw <= 0 || stride <= 0 || dilation <= 0 || radius <= 0 || ty <= 0 ||
+      tx <= 0 || n_split <= 0 || (mask == nullptr) != (dmask == nullptr) ||
+      (n_split > 1) != (part != nullptr) ||
+      fh < (ty - 1) * stride + (kh - 1) * dilation + 2 * radius + 2 ||
+      fw < (tx - 1) * stride + (kw - 1) * dilation + 2 * radius + 2 ||
+      smem < ((fh * fw + ty * tx * kh * kw) * (CC + 2) +
+              ty * tx * kh * kw * (4 * GEO + 4 + 3 + 1) + 2 * fh * fw + 2) *
+                 static_cast<int>(sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Ho == 0 || Wo == 0) return static_cast<int>(cudaSuccess);
   const auto s = static_cast<cudaStream_t>(stream);
+  Shape g{H, W, Cin, Ho, Wo, kh, kw, stride, dilation, radius, ty, tx, fh, fw,
+        (Wo + tx - 1) / tx, 0, (Cin + CC - 1) / CC};
+  g.chunks_per_split = (g.n_chunks + n_split - 1) / n_split;
   const bool aligned = Cin % 4 == 0 &&
                        reinterpret_cast<uintptr_t>(dcols) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   const cudaError_t e =
-      aligned ? launch<4>(dcols, x, offset, mask, dx, doffset, dmask, B, H,
-                          W, Cin, Ho, Wo, kh, kw, stride, dilation, radius, s)
-              : launch<1>(dcols, x, offset, mask, dx, doffset, dmask, B, H,
-                          W, Cin, Ho, Wo, kh, kw, stride, dilation, radius,
-                          s);
+      aligned ? launch<4>(dcols, x, offset, mask, dx, doffset, dmask, part, B,
+                          g, n_split, smem, s)
+              : launch<1>(dcols, x, offset, mask, dx, doffset, dmask, part, B,
+                          g, n_split, smem, s);
   return static_cast<int>(e);
 }

@@ -8,6 +8,11 @@ modulation in ``deform_conv2d_window`` (``deform_conv.py:152-351``).
 ``deform_col2im_reference``, CUDA tensors take the kernel in
 ``csrc/deform_col2im.cu`` or raise.
 
+The kernel accumulates dx in shared memory over the input footprint of a
+tile of output sites; ``col2im_plan`` chooses the tile and computes the
+footprint, its shared memory and the channel split, and the kernel takes
+them as they are.
+
 The offset gradient follows JAX's subgradients of the hat weight
 ``max(0, 1 - |d - u|)`` at the corner u: -sign(d - u) inside the hat, -1
 where d == u (JAX's d|x|/dx is 1 at 0), -0.5 * sign(d - u) where
@@ -19,6 +24,7 @@ integer offset the two differ (``csrc/deform_col2im.cu`` has the formulas).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -26,8 +32,75 @@ import torch
 from .build import CudaKernel, check_cuda
 
 KERNEL = CudaKernel('deform_col2im', 'stmask_deform_col2im',
-                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
                     + [ctypes.c_void_p])
+
+CHUNK = 32                    # channels a block stages at a time (csrc CC)
+SMEM_LIMIT = 232448           # shared memory one block may take on sm_90
+SMEM_TARGET = 65536           # at most this much lets 3 blocks share an SM
+BLOCKS = 4 * 132              # 4 blocks on each of the H100's 132 SMs
+TILES = ((8, 16), (8, 8), (4, 8), (4, 4), (2, 8), (2, 4), (2, 2), (1, 2),
+         (1, 1))
+
+
+@dataclass(frozen=True)
+class Col2imPlan:
+    """How K4 cuts one call: tiles of ``ty`` x ``tx`` output sites, each
+    with a footprint of ``fh`` x ``fw`` input pixels; ``n_split`` blocks
+    share a tile's channel chunks; ``smem`` bytes of shared memory."""
+    ty: int
+    tx: int
+    fh: int
+    fw: int
+    n_split: int
+    smem: int
+    blocks: int
+
+
+def footprint(ty: int, tx: int, kh: int, kw: int, stride: int,
+              dilation: int, radius: int) -> Tuple[int, int]:
+    """(rows, cols) of the input pixels that a tile's windows can reach:
+    the taps' spread, the tile's own, and the corners [-r, r + 1]."""
+    return ((ty - 1) * stride + (kh - 1) * dilation + 2 * radius + 2,
+            (tx - 1) * stride + (kw - 1) * dilation + 2 * radius + 2)
+
+
+def footprint_origin(oy0: int, ox0: int, kh: int, kw: int, stride: int,
+                     dilation: int, radius: int) -> Tuple[int, int]:
+    """The input pixel at the footprint's top-left corner for the tile whose
+    first output site is (oy0, ox0), as the kernel computes it."""
+    return (oy0 * stride - (kh - 1) // 2 * dilation - radius,
+            ox0 * stride - (kw - 1) // 2 * dilation - radius)
+
+
+def col2im_plan(b: int, ho: int, wo: int, cin: int, kh: int, kw: int,
+                stride: int = 1, dilation: int = 1,
+                radius: int = 2) -> Col2imPlan:
+    """The largest tile of ``TILES`` whose shared memory lets 3 or 4
+    blocks share an SM (else 1x1), then a channel split into as few parts
+    as give ``BLOCKS`` blocks, or one per chunk.  Raises if the tile's
+    footprint does not fit a block's shared memory."""
+    def smem(ty, tx):     # a chunk of x over the footprint and of dcols,
+        # and each row's source (8 bytes); per (site, tap) 20 words of corner
+        # weights, 3 sums and a bucket slot; per footprint pixel a bucket's
+        # start and cursor
+        fh, fw = footprint(ty, tx, kh, kw, stride, dilation, radius)
+        items = ty * tx * kh * kw
+        return 4 * ((fh * fw + items) * (CHUNK + 2) + items * (20 + 3 + 1)
+                    + 2 * fh * fw + 2)
+
+    ty, tx = next((t for t in TILES if smem(*t) <= SMEM_TARGET), (1, 1))
+    fh, fw = footprint(ty, tx, kh, kw, stride, dilation, radius)
+    if smem(ty, tx) > SMEM_LIMIT:
+        raise ValueError(
+            f'deform_col2im_cuda: a {fh}x{fw} footprint ({kh}x{kw} taps, '
+            f'dilation {dilation}, radius {radius}) needs {smem(ty, tx)} B '
+            f'of shared memory, over the {SMEM_LIMIT} B a block may take')
+    tiles = b * -(-ho // ty) * -(-wo // tx)
+    chunks = -(-cin // CHUNK)
+    n_split = min(chunks, -(-BLOCKS // tiles)) if tiles else 1
+    n_split = -(-chunks // -(-chunks // n_split))   # no split without a chunk
+    return Col2imPlan(ty, tx, fh, fw, n_split, smem(ty, tx), tiles * n_split)
 
 
 def _hat(d_off: torch.Tensor, u: torch.Tensor, radius: int):
@@ -131,13 +204,18 @@ def deform_col2im_cuda(dcols: torch.Tensor, x: torch.Tensor,
                          f'not {(b, ho, wo, k)}')
     if radius < 1:
         raise ValueError(f'deform_col2im_cuda: radius {radius} < 1')
+    plan = col2im_plan(b, ho, wo, cin, kh, kw, stride, dilation, radius)
     dx = torch.zeros_like(x)
     d_offset = torch.empty_like(offset)
     d_mask = None if mask is None else torch.empty_like(mask)
+    part = (torch.empty(plan.n_split, b * ho * wo * k, 3, device=x.device)
+            if plan.n_split > 1 else None)
     KERNEL(dcols.data_ptr(), x.data_ptr(), offset.data_ptr(),
            None if mask is None else mask.data_ptr(), dx.data_ptr(),
            d_offset.data_ptr(), None if d_mask is None else d_mask.data_ptr(),
-           b, h, w, cin, ho, wo, kh, kw, stride, dilation, radius,
+           None if part is None else part.data_ptr(),
+           b, h, w, cin, ho, wo, kh, kw, stride, dilation, radius, plan.ty,
+           plan.tx, plan.fh, plan.fw, plan.n_split, plan.smem,
            torch.cuda.current_stream(x.device).cuda_stream)
     return dx, d_offset, d_mask
 

@@ -131,3 +131,24 @@ def test_unported_paths_raise():
     for method in ('per_class', 'greedy'):
         with pytest.raises(NotImplementedError, match='ROADMAP A.11'):
             detect_frame(cfg.replace(eval_nms_method=method), {}, None)
+
+
+@pytest.mark.parametrize('name', sorted(
+    ['correlation', 'correlation_bf16', 'deform_im2col', 'deform_conv',
+     'deform_conv_bf16', 'correlation_bwd', 'deform_col2im']))
+def test_kernel_argtypes_match_the_c_launchers(name):
+    """ctypes passes what ``argtypes`` says: each launcher's list must
+    follow its C signature (pointer -> c_void_p, int -> c_int), or a call
+    on the card fails or cuts a pointer to 32 bits."""
+    import ctypes
+
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.kernels.build import CSRC
+    kern = KERNELS[name]
+    src = (CSRC / f'{kern.library}.cu').read_text()
+    sig = re.search(r'extern "C" int ' + kern.symbol + r'\(([^)]*)\)', src)
+    assert sig, kern.symbol
+    params = [p.strip() for p in sig.group(1).split(',')]
+    want = [ctypes.c_void_p if '*' in p else ctypes.c_int for p in params]
+    assert all('*' in p or p.split()[0] == 'int' for p in params), params
+    assert kern.argtypes == want, (kern.symbol, params)

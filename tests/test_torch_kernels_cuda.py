@@ -243,22 +243,50 @@ def test_correlation_bwd_kernel(device, shape, patch):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-def _col2im_case(device, h, w, cin, stride, kind, seed):
+def _col2im_case(device, h, w, cin, stride, kind, seed, kh=3, kw=3,
+                 dilation=1):
+    k = kh * kw                  # odd taps, padded to keep the size
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(2, h, w, cin, device=device, generator=g)
     if kind == 'random':
-        off = torch.randn(2, ho, wo, 18, device=device, generator=g) * 1.5
+        off = torch.randn(2, ho, wo, 2 * k, device=device, generator=g) * 1.5
     elif kind == 'zero':
-        off = torch.zeros(2, ho, wo, 18, device=device)
+        off = torch.zeros(2, ho, wo, 2 * k, device=device)
     else:
         vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=device)
-        off = vals[torch.randint(0, 4, (2, ho, wo, 18), device=device,
+        off = vals[torch.randint(0, 4, (2, ho, wo, 2 * k), device=device,
                                  generator=g)]
     off = off.clamp(-2, 2)
-    mask = torch.rand(2, ho, wo, 9, device=device, generator=g)
-    dcols = torch.randn(2 * ho * wo, 9 * cin, device=device, generator=g)
+    mask = torch.rand(2, ho, wo, k, device=device, generator=g)
+    dcols = torch.randn(2 * ho * wo, k * cin, device=device, generator=g)
     return dcols, x, off, mask
+
+
+def _check_col2im(dcols, x, off, mask, kh, kw, stride, dilation=1):
+    """K4 against its plain version: dx sums with fp32 atomics, so its
+    tolerance is relative to max|ref|; d_offset and d_mask are summed in a
+    fixed order, so a second launch gives them bit for bit."""
+    launches = K4.KERNEL.launches
+    got = K4.deform_col2im_cuda(dcols, x, off, mask, kh, kw, stride,
+                                dilation)
+    assert K4.KERNEL.launches == launches + 1
+    again = K4.deform_col2im_cuda(dcols, x, off, mask, kh, kw, stride,
+                                  dilation)
+    want = K4.deform_col2im_reference(dcols, x, off, mask, kh, kw, stride,
+                                      dilation)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=1e-5 * max(scale, 1.0),
+                                   rtol=0)
+    assert torch.equal(got[1], again[1])
+    assert (got[2] is None) == (mask is None)
+    if mask is not None:
+        assert torch.equal(got[2], again[2])
 
 
 @pytest.mark.parametrize('kind', ['random', 'zero', 'integer'])
@@ -266,23 +294,29 @@ def _col2im_case(device, h, w, cin, stride, kind, seed):
                                    (24, 40, 256, 1), (24, 40, 512, 2),
                                    (7, 5, 3, 1)])
 def test_deform_col2im_kernel(device, shape, kind):
-    """dx sums with fp32 atomics, so its tolerance is relative to
-    max|ref|; d_offset and d_mask are summed in a fixed order."""
     h, w, cin, stride = shape
     dcols, x, off, mask = _col2im_case(device, h, w, cin, stride, kind, 6)
     for m in (mask, None):
-        launches = K4.KERNEL.launches
-        got = K4.deform_col2im_cuda(dcols, x, off, m, 3, 3, stride)
-        assert K4.KERNEL.launches == launches + 1
-        want = K4.deform_col2im_reference(dcols, x, off, m, 3, 3, stride)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            if b is None:
-                assert a is None
-                continue
-            scale = float(b.abs().max())
-            torch.testing.assert_close(a, b, atol=1e-5 * max(scale, 1.0),
-                                       rtol=0)
+        _check_col2im(dcols, x, off, m, 3, 3, stride)
+
+
+# (H, W, Cin, stride, kh, kw, dilation): FCB's 3x5 and 5x3 taps, dilation
+# 2, ragged Cin (3, 6), H and W that are no multiple of the tile, and images
+# inside the border band (each footprint past every edge of the image)
+COL2IM_SHAPES = [(24, 40, 64, 1, 3, 5, 1), (24, 40, 64, 1, 5, 3, 1),
+                 (24, 40, 64, 1, 3, 3, 2), (19, 37, 3, 1, 3, 3, 1),
+                 (19, 37, 6, 2, 3, 3, 1), (13, 21, 40, 1, 3, 3, 1),
+                 (3, 4, 8, 1, 3, 3, 1), (2, 3, 36, 2, 3, 3, 1)]
+
+
+@pytest.mark.parametrize('kind', ['random', 'integer'])
+@pytest.mark.parametrize('shape', COL2IM_SHAPES)
+def test_deform_col2im_kernel_shapes(device, shape, kind):
+    h, w, cin, stride, kh, kw, dilation = shape
+    dcols, x, off, mask = _col2im_case(device, h, w, cin, stride, kind, 8,
+                                       kh, kw, dilation)
+    for m in (mask, None):
+        _check_col2im(dcols, x, off, m, kh, kw, stride, dilation)
 
 
 @pytest.mark.parametrize('stride', [1, 2])
