@@ -6,7 +6,8 @@
 Phases, in order (any failure raises and exits non-zero):
   1. build the CUDA kernels from stmask_torch/kernels/csrc with nvcc (one
      process per source, in parallel) and print ptxas's registers, shared
-     memory and spills of every kernel (K4 must not spill);
+     memory and spills of every kernel (K4 and deform_wgrad must not
+     spill);
   2. the frame resize (``resize_u8``) on the card against the machine's cv2
      INTER_LINEAR, bit for bit, at the sizes of RESIZES; K1 (correlation)
      against its plain PyTorch version, main-path and ragged shapes, with
@@ -17,7 +18,12 @@ Phases, in order (any failure raises and exits non-zero):
      ragged, rectangular and dilated shapes, at a tolerance that a single
      TF32 product (emulated at the 7 sites as a control) fails; then its
      bf16 variant at the 7 sites with 8 frames (the batched eval's shapes)
-     and at ragged shapes, against the plain bf16 version;
+     and at ragged shapes, against the plain bf16 version; then the DCN
+     weight gradient (deform_wgrad) against its plain version (K2's plain
+     gather and an fp32 matmul) at the 7 sites x 8 frames with random, zero
+     and integer offsets, at a tolerance that a single TF32 product
+     (emulated as a control) fails, and at the shapes of K4_SHAPES, bit
+     for bit the same over two launches;
   4. the eval video step of STMask_plus_resnet50 at 360x640 (seeded random
      weights, two synthetic 8-frame videos) through build_video_step,
      postprocess_frame and results2json_videoseg, with kernel launch
@@ -33,10 +39,13 @@ Phases, in order (any failure raises and exits non-zero):
   6. the training step of STMask_plus_resnet50 at 360x640 (seeded random
      weights, 4 clips = 8 frames a step, synthetic batches in ClipLoader's
      format) through build_train_step: 6 steps (2 warm-up), launch counts
-     per step (the fused conv, K2, K4 at the 7 DCN sites, K1 and K3 once),
-     a step from the zero-offset state, one step of the loop with a
-     checkpoint save and restore, the card against the CPU path at 96x128,
-     a profile of one step, and the times of K3 and K4;
+     per step (the fused conv, deform_wgrad and K4 at the 7 DCN sites, K1
+     and K3 once, K2 never), a step from the zero-offset state, one step of
+     the loop with a checkpoint save and restore, the card against the CPU
+     path at 96x128, a profile of one step, and the times of K3, K4 and
+     deform_wgrad (beside K2 + the cuBLAS SGEMM g^T @ cols it replaced,
+     and that SGEMM alone, and at each tile height and cluster split that
+     wgrad_plan chooses among);
   7. the eval CLI (``stmask_torch.eval``) with its default flags (bf16, 8
      lockstep streams x 4-frame chunks) over a synthetic YouTube-VIS set of
      16 videos x 12 PNG frames at 1280x720, with --eval_metrics, then again
@@ -84,10 +93,15 @@ TRAIN_CLIPS = 4                # the recipe's baseline batch: 8 frames
 TRAIN_STEPS = 6
 TRAIN_WARMUP = 2
 # launches of each kernel in one training step of the flagship
-TRAIN_LAUNCHES = {'deform_conv': 7, 'deform_im2col': 7, 'deform_col2im': 7,
-                  'correlation': 1, 'correlation_bwd': 1}
+TRAIN_LAUNCHES = {'deform_conv': 7, 'deform_wgrad': 7, 'deform_im2col': 0,
+                  'deform_col2im': 7, 'correlation': 1, 'correlation_bwd': 1}
 KERNEL_NAMES = ('correlation', 'deform_im2col', 'deform_conv',
-                'correlation_bwd', 'deform_col2im')   # the libraries
+                'correlation_bwd', 'deform_col2im',
+                'deform_wgrad')                       # the libraries
+# deform_wgrad against its fp32 plain version, relative to max|ref| (sums
+# over up to 30720 sites): 3xTF32 holds ~1e-6 there, a single TF32 product
+# ~8e-4 (the control); fixed before the kernel's first run
+WGRAD_RTOL = 1e-5
 # the bf16 kernels against their plain bf16 versions: the same rounding
 # points, the fp32 sums in another order, so a sum near a rounding boundary
 # may round the other way: 2^-6 of max|ref| (two to four bf16 ulps)
@@ -113,6 +127,19 @@ DCN_SITES = [  # name, (H, W, Cin) of the DCN input at 384x640, stride
     ('layer2_0', (48, 80, 256), 2), ('layer2_2', (24, 40, 256), 1),
     ('layer2_4', (24, 40, 256), 1), ('layer3_0', (24, 40, 512), 2),
     ('layer3_2', (12, 20, 512), 1)]
+
+
+def _wgrad_at(KW, g, x, off, mask, stride: int, tm: int, split: int):
+    """deform_wgrad (3x3 taps) launched with the tile height ``tm`` and
+    the cluster split ``split`` in place of wgrad_plan's choice."""
+    import torch
+    b, h, w, cin = x.shape
+    _, ho, wo, _ = off.shape
+    dw = torch.empty((g.shape[1], 3, 3, cin), device=x.device)
+    KW.KERNEL(g.data_ptr(), x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+              dw.data_ptr(), b, h, w, cin, ho, wo, g.shape[1], 3, 3, stride,
+              1, tm, split, torch.cuda.current_stream(x.device).cuda_stream)
+    return dw
 
 
 def _nvidia_smi() -> str:
@@ -618,6 +645,7 @@ def main() -> int:
     from stmask_torch.kernels import deform_col2im as K4
     from stmask_torch.kernels import deform_conv as KD
     from stmask_torch.kernels import deform_im2col as K2
+    from stmask_torch.kernels import deform_wgrad as KW
     from stmask_torch.models import build_model
     from stmask_torch.utils.device import resolve_device
 
@@ -634,11 +662,11 @@ def main() -> int:
     for lib in KERNEL_NAMES:
         for line in build.ptxas_report(lib):
             print(f'[ptxas] {lib}: {line}')
-    k4_spills = [ln for ln in build.ptxas_report('deform_col2im')
-                 if 'spill' in ln]
-    assert k4_spills and all(
-        re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
-        for ln in k4_spills), k4_spills
+    for lib in ('deform_col2im', 'deform_wgrad'):
+        spills = [ln for ln in build.ptxas_report(lib) if 'spill' in ln]
+        assert spills and all(
+            re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
+            for ln in spills), (lib, spills)
 
     # ---- 2. the frame resize against cv2, then K1 vs plain ----------------
     _resize_vs_cv2(torch, dev)
@@ -831,8 +859,58 @@ def main() -> int:
                      dil)
             del dcols, x, off, mask
 
-    # the whole window DCN op (clamp, fused forward, K2, two matmuls, K4)
-    # on the card against its CPU plain path: five gradients
+    # deform_wgrad at the 7 sites x 8 frames with three offset sets and a
+    # random g, with the single-TF32 control at each site; then v1, FCB's
+    # 3x5 / 5x3 taps, dilation 2, ragged Cin (3, 6, 40) and Cout (5).  No
+    # atomics: a second launch gives d_w bit for bit.
+    def check_wgrad(label, x, off, mask, cout, kh, kw, stride, dilation=1,
+                    control=False):
+        gg = torch.randn(off.shape[0] * off.shape[1] * off.shape[2], cout,
+                         device=dev, generator=g)
+        args = (gg, x, off, mask, kh, kw, stride, dilation)
+        got = KW.deform_wgrad_cuda(*args)
+        again = KW.deform_wgrad_cuda(*args)
+        want = KW.deform_wgrad_reference(*args)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        d = float((got - want).abs().max()) / scale
+        err['deform_wgrad'] = max(err['deform_wgrad'], d)
+        note = ''
+        if control:
+            cols = K2.deform_im2col_reference(x, off, mask, kh, kw, stride,
+                                              dilation)
+            tf32 = (_tf32_hi(torch, gg).t() @ _tf32_hi(torch, cols)
+                    ).reshape(want.shape)
+            d_tf32 = float((tf32 - want).abs().max()) / scale
+            note = f'; single TF32 product {d_tf32:.3e} (must exceed it)'
+            assert d_tf32 > WGRAD_RTOL, (label, d_tf32)
+            del cols, tf32
+        print(f'[wgrad] {label} Cout {cout}: max|diff| / max|ref| {d:.3e} '
+              f'(atol {WGRAD_RTOL} of max|ref| {scale:.3e}); bit-identical '
+              f'over two launches{note}', flush=True)
+        assert d <= WGRAD_RTOL, (label, d)
+        assert torch.equal(got, again), f'{label}: d_w varies'
+
+    for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
+        for kind in ('random', 'zero', 'integer'):
+            _, x, off, mask = _dcn_train_inputs(torch, dev, h, w, cin, stride,
+                                                2 * TRAIN_CLIPS, kind, 700 + i)
+            check_wgrad(f'{site} x {(2 * TRAIN_CLIPS, h, w, cin)} stride '
+                        f'{stride}, {kind} offsets', x, off, mask, cin, 3, 3,
+                        stride, control=kind == 'random')
+            del x, off, mask
+    for (h, w, cin, stride, kh, kw, dil, v1) in K4_SHAPES:
+        for kind, cout in (('random', cin), ('integer', 5)):
+            _, x, off, mask = _dcn_train_inputs(
+                torch, dev, h, w, cin, stride, 2, kind, 8, kh, kw)
+            check_wgrad(f'{(2, h, w, cin)} {kh}x{kw} stride {stride} '
+                        f'dilation {dil}{" v1" if v1 else ""}, {kind} '
+                        'offsets', x, off, None if v1 else mask, cout, kh, kw,
+                        stride, dil)
+            del x, off, mask
+
+    # the whole window DCN op (clamp, fused forward, deform_wgrad, a
+    # matmul, K4) on the card against its CPU plain path: five gradients
     from stmask_torch.ops.deform_conv import deform_conv_window
     for site, (h, w, cin), stride in (DCN_SITES[3], DCN_SITES[5]):
         gc = torch.Generator().manual_seed(11)
@@ -1268,6 +1346,7 @@ def main() -> int:
           f'{k3_plain:.5f} ms, bound {k3_bound:.5f} ms ({k3_by}; {k3_bytes} '
           f'B, {k3_flops} flop)')
     k4, k2t, k4_zero = {}, {}, 0.0
+    wgt, wg_before, wg_lib = {}, 0.0, 0.0
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
         dcols, x, off, mask = _dcn_train_inputs(
             torch, dev, h, w, cin, stride, 2 * TRAIN_CLIPS, 'random', 400 + i)
@@ -1305,13 +1384,55 @@ def main() -> int:
               f'(atol 1e-5), kernel {ms:.5f} ms (device), per wrapper call '
               f'{call:.5f} ms, plain {plain:.5f} ms, bound {bound:.5f} ms '
               f'({by})')
-        del dcols, x, off, mask
+        # deform_wgrad beside the route it replaced (K2, then the cuBLAS
+        # SGEMM g^T @ cols) and that SGEMM alone.  Bound: the product as
+        # three TF32 products (3 x 2MNK) on the tensor cores plus the
+        # gather's fp32 flops, or x, offset, mask and g read and d_w
+        # written once.
+        gg = torch.randn(dcols.shape[0], cin, device=dev, generator=g)
+        del dcols
+        cols = K2.deform_im2col_cuda(x, off, mask, 3, 3, stride)
+        w_ms = _device_ms(lambda: KW.deform_wgrad_cuda(gg, x, off, mask, 3,
+                                                       3, stride), 50)
+        w_call = _time_ms(lambda: KW.deform_wgrad_cuda(gg, x, off, mask, 3,
+                                                       3, stride), 50)
+        w_plain = _time_ms(lambda: KW.deform_wgrad_reference(
+            gg, x, off, mask, 3, 3, stride), 5)
+        b_ms = _device_ms(lambda: gg.t() @ K2.deform_im2col_cuda(
+            x, off, mask, 3, 3, stride), 50)
+        l_ms = _device_ms(lambda: gg.t() @ cols, 50)
+        wg_before += b_ms
+        wg_lib += l_ms
+        w_bytes = 4 * (x.numel() + off.numel() + mask.numel() + gg.numel()
+                       + 9 * cin * cin)
+        w_tf32 = 3 * 2 * gg.shape[0] * cin * 9 * cin
+        w_bound, w_by = tally(wgt, w_ms, w_call, w_plain, w_bytes, flops,
+                              w_tf32)
+        print(f'[time] deform_wgrad {site} x 8 frames: kernel {w_ms:.5f} ms '
+              f'(device), per wrapper call {w_call:.5f} ms, plain '
+              f'{w_plain:.5f} ms, bound {w_bound:.5f} ms ({w_by}; {w_bytes} '
+              f'B, {flops} fp32 flop, {w_tf32} TF32 flop); before (K2 + '
+              f'SGEMM) {b_ms:.5f} ms, the SGEMM alone {l_ms:.5f} ms (device); '
+              f'plan {KW.wgrad_plan(gg.shape[0], cin, 9 * cin)}')
+        # the tile heights and cluster splits wgrad_plan chooses among
+        tiles = []
+        for tm in (128, 256) if cin % 256 == 0 else (128,):
+            for split in (2, 4, 8, 16)[:4 if tm == 128 else 3]:
+                t = _device_ms(lambda: _wgrad_at(KW, gg, x, off, mask, stride,
+                                                 tm, split), 50)
+                tiles.append(f'tm{tm} s{split} {t:.5f}')
+        print(f'[tiles] deform_wgrad {site} x 8 frames, ms (device): '
+              f'{", ".join(tiles)}')
+        del x, off, mask, gg, cols
     print(f'[time] 7 sites x 8 frames summed: deform_col2im {k4["ms"]:.5f} '
           f'ms (device; the zeroing of dx {k4_zero:.5f} ms of it), per call '
           f'{k4["call_ms"]:.5f} ms, plain '
           f'{k4["plain_ms"]:.5f} ms, bound {k4["bound_ms"]:.5f} ms; '
-          f'deform_im2col {k2t["ms"]:.5f} ms, bound {k2t["bound_ms"]:.5f} ms '
-          f'({smi})', flush=True)
+          f'deform_im2col {k2t["ms"]:.5f} ms, bound {k2t["bound_ms"]:.5f} ms; '
+          f'deform_wgrad {wgt["ms"]:.5f} ms (device), per call '
+          f'{wgt["call_ms"]:.5f} ms, plain {wgt["plain_ms"]:.5f} ms, bound '
+          f'{wgt["bound_ms"]:.5f} ms, before (K2 + SGEMM) {wg_before:.5f} ms, '
+          f'the SGEMM alone {wg_lib:.5f} ms ({smi})', flush=True)
 
     # ---- 7. the eval CLI --------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1362,7 +1483,8 @@ def main() -> int:
          'plain_ms': k2t['plain_ms'], 'bound_ms': k2t['bound_ms'],
          'bound_by': by_of(k2t), 'library_ms': None,
          'shape': sites.replace('one 384x640 frame', '8 384x640 frames')
-         + '; rebuilds cols in the DCN backward'},
+         + '; no path launches it: the yardstick of the fused conv and '
+           'deform_wgrad'},
         {'name': 'deform_conv', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/deform_conv.cu',
          'replaces': 'stmask_tpu/ops/deform_conv.py:31',
@@ -1407,6 +1529,21 @@ def main() -> int:
          'call_ms': k4['call_ms'], 'plain_ms': k4['plain_ms'],
          'bound_ms': k4['bound_ms'], 'bound_by': by_of(k4),
          'library_ms': None,
+         'shape': sites.replace('one 384x640 frame', '8 384x640 frames')},
+        {'name': 'deform_wgrad', 'route': 'cuda',
+         'source': 'stmask_torch/kernels/csrc/deform_wgrad.cu',
+         'replaces': 'stmask_tpu/ops/deform_conv.py:347 (the transpose of '
+                     'jnp.dot in deform_conv2d_window :270; on the port\'s '
+                     'path K2 + g^T @ cols)',
+         'launches': train_launches['deform_wgrad'],
+         'launches_path': train_path,
+         'max_abs_err': err['deform_wgrad'],
+         'max_abs_err_is': 'relative to max|ref|', 'ms': wgt['ms'],
+         'call_ms': wgt['call_ms'], 'plain_ms': wgt['plain_ms'],
+         'bound_ms': wgt['bound_ms'], 'bound_by': by_of(wgt),
+         'library_ms': wg_lib, 'library_is': 'the cuBLAS SGEMM g^T @ cols '
+                                             'alone',
+         'before_ms': wg_before, 'before_is': 'K2 + the SGEMM',
          'shape': sites.replace('one 384x640 frame', '8 384x640 frames')}]}
     print(json.dumps(table))
     print(smi)

@@ -68,6 +68,8 @@
 //   multiple of 4, unaligned pointers) take the same pipeline with one
 //   scalar sample per A element and 4-byte copies: right, and slow.
 // - Registers: 128 a thread (two blocks an SM), no spill.
+// - The sample, cp.async, the TF32 split and the cluster reduction are in
+//   deform_gather.cuh, shared with the weight gradient (deform_wgrad.cu).
 //
 // bf16 (the JAX package's bf16 eval, deform_conv.py:84-88 with
 // sampling.py:83): the same tiles, ring, clusters and epilogue order, with
@@ -84,32 +86,20 @@
 // product's 2*M*N*K flops at 989 TFLOP/s, the gather's at 67 TFLOP/s, or
 // the bytes (half of fp32's) at 3.35 TB/s.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-
-#include <cstdint>
-#include <type_traits>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "deform_gather.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int BM = 64;          // output sites per tile
 constexpr int BN = 128;         // output channels per tile
 constexpr int BK = 32;          // (tap, channel) columns per chunk
-constexpr int THREADS = 256;
 constexpr int B_STAGES = 3;
-constexpr int MAX_SPLIT = 16;   // blocks of a K-split cluster (non-portable)
 
 // Shared-memory geometry per element type, in elements of T.  fp32 keeps
 // the hi and lo parts of each A tile; bf16 one part.
 template <typename T>
 struct Tile {
-  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr bool F32 = kF32<T>;
   static constexpr int LD = F32 ? BK + 4 : BK + 8;   // A and B row stride
   static constexpr int A_STAGE = (F32 ? 2 : 1) * BM * LD;
   static constexpr int A_ELEMS = 2 * A_STAGE;
@@ -122,55 +112,13 @@ struct Tile {
 };
 
 template <typename T>
-struct Params {
-  const T* x;            // [B, H, W, Cin]
-  const T* offset;       // [B, Ho, Wo, >= 2K], site stride off_ld
-  const T* mask;         // [B, Ho, Wo, >= K], site stride mask_ld, or null
+struct Params : Sample<T> {
   const T* weight;       // [Cout, K * Cin]
   const T* bias;         // [Cout] or null
   T* out;                // [B, Ho, Wo, Cout]
-  int H, W, Cin, Ho, Wo, kh, kw, stride, dilation;
-  int M, N, Ktot, off_ld, mask_ld;
+  int N;
 };
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const bf16* p) {
-  return __bfloat162float(__ldg(p));
-}
-// x rounded to bf16 (round to nearest even), as an fp32 value
-__device__ __forceinline__ float rbf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = hi + lo exactly, hi with the 13 low mantissa bits cleared (TF32;
-// the MMA reads only the top 19 bits of each operand, so lo loses only its
-// own low bits there: 2^-20 of x at most).
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
 // d += a * b on a 16 x 8 x 8 TF32 tile (fp32 accumulate).
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -191,112 +139,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The four bilinear corners of one (site, tap): element index of each
-// corner's first channel within the site's image (-1 when outside) and its
-// weight.  fp32 folds the modulation into the weight; bf16 keeps the
-// weight rounded to bf16 and applies the modulation m after the sum.
-template <typename T>
-struct Corners {
-  const T* img;
-  int idx[4];
-  float w[4];
-  float m;
-};
-
-// One (site, tap)'s offset (dy, dx) and modulation, as read from memory.
-struct TapIn {
-  float dy, dx, m;
-};
-
-template <typename T>
-__device__ __forceinline__ TapIn tap_in(const Params<T>& p, int m, int tap) {
-  if (m >= p.M) return TapIn{0.f, 0.f, 0.f};
-  const T* off = p.offset + static_cast<int64_t>(m) * p.off_ld + 2 * tap;
-  return TapIn{ld(off), ld(off + 1),
-               p.mask != nullptr
-                   ? ld(p.mask + static_cast<int64_t>(m) * p.mask_ld + tap)
-                   : 1.f};
-}
-
-template <typename T>
-__device__ __forceinline__ void corners_from(const Params<T>& p, int m,
-                                             int tap, const TapIn& in,
-                                             Corners<T>& cn) {
-  cn.img = p.x;
-  cn.m = in.m;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    cn.idx[j] = -1;
-    cn.w[j] = 0.f;
-  }
-  if (m >= p.M) return;
-  const int ox = m % p.Wo;
-  const int t = m / p.Wo;
-  const int oy = t % p.Ho;
-  const int b = t / p.Ho;
-  const int pad_h = (p.kh - 1) / 2 * p.dilation;
-  const int pad_w = (p.kw - 1) / 2 * p.dilation;
-  const float py = static_cast<float>(oy * p.stride - pad_h +
-                                      (tap / p.kw) * p.dilation) + in.dy;
-  const float px = static_cast<float>(ox * p.stride - pad_w +
-                                      (tap % p.kw) * p.dilation) + in.dx;
-  const float mk = in.m;
-  // Clamping far-away coordinates keeps the int conversion defined and
-  // changes nothing: every corner of such a sample is outside the image.
-  const float fy = floorf(fminf(fmaxf(py, -2.f), static_cast<float>(p.H)));
-  const float fx = floorf(fminf(fmaxf(px, -2.f), static_cast<float>(p.W)));
-  const int y0 = static_cast<int>(fy);
-  const int x0 = static_cast<int>(fx);
-  const float ly = py - fy, lx = px - fx;
-  const float hy = 1.f - ly, hx = 1.f - lx;
-  cn.img = p.x + static_cast<int64_t>(b) * p.H * p.W * p.Cin;
-  const float wy[2] = {hy, ly}, wx[2] = {hx, lx};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int yy = y0 + (j >> 1), xx = x0 + (j & 1);
-    if (yy >= 0 && yy < p.H && xx >= 0 && xx < p.W) {
-      cn.idx[j] = (yy * p.W + xx) * p.Cin;
-      if constexpr (Tile<T>::F32)
-        cn.w[j] = wy[j >> 1] * wx[j & 1] * mk;
-      else
-        cn.w[j] = rbf(wy[j >> 1] * wx[j & 1]);
-    }
-  }
-}
-
-// One channel of a bf16 sample: the rounded corner products summed in
-// fp32, rounded, times the modulation, rounded.
-__device__ __forceinline__ float bf16_sample(const float (&w)[4],
-                                             const float (&v)[4], float m) {
-  const float s = rbf(w[0] * v[0]) + rbf(w[1] * v[1]) + rbf(w[2] * v[2]) +
-                  rbf(w[3] * v[3]);
-  return rbf(rbf(s) * m);
-}
-
-// One scalar A element (site m, column k), for the shapes off the fast
-// path.
-template <typename T>
-__device__ __forceinline__ float sample_scalar(const Params<T>& p, int m,
-                                               int k) {
-  if (m >= p.M || k >= p.Ktot) return 0.f;
-  const int tap = k / p.Cin, c = k - tap * p.Cin;
-  Corners<T> cn;
-  corners_from(p, m, tap, tap_in(p, m, tap), cn);
-  if constexpr (Tile<T>::F32) {
-    float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (cn.idx[j] >= 0) v += cn.w[j] * __ldg(cn.img + cn.idx[j] + c);
-    return v;
-  } else {
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = cn.idx[j] >= 0 ? ld(cn.img + cn.idx[j] + c) : 0.f;
-    return bf16_sample(cn.w, v, cn.m);
-  }
 }
 
 // Weight columns [k0, k0 + BK) of output channels [n0, n0 + BN) into one
@@ -677,9 +519,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     return;
   }
 
-  // Split K: sum the cluster's partial tiles through distributed shared
-  // memory, in rank order, four columns at a time with every rank's load
-  // in flight before the sum.
+  // Split K: sum the cluster's partial tiles in rank order
+  // (deform_gather.cuh), add the bias and write each row once.
   cg::cluster_group cluster = cg::this_cluster();
   __syncthreads();                 // every thread is done with a_s / b_s
   float* part = reinterpret_cast<float*>(smem_raw);   // [BM][BN]
@@ -693,29 +534,10 @@ __global__ void __launch_bounds__(THREADS, 2)
                                    wn + nt * 8 + 2 * t4) =
             make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
   cluster.sync();
-  const int rows = BM / n_split;
-  const int rank = static_cast<int>(cluster.block_rank());
-  for (int e = tid; e < rows * BN / 4; e += THREADS) {
-    const int rl = rank * rows + e / (BN / 4), c = (e % (BN / 4)) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r0 = 0; r0 < n_split; r0 += 4) {
-      float4 q[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (r0 + r < n_split)
-          q[r] = *reinterpret_cast<const float4*>(
-              cluster.map_shared_rank(part, r0 + r) + rl * BN + c);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (r0 + r < n_split) {
-          v[0] += q[r].x;
-          v[1] += q[r].y;
-          v[2] += q[r].z;
-          v[3] += q[r].w;
-        }
-    }
+  cluster_reduce<BM, BN>(cluster, part, n_split, [&](int rl, int c,
+                                                     float (&v)[4]) {
     const int m = m0 + rl, n = n0 + c;
-    if (m >= p.M) continue;
+    if (m >= p.M) return;
     T* o = p.out + static_cast<int64_t>(m) * p.N + n;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -731,7 +553,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       for (int j = 0; j < 4; ++j)
         if (n + j < p.N) store_out(o + j, v[j]);
     }
-  }
+  });
   cluster.sync();                  // keep every partial tile alive until read
 }
 
@@ -760,9 +582,9 @@ int launch(const T* x, const T* offset, const T* mask, const T* weight,
       static_cast<int64_t>(B) * Ho * Wo > INT32_MAX ||
       static_cast<int64_t>(kh) * kw * Cin > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params<T> p{x, offset, mask, weight, bias, out, H, W, Cin, Ho, Wo, kh, kw,
-              stride, dilation, B * Ho * Wo, Cout, kh * kw * Cin, off_ld,
-              mask_ld};
+  Params<T> p{{x, offset, mask, H, W, Cin, Ho, Wo, kh, kw, stride, dilation,
+               B * Ho * Wo, kh * kw * Cin, off_ld, mask_ld},
+              weight, bias, out, Cout};
   if (p.M == 0) return static_cast<int>(cudaSuccess);
   const bool fast = Cin % BK == 0 && Cout % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -777,35 +599,18 @@ int launch(const T* x, const T* offset, const T* mask, const T* weight,
          nk >= 8 * split)
     split *= 2;
 
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(mt, nt, split);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = TT::SMEM_BYTES;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = split;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   static bool smem_set = false;
   if (!smem_set) {
     for (const auto kernel : {deform_conv_kernel<T, true>,
                               deform_conv_kernel<T, false>}) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          TT::SMEM_BYTES);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      const cudaError_t e = allow_clusters(kernel, TT::SMEM_BYTES);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     smem_set = true;
   }
-  const cudaError_t e =
-      fast ? cudaLaunchKernelEx(&cfg, deform_conv_kernel<T, true>, p)
-           : cudaLaunchKernelEx(&cfg, deform_conv_kernel<T, false>, p);
+  const cudaError_t e = launch_split(
+      fast ? deform_conv_kernel<T, true> : deform_conv_kernel<T, false>, mt,
+      nt, split, TT::SMEM_BYTES, stream, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,8 +28,12 @@
 // and the pointers are 16-byte aligned.  The offset and mask of a
 // (site, tap) are read by the Cin / VEC threads that share them, which the
 // L1 cache serves.  Corner rows are re-read by neighbouring taps and
-// sites from L2 (x of every main-path site fits in the 50 MB L2).  Fusing
-// the gather into the GEMM, so that cols never reaches HBM, is later work.
+// sites from L2 (x of every main-path site fits in the 50 MB L2).
+//
+// No path launches K2 any more: the forward runs the gather fused into its
+// GEMM (deform_conv.cu), and the DCN backward fuses it into the weight
+// gradient's (deform_wgrad.cu), so cols never reaches HBM.  K2 stays as the
+// yardstick both are timed against.
 
 #include <cstdint>
 

@@ -2,12 +2,13 @@
 version.
 
 Replaces the gather of ``stmask_tpu/ops/deform_conv.py::deform_conv2d``
-(``deform_conv.py:50-84`` with ``ops/sampling.py:48-85``).  ``deform_im2col``
-dispatches on the device: CPU tensors take ``deform_im2col_reference``,
-CUDA tensors take the kernel in ``csrc/deform_im2col.cu`` or raise.  The
-main path runs the fused ``deform_conv`` instead; K2 stays for the exact
-DCN backward (its ``cols`` feed the weight gradient) and as the yardstick
-the fused kernel is timed against.
+(``deform_conv.py:50-84`` with ``ops/sampling.py:48-85``):
+``deform_im2col_cuda`` launches the kernel in ``csrc/deform_im2col.cu``,
+``deform_im2col_reference`` is its plain version.  The main path runs the
+fused ``deform_conv`` instead, and the DCN backward ``deform_wgrad`` (the
+gather fused into the weight-gradient product), so K2 launches on no path.
+It stays as the yardstick that both fused kernels are timed against
+(K2 + matmul is the route each replaced), and its plain version is theirs.
 """
 
 from __future__ import annotations
@@ -82,11 +83,3 @@ def deform_im2col_cuda(x: torch.Tensor, offset: torch.Tensor,
            torch.cuda.current_stream(x.device).cuda_stream)
     return cols
 
-
-def deform_im2col(x: torch.Tensor, offset: torch.Tensor,
-                  mask: Optional[torch.Tensor], kh: int, kw: int,
-                  stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    if x.device.type == 'cpu':
-        return deform_im2col_reference(x, offset, mask, kh, kw, stride,
-                                       dilation)
-    return deform_im2col_cuda(x, offset, mask, kh, kw, stride, dilation)

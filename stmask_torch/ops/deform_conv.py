@@ -11,11 +11,12 @@ device memory); on the CPU its plain version.
 The window path clamps the offsets to [-r, r] first.  Bilinear sampling at
 a clamped offset is exactly the JAX package's hat-weight window sum, so the
 forward is the same fused kernel.  Its backward (``_DeformConvWindow``)
-follows the JAX package's gradient, not DCNv2's: K2 rebuilds ``cols``, two
-matmuls give the weight and column gradients, and K4 (``kernels.
-deform_col2im``) gives those of x, offset and mask with JAX's subgradients
-at integer offsets.  The clamp's own gradient is JAX's ``jnp.clip``'s: 1
-inside, 0.5 at +-r, 0 beyond.
+follows the JAX package's gradient, not DCNv2's: ``kernels.deform_wgrad``
+gives the weight gradient straight from the inputs (the gather fused into
+the product, no ``cols`` matrix in device memory), one matmul gives the
+column gradient, and K4 (``kernels.deform_col2im``) gives those of x,
+offset and mask with JAX's subgradients at integer offsets.  The clamp's
+own gradient is JAX's ``jnp.clip``'s: 1 inside, 0.5 at +-r, 0 beyond.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from ..kernels.deform_col2im import deform_col2im
 from ..kernels.deform_conv import deform_conv
-from ..kernels.deform_im2col import deform_im2col
+from ..kernels.deform_wgrad import deform_wgrad
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
@@ -93,9 +94,7 @@ class _DeformConvWindow(torch.autograd.Function):
         cout, kh, kw, cin = weight.shape
         g = g.contiguous().reshape(-1, cout)              # [M, Cout]
         w2 = weight.reshape(cout, kh * kw * cin)
-        cols = deform_im2col(x, offset, mask, kh, kw, stride, dilation)
-        d_w = (g.t() @ cols).reshape(cout, kh, kw, cin)
-        del cols                                          # free per site
+        d_w = deform_wgrad(g, x, offset, mask, kh, kw, stride, dilation)
         dcols = g @ w2                                    # [M, K*Cin]
         dx, d_off, d_mask = deform_col2im(dcols, x, offset, mask, kh, kw,
                                           stride, dilation, radius)

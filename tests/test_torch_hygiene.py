@@ -135,7 +135,8 @@ def test_unported_paths_raise():
 
 @pytest.mark.parametrize('name', sorted(
     ['correlation', 'correlation_bf16', 'deform_im2col', 'deform_conv',
-     'deform_conv_bf16', 'correlation_bwd', 'deform_col2im']))
+     'deform_conv_bf16', 'correlation_bwd', 'deform_col2im',
+     'deform_wgrad']))
 def test_kernel_argtypes_match_the_c_launchers(name):
     """ctypes passes what ``argtypes`` says: each launcher's list must
     follow its C signature (pointer -> c_void_p, int -> c_int), or a call

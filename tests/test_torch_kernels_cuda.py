@@ -1,6 +1,7 @@
 """CUDA kernels K1 (correlation, fp32 and bf16), K2 (deformable gather),
-the fused deformable conv (fp32 and bf16), K3 (correlation backward) and K4
-(deformable col2im) against their plain PyTorch versions, on the card.  Marked
+the fused deformable conv (fp32 and bf16), K3 (correlation backward), K4
+(deformable col2im) and the DCN weight gradient (deform_wgrad) against
+their plain PyTorch versions, on the card.  Marked
 ``cuda``; without a GPU every test skips with its reason.  Run on a GPU
 machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
@@ -13,6 +14,7 @@ from stmask_torch.kernels import correlation_bwd as K3
 from stmask_torch.kernels import deform_col2im as K4
 from stmask_torch.kernels import deform_conv as KD
 from stmask_torch.kernels import deform_im2col as K2
+from stmask_torch.kernels import deform_wgrad as KW
 from stmask_torch.ops.correlation import correlate
 from stmask_torch.ops.deform_conv import deform_conv2d, deform_conv_window
 
@@ -351,3 +353,140 @@ def test_correlation_and_dcn_functions_match_cpu(device, stride):
         grads.append([t.grad.cpu() for t in ts])
     for a, b in zip(grads[1], grads[0]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+# deform_wgrad against its plain version, relative to max|ref|: 3xTF32
+# holds ~1e-6 over up to 30720 sites, a single TF32 product ~8e-4
+WGRAD_RTOL = 1e-5
+
+
+def _check_wgrad(g, x, off, mask, kh, kw, stride, dilation=1, run=None):
+    """The kernel within WGRAD_RTOL of its plain version, one launch a
+    call, and bit for bit the same on a second launch (no atomics).
+    ``run`` launches it (the wrapper by default)."""
+    run = run or (lambda: KW.deform_wgrad_cuda(g, x, off, mask, kh, kw,
+                                               stride, dilation))
+    launches = KW.KERNEL.launches
+    got = run()
+    assert KW.KERNEL.launches == launches + 1
+    again = run()
+    want = KW.deform_wgrad_reference(g, x, off, mask, kh, kw, stride,
+                                     dilation)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=WGRAD_RTOL * float(
+        want.abs().max()))
+    assert torch.equal(got, again)
+
+
+def _wgrad_launch(g, x, off, mask, kh, kw, stride, tm, split):
+    """The kernel's launcher called with an explicit tile height and
+    cluster split (the wrapper always takes ``wgrad_plan``'s)."""
+    b, h, w, cin = x.shape
+    _, ho, wo, _ = off.shape
+    dw = torch.empty((g.shape[1], kh, kw, cin), device=x.device)
+    KW.KERNEL(g.data_ptr(), x.data_ptr(), off.data_ptr(),
+              None if mask is None else mask.data_ptr(), dw.data_ptr(),
+              b, h, w, cin, ho, wo, g.shape[1], kh, kw, stride, 1, tm, split,
+              torch.cuda.current_stream(x.device).cuda_stream)
+    return dw
+
+
+@pytest.mark.parametrize('kind', ['random', 'zero', 'integer'])
+@pytest.mark.parametrize('shape', [(9, 11, 32, 1), (9, 11, 64, 2),
+                                   (24, 40, 128, 1), (24, 40, 256, 2),
+                                   (12, 20, 512, 1), (7, 5, 3, 1)])
+def test_deform_wgrad_kernel(device, shape, kind):
+    """Reduced sites (2 frames), the fast path's two tile heights, the
+    layer3 site, and a ragged shape on the scalar path."""
+    h, w, cin, stride = shape
+    _, x, off, mask = _col2im_case(device, h, w, cin, stride, kind, 9)
+    gen = torch.Generator(device=device).manual_seed(10)
+    g = torch.randn(off.shape[0] * off.shape[1] * off.shape[2], cin,
+                    device=device, generator=gen)
+    for m in (mask, None):
+        _check_wgrad(g, x, off, m, 3, 3, stride)
+
+
+@pytest.mark.parametrize('shape,stride', [((96, 160, 128), 2),
+                                          ((48, 80, 256), 2),
+                                          ((24, 40, 512), 2)])
+def test_deform_wgrad_kernel_training_sites(device, shape, stride):
+    """The flagship's training sites at 8 frames (one per stage)."""
+    h, w, cin = shape
+    gen = torch.Generator(device=device).manual_seed(11)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(8, h, w, cin, device=device, generator=gen)
+    off = (torch.randn(8, ho, wo, 18, device=device, generator=gen)
+           * 1.5).clamp(-2, 2)
+    mask = torch.rand(8, ho, wo, 9, device=device, generator=gen)
+    g = torch.randn(8 * ho * wo, cin, device=device, generator=gen)
+    _check_wgrad(g, x, off, mask, 3, 3, stride)
+
+
+# (H, W, Cin, Cout, stride, kh, kw, dilation): FCB's 3x5 and 5x3 v1 taps,
+# dilation 2, Cin not a multiple of 32 (40, 6) and Cout not of 128 (5, 64)
+WGRAD_SHAPES = [(24, 40, 64, 64, 1, 3, 5, 1), (24, 40, 64, 5, 1, 5, 3, 1),
+                (24, 40, 64, 64, 1, 3, 3, 2), (13, 21, 40, 40, 1, 3, 3, 1),
+                (19, 37, 6, 5, 2, 3, 3, 1), (2, 3, 36, 36, 2, 3, 3, 1)]
+
+
+@pytest.mark.parametrize('shape', WGRAD_SHAPES)
+def test_deform_wgrad_kernel_shapes(device, shape):
+    h, w, cin, cout, stride, kh, kw, dilation = shape
+    _, x, off, mask = _col2im_case(device, h, w, cin, stride, 'random', 12,
+                                   kh, kw, dilation)
+    gen = torch.Generator(device=device).manual_seed(13)
+    g = torch.randn(off.shape[0] * off.shape[1] * off.shape[2], cout,
+                    device=device, generator=gen)
+    for m in (mask, None):
+        _check_wgrad(g, x, off, m, kh, kw, stride, dilation)
+
+
+@pytest.mark.parametrize('tm,split', [(128, 1), (128, 2), (128, 16),
+                                      (256, 1), (256, 8)])
+def test_deform_wgrad_kernel_any_plan(device, tm, split):
+    """Every tile height and cluster size gives the same d_w within the
+    tolerance, the plan's or not."""
+    _, x, off, mask = _col2im_case(device, 24, 40, 256, 1, 'random', 14)
+    gen = torch.Generator(device=device).manual_seed(15)
+    g = torch.randn(2 * 24 * 40, 256, device=device, generator=gen)
+    _check_wgrad(g, x, off, mask, 3, 3, 1, run=lambda: _wgrad_launch(
+        g, x, off, mask, 3, 3, 1, tm, split))
+
+
+def test_deform_wgrad_rejects_bad_inputs(device):
+    x = torch.zeros(1, 4, 5, 32, device=device)
+    off = torch.zeros(1, 4, 5, 18, device=device)
+    g = torch.zeros(20, 8, device=device)
+    with pytest.raises(ValueError):          # offset of a 3x5 conv
+        KW.deform_wgrad_cuda(g, x, off, None, 3, 5)
+    with pytest.raises(ValueError):          # g with the wrong site count
+        KW.deform_wgrad_cuda(g[:19], x, off, None, 3, 3)
+    with pytest.raises(ValueError):          # mask of another shape
+        KW.deform_wgrad_cuda(g, x, off, torch.zeros(1, 4, 5, 8,
+                                                    device=device), 3, 3)
+    # the launcher refuses a 256-channel tile for Cout 8, a split past 16
+    # and one that is not a power of two
+    for tm, split in ((256, 1), (128, 17), (128, 3)):
+        with pytest.raises(RuntimeError):
+            _wgrad_launch(g, x, off, None, 3, 3, 1, tm, split)
+    with pytest.raises(TypeError):
+        KW.deform_wgrad_cuda(g.double(), x.double(), off.double(), None, 3,
+                             3)
+    with pytest.raises(ValueError):          # a CPU tensor among CUDA ones
+        KW.deform_wgrad_cuda(g.cpu(), x, off, None, 3, 3)
+
+
+def test_dcn_backward_launches_deform_wgrad_not_k2(device):
+    """The window op's backward takes the weight gradient from deform_wgrad
+    and launches K2 no more."""
+    x = torch.randn(2, 24, 40, 64, device=device, requires_grad=True)
+    off = torch.zeros(2, 24, 40, 18, device=device, requires_grad=True)
+    wt = torch.randn(64, 3, 3, 64, device=device, requires_grad=True)
+    mask = torch.rand(2, 24, 40, 9, device=device, requires_grad=True)
+    wgrad, gather = KW.KERNEL.launches, K2.KERNEL.launches
+    deform_conv_window(x, off, wt, mask, None).sum().backward()
+    assert KW.KERNEL.launches == wgrad + 1
+    assert K2.KERNEL.launches == gather
+    assert wt.grad is not None and wt.grad.is_contiguous()
