@@ -57,8 +57,12 @@ Phases, in order (any failure raises and exits non-zero):
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
-K4 at the 7 DCN sites x 8 frames with random, zero and integer offsets and
-at the shapes of K4_SHAPES (v1, 3x5 and 5x3 taps, dilation 2, ragged Cin,
+K3 at the shapes of CORR_BWD_SHAPES with and without the forward's output
+(its leaky ReLU's derivative folded in), bit-identical over two launches,
+and in phase 6 as the training step runs it (K3 the only kernel of the
+backward through torch.cat's gradient slice); K4 at the 7 DCN sites x 8
+frames with random, zero and integer offsets and at the shapes of
+K4_SHAPES (v1, 3x5 and 5x3 taps, dilation 2, ragged Cin,
 H and W off the tile, images inside the border band), with d_offset and
 d_mask bit-identical over two launches.
 
@@ -116,6 +120,12 @@ K4_SHAPES = [(24, 40, 64, 1, 3, 5, 1, True), (24, 40, 64, 1, 5, 3, 1, True),
              (19, 37, 3, 1, 3, 3, 1, False), (19, 37, 6, 2, 3, 3, 1, False),
              (13, 21, 40, 1, 3, 3, 1, False), (3, 4, 8, 1, 3, 3, 1, False),
              (2, 3, 36, 2, 3, 3, 1, False)]
+# K3's shapes ((B, H, W, C), patch): the training shape, two column tiles
+# (W > 64), H and W below the patch, C 40 and 5, patch 1, 5 and 11
+CORR_BWD_SHAPES = [((4, 24, 40, 256), 11), ((2, 48, 80, 256), 11),
+                   ((2, 7, 9, 40), 5), ((1, 5, 7, 5), 11),
+                   ((2, 9, 13, 100), 5), ((1, 4, 3, 40), 11),
+                   ((2, 3, 70, 5), 5), ((1, 6, 5, 12), 1)]
 # frame sizes (H, W) that resize_u8 takes to (360, 640), and two more
 # resizes: all bit for bit cv2's INTER_LINEAR
 RESIZES = [((h, w), (360, 640)) for h, w in (
@@ -372,15 +382,28 @@ def _train_batch(cfg, seed: int, clips: int = TRAIN_CLIPS) -> dict:
 
 
 def _corr_bwd_cost(shape, patch: int):
-    """(bytes, flops) of K3: g, x1, x2 read once, dx1, dx2 written once; 2
-    flops per channel for every in-image (pixel, displacement) term of
-    each output."""
+    """(bytes, flops) of K3: g, out (the forward's output, for the leaky
+    ReLU's derivative), x1, x2 read once, dx1, dx2 written once; 2 flops per
+    channel for every in-image (pixel, displacement) term of each
+    output."""
     b, h, w, c = shape
     r = (patch - 1) // 2
     terms = sum((h - abs(dy)) * (w - abs(dx)) for dy in range(-r, r + 1)
                 for dx in range(-r, r + 1) if abs(dy) < h and abs(dx) < w)
-    nbytes = 4 * (b * h * w * patch * patch + 4 * b * h * w * c)
+    nbytes = 4 * (2 * b * h * w * patch * patch + 4 * b * h * w * c)
     return nbytes, 2 * 2 * c * b * terms
+
+
+def _corr_bwd_inputs(torch, dev, shape, patch: int, gen):
+    """K3's inputs: upstream gradient, x1, x2, and a forward output with
+    negatives and exact zeros (a fifth of it)."""
+    x1 = torch.randn(shape, device=dev, generator=gen)
+    x2 = torch.randn(shape, device=dev, generator=gen)
+    pp = tuple(shape[:3]) + (patch * patch,)
+    up = torch.randn(pp, device=dev, generator=gen)
+    out = torch.randn(pp, device=dev, generator=gen)
+    out[torch.rand(pp, device=dev, generator=gen) < 0.2] = 0.0
+    return up, x1, x2, out
 
 
 def _col2im_cost(torch, x, off, stride, radius: int = 2):
@@ -704,24 +727,30 @@ def main() -> int:
               f'{d:.3e} (atol 1e-5, rtol 1e-5)', flush=True)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
-    # K3 at the training shape (4 clips at 384x640) and ragged ones (odd H
-    # and W, C not a multiple of 32, patch 5), upstream gradient of both
-    # signs; gather form, so the sums differ only in their order
-    for shape, patch in (((4, 24, 40, 256), 11), ((2, 7, 9, 40), 5),
-                         ((1, 5, 7, 5), 11), ((2, 9, 13, 100), 5)):
-        x1 = torch.randn(shape, device=dev, generator=g)
-        x2 = torch.randn(shape, device=dev, generator=g)
-        up = torch.randn(shape[:3] + (patch * patch,), device=dev,
-                         generator=g)
-        got = K3.correlation_bwd_cuda(up, x1, x2, patch)
-        want = K3.correlation_bwd_reference(up, x1, x2, patch)
-        torch.cuda.synchronize()
-        d = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        err['correlation_bwd'] = max(err['correlation_bwd'], d)
-        print(f'[K3] correlation_bwd {shape} patch {patch}: max|diff| '
-              f'{d:.3e} (atol 1e-5, rtol 1e-5)', flush=True)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    # K3 at the training shape (4 clips at 384x640) and ragged ones: two
+    # column tiles (W > 64), H and W below the patch, C 40 and 5 (not a
+    # multiple of 4), patch 1, 5 and 11; upstream gradient of both signs and
+    # a forward output with negatives and exact zeros (the leaky ReLU's
+    # derivative is folded in); each output is summed in a fixed order, so
+    # the sums differ from the plain version's only in their order, and a
+    # second launch gives the same bits
+    for shape, patch in CORR_BWD_SHAPES:
+        up, x1, x2, out = _corr_bwd_inputs(torch, dev, shape, patch, g)
+        for o in (out, None):
+            n0 = K3.KERNEL.launches
+            got = K3.correlation_bwd_cuda(up, x1, x2, patch, out=o)
+            assert K3.KERNEL.launches == n0 + 1
+            again = K3.correlation_bwd_cuda(up, x1, x2, patch, out=o)
+            want = K3.correlation_bwd_reference(up, x1, x2, patch, out=o)
+            torch.cuda.synchronize()
+            d = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            err['correlation_bwd'] = max(err['correlation_bwd'], d)
+            print(f'[K3] correlation_bwd {shape} patch {patch} '
+                  f'{"with" if o is not None else "without"} out: max|diff| '
+                  f'{d:.3e} (atol 1e-5, rtol 1e-5)', flush=True)
+            for a, a2, b in zip(got, again, want):
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+                assert torch.equal(a, a2), 'K3 differs between two launches'
 
     # ---- 3. K2 vs plain ---------------------------------------------------
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
@@ -1330,15 +1359,42 @@ def main() -> int:
               'train step: device busy share not measured')
     del model, step, state, batches
 
-    # K3 and K4 (and K2, whose training shapes are 8 frames) times
+    # the correlation's backward as the training step runs it: the op's
+    # gradient through torch.cat (a channel slice of the cat's gradient) is
+    # K3 alone, with the activation's derivative folded in: one launch a
+    # call, and no other kernel in a profile of 50 calls (a profiler
+    # session after earlier ones misses the first few launches, so one
+    # call is not enough)
     tshape = (TRAIN_CLIPS, 24, 40, 256)
-    x1 = torch.randn(tshape, device=dev, generator=g)
-    x2 = torch.randn(tshape, device=dev, generator=g)
-    up = torch.randn(tshape[:3] + (121,), device=dev, generator=g)
-    k3_ms = _device_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11), 200)
-    k3_call = _time_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11), 200)
-    k3_plain = _time_ms(lambda: K3.correlation_bwd_reference(up, x1, x2, 11),
-                        10)
+    up, x1, x2, _ = _corr_bwd_inputs(torch, dev, tshape, 11, g)
+    a1, a2 = (t.clone().requires_grad_(True) for t in (x1, x2))
+    from stmask_torch.ops.correlation import correlate as op_correlate
+    corr = op_correlate(a1, a2, 11)
+    cat = torch.cat([corr, x1], dim=-1)
+    g_cat = torch.randn(cat.shape, device=dev, generator=g)
+    n0 = K3.KERNEL.launches
+    rows = _device_events(lambda: torch.autograd.grad(
+        cat, (a1, a2), g_cat, retain_graph=True), 50)
+    assert K3.KERNEL.launches - n0 == 51, K3.KERNEL.launches - n0
+    print(f'[train] correlation backward through torch.cat, 50 calls: K3 '
+          f'launches {K3.KERNEL.launches - n0 - 1}, device kernels '
+          f'{[(k[:60], c) for k, c, _ in rows]}', flush=True)
+    if rows:
+        assert len(rows) == 1 and 'correlation_bwd' in rows[0][0] and \
+            rows[0][1] >= 25, rows
+    else:
+        print('[train] torch.profiler recorded no device time: the '
+              'correlation backward\'s kernels not listed')
+    del a1, a2, corr, cat, g_cat
+
+    # K3 and K4 (and K2, whose training shapes are 8 frames) times
+    out = K1.correlate_cuda(x1, x2, 11)     # negatives and border zeros
+    k3_ms = _device_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11, out),
+                       200)
+    k3_call = _time_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11, out),
+                       200)
+    k3_plain = _time_ms(lambda: K3.correlation_bwd_reference(
+        up, x1, x2, 11, out), 10)
     k3_bytes, k3_flops = _corr_bwd_cost(tshape, 11)
     k3_bound, k3_by = _bound_ms(k3_bytes, k3_flops)
     print(f'[time] correlation_bwd {list(tshape)} P 11: kernel {k3_ms:.5f} '
@@ -1515,8 +1571,8 @@ def main() -> int:
          'max_abs_err': err['correlation_bwd'], 'ms': k3_ms,
          'call_ms': k3_call, 'plain_ms': k3_plain, 'bound_ms': k3_bound,
          'bound_by': k3_by, 'library_ms': None,
-         'shape': f'g [{TRAIN_CLIPS},24,40,121], x1, x2 [{TRAIN_CLIPS},24,40,'
-                  '256] fp32; one launch'},
+         'shape': f'g, out [{TRAIN_CLIPS},24,40,121], x1, x2 [{TRAIN_CLIPS},'
+                  '24,40,256] fp32; one launch, the derivative folded in'},
         {'name': 'deform_col2im', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/deform_col2im.cu',
          'replaces': 'stmask_tpu/ops/deform_conv.py:152 '

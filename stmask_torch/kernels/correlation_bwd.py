@@ -4,15 +4,16 @@ version.
 Replaces the XLA transpose of ``stmask_tpu/ops/correlation.py::correlate``
 that the JAX package differentiates in training.  ``correlation_bwd``
 dispatches on the device: CPU tensors take ``correlation_bwd_reference``,
-CUDA tensors take the kernel in ``csrc/correlation_bwd.cu`` or raise.  The
-upstream gradient ``g`` comes already multiplied by the leaky ReLU's
-derivative (``ops.correlation`` does that).
+CUDA tensors take the kernel in ``csrc/correlation_bwd.cu`` or raise.  With
+``out`` (the forward's output after its leaky ReLU) both apply the
+activation's derivative to ``g`` themselves, with JAX's rule: slope 1 where
+``out >= 0`` (so at exactly 0), else 0.1.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,15 +21,19 @@ import torch.nn.functional as F
 from .build import CudaKernel, check_cuda
 
 KERNEL = CudaKernel('correlation_bwd', 'stmask_correlation_bwd',
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
 
 
 def correlation_bwd_reference(g: torch.Tensor, x1: torch.Tensor,
-                              x2: torch.Tensor, patch_size: int = 11
+                              x2: torch.Tensor, patch_size: int = 11,
+                              out: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch gradients (dx1, dx2) [B, H, W, C] of the correlation
-    before its activation, from ``g`` [B, H, W, P^2]."""
+    from ``g`` [B, H, W, P^2]: before its activation, or through it when
+    ``out`` is given."""
+    if out is not None:
+        g = torch.where(out >= 0, g, g * 0.1)
     b, h, w, c = x1.shape
     r = (patch_size - 1) // 2
     x2p = F.pad(x2, (0, 0, r, r, r, r))
@@ -42,31 +47,58 @@ def correlation_bwd_reference(g: torch.Tensor, x1: torch.Tensor,
     return dx1 / c, dx2p[:, r:r + h, r:r + w, :] / c
 
 
+def pixel_stride(t: torch.Tensor) -> Optional[int]:
+    """The pixel stride of a [B, H, W, D] tensor whose channels are
+    contiguous and whose pixels are evenly spaced (a contiguous tensor, or
+    a channel slice of one, as ``torch.cat``'s backward gives), else
+    None."""
+    _, h, w, d = t.shape
+    if t.is_contiguous():
+        return d
+    s = t.stride(2)
+    want = (h * w * s, w * s, s, 1)
+    ok = all(st == ws or n == 1
+             for st, ws, n in zip(t.stride(), want, t.shape))
+    return s if ok and s >= d else None
+
+
 def correlation_bwd_cuda(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
-                         patch_size: int = 11
+                         patch_size: int = 11,
+                         out: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K3 on contiguous fp32 CUDA tensors (shapes as above)."""
-    check_cuda('correlation_bwd_cuda', g, x1, x2)
+    """Kernel K3 on fp32 CUDA tensors (shapes as above): x1, x2 and ``out``
+    contiguous, ``g`` with evenly spaced pixels (``pixel_stride``)."""
+    tensors = (x1, x2) if out is None else (x1, x2, out)
+    check_cuda('correlation_bwd_cuda', *tensors)
+    check_cuda('correlation_bwd_cuda', g, x1, contiguous=False)
     if x1.dim() != 4 or x1.shape != x2.shape:
         raise ValueError(f'correlation_bwd_cuda: x1 {tuple(x1.shape)} and x2 '
                          f'{tuple(x2.shape)} must be equal [B, H, W, C]')
+    if patch_size not in range(1, 32, 2):
+        raise ValueError(f'correlation_bwd_cuda: patch {patch_size} is not '
+                         'odd in 1..31')
     b, h, w, c = x1.shape
-    if patch_size % 2 != 1 or tuple(g.shape) != (b, h, w,
-                                                  patch_size * patch_size):
-        raise ValueError(f'correlation_bwd_cuda: g {tuple(g.shape)} is not '
-                         f'[{b}, {h}, {w}, P^2] for an odd patch '
-                         f'{patch_size}')
+    want = (b, h, w, patch_size * patch_size)
+    for name, t in (('g', g), ('out', out)):
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f'correlation_bwd_cuda: {name} '
+                             f'{tuple(t.shape)} is not {list(want)}')
+    ldg = pixel_stride(g)
+    if ldg is None:
+        raise ValueError('correlation_bwd_cuda: g needs contiguous channels '
+                         f'and evenly spaced pixels, got strides {g.stride()}')
     dx1 = torch.empty_like(x1)
     dx2 = torch.empty_like(x2)
-    KERNEL(g.data_ptr(), x1.data_ptr(), x2.data_ptr(), dx1.data_ptr(),
-           dx2.data_ptr(), b, h, w, c, patch_size,
+    KERNEL(g.data_ptr(), None if out is None else out.data_ptr(),
+           x1.data_ptr(), x2.data_ptr(), dx1.data_ptr(), dx2.data_ptr(),
+           ldg, b, h, w, c, patch_size,
            torch.cuda.current_stream(x1.device).cuda_stream)
     return dx1, dx2
 
 
 def correlation_bwd(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
-                    patch_size: int = 11
+                    patch_size: int = 11, out: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     if x1.device.type == 'cpu':
-        return correlation_bwd_reference(g, x1, x2, patch_size)
-    return correlation_bwd_cuda(g, x1, x2, patch_size)
+        return correlation_bwd_reference(g, x1, x2, patch_size, out)
+    return correlation_bwd_cuda(g, x1, x2, patch_size, out)

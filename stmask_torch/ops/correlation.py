@@ -7,11 +7,12 @@ output channel ``(dy+r)*patch + (dx+r)``, divided by the channel count and
 passed through leaky-relu(0.1) (reference
 ``layers/modules/track_to_segment_head.py:40-62``).  A CPU tensor takes the
 plain PyTorch versions; a CUDA tensor takes kernel K1 forward and kernel K3
-backward.
+backward, one launch each.
 
 The leaky ReLU's derivative is JAX's: 1 where the output is >= 0 (so 1 at
 exactly 0, where ``F.leaky_relu``'s backward gives 0.1), else 0.1.  Border
-displacements produce exact zeros, so the difference is real.
+displacements produce exact zeros, so the difference is real.  K3 (and its
+plain version) applies it from the saved output.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.correlation import correlate as _correlate
-from ..kernels.correlation_bwd import correlation_bwd
+from ..kernels.correlation_bwd import correlation_bwd, pixel_stride
 
 
 class _Correlate(torch.autograd.Function):
@@ -34,9 +35,10 @@ class _Correlate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x1, x2, out = ctx.saved_tensors
-        if ctx.apply_activation:
-            g = torch.where(out >= 0, g, g * 0.1)
-        dx1, dx2 = correlation_bwd(g.contiguous(), x1, x2, ctx.patch_size)
+        if pixel_stride(g) is None:      # K3 reads channel slices in place
+            g = g.contiguous()
+        dx1, dx2 = correlation_bwd(g, x1, x2, ctx.patch_size,
+                                   out if ctx.apply_activation else None)
         return dx1, dx2, None, None
 
 

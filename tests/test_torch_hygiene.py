@@ -95,6 +95,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         correlation_bwd_cuda(torch.zeros(1, 4, 5, 121), x, x)
     with pytest.raises(ValueError, match='CUDA'):
+        correlation_bwd_cuda(torch.zeros(1, 4, 5, 121), x, x, 11,
+                             out=torch.zeros(1, 4, 5, 121))
+    with pytest.raises(ValueError, match='CUDA'):
         deform_col2im_cuda(torch.zeros(20, 72), x, torch.zeros(1, 4, 5, 18),
                            None, 3, 3)
     with pytest.raises(ValueError, match='CUDA'):

@@ -224,25 +224,63 @@ def test_wrappers_reject_bad_inputs(device):
                             None)
 
 
-# K3: the training shape (4 clips at 384x640) and ragged ones
+# K3: the training shape (4 clips at 384x640), two column tiles (W > 64),
+# H and W below the patch, C 40 and 5 (not a multiple of 4), patch 1, 5, 11
+# and 31 (G limits its tile to 16 columns)
 CORR_BWD_SHAPES = [((4, 24, 40, 256), 11), ((2, 7, 9, 96), 11),
-                   ((1, 5, 7, 40), 5), ((2, 9, 5, 5), 11)]
+                   ((1, 5, 7, 40), 5), ((2, 9, 5, 5), 11),
+                   ((2, 48, 80, 256), 11), ((1, 4, 3, 40), 11),
+                   ((2, 3, 70, 5), 5), ((1, 6, 5, 12), 1),
+                   ((1, 20, 40, 64), 31)]
 
 
-@pytest.mark.parametrize('shape,patch', CORR_BWD_SHAPES)
-def test_correlation_bwd_kernel(device, shape, patch):
-    g = torch.Generator(device=device).manual_seed(5)
+def _corr_bwd_case(device, shape, patch, seed=5):
+    """x1, x2, an upstream gradient and a forward output with negatives
+    and exact zeros (where JAX's leaky ReLU has slope 1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
     x1 = torch.randn(shape, device=device, generator=g)
     x2 = torch.randn(shape, device=device, generator=g)
-    up = torch.randn(shape[:3] + (patch * patch,), device=device,
-                     generator=g)
+    pp = shape[:3] + (patch * patch,)
+    up = torch.randn(pp, device=device, generator=g)
+    out = torch.randn(pp, device=device, generator=g)
+    out[torch.rand(pp, device=device, generator=g) < 0.2] = 0.0
+    return up, x1, x2, out
+
+
+@pytest.mark.parametrize('act', [True, False])
+@pytest.mark.parametrize('shape,patch', CORR_BWD_SHAPES)
+def test_correlation_bwd_kernel(device, shape, patch, act):
+    """Within 1e-5 of the plain version (the sums differ only in their
+    order), one launch a call, bit for bit the same on a second launch."""
+    up, x1, x2, out = _corr_bwd_case(device, shape, patch)
+    out = out if act else None
     launches = K3.KERNEL.launches
-    got = K3.correlation_bwd_cuda(up, x1, x2, patch)
+    got = K3.correlation_bwd_cuda(up, x1, x2, patch, out=out)
     assert K3.KERNEL.launches == launches + 1
-    want = K3.correlation_bwd_reference(up, x1, x2, patch)
+    again = K3.correlation_bwd_cuda(up, x1, x2, patch, out=out)
+    want = K3.correlation_bwd_reference(up, x1, x2, patch, out=out)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, again, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        assert torch.equal(a, a2)
+
+
+def test_correlation_bwd_kernel_reads_a_channel_slice(device):
+    """g as torch.cat's backward hands it over (a channel slice of a wider
+    gradient) is read in place and gives what its contiguous copy gives."""
+    up, x1, x2, out = _corr_bwd_case(device, (2, 9, 13, 24), 5, seed=6)
+    wide = torch.randn(2, 9, 13, 25 + 48, device=device)
+    wide[..., :25] = up
+    g = wide[..., :25]
+    assert not g.is_contiguous() and K3.pixel_stride(g) == 73
+    got = K3.correlation_bwd_cuda(g, x1, x2, 5, out=out)
+    want = K3.correlation_bwd_cuda(up, x1, x2, 5, out=out)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match='evenly spaced'):
+        K3.correlation_bwd_cuda(up.transpose(1, 2).contiguous().transpose(
+            1, 2), x1, x2, 5)
 
 
 def _col2im_case(device, h, w, cin, stride, kind, seed, kh=3, kw=3,
@@ -354,6 +392,26 @@ def test_correlation_and_dcn_functions_match_cpu(device, stride):
     for a, b in zip(grads[1], grads[0]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
+
+
+def test_correlation_backward_through_cat(device):
+    """As in the model's training forward, relu(cat[correlation, t]): the
+    op's backward gets a channel slice of the cat's gradient and launches
+    K3 once; the gradients match the CPU path's."""
+    g = torch.Generator().manual_seed(8)
+    x1, x2 = (torch.randn(2, 24, 40, 64, generator=g) for _ in range(2))
+    t = torch.randn(2, 24, 40, 32, generator=g)
+    up = torch.randn(2, 24, 40, 121 + 32, generator=g)
+    grads = []
+    for dev in ('cpu', device):
+        ts = [a.detach().to(dev).requires_grad_(True) for a in (x1, x2)]
+        y = torch.relu(torch.cat([correlate(*ts), t.to(dev)], dim=-1))
+        launches = K3.KERNEL.launches
+        (y * up.to(dev)).sum().backward()
+        assert K3.KERNEL.launches == launches + (dev != 'cpu')
+        grads.append([a.grad.cpu() for a in ts])
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 # deform_wgrad against its plain version, relative to max|ref|: 3xTF32
 # holds ~1e-6 over up to 30720 sites, a single TF32 product ~8e-4

@@ -27,6 +27,8 @@ from stmask_tpu.ops.roi_align import roi_align as j_roi_align
 
 from stmask_torch.config import BackboneConfig as TBackboneConfig
 from stmask_torch.convert import state_dict_from_flax
+from stmask_torch.kernels.correlation_bwd import \
+    correlation_bwd_reference as t_correlation_bwd_reference
 from stmask_torch.models.backbone import ResNetBackbone as TResNetBackbone
 from stmask_torch.ops import boxes as TB
 from stmask_torch.ops.correlation import correlate as t_correlate
@@ -157,6 +159,33 @@ def test_correlation_backward_matches_jax_grad(shape, patch):
     (out * torch.from_numpy(cot)).sum().backward()
     _close(t1.grad, want[0], msg='dx1')
     _close(t2.grad, want[1], msg='dx2')
+
+
+@pytest.mark.parametrize('c', [5, 16])
+@pytest.mark.parametrize('hw,patch', [((3, 9), 5), ((9, 4), 5),
+                                      ((4, 13), 11), ((12, 3), 11),
+                                      ((5, 6), 1)])
+def test_correlation_bwd_reference_matches_jax_vjp(hw, patch, c):
+    """K3's plain version with the activation folded in (``out=``) against
+    ``jax.vjp`` of the activated correlation.  H or W below the patch puts
+    whole displaced rows or columns outside the image; a zero pixel of x1
+    gives exact zeros in ``out`` at every patch, where JAX's slope is 1.
+    fp32 with the sums taken in another order: atol 1e-6 of max|ref|."""
+    rng = np.random.RandomState(100 * patch + c)
+    shape = (2,) + hw + (c,)
+    x1, x2 = (rng.randn(*shape).astype(np.float32) for _ in range(2))
+    x1[:, 0, 0, :] = 0.0
+    cot = rng.randn(*shape[:3], patch * patch).astype(np.float32)
+    out, vjp = jax.vjp(lambda a, b: j_correlate(a, b, patch),
+                       jnp.asarray(x1), jnp.asarray(x2))
+    want = vjp(jnp.asarray(cot))
+    out = np.array(out)
+    assert (out == 0).any() and (out < 0).any()
+    got = t_correlation_bwd_reference(
+        torch.from_numpy(cot), torch.from_numpy(x1), torch.from_numpy(x2),
+        patch, out=torch.from_numpy(out))
+    _close(got[0], want[0], 1e-6, 'dx1')
+    _close(got[1], want[1], 1e-6, 'dx2')
 
 
 def _offsets(kind, rng, shape):
