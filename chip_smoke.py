@@ -53,7 +53,17 @@ Phases, in order (any failure raises and exits non-zero):
      of 8 frames, the bf16 K1 once a lane-frame), frames/s end to end and
      device-only, peak memory, mAP; a profile of steady chunks (idle share,
      launches a frame); one bf16 batched chunk on the card against the CPU
-     path at 96x128.
+     path at 96x128;
+  8. the training CLI (``python -m stmask_torch.train``'s ``run``) over a
+     synthetic YouTube-VIS set of 4 videos x 8 JPEG frames at 1280x720:
+     12 steps of 4 clips through ClipLoader (8 workers) and the loop's
+     Prefetcher, validation after each epoch of 8 steps on 2 videos (the
+     eval CLI's bf16 path, on a copy of the model), then --resume latest
+     for 4 more steps: launch counts per step, checkpoint names, the
+     resumed iteration, bf16-only validation with the fp32 training model
+     unchanged; the CLI's ms/step beside phase 6's step alone, the data
+     path's ms a batch, the idle share of profiled steady steps, peak
+     memory.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -112,6 +122,14 @@ WGRAD_RTOL = 1e-5
 BF16_REL_ATOL = 2.0 ** -6
 EVAL_SET = (16, 12, 720, 1280)    # videos, frames each, frame height, width
 EVAL_LANES, EVAL_CHUNK = 8, 4     # the eval CLI's defaults
+# the training CLI's phase: videos, JPEG frames each, frame height, width;
+# steps, then steps after --resume; the dispatches whose intervals give the
+# CLI's ms/step (epoch 0 after 2 warm-up steps) and the profiled window
+# (epoch 1, after the validation)
+TRAIN_CLI_SET = (4, 8, 720, 1280)
+TRAIN_CLI_STEPS, TRAIN_CLI_RESUMED = 12, 4
+TRAIN_CLI_TIMED = (2, 8)
+TRAIN_CLI_PROFILED = (9, 11)
 # K4's shapes beside the 7 sites: (H, W, Cin, stride, kh, kw, dilation,
 # v1): FCB's 3x5 and 5x3 v1 taps, dilation 2, ragged Cin, H and W off the
 # tile, images inside the border band (each footprint past every edge)
@@ -651,6 +669,193 @@ def _eval_cli(torch, dev, smi: str, name: str, tmp: str) -> dict:
           f'{box_d:.3e} where both keep', flush=True)
     return dict(stats=stats, timed=timed, launches=launches, peak=peak,
                 prof=prof)
+
+
+def _train_cli(torch, dev, smi: str, name: str, tmp: str,
+               step_alone_ms: float) -> dict:
+    """Phase 8: the training CLI (``python -m stmask_torch.train``) on a
+    synthetic YouTube-VIS set of JPEG frames at 1280x720: 12 steps of 4
+    clips with validation after each epoch (8 steps) on 2 videos, then
+    ``--resume latest`` for 4 more.  The CLI's step dispatches are timed
+    (and a window of them profiled) through a wrapper of the loop's
+    ``build_train_step``; its validation is checked through a wrapper of
+    ``validate``: only bf16 kernels, and the training model unchanged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stmask_torch.config import get_config
+    from stmask_torch.data.synthetic import write_ytvis_set
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.train import __main__ as cli
+    from stmask_torch.train import loop
+
+    n_vid, n_fr, h, w = TRAIN_CLI_SET
+    cfg = get_config('STMask_plus_resnet50')
+    t0 = time.perf_counter()
+    ann, prefix = write_ytvis_set(f'{tmp}/train', n_vid, n_fr, h, w,
+                                  seed=11, ext='.jpg')
+    # the eval path writes masks at the model's input size, so the
+    # validation's gt is drawn there (the same frames)
+    vann, vprefix = write_ytvis_set(f'{tmp}/valid', n_vid, n_fr, h, w,
+                                    seed=11, ext='.jpg',
+                                    gt_hw=(cfg.img_h, cfg.img_w))
+    print(f'[train_cli] wrote {n_vid} videos x {n_fr} JPEG frames at '
+          f'{w}x{h} (twice: gt at the frame size and at the model\'s) in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    dispatch, prof_box, checks = [], {}, []
+    build_train_step, validate = loop.build_train_step, cli.validate
+
+    def timed_build(cfg_, model, device):
+        step, init = build_train_step(cfg_, model, device)
+
+        def timed_step(state, batch):
+            i = len(dispatch)
+            if i in TRAIN_CLI_PROFILED:
+                torch.cuda.synchronize()
+                if i == TRAIN_CLI_PROFILED[0]:
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    prof_box.update(prof=prof, t0=time.perf_counter())
+                else:
+                    prof_box['wall'] = time.perf_counter() - prof_box['t0']
+                    prof_box['prof'].__exit__(None, None, None)
+            dispatch.append(time.perf_counter())
+            return step(state, batch)
+        return timed_step, init
+
+    def checked_validate(args, cfg_, model, epoch, iteration):
+        torch.cuda.synchronize()
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        counts = {n: k.launches for n, k in KERNELS.items()}
+        stats = validate(args, cfg_, model, epoch, iteration)
+        torch.cuda.synchronize()
+        launched = {n: k.launches - counts[n] for n, k in KERNELS.items()}
+        assert launched['deform_conv_bf16'] > 0 and \
+            launched['correlation_bf16'] > 0, launched
+        assert all(v == 0 for n, v in launched.items()
+                   if not n.endswith('bf16')), launched
+        after = model.state_dict()
+        for k, v in before.items():
+            assert after[k].dtype == v.dtype and torch.equal(after[k], v), k
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        assert model.training
+        checks.append(dict(epoch=epoch, iteration=iteration,
+                           launches=launched, mAP=stats['mAP'],
+                           seconds=stats['seconds']))
+        return stats
+
+    def argv(max_iter: int, *extra):
+        return ['--ann_file', ann, '--img_prefix', prefix, '--batch_size',
+                str(TRAIN_CLIPS), '--max_iter', str(max_iter),
+                '--validation_epoch', '1', '--valid_ann_file', vann,
+                '--valid_img_prefix', vprefix, '--valid_max_videos', '2',
+                '--save_folder', f'{tmp}/weights',
+                '--log_folder', f'{tmp}/logs', *extra]
+    loop.build_train_step, cli.validate = timed_build, checked_validate
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = cli.run(argv(TRAIN_CLI_STEPS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+        saved = sorted(os.listdir(f'{tmp}/weights'))
+        for k in KERNELS.values():
+            k.launches = 0
+        resumed = cli.run(argv(TRAIN_CLI_STEPS + TRAIN_CLI_RESUMED,
+                               '--resume', 'latest'))
+        torch.cuda.synchronize()
+        resumed_launches = {n: k.launches for n, k in KERNELS.items()}
+    finally:
+        loop.build_train_step, cli.validate = build_train_step, validate
+
+    epoch_size = len(out['loader'].index) // TRAIN_CLIPS
+    n_epochs = -(-TRAIN_CLI_STEPS // epoch_size)
+    st, st2 = out['state'], resumed['state']
+    print(f'[train_cli] launches {launches} over {TRAIN_CLI_STEPS} steps and '
+          f'the validation; after --resume {resumed_launches} over '
+          f'{TRAIN_CLI_RESUMED} steps; checkpoints {saved}, then '
+          f'{sorted(os.listdir(f"{tmp}/weights"))}', flush=True)
+    assert st.step == TRAIN_CLI_STEPS == int(st.count), (st.step, st.count)
+    assert st2.step == TRAIN_CLI_STEPS + TRAIN_CLI_RESUMED == int(st2.count)
+    assert saved == [f'{cfg.name}_{n_epochs}_{TRAIN_CLI_STEPS}.pth',
+                     'valid_results.json'], saved
+    assert f'{cfg.name}_{n_epochs}_{st2.step}.pth' in os.listdir(
+        f'{tmp}/weights')
+    for n_, per in TRAIN_LAUNCHES.items():
+        assert launches[n_] == per * TRAIN_CLI_STEPS, (n_, launches)
+        assert resumed_launches[n_] == per * TRAIN_CLI_RESUMED, \
+            (n_, resumed_launches)
+    bf16 = {n_: v for n_, v in launches.items() if n_.endswith('bf16')}
+    assert bf16 == {n_: sum(c['launches'][n_] for c in checks)
+                    for n_ in bf16}, (bf16, checks)
+    assert len(checks) == TRAIN_CLI_STEPS // epoch_size, checks
+    entries = [json.loads(ln) for ln in open(f'{tmp}/logs/{cfg.name}.log')]
+    trained = [(e['data']['epoch'], e['data']['iter'], e['data']['total'])
+               for e in entries if e['type'] == 'train']
+    assert [it for _, it, _ in trained] == list(
+        range(1, TRAIN_CLI_STEPS + TRAIN_CLI_RESUMED + 1)), trained
+    assert all(np.isfinite(tot) for _, _, tot in trained), trained
+    assert [e['type'] for e in entries].count('validation') == len(checks)
+
+    a, b = TRAIN_CLI_TIMED
+    gaps = sorted((dispatch[i + 1] - dispatch[i]) * 1e3 for i in range(a, b - 1))
+    cli_med = (gaps[(len(gaps) - 1) // 2] + gaps[len(gaps) // 2]) / 2
+    timing = out['loader'].timing
+    per_batch = {k: timing[k] * 1e3 / timing['batches']
+                 for k in ('decode', 'preprocess', 'collate')}
+    rows = []
+    for e in prof_box['prof'].key_averages():
+        us = getattr(e, 'self_device_time_total', None)
+        if us is None:
+            us = getattr(e, 'self_cuda_time_total', 0)
+        if us > 0 and str(e.device_type).endswith('CUDA'):
+            rows.append((e.key, e.count, us))
+    n_prof = TRAIN_CLI_PROFILED[1] - TRAIN_CLI_PROFILED[0]
+    busy = sum(us for _, _, us in rows) / 1e3 / n_prof if rows else None
+    prof_ms = prof_box['wall'] * 1e3 / n_prof
+    print(f'[train_cli] losses {[round(t, 3) for _, _, t in trained]}; '
+          f'validation {checks}', flush=True)
+    print(f'[train_cli] STMask_plus_resnet50 {cfg.img_h}x{cfg.img_w} fp32 '
+          f'(TF32 off), {TRAIN_CLIPS} clips a step from {n_vid} videos x '
+          f'{n_fr} JPEG frames at {w}x{h} (ClipLoader, 8 workers, uint8 '
+          f'frames and packed masks, put on a side stream): median '
+          f'{cli_med:.3f} ms/step over the dispatch intervals of steps '
+          f'{a}-{b - 1} ({2 * TRAIN_CLIPS * 1e3 / cli_med:.2f} frames/s), '
+          f'all {[round(g, 3) for g in gaps]}; the step alone (phase 6) '
+          f'{step_alone_ms:.3f} ms/step: CLI / alone '
+          f'{cli_med / step_alone_ms:.4f}; peak memory {peak / 2**20:.1f} '
+          f'MiB ({name}, {smi}); {TRAIN_CLI_STEPS} steps + validation in '
+          f'{wall:.1f} s', flush=True)
+    print(f'[train_cli] data path, worker ms a batch of {TRAIN_CLIPS} clips '
+          f'(8 frames decoded, resized, masks rasterised) over '
+          f'{int(timing["batches"])} batches: decode '
+          f'{per_batch["decode"]:.3f}, preprocess '
+          f'{per_batch["preprocess"]:.3f}; collate {per_batch["collate"]:.3f}'
+          f' (in the prefetch thread)', flush=True)
+    if busy is not None:
+        print(f'[train_cli] profiled steps {TRAIN_CLI_PROFILED[0]}-'
+              f'{TRAIN_CLI_PROFILED[1] - 1} (torch.profiler on, the window '
+              f'opened and closed by a synchronize): {prof_ms:.3f} ms/step '
+              f'wall, device busy {busy:.3f} ms/step, idle share '
+              f'{1 - busy / prof_ms:.3f} (against the unprofiled median '
+              f'{cli_med:.3f} ms/step: {1 - busy / cli_med:.3f})',
+              flush=True)
+        for key, cnt, us in sorted(rows, key=lambda r: -r[2])[:8]:
+            print(f'[train_cli]   {us / n_prof / 1e3:8.4f} ms/step '
+                  f'{cnt / n_prof:6.1f}x  {key[:100]}')
+    else:
+        print('[train_cli] torch.profiler recorded no device time: idle '
+              'share not measured', flush=True)
+    return dict(launches=launches, resumed=resumed_launches, checks=checks,
+                ms_per_step=cli_med, peak=peak, busy=busy, idle=(
+                    None if busy is None else 1 - busy / prof_ms),
+                data_ms=per_batch)
 
 
 def main() -> int:
@@ -1300,16 +1505,18 @@ def main() -> int:
     # one step of the loop with a checkpoint, then a resumed step
     with tempfile.TemporaryDirectory() as tmp:
         save_dir, log_dir = f'{tmp}/weights', f'{tmp}/logs'
-        s1 = train(cfg.replace(max_iter=1), model, iter(hosts[-2:-1]),
-                   save_dir, log_dir, save_interval=1, device=dev)
+        s1 = train(cfg.replace(max_iter=1), model, lambda e: hosts[-2:-1],
+                   1, save_dir, log_dir, save_interval=1, device=dev)
         saved = sorted(os.listdir(save_dir))
-        s2 = train(cfg.replace(max_iter=2), model, iter(hosts[-1:]),
+        s2 = train(cfg.replace(max_iter=2), model, lambda e: hosts[-1:], 1,
                    save_dir, log_dir, resume='latest', device=dev)
         n_log = sum(1 for _ in open(f'{log_dir}/{cfg.name}.log'))
         print(f'[loop] checkpoints {saved}, then {sorted(os.listdir(save_dir))}'
               f'; steps {s1.step} then {s2.step} (resumed); {n_log} log lines',
               flush=True)
-        assert saved == [f'{cfg.name}_0_1.pth'] and s1.step == 1
+        assert saved == [f'{cfg.name}_0_1.pth', f'{cfg.name}_1_1.pth'], \
+            saved
+        assert s1.step == 1
         assert s2.step == 2 and int(s2.count) == 2
 
     # the card against the CPU path: one step at 96x128, full depth.
@@ -1495,6 +1702,10 @@ def main() -> int:
         ev = _eval_cli(torch, dev, smi, name, tmp)
     eval_launches = ev['launches']
 
+    # ---- 8. the training CLI -----------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = _train_cli(torch, dev, smi, name, tmp, train_med)
+
     def by_of(acc):
         return 'bytes' if acc['bytes_s'] >= acc['ops_s'] else 'operations'
 
@@ -1601,6 +1812,11 @@ def main() -> int:
                                              'alone',
          'before_ms': wg_before, 'before_is': 'K2 + the SGEMM',
          'shape': sites.replace('one 384x640 frame', '8 384x640 frames')}]}
+    train_cli_path = (f'training CLI, {TRAIN_CLI_STEPS} steps of '
+                      f'{TRAIN_CLIPS} clips and the validation (bf16)')
+    for row in table['kernels']:
+        row['cli_launches'] = tc['launches'][row['name']]
+        row['cli_path'] = train_cli_path
     print(json.dumps(table))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -9,14 +9,16 @@ become ``weight/bias/running_mean/running_var`` (plus the reference's
 the port with plain ``load_state_dict``, and a flax tree converts with
 ``state_dict_from_flax``.  The same mapping carries a flax gradient (or
 an updated parameter tree) onto the port's keys; ``include_bn=False``
-leaves out the FrozenBatchNorm entries, which are buffers in the port and
-have no gradient.
+leaves out the FrozenBatchNorm entries that are buffers in the port and
+have no gradient: all of them under ``freeze_bn``, the running statistics
+otherwise.  ``load_reference_weights`` overlays a reference-keyed ``.pth``
+on a model's initial weights.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -77,12 +79,12 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def state_dict_from_flax(params: Mapping, include_bn: bool = True
-                         ) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(params: Mapping, include_bn: bool = True,
+                         freeze_bn: bool = True) -> Dict[str, torch.Tensor]:
     """flax param tree (``{'params': ...}`` or the bare tree; numpy or jax
     arrays) -> the port's ``state_dict`` (reference key names); with
-    ``include_bn=False`` only the entries that are parameters in the
-    port."""
+    ``include_bn=False`` only the entries that are parameters in the port
+    under ``cfg.freeze_bn == freeze_bn``."""
     if 'params' in params:
         params = params['params']
     sd: Dict[str, torch.Tensor] = {}
@@ -91,11 +93,12 @@ def state_dict_from_flax(params: Mapping, include_bn: bool = True
         key, kind = _module_key(path[:-1])
         name = path[-1]
         if kind == 'bn':
-            if not include_bn:
+            if not include_bn and (freeze_bn or name in ('mean', 'var')):
                 continue
             sd[f'{key}.{_BN_NAMES[name]}'] = torch.tensor(arr)
-            sd[f'{key}.num_batches_tracked'] = torch.zeros((),
-                                                           dtype=torch.long)
+            if include_bn:
+                sd[f'{key}.num_batches_tracked'] = torch.zeros(
+                    (), dtype=torch.long)
             continue
         if name == 'kernel':
             arr = arr.transpose(3, 2, 0, 1) if kind == 'conv' else arr.T
@@ -104,3 +107,28 @@ def state_dict_from_flax(params: Mapping, include_bn: bool = True
             raise KeyError(f'unexpected flax leaf {"/".join(path)}')
         sd[f'{key}.{name}'] = torch.tensor(np.ascontiguousarray(arr))
     return sd
+
+
+def load_reference_weights(model: torch.nn.Module, path: str
+                           ) -> Tuple[List[str], List[str]]:
+    """Overlay a reference-keyed ``.pth`` (a bare ``state_dict``, or one
+    under ``'state_dict'`` or the port's own ``'model'``) on ``model``'s
+    current weights, in place, as the JAX package's
+    ``load_torch_checkpoint`` + ``merge_params`` do (``convert.py:190,
+    222``): a tensor the file lacks keeps its value, a key the model lacks
+    is dropped, and a shape mismatch raises.  Returns (kept, dropped)."""
+    saved = torch.load(path, map_location='cpu', weights_only=True)
+    for wrapper in ('state_dict', 'model'):
+        if wrapper in saved:
+            saved = saved[wrapper]
+            break
+    own = model.state_dict()
+    bad = [(k, tuple(v.shape), tuple(own[k].shape)) for k, v in saved.items()
+           if k in own and v.shape != own[k].shape]
+    if bad:
+        raise ValueError(f'{path}: shape mismatches (file, model): {bad}')
+    kept = [k for k in own if k not in saved]
+    dropped = [k for k in saved if k not in own]
+    model.load_state_dict({k: v for k, v in saved.items() if k in own},
+                          strict=False)
+    return kept, dropped

@@ -1,2 +1,4 @@
 """Frame decoding, the YouTube-VIS annotation accessors, frame and batch
-preparation on the device, and a synthetic YouTube-VIS writer."""
+preparation (training frames on the host, eval frames and batches on the
+device), the training augmentations, the clip loader and its prefetch
+thread, and a synthetic YouTube-VIS writer."""

@@ -1,6 +1,6 @@
-"""A synthetic YouTube-VIS-format video set, written from a seed: PNG frames
-and an annotation JSON with per-frame RLE masks.  Used by the tests and by
-``chip_smoke.py``, since the repository holds no dataset.
+"""A synthetic YouTube-VIS-format video set, written from a seed: PNG (or
+JPEG) frames and an annotation JSON with per-frame RLE masks.  Used by the
+tests and by ``chip_smoke.py``, since the repository holds no dataset.
 
 Each video has a smooth random background with mild noise and 1 to 3
 objects (filled ellipses of a flat colour) that move a few pixels a frame;
@@ -11,7 +11,8 @@ The eval CLI (the JAX package's ``eval.py`` and the port's alike) writes its
 masks
 at the model's input size (img_h, img_w), not at the frame's, so a set
 meant for ``--eval_metrics`` with frames of another size draws its gt at
-that size (``gt_hw``).
+that size (``gt_hw``); a set meant for training keeps its gt at the
+frame's size, where the boxes are.
 """
 
 from __future__ import annotations
@@ -39,11 +40,12 @@ NOISE = 8.0             # std of the per-frame pixel noise
 
 def write_ytvis_set(root: str, n_videos: int, n_frames: int, height: int,
                     width: int, seed: int = 0,
-                    gt_hw: Optional[Tuple[int, int]] = None
-                    ) -> Tuple[str, str]:
-    """Write ``n_videos`` videos of ``n_frames`` PNG frames of ``height`` x
+                    gt_hw: Optional[Tuple[int, int]] = None,
+                    ext: str = '.png') -> Tuple[str, str]:
+    """Write ``n_videos`` videos of ``n_frames`` frames of ``height`` x
     ``width`` under ``root``, with gt masks of ``gt_hw`` (default the
-    frame's size); returns (annotation file, image prefix)."""
+    frame's size); returns (annotation file, image prefix).  Frames are
+    PNG, or JPEG through cv2 with ``ext='.jpg'`` (YouTube-VIS's format)."""
     rng = np.random.RandomState(seed)
     img_prefix = os.path.join(root, 'JPEGImages')
     videos, annotations = [], []
@@ -89,9 +91,14 @@ def write_ytvis_set(root: str, n_videos: int, n_frames: int, height: int,
                     o['segs'].append(None)
                     o['boxes'].append(None)
                     o['areas'].append(None)
-            fname = f'{name}/{f:05d}.png'
-            write_png(os.path.join(img_prefix, fname),
-                      np.clip(img, 0, 255).astype(np.uint8))
+            fname = f'{name}/{f:05d}{ext}'
+            img = np.clip(img, 0, 255).astype(np.uint8)
+            if ext == '.png':
+                write_png(os.path.join(img_prefix, fname), img)
+            else:
+                import cv2
+                cv2.imwrite(os.path.join(img_prefix, fname),
+                            cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
             files.append(fname)
         videos.append({'id': vid, 'width': width, 'height': height,
                        'length': n_frames, 'file_names': files})

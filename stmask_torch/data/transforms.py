@@ -1,9 +1,10 @@
-"""Device-side preparation of frames and training batches (port of
-``preprocess_frame_u8``, the ``*_device`` functions and ``pad_gt`` of
+"""Preparation of frames and training batches (port of
 ``stmask_tpu/data/transforms.py``).
 
 An eval frame is resized on the device to (img_w, img_h) and stays uint8;
-the video step normalizes and pads it.  A batch in ``ClipLoader``'s format
+the video step normalizes and pads it.  A training frame and its targets
+are prepared on the host with cv2 (``preprocess_frame``, then ``pad_gt``),
+as the JAX package does.  A batch in ``ClipLoader``'s format
 (``image_u8=True``) carries uint8 frames [B, 2, img_h, img_w, 3] and
 bit-packed gt masks; the card normalizes and pads the frames and unpacks
 the masks.
@@ -12,14 +13,15 @@ the masks.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..config import STMaskConfig
+from ..config import MEANS, STD, STMaskConfig
 from ..inference.pipeline import normalize_pad
 from ..utils.device import resolve_device
+from .ytvis import FrameAnnots
 
 
 _COEF = 2048   # cv2's INTER_RESIZE_COEF_SCALE: 11-bit weights
@@ -81,6 +83,80 @@ def preprocess_frame_u8(cfg: STMaskConfig, img_rgb,
     return {'image': resize_u8(img, (cfg.img_h, cfg.img_w)),
             'img_shape': (cfg.img_h, cfg.img_w),
             'pad_shape': (cfg.pad_h, cfg.pad_w)}
+
+
+def preprocess_frame(cfg: STMaskConfig, img_rgb: np.ndarray,
+                     annots: Optional[FrameAnnots] = None,
+                     flip: bool = False, image_u8: bool = False) -> Dict:
+    """One training frame on the host (``transforms.py:37-112``): cv2
+    ``INTER_LINEAR`` resize to (img_w, img_h), the optional horizontal
+    flip, and either the normalized frame zero-padded to (pad_h, pad_w)
+    float32 or, with ``image_u8``, the resized uint8 frame (an augmented
+    float frame rounded and clipped).  With ``annots`` also: boxes scaled,
+    flipped, clipped to the image and divided by the padded size; labels,
+    ids, crowd boxes alike; and ``masks_proto`` [n, pad_h/4, pad_w/4]
+    uint8, each mask resized ``INTER_NEAREST``, padded, then resized
+    ``INTER_LINEAR`` to prototype size and thresholded at 0.5."""
+    import cv2
+
+    ow, oh = img_rgb.shape[1], img_rgb.shape[0]
+    iw, ih = cfg.img_w, cfg.img_h
+    pw, ph = cfg.pad_w, cfg.pad_h
+
+    img = cv2.resize(img_rgb, (iw, ih), interpolation=cv2.INTER_LINEAR)
+    if image_u8:
+        if flip:
+            img = img[:, ::-1]
+        if img.dtype != np.uint8:
+            img = np.clip(np.rint(img), 0, 255).astype(np.uint8)
+        out = {'image': np.ascontiguousarray(img),
+               'img_shape': (ih, iw), 'pad_shape': (ph, pw)}
+    else:
+        img = ((img.astype(np.float32) - np.asarray(MEANS, np.float32))
+               / np.asarray(STD, np.float32))
+        if flip:
+            img = img[:, ::-1]
+        padded = np.zeros((ph, pw, 3), np.float32)
+        padded[:ih, :iw] = img
+        out = {'image': padded, 'img_shape': (ih, iw), 'pad_shape': (ph, pw)}
+    if annots is None:
+        return out
+
+    w_scale, h_scale = iw / ow, ih / oh
+
+    def tf_boxes(b):
+        b = b * np.asarray([w_scale, h_scale, w_scale, h_scale], np.float32)
+        if flip:                      # reference bbox_flip
+            x1 = iw - b[:, 2] - 1
+            x2 = iw - b[:, 0] - 1
+            b = np.stack([x1, b[:, 1], x2, b[:, 3]], axis=1)
+        b = b.copy()
+        b[:, 0::2] = np.clip(b[:, 0::2], 0, iw) / pw
+        b[:, 1::2] = np.clip(b[:, 1::2], 0, ih) / ph
+        return b.astype(np.float32)
+
+    boxes = tf_boxes(annots.boxes)
+    crowd = annots.crowd_boxes
+    crowd = (tf_boxes(crowd.reshape(-1, 4)) if crowd is not None
+             and len(crowd) else np.zeros((0, 4), np.float32))
+
+    hp, wp = ph // 4, pw // 4
+    n = annots.masks.shape[0]
+    masks_proto = np.zeros((n, hp, wp), np.uint8)
+    for i in range(n):
+        m = cv2.resize(annots.masks[i], (iw, ih),
+                       interpolation=cv2.INTER_NEAREST)
+        if flip:
+            m = m[:, ::-1]
+        mp = np.zeros((ph, pw), np.uint8)
+        mp[:ih, :iw] = m
+        small = cv2.resize(mp.astype(np.float32), (wp, hp),
+                           interpolation=cv2.INTER_LINEAR)
+        masks_proto[i] = (small > 0.5).astype(np.uint8)
+
+    out.update(boxes=boxes, labels=annots.labels, ids=annots.ids,
+               masks_proto=masks_proto, crowd_boxes=crowd)
+    return out
 
 
 def train_base_transform(cfg: STMaskConfig, images: torch.Tensor

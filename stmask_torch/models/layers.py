@@ -25,9 +25,11 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 class FrozenBatchNorm(nn.Module):
     """BatchNorm evaluated with stored statistics, folded in fp32.
 
-    Buffers carry the reference BatchNorm2d names (``weight``, ``bias``,
+    Tensors carry the reference BatchNorm2d names (``weight``, ``bias``,
     ``running_mean``, ``running_var``, ``num_batches_tracked``) so a
-    reference checkpoint loads with plain ``load_state_dict``.
+    reference checkpoint loads with plain ``load_state_dict``.  All are
+    buffers; ``set_bn_affine_trainable`` makes ``weight`` and ``bias``
+    parameters (``freeze_bn=False``), and the statistics stay buffers.
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -46,6 +48,24 @@ class FrozenBatchNorm(nn.Module):
         shift = self.bias.float() - self.running_mean.float() * inv
         return (x * inv.to(x.dtype)[None, :, None, None]
                 + shift.to(x.dtype)[None, :, None, None])
+
+
+def set_bn_affine_trainable(model: nn.Module, trainable: bool) -> None:
+    """Turn every ``FrozenBatchNorm``'s ``weight`` and ``bias`` into
+    parameters (``trainable``) or back into buffers, in place, keeping
+    their tensors.  The ``state_dict`` keys do not change; the running
+    statistics are never trained (JAX ``train_step.py:35-48``)."""
+    for m in model.modules():
+        if not isinstance(m, FrozenBatchNorm):
+            continue
+        for name in ('weight', 'bias'):
+            t = getattr(m, name)
+            if trainable and not isinstance(t, nn.Parameter):
+                del m._buffers[name]
+                m.register_parameter(name, nn.Parameter(t))
+            elif not trainable and isinstance(t, nn.Parameter):
+                del m._parameters[name]
+                m.register_buffer(name, t.detach())
 
 
 class Upsample(nn.Module):

@@ -23,7 +23,7 @@ from ..ops.correlation import correlate
 from .backbone import DCNConv, ResNetBackbone
 from .fpn import FPN
 from .heads import PredictionHead
-from .layers import MakeNet
+from .layers import FrozenBatchNorm, MakeNet
 from .temporal import TemporalNet
 
 # ProtoNet spec (reference config.py:667 'mask_proto_net'): 3x conv(256,3)
@@ -114,7 +114,7 @@ class STMask(nn.Module):
 
 
 def init_random(model: STMask, generator: torch.Generator) -> STMask:
-    """Seeded random weights for runs without a checkpoint.
+    """Seeded random weights for eval runs without a checkpoint.
 
     Convs and linears are He-normal with zero bias; BatchNorm keeps the
     identity statistics and each bottleneck's last BN scale is 0.2, so the
@@ -122,7 +122,9 @@ def init_random(model: STMask, generator: torch.Generator) -> STMask:
     offset predictors get small weights and a bias of std 0.5 pixels, so
     the deformable gather samples off the grid.  Parameters are
     drawn on the CPU, in module order, so a seed gives the same weights on
-    every device.
+    every device.  Training from these weights loses the ProtoNet (its last
+    ReLU goes dead within tens of steps, in the JAX package alike): the
+    training entry points start from ``init_flax``.
     """
     def normal(shape, std):
         return torch.randn(shape, generator=generator) * std
@@ -148,6 +150,45 @@ def init_random(model: STMask, generator: torch.Generator) -> STMask:
         for layer in model.backbone.layers:
             for block in layer:
                 block.bn3.weight.fill_(0.2)
+    return model
+
+
+def init_flax(model: STMask, generator: torch.Generator) -> STMask:
+    """Seeded initial weights drawn as the JAX package's ``model.init``
+    draws them (flax's initializers; the training entry points start
+    here, as ``train.py`` and ``scripts/overfit_sanity.py`` do).
+
+    Conv and linear kernels are LeCun-normal (variance 1 / fan-in), the
+    DCN kernels He-normal (variance 2 / fan-in), both truncated at two
+    standard deviations as flax's ``variance_scaling`` draws them; biases
+    are zero; the DCN offset predictors are zero, so training starts from
+    a plain conv (``backbone.py:41-47``); BatchNorm is the identity.
+    Parameters are drawn on the CPU, in module order.
+    """
+    def truncated(shape, scale: float, fan_in: int):
+        # flax's truncated_normal: the stddev corrected for the truncation
+        std = math.sqrt(scale / fan_in) / .87962566103423978
+        return nn.init.trunc_normal_(torch.empty(shape), std=std,
+                                     a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear, DCNConv)):
+                scale = 2.0 if isinstance(m, DCNConv) else 1.0
+                m.weight.copy_(truncated(m.weight.shape, scale,
+                                         m.weight[0].numel()))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, FrozenBatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+        for m in model.modules():
+            if isinstance(m, DCNConv):
+                m.conv_offset_mask.weight.zero_()
+                m.conv_offset_mask.bias.zero_()
     return model
 
 

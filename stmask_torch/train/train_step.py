@@ -10,7 +10,9 @@ SGD with momentum and weight decay, as the JAX package's optax chain
 
 FrozenBatchNorm statistics and (under ``freeze_bn``, the flagship's
 setting) the BN affine are buffers, never parameters, so they are neither
-updated nor counted in the norm.  When the loss or the gradient norm is not
+updated nor counted in the norm; with ``freeze_bn=False`` the BN scale and
+bias become parameters (``models.layers.set_bn_affine_trainable``) and
+train like every other.  When the loss or the gradient norm is not
 finite, parameters and momentum keep their values but ``step`` still
 advances; ``count``, the optimizer's own step that the learning rate reads,
 does not.  The skip is a ``torch.where`` on the card, so a step never waits
@@ -25,6 +27,7 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 import torch
 
 from ..config import STMaskConfig
+from ..models.layers import set_bn_affine_trainable
 from ..models.stmask import STMask
 from ..ops.anchors import all_priors
 from ..utils.device import resolve_device
@@ -63,10 +66,8 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
     if remat or compute_dtype is not None:
         raise NotImplementedError('remat and compute_dtype are not ported '
                                   '(ROADMAP A.9)')
-    if not cfg.freeze_bn:
-        raise NotImplementedError('freeze_bn=False (trainable BN affine) is '
-                                  'not ported (ROADMAP A.9)')
     dev = resolve_device(device)
+    set_bn_affine_trainable(model, not cfg.freeze_bn)
     model.to(device=dev, memory_format=torch.channels_last).train()
     priors = torch.as_tensor(all_priors(cfg), device=dev)
     params = list(model.parameters())

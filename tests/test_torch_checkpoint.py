@@ -25,6 +25,8 @@ from stmask_torch.train.loop import train
 from stmask_torch.train.schedule import learning_rate
 from stmask_torch.train.train_step import build_train_step
 
+from torch_eval_common import few_torch_threads  # noqa: F401
+
 C0 = get_config('STMask_plus_resnet50')
 CFG = C0.replace(backbone=dataclasses.replace(C0.backbone,
                                               layers=(1, 1, 1, 1)),
@@ -129,24 +131,38 @@ def test_restored_run_continues_bit_identically(tmp_path):
 
 
 def test_loop_checkpoints_logs_and_resumes(tmp_path):
+    """Epochs of 2 batches: names and log entries carry the epoch, the final
+    save is named after the epoch count (``train.py:277``), and a resumed
+    run skips the epochs it has done."""
     cfg = CFG.replace(max_iter=3,
                       delayed_settings=((2, (('lr', 5e-4),)),))
     save, logs = str(tmp_path / 'w'), str(tmp_path / 'logs')
-    batches = (_clip_batch(cfg, s, b=2) for s in range(10))
-    state = train(cfg, _model(), batches, save, logs, save_interval=2,
+
+    def epochs(e):
+        return (_clip_batch(cfg, 10 * e + s, b=2) for s in range(2))
+    state = train(cfg, _model(), epochs, 2, save, logs, save_interval=2,
                   keep_latest=1, device='cpu')
     assert state.step == 3
     files = sorted(os.listdir(save))
-    assert files == [f'{cfg.name}_0_3.pth'], files     # 0_2 pruned
+    assert files == [f'{cfg.name}_2_3.pth'], files     # 0_2 pruned
     entries = [json.loads(ln) for ln in open(os.path.join(
         logs, f'{cfg.name}.log'))]
     train_entries = [e for e in entries if e['type'] == 'train']
     assert [e['data']['iter'] for e in train_entries] == [1, 2, 3]
+    assert [e['data']['epoch'] for e in train_entries] == [0, 0, 1]
     assert all(np.isfinite(e['data']['total']) for e in train_entries)
     assert train_entries[2]['data']['lr'] == pytest.approx(
         learning_rate(cfg.replace(lr=5e-4), 2))
 
-    more = (_clip_batch(cfg, s, b=2) for s in range(10, 20))
-    state = train(cfg.replace(max_iter=4), _model(seed=3), more, save, logs,
-                  resume='latest', device='cpu')
+    seen = []
+
+    def more(e):
+        seen.append(e)
+        return (_clip_batch(cfg, 100 + 10 * e + s, b=2) for s in range(2))
+    state = train(cfg.replace(max_iter=4), _model(seed=3), more, 2, save,
+                  logs, resume='latest', device='cpu')
     assert state.step == 4 and int(state.count) == 4
+    assert seen == [1]
+    last = [json.loads(ln) for ln in open(os.path.join(
+        logs, f'{cfg.name}.log'))][-1]
+    assert last['data']['epoch'] == 1 and last['data']['iter'] == 4

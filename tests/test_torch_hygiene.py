@@ -128,9 +128,13 @@ def test_unported_paths_raise():
     for kw in (dict(remat=True), dict(compute_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
             build_train_step(cfg, STMask(cfg), device='cpu', **kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
-        build_train_step(cfg.replace(freeze_bn=False), STMask(cfg),
-                         device='cpu')
+    from stmask_torch.train.__main__ import parse_args
+    with pytest.raises(NotImplementedError, match='ROADMAP A.7b'):
+        parse_args(['--vis_every', '10'])
+    from stmask_torch import overfit_sanity
+    for flag in ('--bf16', '--remat'):
+        with pytest.raises(NotImplementedError, match='ROADMAP A.9c'):
+            overfit_sanity.parse_args([flag])
     for method in ('per_class', 'greedy'):
         with pytest.raises(NotImplementedError, match='ROADMAP A.11'):
             detect_frame(cfg.replace(eval_nms_method=method), {}, None)

@@ -71,13 +71,18 @@ def _frames():
 
 
 @pytest.fixture(scope='module')
-def models():
+def flax_init():
+    """The flax model and its own initial parameters (numpy)."""
     jmodel = JSTMask(JCFG)
     x = jnp.zeros((1, JCFG.pad_h, JCFG.pad_w, 3), jnp.float32)
     params = jmodel.init(jax.random.PRNGKey(0), x, train=False)
-    params = {'params': _perturb(
-        jax.tree_util.tree_map(np.asarray, params['params']),
-        np.random.RandomState(0))}
+    return jmodel, jax.tree_util.tree_map(np.asarray, params['params'])
+
+
+@pytest.fixture(scope='module')
+def models(flax_init):
+    jmodel, init = flax_init
+    params = {'params': _perturb(init, np.random.RandomState(0))}
     tmodel = TSTMask(TCFG)
     tmodel.load_state_dict(state_dict_from_flax(params), strict=True)
     return jmodel, params, tmodel.eval()
@@ -175,3 +180,34 @@ def test_flagship_dcn_sites():
                      'backbone.layers.2.4.conv2': 1,
                      'backbone.layers.3.0.conv2': 2,
                      'backbone.layers.3.2.conv2': 1}
+
+
+def test_init_flax_draws_as_flax_init(flax_init):
+    """``init_flax`` against flax's own init of the same model, tensor by
+    tensor: the zeros (biases, DCN offset predictors, BN shift and mean)
+    and ones (BN scale and variance) exactly; each random kernel's spread
+    within 10% of flax's (15% under 2048 values), both truncated where
+    flax truncates."""
+    from stmask_torch.models.stmask import init_flax
+
+    want = state_dict_from_flax({'params': flax_init[1]})
+    got = init_flax(TSTMask(TCFG), torch.Generator().manual_seed(0)
+                    ).state_dict()
+    assert set(got) == set(want)
+    n_random = 0
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape, k
+        if not w.is_floating_point() or not bool((w != w.flatten()[0]).any()):
+            assert torch.equal(g, w.to(g.dtype)), k
+            continue
+        n_random += 1
+        ratio = float(g.std() / w.std())
+        tol = 0.10 if w.numel() >= 2048 else 0.15
+        assert abs(ratio - 1) < tol, (k, ratio)
+        # truncated at 2 stddev of the underlying normal: 2 / 0.8796 of
+        # the drawn values' spread
+        bound = 1.1 * 2 / 0.87962566103423978 * float(w.std())
+        assert float(w.abs().max()) <= bound, k
+        assert float(g.abs().max()) <= bound, k
+    assert n_random > 50

@@ -11,7 +11,10 @@ vanishing and a new instance) goes through one step of JAX's
 statistics and DCN offset predictors perturbed as in
 ``test_torch_model_parity.py``.  JAX's gradients are read back from its
 update (see ``KW``).  A second case zeroes every ``conv_offset_mask``, so
-that every offset sits on the bilinear kink.
+that every offset sits on the bilinear kink.  A third runs three steps with
+the BN affine trainable (``freeze_bn=False``) under the overfit gate's
+settings (warm-up, ``grad_clip_norm=1e3``); JAX's gradients are read back
+from its momentum trace there.
 
 Tolerances: loss values rtol 1e-4 (they agree to ~1e-6); gradients and
 updates atol 1e-2 of max|ref| per parameter (floor 1e-6).  Most agree to
@@ -41,10 +44,12 @@ from stmask_tpu.train.train_step import build_train_step as j_build_train_step
 from stmask_torch.config import get_config as t_get_config
 from stmask_torch.convert import state_dict_from_flax
 from stmask_torch.models import STMask as TSTMask
+from stmask_torch.models.layers import FrozenBatchNorm
 from stmask_torch.train.schedule import learning_rate
 from stmask_torch.train.train_step import build_train_step as t_build_train_step
 
 from test_torch_model_parity import _perturb
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 # lr 1e3 from the first step (no warm-up): JAX's update is then
 # -1e3 * (scale * grad + decay * param), large against the parameter, so
@@ -249,3 +254,89 @@ def test_optimizer_matches_optax():
         np.testing.assert_allclose(getattr(tiny, k).detach().numpy(),
                                    np.asarray(jp[k]), rtol=1e-6, atol=1e-7,
                                    err_msg=k)
+
+
+# the overfit gate's optimizer settings (stmask_torch/overfit_sanity.py)
+BN_KW = dict(lr=2e-3, lr_warmup_until=100, lr_steps=(10 ** 9,),
+             grad_clip_norm=1e3, freeze_bn=False)
+
+
+@pytest.fixture(scope='module')
+def bn_step():
+    """JAX's train step with the BN affine trainable, compiled once."""
+    jcfg = JCFG.replace(**BN_KW)
+    return j_build_train_step(jcfg, JSTMask(jcfg))
+
+
+def _trace(opt_state):
+    """JAX's momentum trace (``u + momentum * m``, before the lr) as a
+    flax tree without the masked (frozen) leaves."""
+    def drop(tree):
+        return {k: drop(v) if isinstance(v, dict) else np.asarray(v)
+                for k, v in tree.items()
+                if isinstance(v, dict) or not isinstance(v, optax.MaskedNode)}
+    return drop(opt_state.inner_states['train'].inner_state[1][0].trace)
+
+
+def test_trainable_bn_three_steps_match_jax(setup, bn_step):
+    params, _, _ = setup
+    j_step, j_init = bn_step
+    tcfg = TCFG.replace(**BN_KW)
+    batch = _batch(JCFG)
+
+    model = TSTMask(tcfg)
+    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    t_step, t_init = t_build_train_step(tcfg, model, device='cpu')
+    named = dict(model.named_parameters())
+    bn = sorted(f'{n}.{p}' for n, m in model.named_modules()
+                if isinstance(m, FrozenBatchNorm) for p in ('weight', 'bias'))
+    assert len(bn) == 2 * sum(isinstance(m, FrozenBatchNorm)
+                              for m in model.modules()) and set(bn) <= set(
+        named)
+    assert not any(k.endswith(('running_mean', 'running_var'))
+                   for k in named)
+
+    def port_keys(tree):
+        return {k: v.numpy() for k, v in state_dict_from_flax(
+            tree, include_bn=False, freeze_bn=False).items()}
+
+    j_state, state = j_init(params), t_init()
+    j_prev_p = port_keys(params)
+    j_prev_m = {k: np.zeros_like(v) for k, v in j_prev_p.items()}
+    assert set(j_prev_p) == set(named)
+    for i in range(3):
+        before = {k: named[k].detach().clone().numpy() for k in bn}
+        j_state, j_metrics = j_step(
+            j_state, {k: jnp.asarray(v) for k, v in batch.items()})
+        state, metrics = t_step(state, {k: torch.from_numpy(v)
+                                        for k, v in batch.items()})
+        for k in ('BIoU', 'C', 'center', 'M', 'T', 'B_shift', 'M_shift',
+                  'total', 'gnorm'):
+            assert np.isfinite(float(metrics[k])), (i, k)
+            np.testing.assert_allclose(float(metrics[k]),
+                                       float(j_metrics[k]), rtol=1e-4,
+                                       err_msg=f'step {i} {k}')
+        j_p = port_keys(jax.tree_util.tree_map(np.asarray, j_state.params))
+        j_m = port_keys(_trace(j_state.opt_state))
+        scale = min(1.0, tcfg.grad_clip_norm
+                    / max(float(j_metrics['gnorm']), 1e-12))
+        for k in bn:
+            j_grad = (j_m[k].astype(np.float64)
+                      - tcfg.momentum * j_prev_m[k]
+                      - tcfg.decay * j_prev_p[k]) / scale
+            _close(named[k].grad, j_grad, f'step {i} grad {k}')
+            _close(named[k].detach().numpy() - before[k],
+                   j_p[k] - j_prev_p[k], f'step {i} update {k}')
+        j_prev_p, j_prev_m = j_p, j_m
+    assert state.step == 3 and int(state.count) == 3
+    for k, v in model.named_buffers():
+        assert torch.equal(v, buffers[k]), k
+    j_final = state_dict_from_flax(jax.tree_util.tree_map(
+        np.asarray, j_state.params))
+    j_first = state_dict_from_flax(params)
+    stats = [k for k in j_first if k.endswith(('running_mean',
+                                               'running_var'))]
+    assert stats
+    for k in stats:
+        assert torch.equal(j_final[k], j_first[k]), k
