@@ -63,7 +63,16 @@ Phases, in order (any failure raises and exits non-zero):
      resumed iteration, bf16-only validation with the fp32 training model
      unchanged; the CLI's ms/step beside phase 6's step alone, the data
      path's ms a batch, the idle share of profiled steady steps, peak
-     memory.
+     memory;
+  9. FCB (STMask_plus_resnet50_ada / _ali): the fused conv in fp32, in
+     bf16 and in bf16 with fp32 offsets (ali's), deform_wgrad and K4 at
+     FCB's 15 sites (FCB_SITES) against their plain versions; the _ada
+     eval video step over phase 4's videos (the fused conv at 7 + 15 sites
+     a frame) with the card against the CPU path; the eval CLI with
+     --config STMask_plus_resnet50_ali over phase 7's set (the fp32-offset
+     bf16 entry 15 times a step); the _ada training step (the fused conv,
+     deform_wgrad and K4 22 times a step) with the card against the CPU
+     path, and one _ali step; the kernels' times at FCB's sites.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -150,6 +159,18 @@ RESIZES = [((h, w), (360, 640)) for h, w in (
     (100, 77), (240, 320), (480, 640), (481, 853), (500, 500), (720, 960),
     (720, 1280), (1080, 1440), (1080, 1920))] + [
     ((1080, 1920), (720, 1280)), ((360, 640), (384, 640))]
+# FCB's deformable conv sites at 384x640: FPN levels P3..P7 under each
+# bank's taps, Cin = Cout = 256, stride 1, v1 (15 a frame in _ada / _ali)
+FCB_SITES = [(h, w, kh, kw) for h, w in ((48, 80), (24, 40), (12, 20),
+                                         (6, 10), (3, 5))
+             for kh, kw in ((3, 3), (3, 5), (5, 3))]
+FCB_PER_FRAME = len(FCB_SITES)
+# launches of each kernel in one training step of _ada / _ali
+FCB_TRAIN_LAUNCHES = {'deform_conv': 7 + FCB_PER_FRAME,
+                      'deform_wgrad': 7 + FCB_PER_FRAME,
+                      'deform_col2im': 7 + FCB_PER_FRAME,
+                      'deform_im2col': 0, 'correlation': 1,
+                      'correlation_bwd': 1}
 DCN_SITES = [  # name, (H, W, Cin) of the DCN input at 384x640, stride
     ('layer1_0', (96, 160, 128), 2), ('layer1_2', (48, 80, 128), 1),
     ('layer2_0', (48, 80, 256), 2), ('layer2_2', (24, 40, 256), 1),
@@ -256,6 +277,23 @@ def _bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0,
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+def _tally(acc, ms, call, plain, nbytes, flops, tf32_flops=0.0,
+           bf16_flops=0.0):
+    """Add one site's times and bound to the sums in ``acc``; returns the
+    site's (bound ms, what bounds it)."""
+    bound, by = _bound_ms(nbytes, flops, tf32_flops, bf16_flops)
+    for key, v in (('ms', ms), ('call_ms', call), ('plain_ms', plain),
+                   ('bound_ms', bound),
+                   ('bytes_s', nbytes / PEAK_BYTES_PER_S),
+                   ('ops_s', _ops_s(flops, tf32_flops, bf16_flops))):
+        acc[key] = acc.get(key, 0.0) + v
+    return bound, by
+
+
+def _by_of(acc):
+    return 'bytes' if acc['bytes_s'] >= acc['ops_s'] else 'operations'
+
+
 def _tf32_hi(torch, t):
     """``t`` with its 13 low mantissa bits cleared: the TF32 value a tensor
     core reads."""
@@ -290,28 +328,117 @@ def _dcn_weight(torch, dev, kh, kw, cin, cout, seed):
             torch.randn(cout, device=dev, generator=g))
 
 
-def _dcn_cost(torch, x, off, stride):
-    """(bytes, flops) the gather needs for these inputs: x, offset and mask
-    read once, cols written once; 2 flops per channel for every in-image
-    bilinear corner, plus 1 per output element for the modulation."""
+def _dcn_cost(torch, x, off, stride, kh=3, kw=3, modulated=True):
+    """(bytes, flops) the gather needs for these inputs: x, offset and
+    (v2) mask read once, cols written once; 2 flops per channel for every
+    in-image bilinear corner, plus (v2) 1 per output element for the
+    modulation."""
     _, h, w, cin = x.shape
     b, ho, wo, _ = off.shape
-    k = torch.arange(3, device=x.device)
-    oy = torch.arange(ho, device=x.device) * stride - 1      # pad 1
-    ox = torch.arange(wo, device=x.device) * stride - 1
-    base_y = (oy[:, None, None, None] + k[None, None, :, None]).expand(
-        ho, wo, 3, 3).reshape(ho, wo, 9)
-    base_x = (ox[None, :, None, None] + k[None, None, None, :]).expand(
-        ho, wo, 3, 3).reshape(ho, wo, 9)
-    o = off.reshape(b, ho, wo, 9, 2)
+    k = kh * kw
+    ky = torch.arange(kh, device=x.device)
+    kx = torch.arange(kw, device=x.device)
+    oy = torch.arange(ho, device=x.device) * stride - (kh - 1) // 2
+    ox = torch.arange(wo, device=x.device) * stride - (kw - 1) // 2
+    base_y = (oy[:, None, None, None] + ky[None, None, :, None]).expand(
+        ho, wo, kh, kw).reshape(ho, wo, k)
+    base_x = (ox[None, :, None, None] + kx[None, None, None, :]).expand(
+        ho, wo, kh, kw).reshape(ho, wo, k)
+    o = off.reshape(b, ho, wo, k, 2)
     y0 = torch.floor(base_y + o[..., 0])
     x0 = torch.floor(base_x + o[..., 1])
     corners = sum(int((((y0 + dy) >= 0) & ((y0 + dy) < h) & ((x0 + dx) >= 0)
                        & ((x0 + dx) < w)).sum())
                   for dy in (0, 1) for dx in (0, 1))
-    n_out = b * ho * wo * 9 * cin
-    nbytes = 4 * (x.numel() + off.numel() + b * ho * wo * 9 + n_out)
-    return nbytes, 2 * cin * corners + n_out
+    n_out = b * ho * wo * k * cin
+    n_mask = b * ho * wo * k if modulated else 0
+    nbytes = 4 * (x.numel() + off.numel() + n_mask + n_out)
+    return nbytes, 2 * cin * corners + (n_out if modulated else 0)
+
+
+def _model_vs_cpu(torch, dev, cfg, tag: str = '') -> None:
+    """The card's fp32 model outputs against the CPU path (the plain
+    versions, which tests/ hold against the JAX package) at 96x128, seed
+    0, each within its tolerance relative to max|ref|."""
+    from stmask_torch.inference.pipeline import normalize_pad
+    from stmask_torch.models import build_model
+    small = cfg.replace(img_h=96, img_w=128)
+    x = torch.from_numpy(_synthetic_clip(96, 128, 1, seed=9)[0])
+    x = normalize_pad(small, x)[None]
+    with torch.inference_mode():
+        ref = build_model(small, torch.device('cpu'), seed=0)(x)
+        got = build_model(small, dev, seed=0)(x.to(dev))
+    for key, atol in dict(loc=2e-3, conf=1e-4, centerness=1e-4,
+                          mask_coeff=2e-3, track=1e-3, proto=2e-3,
+                          T2S_feat=2e-3, fpn_feat=2e-3).items():
+        d = float((got[key].cpu() - ref[key]).abs().max())
+        scale = float(ref[key].abs().max())
+        print(f'[check] {tag}card vs CPU {key}: max|diff| {d:.3e} '
+              f'(max|ref| {scale:.3e}, atol {atol} relative to max|ref|)')
+        assert d <= atol * max(1.0, scale), key
+
+
+def _bf16_model_vs_cpu(torch, dev, cfg, tag: str = '') -> None:
+    """The bf16 model on the card against the CPU path at 96x128: each
+    output within twice the CPU's own bf16-vs-fp32 gap."""
+    from stmask_torch.inference.pipeline import cast_model, normalize_pad
+    from stmask_torch.models import build_model
+    small = cfg.replace(img_h=96, img_w=128)
+    x = normalize_pad(small, torch.from_numpy(
+        _synthetic_clip(96, 128, 1, seed=9)))
+    cpu = torch.device('cpu')
+    with torch.inference_mode():
+        ref32 = build_model(small, cpu, seed=0)(x)
+        ref16 = cast_model(build_model(small, cpu, seed=0), torch.bfloat16)(
+            x.bfloat16())
+        got16 = cast_model(build_model(small, dev, seed=0), torch.bfloat16)(
+            x.to(dev).bfloat16())
+    for key in ('loc', 'conf', 'centerness', 'mask_coeff', 'track', 'proto',
+                'T2S_feat', 'fpn_feat'):
+        gap = float((ref16[key].float() - ref32[key]).abs().max())
+        d = float((got16[key].float().cpu() - ref16[key].float()).abs().max())
+        print(f'[check] {tag}bf16 card vs CPU {key}: max|diff| {d:.3e} '
+              f'(limit twice the CPU bf16-vs-fp32 gap {gap:.3e})')
+        assert d <= 2 * gap, (key, d, gap)
+
+
+def _train_step_vs_cpu(torch, dev, cfg, tag: str = '') -> dict:
+    """One training step at 96x128, full depth, on the card against the
+    CPU path.  Losses rtol 2e-3; gradients: relative L2 error 2e-3 over all
+    parameters and 2e-2 per parameter (cuDNN and CPU convolutions sum in
+    another order, the fused conv is 3xTF32 and K4 adds with atomics, so a
+    ReLU whose input lies within rounding of 0 can switch on one side).
+    Returns each parameter's relative error."""
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.models import build_model
+    from stmask_torch.train.train_step import build_train_step
+    small = cfg.replace(img_h=96, img_w=128)
+    host = _train_batch(small, 99, clips=1)
+    res = {}
+    for d_ in (torch.device('cpu'), dev):
+        mdl = build_model(small, d_, seed=0)
+        st_, in_ = build_train_step(small, mdl, d_)
+        _, m = st_(in_(), prepare_batch(small, host, d_))
+        res[d_.type] = ({k: float(v) for k, v in m.items()},
+                        {n: p.grad.detach().cpu().double()
+                         for n, p in mdl.named_parameters()})
+        del mdl, st_, in_
+    (cm, cg), (gm, gg) = res['cpu'], res['cuda']
+    for k in cm:
+        print(f'[check] {tag}train card vs CPU {k}: {gm[k]:.6f} vs '
+              f'{cm[k]:.6f}')
+        assert abs(gm[k] - cm[k]) <= 2e-3 * abs(cm[k]) + 1e-7, k
+    rel = {n: float((gg[n] - cg[n]).norm() / cg[n].norm().clamp(min=1e-30))
+           for n in cg}
+    tot = float(sum((gg[n] - cg[n]).norm() ** 2 for n in cg) ** 0.5
+                / sum(cg[n].norm() ** 2 for n in cg) ** 0.5)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    print(f'[check] {tag}train card vs CPU gradients: relative L2 error '
+          f'over {len(cg)} parameters {tot:.3e} (limit 2e-3); worst '
+          f'{[(n, round(v, 6)) for n, v in worst]} (limit 2e-2 each)',
+          flush=True)
+    assert tot <= 2e-3 and worst[0][1] <= 2e-2, (tot, worst)
+    return rel
 
 
 def _stage_ms(torch, cfg, model, state, frame, n: int):
@@ -424,23 +551,27 @@ def _corr_bwd_inputs(torch, dev, shape, patch: int, gen):
     return up, x1, x2, out
 
 
-def _col2im_cost(torch, x, off, stride, radius: int = 2):
-    """(bytes, flops) of K4 for these inputs: dcols, x, offset, mask read
-    once, dx, d_offset, d_mask written once; per channel, 2 flops for each
-    in-image corner pair with a weight or a weight derivative (the dot
-    product S) and 2 more where the corner gets a dx update."""
+def _col2im_cost(torch, x, off, stride, radius: int = 2, kh: int = 3,
+                 kw: int = 3, modulated: bool = True):
+    """(bytes, flops) of K4 for these inputs: dcols, x, offset and (v2)
+    mask read once, dx, d_offset and (v2) d_mask written once; per channel,
+    2 flops for each in-image corner pair with a weight or a weight
+    derivative (the dot product S) and 2 more where the corner gets a dx
+    update."""
     from stmask_torch.kernels.deform_col2im import _hat
     b, h, w, cin = x.shape
     _, ho, wo, _ = off.shape
     dev = x.device
-    k = torch.arange(3, device=dev)
-    oy = torch.arange(ho, device=dev) * stride - 1
-    ox = torch.arange(wo, device=dev) * stride - 1
-    by = (oy[:, None, None, None] + k[None, None, :, None]).expand(
-        ho, wo, 3, 3).reshape(1, ho, wo, 9)
-    bx = (ox[None, :, None, None] + k[None, None, None, :]).expand(
-        ho, wo, 3, 3).reshape(1, ho, wo, 9)
-    o = off.reshape(b, ho, wo, 9, 2)
+    k = kh * kw
+    ky = torch.arange(kh, device=dev)
+    kx = torch.arange(kw, device=dev)
+    oy = torch.arange(ho, device=dev) * stride - (kh - 1) // 2
+    ox = torch.arange(wo, device=dev) * stride - (kw - 1) // 2
+    by = (oy[:, None, None, None] + ky[None, None, :, None]).expand(
+        ho, wo, kh, kw).reshape(1, ho, wo, k)
+    bx = (ox[None, :, None, None] + kx[None, None, None, :]).expand(
+        ho, wo, kh, kw).reshape(1, ho, wo, k)
+    o = off.reshape(b, ho, wo, k, 2)
     fy, fx = torch.floor(o[..., 0]).long(), torch.floor(o[..., 1]).long()
     ys = [_hat(o[..., 0], fy - 1 + j, radius) + (by + fy - 1 + j,)
           for j in range(3)]
@@ -454,8 +585,9 @@ def _col2im_cost(torch, x, off, stride, radius: int = 2):
             act = inside & ((wgt != 0) | (dhy * hx != 0) | (hy * dhx != 0))
             n_s += int(act.sum())
             n_w += int((inside & (wgt != 0)).sum())
-    m = b * ho * wo * 9
-    nbytes = 4 * (m * cin + 2 * x.numel() + 2 * off.numel() + 2 * m)
+    m = b * ho * wo * k
+    nbytes = 4 * (m * cin + 2 * x.numel() + 2 * off.numel()
+                  + (2 * m if modulated else 0))
     return nbytes, 2 * cin * (n_s + n_w)
 
 
@@ -521,8 +653,7 @@ def _eval_cli(torch, dev, smi: str, name: str, tmp: str) -> dict:
     from stmask_torch import eval as cli
     from stmask_torch.config import get_config
     from stmask_torch.data.synthetic import write_ytvis_set
-    from stmask_torch.inference.pipeline import (build_video_step_batched,
-                                                 cast_model, normalize_pad)
+    from stmask_torch.inference.pipeline import build_video_step_batched
     from stmask_torch.kernels import KERNELS
     from stmask_torch.models import build_model
 
@@ -627,26 +758,13 @@ def _eval_cli(torch, dev, smi: str, name: str, tmp: str) -> dict:
               'busy share not measured')
     del model, chunk, states, frames
 
-    # the card against the CPU path at 96x128: the bf16 model's outputs,
-    # each within twice the CPU's own bf16-vs-fp32 gap; then one bf16
-    # batched chunk (2 lanes x 2 frames, a new video in lane 1 at step 1)
+    # the card against the CPU path at 96x128: the bf16 model's outputs;
+    # then one bf16 batched chunk (2 lanes x 2 frames, a new video in lane
+    # 1 at step 1)
+    _bf16_model_vs_cpu(torch, dev, cfg)
     small = cfg.replace(img_h=96, img_w=128)
     clip = _synthetic_clip(96, 128, 4, seed=9)
-    x = normalize_pad(small, torch.from_numpy(clip[:1]))
     cpu = torch.device('cpu')
-    with torch.inference_mode():
-        ref32 = build_model(small, cpu, seed=0)(x)
-        ref16 = cast_model(build_model(small, cpu, seed=0), torch.bfloat16)(
-            x.bfloat16())
-        got16 = cast_model(build_model(small, dev, seed=0), torch.bfloat16)(
-            x.to(dev).bfloat16())
-    for key in ('loc', 'conf', 'centerness', 'mask_coeff', 'track', 'proto',
-                'T2S_feat', 'fpn_feat'):
-        gap = float((ref16[key].float() - ref32[key]).abs().max())
-        d = float((got16[key].float().cpu() - ref16[key].float()).abs().max())
-        print(f'[check] bf16 card vs CPU {key}: max|diff| {d:.3e} (limit '
-              f'twice the CPU bf16-vs-fp32 gap {gap:.3e})')
-        assert d <= 2 * gap, (key, d, gap)
     fr = np.stack([clip[:2], clip[2:]], axis=1)          # [K 2, B 2]
     fi = np.array([[True, True], [False, True]])
     outs = []
@@ -668,7 +786,7 @@ def _eval_cli(torch, dev, smi: str, name: str, tmp: str) -> dict:
           f'{int(a.keep.sum())} / {int(b.keep.sum())} kept, max|box diff| '
           f'{box_d:.3e} where both keep', flush=True)
     return dict(stats=stats, timed=timed, launches=launches, peak=peak,
-                prof=prof)
+                prof=prof, ann=ann, prefix=prefix)
 
 
 def _train_cli(torch, dev, smi: str, name: str, tmp: str,
@@ -856,6 +974,421 @@ def _train_cli(torch, dev, smi: str, name: str, tmp: str,
                 ms_per_step=cli_med, peak=peak, busy=busy, idle=(
                     None if busy is None else 1 - busy / prof_ms),
                 data_ms=per_batch)
+
+
+def _fcb_inputs(torch, dev, h, w, kh, kw, frames, seed):
+    """One FCB site's x [frames, h, w, 256], offsets and weight [256, kh,
+    kw, 256], as a DCN site's without the mask and bias."""
+    x, off, _ = _dcn_inputs(torch, dev, h, w, 256, 1, seed, kh, kw, frames)
+    return x, off, _dcn_weight(torch, dev, kh, kw, 256, 256, seed + 10000)[0]
+
+
+def _fcb_checks(torch, dev, err: dict) -> None:
+    """Phase 9a: the kernels of FCB's training and eval at its 15 sites
+    against their plain versions: the fused conv in fp32 (1 frame, an eval
+    step) at FUSED_ATOL; in bf16 with bf16 offsets (ada) and with fp32
+    offsets (ali, the third entry) at 8 frames (an eval CLI step) at
+    BF16_REL_ATOL.  That tolerance is wider than what rounding the offsets
+    to bf16 moves, so the values that differ from the plain version at the
+    fp32 offsets are also counted: at most 1% for the fp32-offset entry,
+    more than 10% for the bf16 entry at the rounded offsets.  deform_wgrad (WGRAD_RTOL) and K4 (1e-5 of max|ref|) at 8
+    frames (a training step of 4 clips) on offsets clamped to the window,
+    d_w and d_offset bit for bit over two launches.  The fused fp32 conv
+    is also held at 8 frames (the training forward)."""
+    from stmask_torch.kernels import deform_col2im as K4
+    from stmask_torch.kernels import deform_conv as KD
+    from stmask_torch.kernels import deform_wgrad as KW
+    for i, (h, w, kh, kw) in enumerate(FCB_SITES):
+        site = f'{h}x{w} {kh}x{kw}'
+        x, off, wt = _fcb_inputs(torch, dev, h, w, kh, kw, 1, 800 + i)
+        got = KD.deform_conv_cuda(x, off, wt, None, None)
+        want = KD.deform_conv_reference(x, off, wt, None, None)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        err['deform_conv'] = max(err['deform_conv'], d)
+        assert d <= FUSED_ATOL, (site, d)
+        x, off, wt = _fcb_inputs(torch, dev, h, w, kh, kw, 2 * TRAIN_CLIPS,
+                                 850 + i)
+        got = KD.deform_conv_cuda(x, off, wt, None, None)
+        want = KD.deform_conv_reference(x, off, wt, None, None)
+        torch.cuda.synchronize()
+        d8 = float((got - want).abs().max())
+        err['deform_conv'] = max(err['deform_conv'], d8)
+        assert d8 <= FUSED_ATOL, (site, d8)
+        xb, wb = x.bfloat16(), wt.bfloat16()
+        line = (f'[fcb] {site} x 256 -> 256 v1: fused fp32 max|diff| {d:.3e} '
+                f'(1 frame), {d8:.3e} (8 frames)')
+        outs = {}
+        for key, o in (('deform_conv_bf16', off.bfloat16()),
+                       ('deform_conv_bf16_f32off', off)):
+            got = KD.deform_conv_cuda(xb, o, wb, None, None)
+            want = KD.deform_conv_reference(xb, o, wb, None, None)
+            torch.cuda.synchronize()
+            d = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            err[key] = max(err[key], d)
+            assert got.dtype == torch.bfloat16
+            assert d <= BF16_REL_ATOL * scale, (site, key, d, scale)
+            line += f'; {key} (8 frames) {d:.3e} of max|ref| {scale:.3e}'
+            outs[key] = got
+        share, control = (float((outs[k] != want).float().mean()) for k in (
+            'deform_conv_bf16_f32off', 'deform_conv_bf16'))
+        assert not torch.equal(outs['deform_conv_bf16'],
+                               outs['deform_conv_bf16_f32off']), site
+        assert share <= 0.01 and control > 0.1, (site, share, control)
+        line += (f'; values off the plain version at fp32 offsets: '
+                 f'{share:.5f} (fp32-offset entry), {control:.5f} (bf16 '
+                 f'entry at the rounded offsets)')
+        del outs
+        off = off.clamp(-2, 2)
+        gen = torch.Generator(device=dev).manual_seed(870 + i)
+        gg = torch.randn(x.shape[0] * h * w, 256, device=dev, generator=gen)
+        got = KW.deform_wgrad_cuda(gg, x, off, None, kh, kw)
+        again = KW.deform_wgrad_cuda(gg, x, off, None, kh, kw)
+        want = KW.deform_wgrad_reference(gg, x, off, None, kh, kw)
+        torch.cuda.synchronize()
+        dw = float((got - want).abs().max()) / float(want.abs().max())
+        err['deform_wgrad'] = max(err['deform_wgrad'], dw)
+        assert dw <= WGRAD_RTOL, (site, dw)
+        assert torch.equal(got, again), f'{site}: d_w varies'
+        del got, again, want
+        dcols = torch.randn(x.shape[0] * h * w, kh * kw * 256, device=dev,
+                            generator=gen)
+        got = K4.deform_col2im_cuda(dcols, x, off, None, kh, kw)
+        again = K4.deform_col2im_cuda(dcols, x, off, None, kh, kw)
+        want = K4.deform_col2im_reference(dcols, x, off, None, kh, kw)
+        torch.cuda.synchronize()
+        assert got[2] is None and want[2] is None
+        worst = 0.0
+        for nm, a, b in zip(('dx', 'd_offset'), got[:2], want[:2]):
+            scale = max(float(b.abs().max()), 1.0)
+            dd = float((a - b).abs().max()) / scale
+            worst = max(worst, dd)
+            assert dd <= 1e-5, (site, nm, dd)
+        assert torch.equal(got[1], again[1]), f'{site}: d_offset varies'
+        err['deform_col2im'] = max(err['deform_col2im'], worst)
+        print(f'{line}; deform_wgrad (8 frames) {dw:.3e} of max|ref|, '
+              f'bit-identical over two launches; K4 (8 frames, radius 2) '
+              f'{worst:.3e} of max|ref|, d_offset bit-identical', flush=True)
+        del x, off, wt, xb, wb, gg, dcols, got, again, want
+
+
+def _fcb_eval_step(torch, dev, smi: str, name: str) -> dict:
+    """Phase 9b: the eval video step of STMask_plus_resnet50_ada (fp32,
+    one stream) over phase 4's two synthetic videos: launch counts (the
+    fused conv at the 7 DCN and 15 FCB sites a frame), the results JSON,
+    the card against the CPU path at 96x128, a profile of steady frames."""
+    from stmask_torch.config import get_config
+    from stmask_torch.inference import (build_video_step, postprocess_frame,
+                                        results2json_videoseg)
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+    from stmask_torch.models.heads import FeatureAlign
+
+    cfg = get_config('STMask_plus_resnet50_ada')
+    model = build_model(cfg, dev, seed=0)
+    assert sum(isinstance(m, FeatureAlign) for m in model.modules()) == 3
+    step, init_state = build_video_step(cfg, model, uint8_input=True,
+                                        device=dev)
+    clips = [_synthetic_clip(cfg.img_h, cfg.img_w, FRAMES_PER_VIDEO, seed=v)
+             for v in range(N_VIDEOS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in KERNELS.values():
+        k.launches = 0
+    frame_ms, results = [], []
+    for v, clip in enumerate(clips):
+        state = init_state()
+        for f, frame in enumerate(clip):
+            t0 = time.perf_counter()
+            state, out = step(state, frame, f == 0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            for t in out:
+                if t.is_floating_point():
+                    assert bool(torch.isfinite(t).all()), (v, f)
+            results.append(postprocess_frame(
+                cfg, out, {'video_id': v + 1, 'frame_id': f,
+                           'img_shape': (cfg.img_h, cfg.img_w)}))
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    n_frames = N_VIDEOS * FRAMES_PER_VIDEO
+    print(f'[fcb eval] launches {launches} over {n_frames} frames',
+          flush=True)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(deform_conv=(_dcn_sites(cfg) + FCB_PER_FRAME) * n_frames,
+                correlation=n_frames)
+    assert launches == want, (launches, want)
+    tracks = results2json_videoseg(results)
+    json.dumps(tracks)
+    assert tracks, 'no track in the results JSON'
+    steady = sorted(frame_ms[WARMUP_FRAMES:])
+    med = steady[len(steady) // 2]
+
+    _model_vs_cpu(torch, dev, cfg, '_ada ')
+
+    state = init_state()
+    clip = clips[0]
+    for f in range(2):
+        state, _ = step(state, clip[f], f == 0)
+
+    def frames():
+        nonlocal state
+        for f in range(2, 6):
+            state, _ = step(state, clip[f], False)
+
+    rows = _device_events(frames, 1)
+    busy = sum(us for _, _, us in rows) / 4 / 1e3 if rows else None
+    print(f'[fcb eval] STMask_plus_resnet50_ada {cfg.img_h}x{cfg.img_w} fp32 '
+          f'(TF32 off): median {med:.3f} ms/frame after {WARMUP_FRAMES} '
+          f'warm-up frames, all frames {[round(t, 3) for t in frame_ms]}; '
+          f'{len(tracks)} tracks; peak memory {peak / 2**20:.1f} MiB above '
+          f'the {base / 2**20:.1f} MiB held at the phase\'s start; '
+          + (f'device busy {busy:.3f} ms a steady frame (idle share '
+             f'{1 - busy / med:.3f}), {sum(c for _, c, _ in rows) / 4:.0f} '
+             'launches a frame' if rows else 'device busy not measured')
+          + f' ({name}, {smi})', flush=True)
+    for key, cnt, us in sorted(rows, key=lambda r: -r[2])[:8]:
+        print(f'[profile]   {us / 4 / 1e3:8.4f} ms/frame {cnt / 4:6.1f}x  '
+              f'{key[:100]}')
+    return dict(launches=launches, ms=med, peak=peak, busy=busy)
+
+
+def _fcb_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
+                  tmp: str) -> dict:
+    """Phase 9c: the eval CLI's default path (bf16, 8 lanes x 4-frame
+    chunks) with --config STMask_plus_resnet50_ali over phase 7's set:
+    the bf16 fused conv at the 7 DCN sites and its fp32-offset entry at
+    the 15 FCB sites a step, frames/s end to end and device-only; the bf16
+    model on the card against the CPU path at 96x128."""
+    import math
+
+    from stmask_torch import eval as cli
+    from stmask_torch.config import get_config
+    from stmask_torch.kernels import KERNELS
+
+    cfg = get_config('STMask_plus_resnet50_ali')
+    base = ['--ann_file', ann, '--img_prefix', prefix, '--eval_metrics',
+            '--config', cfg.name]
+    out_json = f'{tmp}/results_ali.json'
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k.launches = 0
+    stats = cli.evaluate(base + ['--mask_det_file', out_json])
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = (stats['n_chunks'] + 1) * EVAL_CHUNK
+    print(f'[fcb cli] launches {launches} over {stats["n_chunks"]} chunks '
+          f'and the warm-up chunk ({steps} steps of {EVAL_LANES} lanes)',
+          flush=True)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(deform_conv_bf16=_dcn_sites(cfg) * steps,
+                deform_conv_bf16_f32off=FCB_PER_FRAME * steps,
+                correlation_bf16=EVAL_LANES * steps)
+    assert launches == want, (launches, want)
+    for key in ('mAP', 'AP50', 'AP75', 'AR'):
+        assert math.isfinite(stats[key]), stats
+    with open(out_json) as fh:
+        assert json.load(fh), 'no track in the results JSON'
+    timed = cli.evaluate(base + ['--mask_det_file',
+                                 f'{tmp}/results_ali_timed.json',
+                                 '--time_device'])
+    print(f'[fcb cli] STMask_plus_resnet50_ali bf16, {EVAL_LANES} streams x '
+          f'{EVAL_CHUNK}-frame chunks: {stats["e2e_fps"]:.2f} frames/s end '
+          f'to end, {timed["device_fps"]:.2f} frames/s device-only '
+          f'({timed["device_ms_per_chunk"]:.3f} ms a chunk), peak memory '
+          f'{peak / 2**20:.1f} MiB, mAP {stats["mAP"]:.6f} ({name}, {smi})',
+          flush=True)
+
+    n0 = KERNELS['deform_conv_bf16_f32off'].launches
+    _bf16_model_vs_cpu(torch, dev, cfg, '_ali ')
+    assert KERNELS['deform_conv_bf16_f32off'].launches - n0 == FCB_PER_FRAME
+    return dict(stats=stats, timed=timed, launches=launches, peak=peak)
+
+
+def _fcb_train(torch, dev, smi: str, name: str) -> dict:
+    """Phase 9d: the training step of STMask_plus_resnet50_ada (4 clips = 8
+    frames at 360x640, phase 6's batches): launch counts a step (the fused
+    conv, deform_wgrad and K4 at the 7 DCN and 15 FCB sites), finite
+    losses, gradients on every conv_offset and conv_adaption; ms/step,
+    peak memory and a profile; the card against the CPU at 96x128; then
+    one _ali step with the same counts."""
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+    from stmask_torch.train.train_step import build_train_step
+
+    def run(cfg_name, n_steps):
+        cfg = get_config(cfg_name)
+        model = build_model(cfg, dev, seed=0)
+        step, init = build_train_step(cfg, model, dev)
+        batches = [prepare_batch(cfg, _train_batch(cfg, 10 + i), dev)
+                   for i in range(n_steps)]
+        state = init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for k in KERNELS.values():
+            k.launches = 0
+        ms, metrics = [], []
+        for b_ in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b_)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = (torch.cuda.max_memory_allocated(), base)
+        print(f'[fcb train] {cfg_name}: launches {launches} over {n_steps} '
+              f'steps; losses {metrics}', flush=True)
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({n_: per * n_steps
+                     for n_, per in FCB_TRAIN_LAUNCHES.items()})
+        assert launches == want, (launches, want)
+        for m in metrics:
+            assert all(np.isfinite(v) for v in m.values()), m
+        grads = {n: float(p.grad.abs().max())
+                 for n, p in model.named_parameters()
+                 if '.conv_offset.' in n or '.conv_adaption.' in n}
+        assert len(grads) == (6 if cfg.use_pred_offset else 3), grads
+        assert min(grads.values()) > 0, grads
+        return model, step, state, batches, ms, peak, grads, launches
+
+    model, step, state, batches, step_ms, (peak, base), grads, launches = run(
+        'STMask_plus_resnet50_ada', TRAIN_STEPS)
+    steady = sorted(step_ms[TRAIN_WARMUP:])
+    med = (steady[len(steady) // 2 - 1] + steady[len(steady) // 2]) / 2
+    rows = _device_events(lambda: step(state, batches[1]), 1)
+    busy = sum(us for _, _, us in rows) / 1e3 if rows else None
+    print(f'[fcb train] STMask_plus_resnet50_ada 360x640 fp32 (TF32 off), '
+          f'{TRAIN_CLIPS} clips = {2 * TRAIN_CLIPS} frames a step: median '
+          f'{med:.3f} ms/step over {len(steady)} steps after {TRAIN_WARMUP} '
+          f'warm-up, all steps {[round(t, 3) for t in step_ms]}; peak memory '
+          f'{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB above '
+          f'the {base / 2**20:.1f} MiB allocated at the first step\'s start '
+          f'(the model, its momentum, the batches and what earlier phases '
+          f'hold); FCB gradients max|g| {grads}; '
+          + (f'device busy {busy:.3f} ms a step (idle share '
+             f'{1 - busy / med:.3f}), {sum(c for _, c, _ in rows)} launches'
+             if rows else 'device busy not measured')
+          + f' ({name}, {smi})', flush=True)
+    for key, cnt, us in sorted(rows, key=lambda r: -r[2])[:12]:
+        print(f'[profile]   {us / 1e3:8.4f} ms/step {cnt:6d}x  {key[:100]}')
+    del model, step, state, batches
+
+    # the card against the CPU path: one _ada step at 96x128, full depth
+    rel = _train_step_vs_cpu(torch, dev, get_config(
+        'STMask_plus_resnet50_ada'), '_ada ')
+    fcb = {n: v for n, v in rel.items()
+           if '.conv_offset.' in n or '.conv_adaption.' in n}
+    print(f'[check] _ada train card vs CPU, FCB gradients: relative L2 '
+          f'error {fcb} (limit 2e-2 each)', flush=True)
+    assert len(fcb) == 6
+    run('STMask_plus_resnet50_ali', 1)
+    return dict(ms=med, peak=peak, base=base, busy=busy, launches=launches)
+
+
+def _fcb_times(torch, dev, smi: str) -> dict:
+    """Phase 9e: the kernels' times at FCB's 15 sites beside their plain
+    versions and bounds: the fused conv in fp32 at 1 frame (an eval step),
+    in bf16 with bf16 and with fp32 offsets at 8 frames (an eval CLI
+    step); deform_wgrad, the dcols SGEMM and K4 at 8 frames (a training
+    step).  Bounds as in phases 5 and 6, without the mask."""
+    from stmask_torch.kernels import deform_col2im as K4
+    from stmask_torch.kernels import deform_conv as KD
+    from stmask_torch.kernels import deform_wgrad as KW
+    acc = {k: {} for k in ('deform_conv', 'deform_conv_train',
+                           'deform_conv_bf16', 'deform_conv_bf16_f32off',
+                           'deform_wgrad', 'deform_col2im')}
+    sgemm = 0.0
+    frames = 2 * TRAIN_CLIPS
+    for i, (h, w, kh, kw) in enumerate(FCB_SITES):
+        k = kh * kw
+        site = f'{h}x{w} {kh}x{kw}'
+        x, off, wt = _fcb_inputs(torch, dev, h, w, kh, kw, 1, 900 + i)
+        _, flops = _dcn_cost(torch, x, off, 1, kh, kw, modulated=False)
+        nbytes = 4 * (x.numel() + off.numel() + wt.numel() + h * w * 256)
+        line = []
+        for key, n_fr in (('deform_conv', 1), ('deform_conv_train', frames)):
+            if n_fr > 1:   # the training forward's 8 frames
+                x, off, wt = _fcb_inputs(torch, dev, h, w, kh, kw, n_fr,
+                                         920 + i)
+                _, flops = _dcn_cost(torch, x, off, 1, kh, kw,
+                                     modulated=False)
+                nbytes = 4 * (x.numel() + off.numel() + wt.numel()
+                              + n_fr * h * w * 256)
+            ms = _device_ms(lambda: KD.deform_conv_cuda(x, off, wt, None,
+                                                        None), 100 // n_fr)
+            call = _time_ms(lambda: KD.deform_conv_cuda(x, off, wt, None,
+                                                        None), 100 // n_fr)
+            plain = _time_ms(lambda: KD.deform_conv_reference(
+                x, off, wt, None, None), 2, warmup=1)
+            bound, by = _tally(acc[key], ms, call, plain, nbytes, flops,
+                               tf32_flops=3 * 2 * n_fr * h * w * 256 * k
+                               * 256)
+            line.append(f'fused fp32 ({n_fr} frame{"s" * (n_fr > 1)}) '
+                        f'{ms:.5f} ms, call {call:.5f}, plain {plain:.5f}, '
+                        f'bound {bound:.5f} ({by})')
+        xb, wb = x.bfloat16(), wt.bfloat16()
+        mm = 2 * frames * h * w * 256 * k * 256
+        for key, o in (('deform_conv_bf16', off.bfloat16()),
+                       ('deform_conv_bf16_f32off', off)):
+            ms = _device_ms(lambda: KD.deform_conv_cuda(xb, o, wb, None,
+                                                        None), 50)
+            call = _time_ms(lambda: KD.deform_conv_cuda(xb, o, wb, None,
+                                                        None), 50)
+            plain = _time_ms(lambda: KD.deform_conv_reference(
+                xb, o, wb, None, None), 2, warmup=1)
+            nb = (2 * (xb.numel() + wb.numel() + frames * h * w * 256)
+                  + o.element_size() * o.numel())
+            bound, by = _tally(acc[key], ms, call, plain, nb, flops,
+                               bf16_flops=mm)
+            line.append(f'{key} (8 frames) {ms:.5f} ms, call {call:.5f}, '
+                        f'plain {plain:.5f}, bound {bound:.5f} ({by})')
+        off = off.clamp(-2, 2)
+        gen = torch.Generator(device=dev).manual_seed(940 + i)
+        gg = torch.randn(frames * h * w, 256, device=dev, generator=gen)
+        ms = _device_ms(lambda: KW.deform_wgrad_cuda(gg, x, off, None, kh,
+                                                     kw), 50)
+        call = _time_ms(lambda: KW.deform_wgrad_cuda(gg, x, off, None, kh,
+                                                     kw), 50)
+        plain = _time_ms(lambda: KW.deform_wgrad_reference(
+            gg, x, off, None, kh, kw), 2, warmup=1)
+        nb = 4 * (x.numel() + off.numel() + gg.numel() + 256 * k * 256)
+        bound, by = _tally(acc['deform_wgrad'], ms, call, plain, nb, flops,
+                           tf32_flops=3 * mm)
+        line.append(f'deform_wgrad (8 frames) {ms:.5f} ms, call {call:.5f}, '
+                    f'plain {plain:.5f}, bound {bound:.5f} ({by})')
+        w2 = wt.reshape(256, k * 256)
+        s_ms = _device_ms(lambda: gg @ w2, 50)
+        sgemm += s_ms
+        dcols = gg @ w2
+        nb, fl = _col2im_cost(torch, x, off, 1, kh=kh, kw=kw,
+                              modulated=False)
+        ms = _device_ms(lambda: K4.deform_col2im_cuda(dcols, x, off, None, kh,
+                                                      kw), 50)
+        call = _time_ms(lambda: K4.deform_col2im_cuda(dcols, x, off, None,
+                                                      kh, kw), 50)
+        plain = _time_ms(lambda: K4.deform_col2im_reference(
+            dcols, x, off, None, kh, kw), 2, warmup=1)
+        bound, by = _tally(acc['deform_col2im'], ms, call, plain, nb, fl)
+        line.append(f'the dcols SGEMM (8 frames) {s_ms:.5f} ms; K4 (8 '
+                    f'frames) {ms:.5f} ms, call {call:.5f}, plain '
+                    f'{plain:.5f}, bound {bound:.5f} ({by}); plan '
+                    f'{K4.col2im_plan(frames, h, w, 256, kh, kw)}')
+        print(f'[fcb time] {site}: ' + '; '.join(line), flush=True)
+        del x, off, wt, xb, wb, gg, dcols
+    for key, a in acc.items():
+        print(f'[fcb time] 15 sites summed, {key}: {a["ms"]:.5f} ms '
+              f'(device), per call {a["call_ms"]:.5f} ms, plain '
+              f'{a["plain_ms"]:.5f} ms, bound {a["bound_ms"]:.5f} ms '
+              f'({_by_of(a)}) ({smi})', flush=True)
+    print(f'[fcb time] 15 sites summed, the dcols SGEMM g @ w2 (cuBLAS, 8 '
+          f'frames): {sgemm:.5f} ms (device) ({smi})', flush=True)
+    return dict(acc=acc, sgemm=sgemm)
 
 
 def main() -> int:
@@ -1240,21 +1773,7 @@ def main() -> int:
           f'{peak_mem / 2**20:.1f} MiB ({name}, {smi})', flush=True)
 
     # the card's model outputs against the CPU path on a small input
-    small = cfg.replace(img_h=96, img_w=128)
-    x = torch.from_numpy(_synthetic_clip(96, 128, 1, seed=9)[0])
-    from stmask_torch.inference.pipeline import normalize_pad
-    x = normalize_pad(small, x)[None]
-    with torch.inference_mode():
-        ref = build_model(small, torch.device('cpu'), seed=0)(x)
-        got = build_model(small, dev, seed=0)(x.to(dev))
-    for key, atol in dict(loc=2e-3, conf=1e-4, centerness=1e-4,
-                          mask_coeff=2e-3, track=1e-3, proto=2e-3,
-                          T2S_feat=2e-3, fpn_feat=2e-3).items():
-        d = float((got[key].cpu() - ref[key]).abs().max())
-        scale = float(ref[key].abs().max())
-        print(f'[check] card vs CPU {key}: max|diff| {d:.3e} '
-              f'(max|ref| {scale:.3e}, atol {atol} relative to max|ref|)')
-        assert d <= atol * max(1.0, scale), key
+    _model_vs_cpu(torch, dev, cfg)
 
     # where one steady frame's device time goes (torch.profiler)
     state = init_state()
@@ -1317,15 +1836,7 @@ def main() -> int:
           f'{ra_ms:.5f} ms (device), per call {ra_call:.5f} ms, bound '
           f'{ra_bound:.5f} ms ({ra_by})')
 
-    def tally(acc, ms, call, plain, nbytes, flops, tf32_flops=0.0):
-        bound, by = _bound_ms(nbytes, flops, tf32_flops)
-        for key, v in (('ms', ms), ('call_ms', call), ('plain_ms', plain),
-                       ('bound_ms', bound),
-                       ('bytes_s', nbytes / PEAK_BYTES_PER_S),
-                       ('ops_s', _ops_s(flops, tf32_flops))):
-            acc[key] = acc.get(key, 0.0) + v
-        return bound, by
-
+    tally = _tally
     k2, kd, before, dense = {}, {}, 0.0, 0.0
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
         x, off, mask = _dcn_inputs(torch, dev, h, w, cin, stride, i)
@@ -1449,6 +1960,7 @@ def main() -> int:
     state = init()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    train_base = torch.cuda.memory_allocated()
     for k in KERNELS.values():
         k.launches = 0
     step_ms, metrics = [], []
@@ -1462,8 +1974,9 @@ def main() -> int:
     train_peak = torch.cuda.max_memory_allocated()
     print(f'[train] launches {train_launches} over {TRAIN_STEPS} steps '
           f'(gt boxes per step {n_gt})', flush=True)
-    for n_, per in TRAIN_LAUNCHES.items():
-        assert train_launches[n_] == per * TRAIN_STEPS, (n_, train_launches)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({n_: per * TRAIN_STEPS for n_, per in TRAIN_LAUNCHES.items()})
+    assert train_launches == want, (train_launches, want)
     for i, m in enumerate(metrics):
         vals = {k: float(v) for k, v in m.items()}
         print(f'[train] step {i}: ' + ', '.join(
@@ -1484,7 +1997,10 @@ def main() -> int:
           f'median {train_med:.3f} ms/step over {len(steady)} steps after '
           f'{TRAIN_WARMUP} warm-up ({2 * TRAIN_CLIPS * 1e3 / train_med:.2f} '
           f'frames/s), all steps {[round(t, 3) for t in step_ms]}; peak '
-          f'memory {train_peak / 2**20:.1f} MiB ({name}, {smi}); '
+          f'memory {train_peak / 2**20:.1f} MiB, '
+          f'{(train_peak - train_base) / 2**20:.1f} MiB above the '
+          f'{train_base / 2**20:.1f} MiB allocated at the first step\'s '
+          f'start ({name}, {smi}); '
           f'{n_moved} of {len(before_p)} parameters moved, every '
           f'conv_offset_mask with a gradient (max |grad| '
           f'{min(offset_grads):.3e} to {max(offset_grads):.3e}) and moved; '
@@ -1519,36 +2035,8 @@ def main() -> int:
         assert s1.step == 1
         assert s2.step == 2 and int(s2.count) == 2
 
-    # the card against the CPU path: one step at 96x128, full depth.
-    # Losses rtol 2e-3; gradients: relative L2 error 2e-3 over all
-    # parameters and 2e-2 per parameter (cuDNN and CPU convolutions sum in
-    # another order, the fused conv is 3xTF32 and K4 adds with atomics, so
-    # a ReLU whose input lies within rounding of 0 can switch on one side)
-    small = cfg.replace(img_h=96, img_w=128)
-    host = _train_batch(small, 99, clips=1)
-    res = {}
-    for d_ in (torch.device('cpu'), dev):
-        mdl = build_model(small, d_, seed=0)
-        st_, in_ = build_train_step(small, mdl, d_)
-        _, m = st_(in_(), prepare_batch(small, host, d_))
-        res[d_.type] = ({k: float(v) for k, v in m.items()},
-                        {n: p.grad.detach().cpu().double()
-                         for n, p in mdl.named_parameters()})
-        del mdl, st_, in_
-    (cm, cg), (gm, gg) = res['cpu'], res['cuda']
-    for k in cm:
-        print(f'[check] train card vs CPU {k}: {gm[k]:.6f} vs {cm[k]:.6f}')
-        assert abs(gm[k] - cm[k]) <= 2e-3 * abs(cm[k]) + 1e-7, k
-    rel = {n: float((gg[n] - cg[n]).norm() / cg[n].norm().clamp(min=1e-30))
-           for n in cg}
-    tot = float(sum((gg[n] - cg[n]).norm() ** 2 for n in cg) ** 0.5
-                / sum(cg[n].norm() ** 2 for n in cg) ** 0.5)
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-    print(f'[check] train card vs CPU gradients: relative L2 error over '
-          f'{len(cg)} parameters {tot:.3e} (limit 2e-3); worst '
-          f'{[(n, round(v, 6)) for n, v in worst]} (limit 2e-2 each)',
-          flush=True)
-    assert tot <= 2e-3 and worst[0][1] <= 2e-2, (tot, worst)
+    # the card against the CPU path: one step at 96x128, full depth
+    _train_step_vs_cpu(torch, dev, cfg)
 
     # one steady training step under torch.profiler
     rows = _device_events(lambda: step(state, batches[1]), 1)
@@ -1698,17 +2186,24 @@ def main() -> int:
           f'the SGEMM alone {wg_lib:.5f} ms ({smi})', flush=True)
 
     # ---- 7. the eval CLI --------------------------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        ev = _eval_cli(torch, dev, smi, name, tmp)
+    eval_tmp = tempfile.TemporaryDirectory()     # phase 9 reads its set
+    ev = _eval_cli(torch, dev, smi, name, eval_tmp.name)
     eval_launches = ev['launches']
 
     # ---- 8. the training CLI -----------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         tc = _train_cli(torch, dev, smi, name, tmp, train_med)
 
-    def by_of(acc):
-        return 'bytes' if acc['bytes_s'] >= acc['ops_s'] else 'operations'
+    # ---- 9. FCB: STMask_plus_resnet50_ada / _ali ---------------------------
+    _fcb_checks(torch, dev, err)
+    fcb_eval = _fcb_eval_step(torch, dev, smi, name)
+    fcb_cli = _fcb_eval_cli(torch, dev, smi, name, ev['ann'], ev['prefix'],
+                            eval_tmp.name)
+    eval_tmp.cleanup()
+    fcb_train = _fcb_train(torch, dev, smi, name)
+    fcb_t = _fcb_times(torch, dev, smi)
 
+    by_of = _by_of
     sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
              'are their sum')
     eval_path = (f'eval video step, {N_VIDEOS} videos x {FRAMES_PER_VIDEO} '
@@ -1814,9 +2309,75 @@ def main() -> int:
          'shape': sites.replace('one 384x640 frame', '8 384x640 frames')}]}
     train_cli_path = (f'training CLI, {TRAIN_CLI_STEPS} steps of '
                       f'{TRAIN_CLIPS} clips and the validation (bf16)')
+    acc = fcb_t['acc']
+    fcb_sites = ('FCB\'s 15 sites (P3..P7 of a 384x640 frame under 3x3, 3x5 '
+                 'and 5x3 taps, Cin = Cout = 256, v1), one launch each; '
+                 'times are their sum')
+    table['kernels'].insert(5, {
+        'name': 'deform_conv_bf16_f32off', 'route': 'cuda',
+        'source': 'stmask_torch/kernels/csrc/deform_conv.cu',
+        'replaces': 'stmask_tpu/ops/deform_conv.py:31 (called by '
+                    'stmask_tpu/models/heads.py:124 with _ali_offsets\' '
+                    'fp32 offsets)',
+        'launches': fcb_cli['launches']['deform_conv_bf16_f32off'],
+        'launches_path': (
+            f'STMask_plus_resnet50_ali eval CLI (bf16, {EVAL_LANES} streams '
+            f'x {EVAL_CHUNK}-frame chunks), {fcb_cli["stats"]["n_chunks"]} '
+            'chunks and a warm-up chunk'),
+        'max_abs_err': err['deform_conv_bf16_f32off'],
+        'ms': acc['deform_conv_bf16_f32off']['ms'],
+        'call_ms': acc['deform_conv_bf16_f32off']['call_ms'],
+        'plain_ms': acc['deform_conv_bf16_f32off']['plain_ms'],
+        'bound_ms': acc['deform_conv_bf16_f32off']['bound_ms'],
+        'bound_by': _by_of(acc['deform_conv_bf16_f32off']),
+        'library_ms': None,
+        'shape': fcb_sites.replace('one 384x640 frame',
+                                   f'{2 * TRAIN_CLIPS} 384x640 frames') +
+        '; bf16 x and weight, fp32 offsets'})
+    fcb_paths = {
+        'deform_conv': ('1 frame', 'eval (STMask_plus_resnet50_ada, fp32) '
+                        '15 a frame, training 15 a step'),
+        'deform_conv_bf16': (f'{2 * TRAIN_CLIPS} frames, bf16 offsets (ada)',
+                             'eval CLI of STMask_plus_resnet50_ada 15 a '
+                             'step (not driven here)'),
+        'deform_conv_bf16_f32off': (f'{2 * TRAIN_CLIPS} frames',
+                                    'eval CLI of STMask_plus_resnet50_ali '
+                                    '15 a step'),
+        'deform_wgrad': (f'{2 * TRAIN_CLIPS} frames', 'training 15 a step'),
+        'deform_col2im': (f'{2 * TRAIN_CLIPS} frames', 'training 15 a step')}
     for row in table['kernels']:
         row['cli_launches'] = tc['launches'][row['name']]
         row['cli_path'] = train_cli_path
+        row['fcb_eval_launches'] = fcb_eval['launches'][row['name']]
+        row['fcb_cli_launches'] = fcb_cli['launches'][row['name']]
+        row['fcb_train_launches_per_step'] = (
+            fcb_train['launches'][row['name']] // TRAIN_STEPS)
+        if row['name'] in acc:
+            a_ = acc[row['name']]
+            frames_, use = fcb_paths[row['name']]
+            row.update(fcb_ms=a_['ms'], fcb_call_ms=a_['call_ms'],
+                       fcb_plain_ms=a_['plain_ms'],
+                       fcb_bound_ms=a_['bound_ms'], fcb_bound_by=_by_of(a_),
+                       fcb_shape=fcb_sites.replace(
+                           'one 384x640 frame', frames_) + f'; {use}')
+    t_ = acc['deform_conv_train']
+    table['kernels'][3].update(          # the fp32 row: the training forward
+        fcb_train_ms=t_['ms'], fcb_train_call_ms=t_['call_ms'],
+        fcb_train_plain_ms=t_['plain_ms'], fcb_train_bound_ms=t_['bound_ms'],
+        fcb_train_bound_by=_by_of(t_),
+        fcb_train_shape=fcb_sites.replace('one 384x640 frame',
+                                          f'{2 * TRAIN_CLIPS} frames'))
+    assert table['kernels'][3]['name'] == 'deform_conv'
+    table['fcb'] = dict(
+        eval_ms_per_frame=fcb_eval['ms'], eval_busy_ms=fcb_eval['busy'],
+        eval_peak_mib_above_start=fcb_eval['peak'] / 2**20,
+        cli_e2e_fps=fcb_cli['stats']['e2e_fps'],
+        cli_device_fps=fcb_cli['timed']['device_fps'],
+        train_ms_per_step=fcb_train['ms'], train_busy_ms=fcb_train['busy'],
+        train_peak_mib=fcb_train['peak'] / 2**20,
+        train_peak_mib_above_start=(fcb_train['peak']
+                                    - fcb_train['base']) / 2**20,
+        dcols_sgemm_ms=fcb_t['sgemm'])
     print(json.dumps(table))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -31,7 +31,8 @@ _BN_NAMES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
 
 def _module_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     """flax module path (without the leaf) -> (torch module key, kind);
-    kind in {conv, bn, linear}."""
+    kind in {conv, bn, linear, align} (align: an FCB module, whose own leaf
+    ``adaption_kernel`` is the deformable kernel)."""
     top, rest = path[0], path[1:]
     if top == 'backbone':
         if rest[0] in ('conv1', 'bn1'):
@@ -63,12 +64,19 @@ def _module_key(path: Tuple[str, ...]) -> Tuple[str, str]:
                          rest[0])
         if m:
             return f'{head}.{m.group(1)}_layer.{m.group(2)}', 'conv'
+        m = re.fullmatch(r'(conf|track|mask)_align_(\d+)', rest[0])
+        if m:                 # FCB: FeatureAlign replaces the bank's conv
+            bank = f'{head}.{m.group(1)}_layer.{m.group(2)}'
+            if len(rest) == 1:
+                return bank, 'align'
+            if rest[1:] in (('conv_offset',), ('conv',)):
+                return f'{bank}.{rest[1]}', 'conv'
     if top == 'temporal_net':
         kind = 'linear' if rest[0] in ('fc', 'fc_coeff') else 'conv'
         return f'TemporalNet.{rest[0]}', kind
     raise KeyError(f'no port parameter for flax module {"/".join(path)} '
-                   '(FCB, the legacy head and the extra heads are not '
-                   'ported yet)')
+                   '(the legacy head and the extra heads are not ported '
+                   'yet)')
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -100,7 +108,10 @@ def state_dict_from_flax(params: Mapping, include_bn: bool = True,
                 sd[f'{key}.num_batches_tracked'] = torch.zeros(
                     (), dtype=torch.long)
             continue
-        if name == 'kernel':
+        if kind == 'align' and name == 'adaption_kernel':
+            arr = arr.transpose(3, 2, 0, 1)             # HWIO -> OIHW
+            key, name = f'{key}.conv_adaption', 'weight'
+        elif name == 'kernel':
             arr = arr.transpose(3, 2, 0, 1) if kind == 'conv' else arr.T
             name = 'weight'
         elif name != 'bias':

@@ -11,6 +11,7 @@ KERNELS = {'correlation': correlation.KERNEL,
            'deform_im2col': deform_im2col.KERNEL,
            'deform_conv': deform_conv.KERNEL,
            'deform_conv_bf16': deform_conv.KERNEL_BF16,
+           'deform_conv_bf16_f32off': deform_conv.KERNEL_BF16_F32OFF,
            'correlation_bwd': correlation_bwd.KERNEL,
            'deform_col2im': deform_col2im.KERNEL,
            'deform_wgrad': deform_wgrad.KERNEL}

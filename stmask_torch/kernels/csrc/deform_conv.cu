@@ -84,7 +84,10 @@
 // A and B rows are BK + 8 bf16 apart (80 bytes): 16-byte aligned for
 // cp.async, and the 32 lanes' fragment words fall on 32 banks.  Bound: the
 // product's 2*M*N*K flops at 989 TFLOP/s, the gather's at 67 TFLOP/s, or
-// the bytes (half of fp32's) at 3.35 TB/s.
+// the bytes (half of fp32's) at 3.35 TB/s.  The offsets may be fp32 beside
+// bf16 x and weight (a third instantiation): FCB's analytic "ali" offsets,
+// which the JAX package computes in fp32 from bf16 box deltas and samples
+// at unrounded; the sample coordinates are fp32 either way.
 
 #include "deform_gather.cuh"
 
@@ -111,8 +114,8 @@ struct Tile {
   static_assert(BM * BN * 4 <= SMEM_BYTES, "partial tile must fit");
 };
 
-template <typename T>
-struct Params : Sample<T> {
+template <typename T, typename TO = T>
+struct Params : Sample<T, TO> {
   const T* weight;       // [Cout, K * Cin]
   const T* bias;         // [Cout] or null
   T* out;                // [B, Ho, Wo, Cout]
@@ -143,9 +146,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 // Weight columns [k0, k0 + BK) of output channels [n0, n0 + BN) into one
 // ring stage, [BN][LD]; a channel's BK-column run comes in 16-byte copies.
-template <typename T, bool FAST>
-__device__ __forceinline__ void load_b(const Params<T>& p, T* bs, int k0,
-                                       int n0) {
+template <typename T, bool FAST, typename P>
+__device__ __forceinline__ void load_b(const P& p, T* bs, int k0, int n0) {
   constexpr int LD = Tile<T>::LD, VEC = Tile<T>::VEC;
   const int tid = threadIdx.x;
   if (FAST) {
@@ -220,7 +222,8 @@ struct Gather {
   int tap = -1, next_tap = -1, c = 0;
 
   // fast path: make chunk k0 the one that issue() and combine() read.
-  __device__ __forceinline__ void begin(const Params<T>& p, int m0, int k0) {
+  template <typename P>
+  __device__ __forceinline__ void begin(const P& p, int m0, int k0) {
     const int tid = threadIdx.x;
     const int t = k0 / p.Cin;
     if (t != tap) {
@@ -283,8 +286,9 @@ struct Gather {
   }
 
   // other shapes: one scalar sample per element.
-  __device__ __forceinline__ void load_scalar(const Params<T>& p, int m0,
-                                              int k0, AStage& st) const {
+  template <typename P>
+  __device__ __forceinline__ void load_scalar(const P& p, int m0, int k0,
+                                              AStage& st) const {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int e = threadIdx.x + i * THREADS;
@@ -342,8 +346,8 @@ struct Gather {
 
 // The output value of one site and channel from its fp32 sum: fp32 adds
 // the bias; bf16 rounds the sum to bf16, then adds the bias in bf16.
-template <typename T>
-__device__ __forceinline__ float epilogue(const Params<T>& p, float acc,
+template <typename T, typename TO>
+__device__ __forceinline__ float epilogue(const Params<T, TO>& p, float acc,
                                           int n) {
   const float b = p.bias != nullptr ? ld(p.bias + n) : 0.f;
   if constexpr (Tile<T>::F32)
@@ -357,9 +361,9 @@ __device__ __forceinline__ void store_out(bf16* o, float v) {
   *o = __float2bfloat16_rn(v);
 }
 
-template <typename T, bool FAST>
+template <typename T, typename TO, bool FAST>
 __global__ void __launch_bounds__(THREADS, 2)
-    deform_conv_kernel(const Params<T> p) {
+    deform_conv_kernel(const Params<T, TO> p) {
   using TT = Tile<T>;
   constexpr int LD = TT::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -569,8 +573,8 @@ int sm_count() {
   return count;
 }
 
-template <typename T>
-int launch(const T* x, const T* offset, const T* mask, const T* weight,
+template <typename T, typename TO>
+int launch(const T* x, const TO* offset, const T* mask, const T* weight,
            const T* bias, T* out, int B, int H, int W, int Cin, int Ho,
            int Wo, int Cout, int kh, int kw, int stride, int dilation,
            int off_ld, int mask_ld, void* stream) {
@@ -582,9 +586,9 @@ int launch(const T* x, const T* offset, const T* mask, const T* weight,
       static_cast<int64_t>(B) * Ho * Wo > INT32_MAX ||
       static_cast<int64_t>(kh) * kw * Cin > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params<T> p{{x, offset, mask, H, W, Cin, Ho, Wo, kh, kw, stride, dilation,
-               B * Ho * Wo, kh * kw * Cin, off_ld, mask_ld},
-              weight, bias, out, Cout};
+  Params<T, TO> p{{x, offset, mask, H, W, Cin, Ho, Wo, kh, kw, stride,
+                   dilation, B * Ho * Wo, kh * kw * Cin, off_ld, mask_ld},
+                  weight, bias, out, Cout};
   if (p.M == 0) return static_cast<int>(cudaSuccess);
   const bool fast = Cin % BK == 0 && Cout % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -601,16 +605,17 @@ int launch(const T* x, const T* offset, const T* mask, const T* weight,
 
   static bool smem_set = false;
   if (!smem_set) {
-    for (const auto kernel : {deform_conv_kernel<T, true>,
-                              deform_conv_kernel<T, false>}) {
+    for (const auto kernel : {deform_conv_kernel<T, TO, true>,
+                              deform_conv_kernel<T, TO, false>}) {
       const cudaError_t e = allow_clusters(kernel, TT::SMEM_BYTES);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     smem_set = true;
   }
   const cudaError_t e = launch_split(
-      fast ? deform_conv_kernel<T, true> : deform_conv_kernel<T, false>, mt,
-      nt, split, TT::SMEM_BYTES, stream, p);
+      fast ? deform_conv_kernel<T, TO, true>
+           : deform_conv_kernel<T, TO, false>,
+      mt, nt, split, TT::SMEM_BYTES, stream, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -621,7 +626,8 @@ int launch(const T* x, const T* offset, const T* mask, const T* weight,
 // tap, sites off_ld elements apart; mask: [B, Ho, Wo, kh*kw], sites mask_ld
 // elements apart, or null (v1); weight: [Cout, kh, kw, Cin]; bias: [Cout]
 // or null; out: [B, Ho, Wo, Cout].  All of one type (fp32 for
-// stmask_deform_conv, bf16 for stmask_deform_conv_bf16); x, weight and out
+// stmask_deform_conv, bf16 for stmask_deform_conv_bf16), or all bf16 but
+// the fp32 offset (stmask_deform_conv_bf16_f32off); x, weight and out
 // contiguous.  Returns cudaGetLastError() after the launch.
 extern "C" int stmask_deform_conv(const float* x, const float* offset,
                                   const float* mask, const float* weight,
@@ -629,9 +635,9 @@ extern "C" int stmask_deform_conv(const float* x, const float* offset,
                                   int W, int Cin, int Ho, int Wo, int Cout,
                                   int kh, int kw, int stride, int dilation,
                                   int off_ld, int mask_ld, void* stream) {
-  return launch<float>(x, offset, mask, weight, bias, out, B, H, W, Cin, Ho,
-                       Wo, Cout, kh, kw, stride, dilation, off_ld, mask_ld,
-                       stream);
+  return launch<float, float>(x, offset, mask, weight, bias, out, B, H, W,
+                              Cin, Ho, Wo, Cout, kh, kw, stride, dilation,
+                              off_ld, mask_ld, stream);
 }
 
 extern "C" int stmask_deform_conv_bf16(const void* x, const void* offset,
@@ -641,9 +647,21 @@ extern "C" int stmask_deform_conv_bf16(const void* x, const void* offset,
                                        int Cout, int kh, int kw, int stride,
                                        int dilation, int off_ld, int mask_ld,
                                        void* stream) {
-  return launch<bf16>(
+  return launch<bf16, bf16>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(offset),
       static_cast<const bf16*>(mask), static_cast<const bf16*>(weight),
       static_cast<const bf16*>(bias), static_cast<bf16*>(out), B, H, W, Cin,
       Ho, Wo, Cout, kh, kw, stride, dilation, off_ld, mask_ld, stream);
+}
+
+extern "C" int stmask_deform_conv_bf16_f32off(
+    const void* x, const float* offset, const void* mask, const void* weight,
+    const void* bias, void* out, int B, int H, int W, int Cin, int Ho, int Wo,
+    int Cout, int kh, int kw, int stride, int dilation, int off_ld,
+    int mask_ld, void* stream) {
+  return launch<bf16, float>(
+      static_cast<const bf16*>(x), offset, static_cast<const bf16*>(mask),
+      static_cast<const bf16*>(weight), static_cast<const bf16*>(bias),
+      static_cast<bf16*>(out), B, H, W, Cin, Ho, Wo, Cout, kh, kw, stride,
+      dilation, off_ld, mask_ld, stream);
 }

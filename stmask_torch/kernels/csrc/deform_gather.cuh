@@ -34,11 +34,13 @@ template <typename T>
 constexpr bool kF32 = std::is_same<T, float>::value;
 
 // What one call samples: the input, the offsets and modulation, and the
-// geometry.  M = B * Ho * Wo sites, Ktot = kh * kw * Cin columns.
-template <typename T>
+// geometry.  M = B * Ho * Wo sites, Ktot = kh * kw * Cin columns.  The
+// offsets are of type TO: T, or fp32 beside bf16 x (FCB's analytic
+// offsets, which the JAX package computes in fp32 from bf16 box deltas).
+template <typename T, typename TO = T>
 struct Sample {
   const T* x;            // [B, H, W, Cin]
-  const T* offset;       // [B, Ho, Wo, >= 2K], site stride off_ld
+  const TO* offset;      // [B, Ho, Wo, >= 2K], site stride off_ld
   const T* mask;         // [B, Ho, Wo, >= K], site stride mask_ld, or null
   int H, W, Cin, Ho, Wo, kh, kw, stride, dilation;
   int M, Ktot, off_ld, mask_ld;
@@ -99,10 +101,11 @@ struct TapIn {
   float dy, dx, m;
 };
 
-template <typename T>
-__device__ __forceinline__ TapIn tap_in(const Sample<T>& p, int m, int tap) {
+template <typename T, typename TO>
+__device__ __forceinline__ TapIn tap_in(const Sample<T, TO>& p, int m,
+                                        int tap) {
   if (m >= p.M) return TapIn{0.f, 0.f, 0.f};
-  const T* off = p.offset + static_cast<int64_t>(m) * p.off_ld + 2 * tap;
+  const TO* off = p.offset + static_cast<int64_t>(m) * p.off_ld + 2 * tap;
   return TapIn{ld(off), ld(off + 1),
                p.mask != nullptr
                    ? ld(p.mask + static_cast<int64_t>(m) * p.mask_ld + tap)
@@ -111,9 +114,9 @@ __device__ __forceinline__ TapIn tap_in(const Sample<T>& p, int m, int tap) {
 
 // The corners of the sample at the integer point (by, bx) of image b
 // (tap position and stride already applied) plus the offset in `in`.
-template <typename T>
-__device__ __forceinline__ void corners_at(const Sample<T>& p, int b, int by,
-                                           int bx, const TapIn& in,
+template <typename T, typename TO>
+__device__ __forceinline__ void corners_at(const Sample<T, TO>& p, int b,
+                                           int by, int bx, const TapIn& in,
                                            Corners<T>& cn) {
   cn.m = in.m;
 #pragma unroll
@@ -148,8 +151,8 @@ __device__ __forceinline__ void corners_at(const Sample<T>& p, int b, int by,
 }
 
 // The corners of site m's sample at tap `tap` (none past the last site).
-template <typename T>
-__device__ __forceinline__ void corners_from(const Sample<T>& p, int m,
+template <typename T, typename TO>
+__device__ __forceinline__ void corners_from(const Sample<T, TO>& p, int m,
                                              int tap, const TapIn& in,
                                              Corners<T>& cn) {
   if (m >= p.M) {
@@ -183,8 +186,8 @@ __device__ __forceinline__ float bf16_sample(const float (&w)[4],
 
 // One sampled element (site m, column k), for the shapes off the fast
 // path; zero past the last site or column.
-template <typename T>
-__device__ __forceinline__ float sample_scalar(const Sample<T>& p, int m,
+template <typename T, typename TO>
+__device__ __forceinline__ float sample_scalar(const Sample<T, TO>& p, int m,
                                                int k) {
   if (m >= p.M || k >= p.Ktot) return 0.f;
   const int tap = k / p.Cin, c = k - tap * p.Cin;

@@ -7,8 +7,11 @@ dispatches on the device and type: CPU tensors take
 ``deform_conv_reference`` (fp32: the gather of ``deform_im2col_reference``
 contracted with one matmul; bf16: the JAX package's bf16 rounding points),
 CUDA tensors take the kernel of their type in ``csrc/deform_conv.cu`` or
-raise.  The weight is given as ``[Cout, kh, kw, Cin]``: a DCN module's OIHW
-weight in the channels-last layout, which the kernel reads in place.
+raise.  bf16 inputs may come with fp32 offsets (FCB's analytic offsets,
+which the JAX package computes in fp32 from bf16 box deltas); they take a
+third entry, which samples at the unrounded offsets.  The weight is given
+as ``[Cout, kh, kw, Cin]``: a DCN module's OIHW weight in the
+channels-last layout, which the kernel reads in place.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from .deform_im2col import deform_im2col_reference
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 KERNEL = CudaKernel('deform_conv', 'stmask_deform_conv', _ARGTYPES)
 KERNEL_BF16 = CudaKernel('deform_conv', 'stmask_deform_conv_bf16', _ARGTYPES)
+KERNEL_BF16_F32OFF = CudaKernel('deform_conv',
+                                'stmask_deform_conv_bf16_f32off', _ARGTYPES)
 
 
 def _rb(t: torch.Tensor) -> torch.Tensor:
@@ -87,7 +92,7 @@ def deform_conv_reference(x: torch.Tensor, offset: torch.Tensor,
       x: [B, H, W, Cin]; offset: [B, Ho, Wo, 2K] with (dy, dx) interleaved
         per tap, taps row-major (K = kh*kw); weight: [Cout, kh, kw, Cin];
         mask: [B, Ho, Wo, K] (already sigmoid-ed) or None; bias: [Cout] or
-        None.  All fp32, or all bf16.
+        None.  All fp32, or all bf16 (the offset bf16 or fp32).
     Returns:
       [B, Ho, Wo, Cout] in x's type.  In bf16 the product sums in fp32, is
       rounded to bf16 and then the bias is added in bf16
@@ -123,21 +128,31 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
                      bias: Optional[torch.Tensor], stride: int = 1,
                      dilation: int = 1) -> torch.Tensor:
     """The fused kernel on CUDA tensors (shapes as above), all fp32 or all
-    bf16; a bf16 tensor takes the bf16 kernel.  ``x``, ``weight`` and
-    ``bias`` are contiguous (a channels-last OIHW weight permuted to [Cout,
+    bf16; a bf16 tensor takes the bf16 kernel, and bf16 with an fp32
+    ``offset`` the bf16 kernel that reads fp32 offsets.  ``x``, ``weight``
+    and ``bias`` are contiguous (a channels-last OIHW weight permuted to [Cout,
     kh, kw, Cin] is); ``offset`` and ``mask`` may be channel slices of a
     contiguous NHWC tensor (the kernel reads them element by element, so a
     bf16 slice of the 27-channel ``conv_offset_mask`` output needs no
-    alignment)."""
+    alignment).  Any input that requires a gradient raises while autograd
+    records (``check_cuda``): the kernel's output has no gradient, so the
+    training path calls ``ops.deform_conv.deform_conv_window``."""
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f'deform_conv_cuda: {dt} is neither float32 nor '
                         'bfloat16')
+    off_dt = offset.dtype
+    if off_dt != dt and (dt, off_dt) != (torch.bfloat16, torch.float32):
+        raise TypeError(f'deform_conv_cuda: {off_dt} offsets with {dt} '
+                        'inputs (only bf16 inputs take fp32 offsets)')
     check_cuda('deform_conv_cuda', *(t for t in (x, weight, bias)
                                      if t is not None), dtype=dt)
-    check_cuda('deform_conv_cuda', x, *(t for t in (offset, mask)
-                                        if t is not None),
+    check_cuda('deform_conv_cuda', x, *(t for t in (mask,) if t is not None),
                dtype=dt, contiguous=False)
+    check_cuda('deform_conv_cuda', offset, dtype=off_dt, contiguous=False)
+    if offset.device != x.device:
+        raise ValueError(f'deform_conv_cuda: expected CUDA tensors on one '
+                         f'device, got {offset.device} and {x.device}')
     b, h, w, cin = x.shape
     if weight.dim() != 4 or weight.shape[3] != cin:
         raise ValueError(f'deform_conv_cuda: weight {tuple(weight.shape)} '
@@ -165,7 +180,8 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
             mask = mask.contiguous()
             mask_ld = k
     out = torch.empty((b, ho, wo, cout), dtype=dt, device=x.device)
-    kernel = KERNEL_BF16 if dt == torch.bfloat16 else KERNEL
+    kernel = (KERNEL if dt == torch.float32 else
+              KERNEL_BF16 if off_dt == dt else KERNEL_BF16_F32OFF)
     kernel(x.data_ptr(), offset.data_ptr(),
            None if mask is None else mask.data_ptr(), weight.data_ptr(),
            None if bias is None else bias.data_ptr(), out.data_ptr(),

@@ -127,6 +127,7 @@ class ResNetBackbone(nn.Module):
                 in_ch = planes * 4
             self.layers.append(nn.Sequential(*mods))
             planes *= 2
+        self.has_dcn = any(isinstance(m, DCNConv) for m in self.modules())
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, ...]:
@@ -134,6 +135,13 @@ class ResNetBackbone(nn.Module):
         # dcn_window_eval (reference backbone.py:127)
         c = self.cfg
         radius = c.dcn_window_radius if (train or c.dcn_window_eval) else 0
+        if train and radius < 1 and self.has_dcn:
+            # the JAX package trains the exact gather by autodiff; the
+            # fused kernel has no backward (check_cuda refuses it on the
+            # card), so both devices refuse
+            raise NotImplementedError(
+                'training the DCN through the exact gather '
+                '(dcn_window_radius 0) is not ported (ROADMAP A.9e)')
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []

@@ -22,7 +22,7 @@ from ..config import STMaskConfig
 from ..ops.correlation import correlate
 from .backbone import DCNConv, ResNetBackbone
 from .fpn import FPN
-from .heads import PredictionHead
+from .heads import DeformAdaption, FeatureAlign, PredictionHead
 from .layers import FrozenBatchNorm, MakeNet
 from .temporal import TemporalNet
 
@@ -72,7 +72,7 @@ class STMask(nn.Module):
         preds: Dict[str, list] = {}
         t2s = []
         for f in fpn_outs:
-            p = head(f)
+            p = head(f, train)
             t2s.append(p.pop('T2S_feat'))
             for k, v in p.items():
                 preds.setdefault(k, []).append(v)
@@ -120,9 +120,10 @@ def init_random(model: STMask, generator: torch.Generator) -> STMask:
     identity statistics and each bottleneck's last BN scale is 0.2, so the
     residual stream stays O(1) through the untrained backbone.  The DCN
     offset predictors get small weights and a bias of std 0.5 pixels, so
-    the deformable gather samples off the grid.  Parameters are
-    drawn on the CPU, in module order, so a seed gives the same weights on
-    every device.  Training from these weights loses the ProtoNet (its last
+    the deformable gather samples off the grid; FCB's deformable kernels
+    are He-normal and its ``conv_offset`` predictors of std 0.1, so that
+    ada's offsets are not integers.  Parameters are drawn on the CPU, in
+    module order, so a seed gives the same weights on every device.  Training from these weights loses the ProtoNet (its last
     ReLU goes dead within tens of steps, in the JAX package alike): the
     training entry points start from ``init_flax``.
     """
@@ -137,16 +138,20 @@ def init_random(model: STMask, generator: torch.Generator) -> STMask:
                                       math.sqrt(2.0 / fan_in)))
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, DCNConv):
+            elif isinstance(m, (DCNConv, DeformAdaption)):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(normal(m.weight.shape,
                                       math.sqrt(2.0 / fan_in)))
-                m.bias.zero_()
+                if isinstance(m, DCNConv):
+                    m.bias.zero_()
         for m in model.modules():
             if isinstance(m, DCNConv):
                 om = m.conv_offset_mask
                 om.weight.copy_(normal(om.weight.shape, 0.01))
                 om.bias.copy_(normal(om.bias.shape, 0.5))
+            elif isinstance(m, FeatureAlign) and m.conv_offset is not None:
+                m.conv_offset.weight.copy_(
+                    normal(m.conv_offset.weight.shape, 0.1))
         for layer in model.backbone.layers:
             for block in layer:
                 block.bn3.weight.fill_(0.2)
@@ -162,8 +167,10 @@ def init_flax(model: STMask, generator: torch.Generator) -> STMask:
     DCN kernels He-normal (variance 2 / fan-in), both truncated at two
     standard deviations as flax's ``variance_scaling`` draws them; biases
     are zero; the DCN offset predictors are zero, so training starts from
-    a plain conv (``backbone.py:41-47``); BatchNorm is the identity.
-    Parameters are drawn on the CPU, in module order.
+    a plain conv (``backbone.py:41-47``); BatchNorm is the identity.  FCB
+    (``heads.py:84-129``): ``conv_offset`` zero, the deformable kernel
+    ``normal(0.01)`` (not truncated), ``conv`` LeCun-normal with a zero
+    bias.  Parameters are drawn on the CPU, in module order.
     """
     def truncated(shape, scale: float, fan_in: int):
         # flax's truncated_normal: the stddev corrected for the truncation
@@ -189,6 +196,11 @@ def init_flax(model: STMask, generator: torch.Generator) -> STMask:
             if isinstance(m, DCNConv):
                 m.conv_offset_mask.weight.zero_()
                 m.conv_offset_mask.bias.zero_()
+            elif isinstance(m, FeatureAlign):
+                if m.conv_offset is not None:
+                    m.conv_offset.weight.zero_()
+                w = m.conv_adaption.weight
+                w.copy_(torch.randn(w.shape, generator=generator) * 0.01)
     return model
 
 

@@ -111,6 +111,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         deform_conv_cuda(xb, torch.zeros(1, 4, 5, 18).bfloat16(),
                          torch.zeros(3, 3, 3, 8).bfloat16(), None, None)
+    with pytest.raises(ValueError, match='CUDA'):   # fp32 offsets (FCB ali)
+        deform_conv_cuda(xb, torch.zeros(1, 4, 5, 18),
+                         torch.zeros(3, 3, 3, 8).bfloat16(), None, None)
+    with pytest.raises(TypeError, match='offsets'):  # no other mix
+        deform_conv_cuda(x, torch.zeros(1, 4, 5, 18).bfloat16(),
+                         torch.zeros(3, 3, 3, 8), None, None)
 
 
 def test_unported_paths_raise():
@@ -121,10 +127,20 @@ def test_unported_paths_raise():
     from stmask_torch.models import STMask
     from stmask_torch.train.train_step import build_train_step
 
+    import dataclasses
     small = dict(img_h=96, img_w=128)
-    with pytest.raises(NotImplementedError, match='ROADMAP A.10'):
-        STMask(get_config('STMask_plus_resnet50_ada').replace(**small))
     cfg = get_config('STMask_plus_resnet50').replace(**small)
+    # training through the exact gather (radius 0: the DCN sites, or FCB)
+    # raises on every device (ROADMAP C.6), before any step is taken
+    clip = torch.zeros(1, 2, cfg.pad_h, cfg.pad_w, 3)
+    for name, kw in (
+            ('STMask_plus_resnet50', dict(backbone=dataclasses.replace(
+                cfg.backbone, dcn_window_radius=0))),
+            ('STMask_plus_resnet50_ada', dict(fcb_window_radius=0)),
+            ('STMask_plus_resnet50_ali', dict(fcb_window_radius=0))):
+        model = STMask(get_config(name).replace(**small, **kw))
+        with pytest.raises(NotImplementedError, match='ROADMAP A.9e'):
+            model(clip, train=True)
     for kw in (dict(remat=True), dict(compute_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
             build_train_step(cfg, STMask(cfg), device='cpu', **kw)
@@ -142,8 +158,8 @@ def test_unported_paths_raise():
 
 @pytest.mark.parametrize('name', sorted(
     ['correlation', 'correlation_bf16', 'deform_im2col', 'deform_conv',
-     'deform_conv_bf16', 'correlation_bwd', 'deform_col2im',
-     'deform_wgrad']))
+     'deform_conv_bf16', 'deform_conv_bf16_f32off', 'correlation_bwd',
+     'deform_col2im', 'deform_wgrad']))
 def test_kernel_argtypes_match_the_c_launchers(name):
     """ctypes passes what ``argtypes`` says: each launcher's list must
     follow its C signature (pointer -> c_void_p, int -> c_int), or a call

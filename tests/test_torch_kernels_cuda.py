@@ -76,26 +76,35 @@ def test_deform_gather_kernel(device, shape):
                                rtol=0)
 
 
-def _dcn_case(device, h, w, cin, cout, kh, kw, stride, dilation, seed):
+def _dcn_case(device, h, w, cin, cout, kh, kw, stride, dilation, seed,
+              frames=1):
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(1, h, w, cin, device=device, generator=g)
-    off = torch.randn(1, ho, wo, 2 * kh * kw, device=device,
+    x = torch.randn(frames, h, w, cin, device=device, generator=g)
+    off = torch.randn(frames, ho, wo, 2 * kh * kw, device=device,
                       generator=g) * 2.0
-    mask = torch.rand(1, ho, wo, kh * kw, device=device, generator=g)
+    mask = torch.rand(frames, ho, wo, kh * kw, device=device, generator=g)
     wt = torch.randn(cout, kh, kw, cin, device=device,
                      generator=g) / (kh * kw * cin)
     bias = torch.randn(cout, device=device, generator=g)
     return x, off, mask, wt, bias
 
 
+# FCB's 15 sites at 384x640: P3..P7 under 3x3, 3x5 and 5x3 v1 taps,
+# Cin = Cout = 256, stride 1 (P7's 3x5 under 5x3 taps: every footprint past
+# both edges; P6's 6x10 off K4's 4x4 tile)
+FCB_SITES = [(h, w, kh, kw) for h, w in ((48, 80), (24, 40), (12, 20),
+                                         (6, 10), (3, 5))
+             for kh, kw in ((3, 3), (3, 5), (5, 3))]
 # (H, W, Cin, Cout, kh, kw, stride, dilation): the 7 DCN sites, ragged
-# channels and strides, FCB's rectangular v1 taps, dilation 2
+# channels and strides, rectangular v1 taps, dilation 2, then the FCB sites
+# not among them
 FUSED_SHAPES = [(h, w, cin, cin, 3, 3, s, 1) for h, w, cin, s in DCN_SHAPES
                 ] + [(9, 11, 6, 5, 3, 5, 1, 1), (9, 11, 6, 5, 5, 3, 2, 1),
-                     (24, 40, 256, 256, 3, 5, 1, 1),
-                     (24, 40, 256, 256, 5, 3, 1, 1),
                      (13, 7, 64, 36, 3, 3, 1, 2)]
+FUSED_SHAPES += [s for s in ((h, w, 256, 256, kh, kw, 1, 1)
+                             for h, w, kh, kw in FCB_SITES)
+                 if s not in FUSED_SHAPES]
 
 
 @pytest.mark.parametrize('shape', FUSED_SHAPES)
@@ -166,17 +175,24 @@ def test_correlation_kernel_bf16(device, shape, patch):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('shape', FUSED_SHAPES)
-def test_fused_deform_conv_kernel_bf16(device, shape):
+def test_fused_deform_conv_kernel_bf16(device, shape, off_dtype):
+    """bf16 x, weight, mask and bias with bf16 offsets (the bf16 entry)
+    or fp32 offsets (the entry FCB's ali offsets take)."""
     h, w, cin, cout, kh, kw, stride, dil = shape
-    x, off, mask, wt, bias = (t.bfloat16() for t in _dcn_case(
-        device, h, w, cin, cout, kh, kw, stride, dil, 6))
+    x, off, mask, wt, bias = _dcn_case(device, h, w, cin, cout, kh, kw,
+                                       stride, dil, 6)
+    x, mask, wt, bias = (t.bfloat16() for t in (x, mask, wt, bias))
+    off = off.to(off_dtype)
+    entries = (KD.KERNEL, KD.KERNEL_BF16, KD.KERNEL_BF16_F32OFF)
+    once = tuple(int(k is (KD.KERNEL_BF16 if off_dtype == torch.bfloat16
+                           else KD.KERNEL_BF16_F32OFF)) for k in entries)
     for m in (mask, None):
         for b in (bias, None):
-            fp32, bf16 = KD.KERNEL.launches, KD.KERNEL_BF16.launches
+            n = [k.launches for k in entries]
             got = KD.deform_conv_cuda(x, off, wt, m, b, stride, dil)
-            assert (KD.KERNEL.launches, KD.KERNEL_BF16.launches) == (
-                fp32, bf16 + 1)
+            assert tuple(k.launches - n_ for k, n_ in zip(entries, n)) == once
             want = KD.deform_conv_reference(x, off, wt, m, b, stride, dil)
             torch.cuda.synchronize()
             assert got.dtype == torch.bfloat16
@@ -548,3 +564,77 @@ def test_dcn_backward_launches_deform_wgrad_not_k2(device):
     assert KW.KERNEL.launches == wgrad + 1
     assert K2.KERNEL.launches == gather
     assert wt.grad is not None and wt.grad.is_contiguous()
+
+
+def _shares_off_plain(got, rounded, want):
+    """Shares of the values of ``got`` (the fp32-offset entry) and of
+    ``rounded`` (the bf16 entry at the offsets rounded to bf16) that differ
+    from ``want``, the plain version at the fp32 offsets."""
+    return tuple(float((t != want).float().mean()) for t in (got, rounded))
+
+
+@pytest.mark.parametrize('site', FCB_SITES)
+def test_fcb_fp32_offsets_are_not_rounded(device, site):
+    """The fp32-offset entry samples at the offsets as given, which the
+    tolerance alone cannot show: offsets of a few pixels rounded to bf16
+    move the output by less than _bf16_atol.  So the values that differ
+    from the plain version are counted.  The entry may differ in 1% of
+    them, where the fp32 sums in another order round the other way; the
+    control, the bf16 entry fed the offsets rounded to bf16, differs in
+    more than 10% (~75% on the CPU's plain version at these inputs)."""
+    h, w, kh, kw = site
+    x, off, _, wt, _ = _dcn_case(device, h, w, 256, 256, kh, kw, 1, 1, 21)
+    xb, wb = x.bfloat16(), wt.bfloat16()
+    got = KD.deform_conv_cuda(xb, off, wb, None, None)
+    rounded = KD.deform_conv_cuda(xb, off.bfloat16(), wb, None, None)
+    want = KD.deform_conv_reference(xb, off, wb, None, None)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=_bf16_atol(want), rtol=0)
+    share, control = _shares_off_plain(got, rounded, want)
+    assert not torch.equal(got, rounded)
+    assert share <= 0.01 and control > 0.1, (share, control)
+
+
+@pytest.mark.parametrize('site', FCB_SITES)
+def test_fcb_sites_backward_kernels(device, site):
+    """K4 (radius 2, v1) and deform_wgrad (Cout 256) at one FCB site with
+    8 frames, as a training step of 4 clips runs them: K4's d_offset and
+    deform_wgrad's d_w bit for bit over two launches."""
+    h, w, kh, kw = site
+    x, off, _, _, _ = _dcn_case(device, h, w, 256, 256, kh, kw, 1, 1, 22,
+                                frames=8)
+    off = off.clamp(-2, 2)
+    gen = torch.Generator(device=device).manual_seed(23)
+    g = torch.randn(8 * h * w, 256, device=device, generator=gen)
+    dcols = torch.randn(8 * h * w, kh * kw * 256, device=device,
+                        generator=gen)
+    _check_col2im(dcols, x, off, None, kh, kw, 1)
+    _check_wgrad(g, x, off, None, kh, kw, 1)
+
+
+def test_kernel_output_under_grad_raises(device):
+    """No kernel output silently drops a gradient (ROADMAP C.6): with
+    autograd recording, the fused conv refuses any input that requires
+    one, and the training forward refuses radius 0 on the card as on the
+    CPU; the window op differentiates."""
+    x, off, _, wt, bias = _dcn_case(device, 6, 10, 256, 256, 3, 5, 1, 1, 24)
+    for i in range(4):
+        args = [x, off, wt, bias]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match='gradient'):
+            KD.deform_conv_cuda(args[0], args[1], args[2], None, args[3])
+        with torch.no_grad():
+            KD.deform_conv_cuda(args[0], args[1], args[2], None, args[3])
+    xg = x.clone().requires_grad_(True)
+    deform_conv_window(xg, off, wt, None, None, radius=2).sum().backward()
+    assert float(xg.grad.abs().max()) > 0
+
+    from stmask_torch.config import get_config
+    from stmask_torch.models import STMask
+    cfg = get_config('STMask_plus_resnet50_ada').replace(
+        img_h=96, img_w=128, fcb_window_radius=0)
+    model = STMask(cfg).to(device)
+    with pytest.raises(NotImplementedError, match='ROADMAP A.9e'):
+        model(torch.zeros(1, 2, cfg.pad_h, cfg.pad_w, 3, device=device),
+              train=True)

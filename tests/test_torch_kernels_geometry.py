@@ -90,6 +90,32 @@ def test_plan_fits_the_card_at_the_training_sites(shape, stride):
     assert per * (plan.n_split - 1) < chunks
 
 
+# FCB's 15 sites at 384x640: P3..P7, Cin 256, stride 1, v1, each level
+# under 3x3, 3x5 and 5x3 taps (P7's 3x5 under 5x3 taps: every footprint
+# past both edges; P6's 6x10 off every tile); a training step's 8 frames
+FCB_LEVELS = [(48, 80), (24, 40), (12, 20), (6, 10), (3, 5)]
+
+
+@pytest.mark.parametrize('kh,kw', [(3, 3), (3, 5), (5, 3)])
+@pytest.mark.parametrize('hw', FCB_LEVELS)
+def test_plan_fits_the_card_at_the_fcb_sites(hw, kh, kw):
+    ho, wo = hw
+    plan = col2im_plan(8, ho, wo, 256, kh, kw, 1, 1, RADIUS)
+    fh, fw = footprint(plan.ty, plan.tx, kh, kw, 1, 1, RADIUS)
+    assert (plan.fh, plan.fw) == (fh, fw)
+    items = plan.ty * plan.tx * kh * kw
+    assert plan.smem == 4 * ((fh * fw + items) * 34 + items * 24
+                             + 2 * fh * fw + 2)
+    assert plan.smem <= SMEM_LIMIT
+    # the grid fills the 132 SMs where the tiles' chunks allow it, and no
+    # split is without a chunk
+    tiles = 8 * -(-ho // plan.ty) * -(-wo // plan.tx)
+    assert plan.blocks == tiles * plan.n_split
+    assert plan.blocks >= min(132, tiles * 8)
+    per = -(-8 // plan.n_split)
+    assert per * (plan.n_split - 1) < 8
+
+
 def test_plan_refuses_a_footprint_over_shared_memory():
     with pytest.raises(ValueError, match='shared memory'):
         col2im_plan(1, 8, 8, 64, 3, 3, 1, 1, radius=20)
