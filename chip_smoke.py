@@ -72,7 +72,17 @@ Phases, in order (any failure raises and exits non-zero):
      --config STMask_plus_resnet50_ali over phase 7's set (the fp32-offset
      bf16 entry 15 times a step); the _ada training step (the fused conv,
      deform_wgrad and K4 22 times a step) with the card against the CPU
-     path, and one _ali step; the kernels' times at FCB's sites.
+     path, and one _ali step; the kernels' times at FCB's sites;
+ 10. the mAP* NMS family and the legacy YOLACT preset: B5 (greedy NMS)
+     against its plain version, bit for bit, at GREEDY_SHAPES, and its
+     times; the flagship's fp32 eval step over phase 4's videos under
+     per_class, greedy and cc + nms_as_miou beside phase 4's cc
+     (greedy_nms once a frame under greedy), with each family's
+     detect_frame, and cc's, on the card against the CPU path; YOLACT_legacy_resnet50 at full depth and width (no DCN, no TF:
+     the simple tracker), its fp32 eval step (no deformable conv or
+     correlation launch) with a profile and the model against the CPU
+     path, and the eval CLI's defaults with --nms greedy over phase 7's
+     set (greedy_nms 32 times a chunk).
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -120,7 +130,7 @@ TRAIN_LAUNCHES = {'deform_conv': 7, 'deform_wgrad': 7, 'deform_im2col': 0,
                   'deform_col2im': 7, 'correlation': 1, 'correlation_bwd': 1}
 KERNEL_NAMES = ('correlation', 'deform_im2col', 'deform_conv',
                 'correlation_bwd', 'deform_col2im',
-                'deform_wgrad')                       # the libraries
+                'deform_wgrad', 'greedy_nms')         # the libraries
 # deform_wgrad against its fp32 plain version, relative to max|ref| (sums
 # over up to 30720 sites): 3xTF32 holds ~1e-6 there, a single TF32 product
 # ~8e-4 (the control); fixed before the kernel's first run
@@ -171,6 +181,14 @@ FCB_TRAIN_LAUNCHES = {'deform_conv': 7 + FCB_PER_FRAME,
                       'deform_col2im': 7 + FCB_PER_FRAME,
                       'deform_im2col': 0, 'correlation': 1,
                       'correlation_bwd': 1}
+# B5 (greedy NMS): G groups x K candidates; the eval path's G 40 classes
+# (num_classes - 1) at nms_top_k 200, 8 lanes' worth (320), K across the
+# 64-bit words' boundaries and the kernel's limit
+GREEDY_SHAPES = [(g, k) for g in (40, 320) for k in (1, 63, 64, 65, 200,
+                                                     1024)]
+GREEDY_PATH_SHAPE = (40, 200)
+# the NMS families of phase 10b beside phase 4's cc
+NMS_METHODS = (('per_class', False), ('greedy', False), ('cc', True))
 DCN_SITES = [  # name, (H, W, Cin) of the DCN input at 384x640, stride
     ('layer1_0', (96, 160, 128), 2), ('layer1_2', (48, 80, 128), 1),
     ('layer2_0', (48, 80, 256), 2), ('layer2_2', (24, 40, 256), 1),
@@ -368,9 +386,12 @@ def _model_vs_cpu(torch, dev, cfg, tag: str = '') -> None:
     with torch.inference_mode():
         ref = build_model(small, torch.device('cpu'), seed=0)(x)
         got = build_model(small, dev, seed=0)(x.to(dev))
-    for key, atol in dict(loc=2e-3, conf=1e-4, centerness=1e-4,
-                          mask_coeff=2e-3, track=1e-3, proto=2e-3,
-                          T2S_feat=2e-3, fpn_feat=2e-3).items():
+    tol = dict(loc=2e-3, conf=1e-4, centerness=1e-4, mask_coeff=2e-3,
+               track=1e-3, proto=2e-3, T2S_feat=2e-3, fpn_feat=2e-3)
+    if not cfg.temporal_fusion_module:
+        del tol['fpn_feat']                    # no TF: no tracker features
+    assert set(ref) == set(got) == set(tol), (set(ref), set(tol))
+    for key, atol in tol.items():
         d = float((got[key].cpu() - ref[key]).abs().max())
         scale = float(ref[key].abs().max())
         print(f'[check] {tag}card vs CPU {key}: max|diff| {d:.3e} '
@@ -1079,80 +1100,28 @@ def _fcb_eval_step(torch, dev, smi: str, name: str) -> dict:
     fused conv at the 7 DCN and 15 FCB sites a frame), the results JSON,
     the card against the CPU path at 96x128, a profile of steady frames."""
     from stmask_torch.config import get_config
-    from stmask_torch.inference import (build_video_step, postprocess_frame,
-                                        results2json_videoseg)
-    from stmask_torch.kernels import KERNELS
     from stmask_torch.models import build_model
     from stmask_torch.models.heads import FeatureAlign
 
     cfg = get_config('STMask_plus_resnet50_ada')
     model = build_model(cfg, dev, seed=0)
     assert sum(isinstance(m, FeatureAlign) for m in model.modules()) == 3
-    step, init_state = build_video_step(cfg, model, uint8_input=True,
-                                        device=dev)
     clips = [_synthetic_clip(cfg.img_h, cfg.img_w, FRAMES_PER_VIDEO, seed=v)
              for v in range(N_VIDEOS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    for k in KERNELS.values():
-        k.launches = 0
-    frame_ms, results = [], []
-    for v, clip in enumerate(clips):
-        state = init_state()
-        for f, frame in enumerate(clip):
-            t0 = time.perf_counter()
-            state, out = step(state, frame, f == 0)
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-            for t in out:
-                if t.is_floating_point():
-                    assert bool(torch.isfinite(t).all()), (v, f)
-            results.append(postprocess_frame(
-                cfg, out, {'video_id': v + 1, 'frame_id': f,
-                           'img_shape': (cfg.img_h, cfg.img_w)}))
-    launches = {n: k.launches for n, k in KERNELS.items()}
-    peak = torch.cuda.max_memory_allocated() - base
+    r = _run_eval_step(torch, dev, cfg, model, clips)
     n_frames = N_VIDEOS * FRAMES_PER_VIDEO
-    print(f'[fcb eval] launches {launches} over {n_frames} frames',
+    print(f'[fcb eval] launches {r["launches"]} over {n_frames} frames',
           flush=True)
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(r['launches'], 0)
     want.update(deform_conv=(_dcn_sites(cfg) + FCB_PER_FRAME) * n_frames,
                 correlation=n_frames)
-    assert launches == want, (launches, want)
-    tracks = results2json_videoseg(results)
-    json.dumps(tracks)
-    assert tracks, 'no track in the results JSON'
-    steady = sorted(frame_ms[WARMUP_FRAMES:])
-    med = steady[len(steady) // 2]
-
-    _model_vs_cpu(torch, dev, cfg, '_ada ')
-
-    state = init_state()
-    clip = clips[0]
-    for f in range(2):
-        state, _ = step(state, clip[f], f == 0)
-
-    def frames():
-        nonlocal state
-        for f in range(2, 6):
-            state, _ = step(state, clip[f], False)
-
-    rows = _device_events(frames, 1)
-    busy = sum(us for _, _, us in rows) / 4 / 1e3 if rows else None
+    assert r['launches'] == want, (r['launches'], want)
     print(f'[fcb eval] STMask_plus_resnet50_ada {cfg.img_h}x{cfg.img_w} fp32 '
-          f'(TF32 off): median {med:.3f} ms/frame after {WARMUP_FRAMES} '
-          f'warm-up frames, all frames {[round(t, 3) for t in frame_ms]}; '
-          f'{len(tracks)} tracks; peak memory {peak / 2**20:.1f} MiB above '
-          f'the {base / 2**20:.1f} MiB held at the phase\'s start; '
-          + (f'device busy {busy:.3f} ms a steady frame (idle share '
-             f'{1 - busy / med:.3f}), {sum(c for _, c, _ in rows) / 4:.0f} '
-             'launches a frame' if rows else 'device busy not measured')
-          + f' ({name}, {smi})', flush=True)
-    for key, cnt, us in sorted(rows, key=lambda r: -r[2])[:8]:
-        print(f'[profile]   {us / 4 / 1e3:8.4f} ms/frame {cnt / 4:6.1f}x  '
-              f'{key[:100]}')
-    return dict(launches=launches, ms=med, peak=peak, busy=busy)
+          f'(TF32 off): {_step_summary(r)} ({name}, {smi})', flush=True)
+    _print_profile(r['rows'])
+    _model_vs_cpu(torch, dev, cfg, '_ada ')
+    return dict(launches=r['launches'], ms=r['ms'], peak=r['peak'],
+                busy=r['busy'])
 
 
 def _fcb_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
@@ -1389,6 +1358,320 @@ def _fcb_times(torch, dev, smi: str) -> dict:
     print(f'[fcb time] 15 sites summed, the dcols SGEMM g @ w2 (cuBLAS, 8 '
           f'frames): {sgemm:.5f} ms (device) ({smi})', flush=True)
     return dict(acc=acc, sgemm=sgemm)
+
+
+def _greedy_inputs(torch, dev, g: int, k: int, seed: int):
+    """Phase 10a's inputs: _plus_one_iou of seeded boxes at 640
+    (max(pad_w, pad_h)), as greedy_nms_per_class forms them: random boxes,
+    and in every third group a chain (box i overlaps i + 1 at IoU 0.6 and
+    i + 2 at 0.33, so i suppresses i + 1, which then cannot suppress
+    i + 2); 10% invalid slots, group 0 all invalid."""
+    from stmask_torch.ops.nms import _plus_one_iou
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo = torch.rand(g, k, 2, device=dev, generator=gen) * 0.7
+    wh = 0.05 + torch.rand(g, k, 2, device=dev, generator=gen) * 0.25
+    boxes = torch.cat([lo, lo + wh], dim=-1) * 640.0
+    step = torch.arange(k, device=dev, dtype=torch.float32) * 4.0
+    boxes[1::3] = torch.stack([step, step * 0 + 10, step + 15,
+                               step * 0 + 40], dim=-1)
+    valid = torch.rand(g, k, device=dev, generator=gen) < 0.9
+    valid[0] = False
+    return _plus_one_iou(boxes).contiguous(), valid
+
+
+def _greedy_checks(torch, dev, smi: str, err: dict) -> dict:
+    """Phase 10a: B5 against its plain version, bit for bit, at
+    GREEDY_SHAPES (and the same over two launches); then its times at the
+    path's shape [40, 200] and at [320, 200] beside the plain version and
+    the bound."""
+    from stmask_torch.kernels import greedy_nms as KG
+    for g, k in GREEDY_SHAPES:
+        iou, valid = _greedy_inputs(torch, dev, g, k, seed=g + k)
+        n0 = KG.KERNEL.launches
+        got = KG.greedy_nms_cuda(iou, valid, 0.5)
+        again = KG.greedy_nms_cuda(iou, valid, 0.5)
+        want = KG.greedy_nms_mask_reference(iou, valid, 0.5)
+        torch.cuda.synchronize()
+        assert KG.KERNEL.launches == n0 + 2
+        n_diff = int((got != want).sum())
+        print(f'[B5] greedy_nms [G {g}, K {k}]: {n_diff} keep flags differ '
+              f'from the plain version (must be 0), {int(got.sum())} of '
+              f'{int(valid.sum())} valid kept; bit-identical over two '
+              'launches', flush=True)
+        assert n_diff == 0 and torch.equal(got, again), (g, k)
+        assert not got[0].any()
+        err['greedy_nms'] = max(err['greedy_nms'], float(n_diff))
+    times = {}
+    for g, k in (GREEDY_PATH_SHAPE, (320, 200)):
+        iou, valid = _greedy_inputs(torch, dev, g, k, seed=1)
+        ms = _device_ms(lambda: KG.greedy_nms_cuda(iou, valid, 0.5), 200)
+        call = _time_ms(lambda: KG.greedy_nms_cuda(iou, valid, 0.5), 500)
+        plain = _time_ms(lambda: KG.greedy_nms_mask_reference(
+            iou, valid, 0.5), 3, warmup=1)
+        # the IoU matrix's strict upper triangle (the only entries greedy
+        # NMS reads) and valid read once, keep written once; one fp32
+        # comparison for every pair above the diagonal
+        nbytes = 4 * g * k * (k - 1) // 2 + 2 * valid.numel()
+        bound, by = _bound_ms(nbytes, g * k * (k - 1) / 2)
+        times[(g, k)] = dict(ms=ms, call_ms=call, plain_ms=plain,
+                             bound_ms=bound, bound_by=by)
+        print(f'[time] greedy_nms [G {g}, K {k}]: kernel {ms:.5f} ms '
+              f'(device), per wrapper call {call:.5f} ms, plain {plain:.5f} '
+              f'ms, bound {bound:.5f} ms ({by}; {nbytes} B) ({smi})',
+              flush=True)
+    return times
+
+
+def _nms_vs_cpu(torch, dev, cfg, method: str, miou: bool) -> None:
+    """detect_frame on the card against the CPU path on the same inputs:
+    one 96x128 frame's eval outputs of the card's model (seed 0), decoded
+    and suppressed on each side: validity and classes equal, boxes and
+    scores within 1e-6 (each side decodes)."""
+    from stmask_torch.inference.candidates import detect_frame
+    from stmask_torch.inference.pipeline import normalize_pad
+    from stmask_torch.models import build_model
+    from stmask_torch.ops.anchors import all_priors
+    small = cfg.replace(img_h=96, img_w=128, eval_nms_method=method,
+                        nms_as_miou=miou)
+    x = normalize_pad(small, torch.from_numpy(
+        _synthetic_clip(96, 128, 1, seed=9)[0]))[None].to(dev)
+    with torch.inference_mode():
+        preds = build_model(small, dev, seed=0)(x)
+    keys = ('loc', 'conf', 'mask_coeff', 'track', 'centerness')
+    priors = torch.as_tensor(all_priors(small))
+    got = detect_frame(small, {k: preds[k][0] for k in keys}, priors.to(dev),
+                       proto=preds['proto'][0])
+    want = detect_frame(small, {k: preds[k][0].cpu() for k in keys}, priors,
+                        proto=preds['proto'][0].cpu())
+    got = type(got)(*(t.cpu() for t in got))
+    same = bool(torch.equal(got.valid, want.valid)
+                and torch.equal(got.cls[want.valid], want.cls[want.valid]))
+    diffs = torch.cat([(got.box - want.box)[want.valid].flatten(),
+                       (got.score - want.score)[want.valid]]).abs()
+    d = float(diffs.max()) if diffs.numel() else 0.0
+    print(f'[check] {small.name} detect_frame {method}'
+          f'{" + nms_as_miou" if miou else ""} card vs CPU at 96x128: '
+          f'{int(want.valid.sum())} detections, validity and classes '
+          f'{"equal" if same else "DIFFER"}, max|box, score diff| {d:.3e} '
+          '(atol 1e-6; at least 5 detections)', flush=True)
+    assert int(want.valid.sum()) >= 5, (method, miou)
+    assert same and d <= 1e-6, (method, miou, d)
+
+
+def _run_eval_step(torch, dev, cfg, model, clips) -> dict:
+    """The fp32 eval video step (one stream) over ``clips`` with every
+    launch count set to 0 just before and read just after: launches, the
+    median ms/frame after WARMUP_FRAMES, the results JSON's tracks, the
+    peak memory above what was held before; then a torch.profiler window
+    over four steady frames of the first clip (device busy ms a frame,
+    launches a frame, the rows)."""
+    from stmask_torch.inference import (build_video_step, postprocess_frame,
+                                        results2json_videoseg)
+    from stmask_torch.kernels import KERNELS
+    step, init_state = build_video_step(cfg, model, uint8_input=True,
+                                        device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in KERNELS.values():
+        k.launches = 0
+    frame_ms, results = [], []
+    for v, clip in enumerate(clips):
+        state = init_state()
+        for f, frame in enumerate(clip):
+            t0 = time.perf_counter()
+            state, out = step(state, frame, f == 0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            for t in out:
+                if t.is_floating_point():
+                    assert bool(torch.isfinite(t).all()), (v, f)
+            results.append(postprocess_frame(
+                cfg, out, {'video_id': v + 1, 'frame_id': f,
+                           'img_shape': (cfg.img_h, cfg.img_w)}))
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    tracks = results2json_videoseg(results)
+    json.dumps(tracks)
+    assert tracks, 'no track in the results JSON'
+    steady = sorted(frame_ms[WARMUP_FRAMES:])
+    med = steady[len(steady) // 2]
+
+    state = init_state()
+    for f in range(2):
+        state, _ = step(state, clips[0][f], f == 0)
+
+    def frames():
+        nonlocal state
+        for f in range(2, 6):
+            state, _ = step(state, clips[0][f], False)
+
+    rows = _device_events(frames, 1)
+    busy = sum(us for _, _, us in rows) / 4 / 1e3 if rows else None
+    n_kern = sum(c for _, c, _ in rows) / 4 if rows else None
+    return dict(launches=launches, ms=med, frame_ms=frame_ms,
+                tracks=len(tracks), peak=peak, base=base, rows=rows,
+                busy=busy, launches_per_frame=n_kern)
+
+
+def _step_summary(r: dict) -> str:
+    """One line of ``_run_eval_step``'s numbers."""
+    return (f'median {r["ms"]:.3f} ms/frame after {WARMUP_FRAMES} warm-up '
+            f'frames, all frames {[round(t, 3) for t in r["frame_ms"]]}; '
+            f'{r["tracks"]} tracks; peak memory {r["peak"] / 2**20:.1f} MiB '
+            f'above the {r["base"] / 2**20:.1f} MiB held at the start; '
+            + (f'device busy {r["busy"]:.3f} ms a steady frame (idle share '
+               f'{1 - r["busy"] / r["ms"]:.3f}), '
+               f'{r["launches_per_frame"]:.0f} launches a frame'
+               if r['rows'] else 'device busy not measured'))
+
+
+def _print_profile(rows, n: int = 8) -> None:
+    for key, cnt, us in sorted(rows, key=lambda x: -x[2])[:n]:
+        print(f'[profile]   {us / 4 / 1e3:8.4f} ms/frame {cnt / 4:6.1f}x  '
+              f'{key[:100]}')
+
+
+def _mapstar_eval(torch, dev, smi: str, name: str, cc_ms: float) -> dict:
+    """Phase 10b: the flagship's fp32 eval step (phase 4's two videos, one
+    stream) under each NMS family of NMS_METHODS, beside phase 4's cc
+    median ``cc_ms``: ms/frame and launches (greedy_nms once a frame under
+    greedy, never otherwise) and detect_frame alone (cc's too); then each
+    family's detect_frame, and cc's, on the card against the CPU path at
+    96x128."""
+    from stmask_torch.config import get_config
+    from stmask_torch.models import build_model
+    base = get_config('STMask_plus_resnet50')
+    model = build_model(base, dev, seed=0)
+    clips = [_synthetic_clip(base.img_h, base.img_w, FRAMES_PER_VIDEO, seed=v)
+             for v in range(N_VIDEOS)]
+    n_frames = N_VIDEOS * FRAMES_PER_VIDEO
+    from stmask_torch.inference.candidates import detect_frame
+    from stmask_torch.inference.pipeline import normalize_pad
+    from stmask_torch.ops.anchors import all_priors
+    priors = torch.as_tensor(all_priors(base), device=dev)
+    with torch.inference_mode():
+        preds = model(normalize_pad(base, torch.as_tensor(clips[0][6]).to(
+            dev))[None])
+    one = {k: preds[k][0] for k in ('loc', 'conf', 'mask_coeff', 'track',
+                                    'centerness')}
+
+    def detect_ms(cfg) -> float:
+        """detect_frame alone: the median of 9 synchronized calls (host
+        clock)."""
+        times = []
+        with torch.inference_mode():
+            for _ in range(9):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                detect_frame(cfg, one, priors, proto=preds['proto'][0])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[4]
+
+    res = {'cc': dict(ms=cc_ms, detect_ms=detect_ms(base))}
+    print(f'[mAP*] STMask_plus_resnet50 cc: phase 4\'s median {cc_ms:.3f} '
+          f'ms/frame; detect_frame alone {res["cc"]["detect_ms"]:.3f} ms '
+          f'(median of 9, synchronized) ({name}, {smi})', flush=True)
+    for method, miou in NMS_METHODS:
+        cfg = base.replace(eval_nms_method=method, nms_as_miou=miou)
+        r = _run_eval_step(torch, dev, cfg, model, clips)
+        tag = method + (' + nms_as_miou' if miou else '')
+        detect = detect_ms(cfg)
+        want = dict.fromkeys(r['launches'], 0)
+        want.update(deform_conv=_dcn_sites(cfg) * n_frames,
+                    correlation=n_frames,
+                    greedy_nms=n_frames if method == 'greedy' else 0)
+        print(f'[mAP*] STMask_plus_resnet50 {tag}: launches {r["launches"]} '
+              f'over {n_frames} frames', flush=True)
+        assert r['launches'] == want, (tag, r['launches'], want)
+        print(f'[mAP*] STMask_plus_resnet50 {cfg.img_h}x{cfg.img_w} fp32, '
+              f'{tag}: {_step_summary(r)}; detect_frame alone '
+              f'{detect:.3f} ms (median of 9, synchronized) ({name}, '
+              f'{smi})', flush=True)
+        res[tag] = dict(ms=r['ms'], launches=r['launches'],
+                        detect_ms=detect, busy=r['busy'],
+                        launches_per_frame=r['launches_per_frame'])
+    del model
+    for method, miou in (('cc', False),) + NMS_METHODS:
+        _nms_vs_cpu(torch, dev, base, method, miou)
+    return res
+
+
+def _legacy_eval_step(torch, dev, smi: str, name: str) -> dict:
+    """Phase 10c: YOLACT_legacy_resnet50 at full depth and width (R50
+    without DCN, the legacy head, 360x640, 41 classes, init_random seed 0),
+    the fp32 eval step over phase 4's videos, one stream: launches (no
+    deformable conv, no correlation), ms/frame, a profile of steady frames;
+    the model on the card against the CPU path at 96x128."""
+    from stmask_torch.config import get_config
+    from stmask_torch.models import build_model
+    from stmask_torch.models.legacy_head import PredictionModule
+    cfg = get_config('YOLACT_legacy_resnet50')
+    model = build_model(cfg, dev, seed=0)
+    assert isinstance(model.prediction_layers[0], PredictionModule)
+    assert not hasattr(model, 'TemporalNet')
+    clips = [_synthetic_clip(cfg.img_h, cfg.img_w, FRAMES_PER_VIDEO, seed=v)
+             for v in range(N_VIDEOS)]
+    r = _run_eval_step(torch, dev, cfg, model, clips)
+    n_frames = N_VIDEOS * FRAMES_PER_VIDEO
+    print(f'[legacy] launches {r["launches"]} over {n_frames} frames',
+          flush=True)
+    assert r['launches'] == dict.fromkeys(r['launches'], 0), r['launches']
+    print(f'[legacy] YOLACT_legacy_resnet50 {cfg.img_h}x{cfg.img_w} fp32 '
+          f'(TF32 off), one stream: {_step_summary(r)} ({name}, {smi})',
+          flush=True)
+    _print_profile(r['rows'])
+    del model
+    _model_vs_cpu(torch, dev, cfg, 'legacy ')
+    return dict(ms=r['ms'], launches=r['launches'], busy=r['busy'],
+                launches_per_frame=r['launches_per_frame'], peak=r['peak'])
+
+
+def _legacy_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
+                     tmp: str) -> dict:
+    """Phase 10c: the eval CLI's defaults (bf16, 8 lanes x 4-frame chunks)
+    with --config YOLACT_legacy_resnet50 --nms greedy over phase 7's set:
+    greedy_nms once a lane-frame (32 a chunk), no other kernel; frames/s
+    end to end and device-only."""
+    import math
+
+    from stmask_torch import eval as cli
+    from stmask_torch.kernels import KERNELS
+    base = ['--ann_file', ann, '--img_prefix', prefix, '--eval_metrics',
+            '--config', 'YOLACT_legacy_resnet50', '--nms', 'greedy']
+    out_json = f'{tmp}/results_legacy.json'
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k.launches = 0
+    stats = cli.evaluate(base + ['--mask_det_file', out_json])
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    chunks = stats['n_chunks'] + 1                 # and the warm-up chunk
+    print(f'[legacy cli] launches {launches} over {stats["n_chunks"]} chunks '
+          f'and the warm-up chunk', flush=True)
+    want = dict.fromkeys(KERNELS, 0)
+    want['greedy_nms'] = EVAL_LANES * EVAL_CHUNK * chunks
+    assert launches == want, (launches, want)
+    for key in ('mAP', 'AP50', 'AP75', 'AR'):
+        assert math.isfinite(stats[key]), stats
+    with open(out_json) as fh:
+        n_tracks = len(json.load(fh))
+    assert n_tracks, 'no track in the results JSON'
+    timed = cli.evaluate(base + ['--mask_det_file',
+                                 f'{tmp}/results_legacy_timed.json',
+                                 '--time_device'])
+    print(f'[legacy cli] YOLACT_legacy_resnet50 --nms greedy bf16, '
+          f'{EVAL_LANES} streams x {EVAL_CHUNK}-frame chunks: '
+          f'{stats["e2e_fps"]:.2f} frames/s end to end, '
+          f'{timed["device_fps"]:.2f} frames/s device-only '
+          f'({timed["device_ms_per_chunk"]:.3f} ms a chunk), greedy_nms '
+          f'{EVAL_LANES * EVAL_CHUNK} launches a chunk, peak memory '
+          f'{peak / 2**20:.1f} MiB, {n_tracks} tracks, mAP '
+          f'{stats["mAP"]:.6f} ({name}, {smi})', flush=True)
+    return dict(stats=stats, timed=timed, launches=launches, peak=peak,
+                tracks=n_tracks)
 
 
 def main() -> int:
@@ -2199,9 +2482,16 @@ def main() -> int:
     fcb_eval = _fcb_eval_step(torch, dev, smi, name)
     fcb_cli = _fcb_eval_cli(torch, dev, smi, name, ev['ann'], ev['prefix'],
                             eval_tmp.name)
-    eval_tmp.cleanup()
     fcb_train = _fcb_train(torch, dev, smi, name)
     fcb_t = _fcb_times(torch, dev, smi)
+
+    # ---- 10. the mAP* NMS family (B5) and the legacy YOLACT preset ---------
+    greedy_t = _greedy_checks(torch, dev, smi, err)
+    mapstar = _mapstar_eval(torch, dev, smi, name, cc_ms=med)
+    legacy = _legacy_eval_step(torch, dev, smi, name)
+    legacy_cli = _legacy_eval_cli(torch, dev, smi, name, ev['ann'],
+                                  ev['prefix'], eval_tmp.name)
+    eval_tmp.cleanup()
 
     by_of = _by_of
     sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
@@ -2378,6 +2668,41 @@ def main() -> int:
         train_peak_mib_above_start=(fcb_train['peak']
                                     - fcb_train['base']) / 2**20,
         dcols_sgemm_ms=fcb_t['sgemm'])
+    legacy_cli_path = (
+        f'YOLACT_legacy_resnet50 eval CLI --nms greedy (bf16, {EVAL_LANES} '
+        f'streams x {EVAL_CHUNK}-frame chunks), '
+        f'{legacy_cli["stats"]["n_chunks"]} chunks and a warm-up chunk')
+    gt_ = greedy_t[GREEDY_PATH_SHAPE]
+    table['kernels'].append({
+        'name': 'greedy_nms', 'route': 'cuda',
+        'source': 'stmask_torch/kernels/csrc/greedy_nms.cu',
+        'replaces': 'stmask_tpu/ops/nms.py:117 (greedy_nms_mask, an XLA '
+                    'fori_loop vmapped by greedy_nms_per_class :155; not '
+                    'Pallas)',
+        'launches': legacy_cli['launches']['greedy_nms'],
+        'launches_path': legacy_cli_path,
+        'max_abs_err': err['greedy_nms'],
+        'max_abs_err_is': 'keep flags that differ from the plain version',
+        'ms': gt_['ms'], 'call_ms': gt_['call_ms'],
+        'plain_ms': gt_['plain_ms'], 'bound_ms': gt_['bound_ms'],
+        'bound_by': gt_['bound_by'], 'library_ms': None,
+        'shape': 'iou [40,200,200] fp32, valid [40,200]: one frame\'s 40 '
+                 'classes at nms_top_k 200; one launch',
+        'ms_320': greedy_t[(320, 200)]['ms'],
+        'call_ms_320': greedy_t[(320, 200)]['call_ms']})
+    for row in table['kernels']:
+        row['legacy_cli_launches'] = legacy_cli['launches'][row['name']]
+        row['legacy_eval_launches'] = legacy['launches'][row['name']]
+        row['mapstar_greedy_eval_launches'] = \
+            mapstar['greedy']['launches'][row['name']]
+    table['mapstar'] = {tag: r['ms'] for tag, r in mapstar.items()}
+    table['legacy'] = dict(
+        eval_ms_per_frame=legacy['ms'], eval_busy_ms=legacy['busy'],
+        eval_launches_per_frame=legacy['launches_per_frame'],
+        eval_peak_mib_above_start=legacy['peak'] / 2**20,
+        cli_e2e_fps=legacy_cli['stats']['e2e_fps'],
+        cli_device_fps=legacy_cli['timed']['device_fps'],
+        cli_peak_mib=legacy_cli['peak'] / 2**20)
     print(json.dumps(table))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -57,6 +57,8 @@ def _module_key(path: Tuple[str, ...]) -> Tuple[str, str]:
         head = 'prediction_layers.0'
         if rest[0] == 'upfeature':
             return f'{head}.upfeature.0', 'conv'
+        if rest[0] in ('bbox_layer', 'conf_layer', 'mask_layer'):
+            return f'{head}.{rest[0]}', 'conv'       # the legacy YOLACT head
         m = re.fullmatch(r'(conf|bbox|track|mask)_extra_(\d+)', rest[0])
         if m:
             return f'{head}.{m.group(1)}_extra.{2 * int(m.group(2))}', 'conv'
@@ -75,8 +77,8 @@ def _module_key(path: Tuple[str, ...]) -> Tuple[str, str]:
         kind = 'linear' if rest[0] in ('fc', 'fc_coeff') else 'conv'
         return f'TemporalNet.{rest[0]}', kind
     raise KeyError(f'no port parameter for flax module {"/".join(path)} '
-                   '(the legacy head and the extra heads are not ported '
-                   'yet)')
+                   '(the mask-IoU net, the semantic-seg and class-existence '
+                   'heads and the other backbones are not ported yet)')
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):

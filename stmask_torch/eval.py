@@ -35,8 +35,6 @@ UNPORTED = {
     'display': f'the overlays of --display* ({_OTHER_MODES})',
     'video_dir': f'the single-video mode ({_OTHER_MODES})',
     'benchmark': f'the stage table of --benchmark ({_OTHER_MODES})',
-    'nms': 'the per_class / greedy NMS families (ROADMAP A.11 and B5)',
-    'nms_as_miou': 'the mask-IoU blend in cc NMS (ROADMAP A.11)',
     'tensorboard_dir': f'TensorBoard export ({_OTHER_MODES})',
 }
 
@@ -71,6 +69,15 @@ def parse_args(argv=None):
     p.add_argument('--img_h', type=int, default=None)
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument('--nms', default=None,
+                   choices=['cc', 'per_class', 'greedy'],
+                   help="NMS family: 'cc' = cross-class fast NMS (mAP), "
+                        "'per_class' = fast NMS (mAP*), 'greedy' = exact "
+                        "sequential Cython-parity NMS (kernel B5 on the "
+                        "card)")
+    p.add_argument('--nms_as_miou', action='store_true',
+                   help='blend box IoU with mask IoU in cc NMS '
+                        '(reference detection.py:154-158)')
     # the JAX package's eval.py flags that are not ported yet (they raise)
     p.add_argument('--coco', action='store_true')
     p.add_argument('--video_dir', default=None)
@@ -79,9 +86,6 @@ def parse_args(argv=None):
     p.add_argument('--display_fpn_outs', action='store_true')
     p.add_argument('--display_dir', default='results/display')
     p.add_argument('--benchmark', action='store_true')
-    p.add_argument('--nms', default=None,
-                   choices=['cc', 'per_class', 'greedy'])
-    p.add_argument('--nms_as_miou', action='store_true')
     p.add_argument('--tensorboard_dir', default=None)
     args = p.parse_args(argv)
     for flag, what in UNPORTED.items():
@@ -89,8 +93,6 @@ def parse_args(argv=None):
         if flag == 'display':
             val = args.display or args.display_lincomb or \
                 args.display_fpn_outs
-        if flag == 'nms':
-            val = val not in (None, 'cc')
         if val:
             raise NotImplementedError(f'--{flag}: {what} is not ported')
     return args
@@ -111,6 +113,10 @@ def load_model(args):
     if cfg is None:
         cfg = get_config('STMask_plus_resnet50')
         print(f'No config resolved; defaulting to {cfg.name}')
+    if args.nms:
+        cfg = cfg.replace(eval_nms_method=args.nms)
+    if args.nms_as_miou:
+        cfg = cfg.replace(nms_as_miou=True)
     if args.img_w:
         cfg = cfg.replace(img_w=args.img_w)
     if args.img_h:

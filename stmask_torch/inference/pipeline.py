@@ -5,10 +5,11 @@
     video_chunk(states, frames[K, B], is_first[K, B])
         -> (states, FrameOutput[K, B])
 
-run the forward pass, decode, NMS, temporal shift and tracking on the
-device, with the model and weights there too.  Nothing in a step waits for
-the device: the caller reads the small per-frame outputs when it needs
-them (``inference.fetch``, ``inference.postprocess``).
+run the forward pass, decode, NMS, temporal shift and tracking (the
+simple tracker for models without TF) on the device, with the model and
+weights there too.  Nothing in a step waits for the device: the caller
+reads the small per-frame outputs when it needs them (``inference.fetch``,
+``inference.postprocess``).
 
 Compute dtype: ``compute_dtype=torch.bfloat16`` rounds the weights and the
 frozen-BN statistics to bf16 (``cast_model``, as ``cast_params`` does) and
@@ -28,7 +29,8 @@ from ..models.stmask import STMask
 from ..ops.anchors import all_priors
 from ..utils.device import resolve_device
 from .candidates import detect_frame
-from .tracker import FrameOutput, TrackState, init_state, track_step_tf
+from .tracker import (FrameOutput, TrackState, init_state, track_step_simple,
+                      track_step_tf)
 
 _DECODE_KEYS = ('loc', 'conf', 'mask_coeff', 'track', 'centerness')
 
@@ -95,11 +97,14 @@ def build_video_step(cfg: STMaskConfig, model: STMask,
         frame = normalize_pad(cfg, frame) if uint8_input else frame.float()
         preds = model(frame[None].to(compute_dtype))
         frame_preds = {k: preds[k][0] for k in _DECODE_KEYS}
-        det = detect_frame(cfg, frame_preds, priors)
         proto = preds['proto'][0]
-        state, out = track_step_tf(cfg, model.temporal_shift, state, det,
-                                   proto, preds['fpn_feat'][0],
-                                   preds['T2S_feat'][0], is_first)
+        det = detect_frame(cfg, frame_preds, priors, proto=proto)
+        if cfg.temporal_fusion_module:
+            state, out = track_step_tf(cfg, model.temporal_shift, state, det,
+                                       proto, preds['fpn_feat'][0],
+                                       preds['T2S_feat'][0], is_first)
+        else:
+            state, out = track_step_simple(cfg, state, det, proto, is_first)
         if debug:
             return state, out, {'proto': proto, 'mask_coeff': det.mask_coeff,
                                 'det_valid': det.valid}
@@ -156,12 +161,18 @@ def build_video_step_batched(cfg: STMaskConfig, model: STMask,
             preds = model(x[k].to(compute_dtype))
             lanes = []
             for b in range(n_videos):
+                proto = preds['proto'][b]
                 det = detect_frame(cfg, {key: preds[key][b]
-                                         for key in _DECODE_KEYS}, priors)
-                states[b], out = track_step_tf(
-                    cfg, model.temporal_shift, states[b], det,
-                    preds['proto'][b], preds['fpn_feat'][b],
-                    preds['T2S_feat'][b], first[k, b])
+                                         for key in _DECODE_KEYS}, priors,
+                                   proto=proto)
+                if cfg.temporal_fusion_module:
+                    states[b], out = track_step_tf(
+                        cfg, model.temporal_shift, states[b], det, proto,
+                        preds['fpn_feat'][b], preds['T2S_feat'][b],
+                        first[k, b])
+                else:
+                    states[b], out = track_step_simple(cfg, states[b], det,
+                                                       proto, first[k, b])
                 lanes.append(out)
             steps.append(_stack(lanes))
         return states, _stack(steps)

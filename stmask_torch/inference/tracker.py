@@ -1,10 +1,14 @@
-"""Fixed-capacity video instance tracker, TF variant (port of
-``stmask_tpu/inference/tracker.py``; reference ``track_TF.py:50-181``).
+"""Fixed-capacity video instance tracker (port of
+``stmask_tpu/inference/tracker.py``): the TF variant (reference
+``track_TF.py:50-181``) and the simple one of models without TF
+(reference ``track.py:56-180``).
 
-Previous tracks are shifted onto the current frame by the TemporalNet
+TF: previous tracks are shifted onto the current frame by the TemporalNet
 (CandidateShift, ``TF_utils.py:12-51``), then matched against new
 detections with a mixed score (embedding cosine + mask IoU + box IoU,
-``TF_utils.py:99-120``).  The state is a fixed bank of ``track_capacity``
+``TF_utils.py:99-120``).  Simple: no shift, the same match, the memory
+update gated by a mask-overlap test, and the detections as output.  The
+state is a fixed bank of ``track_capacity``
 slots with a validity mask and a global id counter; the sequential greedy
 id assignment is resolved in closed form (``resolve_assignment``).  Every
 branch runs every frame and is blended with ``torch.where``, so a frame
@@ -274,7 +278,8 @@ def assign_ids(cfg: STMaskConfig, det: Detections,
 
 
 class FrameOutput(NamedTuple):
-    """Per-frame tracked detections (fixed capacity T, masked by keep)."""
+    """Per-frame tracked detections (fixed capacity T, masked by keep; the
+    simple tracker gives this frame's D detections and binarized masks)."""
     box: torch.Tensor       # [T, 4] normalized point form
     score: torch.Tensor     # [T]
     cls: torch.Tensor       # [T]
@@ -314,4 +319,46 @@ def track_step_tf(cfg: STMaskConfig, temporal_net_fn: TemporalNetFn,
     out = FrameOutput(box=state.box, score=state.score, cls=state.cls,
                       mask=state.mask, obj_id=state.obj_id, keep=keep)
     state = state._replace(fpn_feat=cur_fpn_feat, t2s_feat=cur_t2s_feat)
+    return state, out
+
+
+def track_step_simple(cfg: STMaskConfig, state: TrackState, det: Detections,
+                      cur_proto: torch.Tensor, is_first: torch.Tensor
+                      ) -> Tuple[TrackState, FrameOutput]:
+    """One frame of the no-TF tracker (reference track.py:56-180;
+    ``tracker.py:367-410``).
+
+    No shift: the bank keeps each track's box and mask from its last
+    detection.  A matched track is refreshed only when its detection
+    overlaps fewer than two valid tracks' masks at IoU > 0.3
+    (track.py:162).  The output is this frame's detections [D] with the
+    ids read before the update and their binarized masks (track.py:90-91).
+    """
+    dev = cur_proto.device
+    is_first = torch.as_tensor(is_first, dtype=torch.bool, device=dev)
+    state = _blend(is_first, TrackState(*(torch.zeros_like(s)
+                                          for s in state)), state)
+
+    det_masks_soft = generate_mask(cur_proto, det.mask_coeff, det.box)
+    det_masks = (det_masks_soft > 0.5).float()
+    comp = _comp_scores(cfg, det, det_masks, state)
+    match_ids = torch.argmax(comp, dim=1)          # first maximum on ties
+
+    # mask-overlap gate for the memory update: det overlaps >= 2 tracks
+    mious = mask_iou(det_masks, (state.mask > 0.5).float())
+    mious = torch.where(state.valid[None, :], mious, 0.0)
+    overlap_many = (mious > 0.3).sum(dim=1) >= 2                # [D]
+
+    asn = resolve_assignment(cfg, match_ids, det.valid, det.score, state)
+    # track ids before the update (a matched slot keeps its id)
+    det_ids = torch.where(asn.det_slot >= 0,
+                          state.obj_id[torch.clamp(asn.det_slot, min=0)], -1)
+    det_ids = torch.where(asn.can_alloc, state.next_id + asn.new_rank,
+                          det_ids)
+    update_winners = asn.has_winner & ~overlap_many[asn.winner_src]
+    state = _apply_assignment(state, det, det_masks, asn, update_winners)
+
+    keep = det.valid & (det_ids >= 0)
+    out = FrameOutput(box=det.box, score=det.score, cls=det.cls,
+                      mask=det_masks, obj_id=det_ids, keep=keep)
     return state, out

@@ -1,11 +1,12 @@
 """STMask model assembly, eval and train branches (port of
 ``stmask_tpu/models/stmask.py``; reference ``STMask.py:19-330``).
 
-backbone -> FPN(P3..P7) -> { ProtoNet on P3, shared FCA head per level,
-TemporalNet for the TF branch }.  Inputs and outputs keep the JAX package's
-layouts (NHWC images, flat [B, P, D] predictions, NHWC feature maps); inside,
-the network runs NCHW tensors in the channels-last memory format, so the
-NHWC views handed to the deformable gather and the correlation cost no copy.
+backbone -> FPN(P3..P7) -> { ProtoNet on P3, shared FCA head per level
+(or the legacy YOLACT head), TemporalNet for the TF branch }.  Inputs and
+outputs keep the JAX package's layouts (NHWC images, flat [B, P, D]
+predictions, NHWC feature maps); inside, the network runs NCHW tensors in
+the channels-last memory format, so the NHWC views handed to the
+deformable gather and the correlation cost no copy.
 Parameter names are the reference ``state_dict`` keys.
 """
 
@@ -24,6 +25,7 @@ from .backbone import DCNConv, ResNetBackbone
 from .fpn import FPN
 from .heads import DeformAdaption, FeatureAlign, PredictionHead
 from .layers import FrozenBatchNorm, MakeNet
+from .legacy_head import PredictionModule
 from .temporal import TemporalNet
 
 # ProtoNet spec (reference config.py:667 'mask_proto_net'): 3x conv(256,3)
@@ -39,15 +41,12 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class STMask(nn.Module):
     def __init__(self, cfg: STMaskConfig):
         super().__init__()
-        if cfg.head_type != 'fc' or cfg.use_maskiou \
+        if cfg.head_type not in ('fc', 'legacy') or cfg.use_maskiou \
                 or cfg.use_semantic_segmentation_loss \
                 or cfg.use_class_existence_loss:
             raise NotImplementedError(
-                f'{cfg.name}: only the FCA head with TF is ported '
-                '(ROADMAP A.12)')
-        if not cfg.temporal_fusion_module:
-            raise NotImplementedError(
-                f'{cfg.name}: the no-TF tracker is not ported yet')
+                f'{cfg.name}: the mask-IoU net and the semantic-seg and '
+                'class-existence heads are not ported (ROADMAP A.12)')
         self.cfg = cfg
         self.backbone = ResNetBackbone(cfg.backbone)
         in_ch = [(256, 512, 1024, 2048)[i]
@@ -55,9 +54,15 @@ class STMask(nn.Module):
         self.fpn = FPN(cfg.fpn, in_ch)
         nf = cfg.fpn.num_features
         self.proto_net = MakeNet(nf, _PROTO_SPEC, include_last_relu=False)
-        self.prediction_layers = nn.ModuleList([PredictionHead(cfg, nf)])
-        self.TemporalNet = TemporalNet(
-            2 * nf + cfg.correlation_patch_size ** 2, cfg.mask_proto_n)
+        if cfg.head_type == 'legacy':
+            head = PredictionModule(nf, cfg.num_classes, cfg.mask_proto_n,
+                                    num_priors=len(cfg.pred_scales[0]) * 3)
+        else:
+            head = PredictionHead(cfg, nf)
+        self.prediction_layers = nn.ModuleList([head])
+        if cfg.temporal_fusion_module:
+            self.TemporalNet = TemporalNet(
+                2 * nf + cfg.correlation_patch_size ** 2, cfg.mask_proto_n)
 
     def _forward_single(self, x: torch.Tensor, train: bool):
         """NHWC frames [B, H, W, 3] -> (fpn_outs, flat predictions, NCHW
@@ -72,8 +77,12 @@ class STMask(nn.Module):
         preds: Dict[str, list] = {}
         t2s = []
         for f in fpn_outs:
-            p = head(f, train)
-            t2s.append(p.pop('T2S_feat'))
+            if c.head_type == 'legacy':
+                p = head(f)
+            else:
+                p = head(f, train)
+            # the legacy head has no T2S feature: the FPN level stands in
+            t2s.append(p.pop('T2S_feat', f))
             for k, v in p.items():
                 preds.setdefault(k, []).append(v)
         out = {k: torch.cat(v, dim=1).float() for k, v in preds.items()}
@@ -83,28 +92,42 @@ class STMask(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Dict[str, torch.Tensor]:
         """Eval: NHWC frames [B, H, W, 3] -> decode-ready outputs (softmaxed
-        conf, ``fpn_feat``; ``stmask.py:152-174``).  Train: two-frame clips
-        [B, 2, H, W, 3], flattened clip-major, -> raw conf logits and
-        ``T2S_concat_feat`` = relu(cat[correlation(ref, next), T2S_ref,
-        T2S_next]) on FPN level ``correlation_selected_layer``
+        conf, ``fpn_feat`` with TF; ``stmask.py:152-174``).  Train: two-frame
+        clips [B, 2, H, W, 3], flattened clip-major, -> raw conf logits and,
+        with TF, ``T2S_concat_feat`` = relu(cat[correlation(ref, next),
+        T2S_ref, T2S_next]) on FPN level ``correlation_selected_layer``
         (``stmask.py:126-151``); even rows are the ref frames."""
         c = self.cfg
         sel = c.correlation_selected_layer
         if train:
+            if c.head_type == 'legacy':
+                raise NotImplementedError(
+                    f'{c.name}: training the legacy YOLACT head is not '
+                    'ported (ROADMAP A.12)')
             b, nf, h, w, _ = x.shape
             fpn_outs, out, t2s = self._forward_single(
                 x.reshape(b * nf, h, w, 3), train=True)
-            f = fpn_outs[sel].permute(0, 2, 3, 1)     # NHWC view
-            corr = correlate(f[0::2].contiguous(), f[1::2].contiguous(),
-                             c.correlation_patch_size)
-            t = t2s[sel].permute(0, 2, 3, 1)
-            out['T2S_concat_feat'] = F.relu(torch.cat(
-                [corr, t[0::2], t[1::2]], dim=-1))
+            if c.temporal_fusion_module:
+                f = fpn_outs[sel].permute(0, 2, 3, 1)     # NHWC view
+                corr = correlate(f[0::2].contiguous(), f[1::2].contiguous(),
+                                 c.correlation_patch_size)
+                t = t2s[sel].permute(0, 2, 3, 1)
+                out['T2S_concat_feat'] = F.relu(torch.cat(
+                    [corr, t[0::2], t[1::2]], dim=-1))
             return out
         fpn_outs, out, t2s = self._forward_single(x, train=False)
+        # the legacy head has no centerness or track branch: neutral values
+        # keep the detect and track stages uniform (stmask.py:154-163)
+        b, n_anchor = out['loc'].shape[:2]
+        if 'centerness' not in out:
+            out['centerness'] = out['loc'].new_ones((b, n_anchor, 1))
+        if 'track' not in out:
+            out['track'] = out['loc'].new_full(
+                (b, n_anchor, c.embed_dim), 1.0 / c.embed_dim ** 0.5)
         out['conf'] = torch.softmax(out['conf'], dim=-1)
         out['T2S_feat'] = _nhwc(t2s[sel])
-        out['fpn_feat'] = _nhwc(fpn_outs[sel])
+        if c.temporal_fusion_module:
+            out['fpn_feat'] = _nhwc(fpn_outs[sel])
         return out
 
     def temporal_shift(self, bbox_feats: torch.Tensor

@@ -1,14 +1,18 @@
 """Kernel-shaped anchor (prior) generation — the "FCA" anchors.
 
-Copy of ``stmask_tpu/ops/anchors.py`` (the ``'fc'`` head branch): priors
-whose (w, h) equal the prediction-head kernel shape in feature cells — 3x3,
-3x5, 5x3 (reference ``layers/modules/prediction_head_FC.py:224-247``).
+Copy of ``stmask_tpu/ops/anchors.py``.  The FCA head's priors have a
+(w, h) equal to the prediction-head kernel shape in feature cells — 3x3,
+3x5, 5x3 (reference ``layers/modules/prediction_head_FC.py:224-247``);
+the legacy YOLACT head's aspect-ratio anchors come from
+``make_yolact_priors`` (a copy of ``stmask_tpu/models/legacy_head.py:21``).
 Iteration order matches the head's channel-concat order: position-major
 (row j, col i), then aspect ratio (bank), then scale.
 """
 
 from __future__ import annotations
 
+from itertools import product
+from math import sqrt
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -45,13 +49,46 @@ def make_priors(conv_h: int, conv_w: int,
     return out.reshape(hw * a, 4)
 
 
+def make_yolact_priors(conv_h: int, conv_w: int,
+                       aspect_ratios: Sequence[float],
+                       scales: Sequence[float],
+                       max_size: int = 550,
+                       use_pixel_scales: bool = True,
+                       use_square_anchors: bool = False) -> np.ndarray:
+    """Scalar-aspect-ratio priors of one level, [conv_h * conv_w * A, 4] in
+    [cx, cy, w, h]: position-major (row j, col i), then aspect ratio, then
+    scale (reference prediction_head.py make_priors)."""
+    data = []
+    for j, i in product(range(conv_h), range(conv_w)):
+        x = (i + 0.5) / conv_w
+        y = (j + 0.5) / conv_h
+        for ar in aspect_ratios:
+            for scale in scales:
+                a = sqrt(ar)
+                if use_pixel_scales:
+                    w = scale * a / max_size
+                    h = scale / a / max_size
+                else:
+                    w = scale * a / conv_w
+                    h = scale / a / conv_h
+                if use_square_anchors:
+                    h = w
+                data.append((x, y, w, h))
+    return np.asarray(data, np.float32)
+
+
 def all_priors(cfg: STMaskConfig) -> np.ndarray:
-    """Concatenated priors over all FPN levels, [num_priors, 4]."""
-    if cfg.head_type != 'fc':
-        raise NotImplementedError(
-            f'head_type {cfg.head_type!r}: only the FCA head is ported '
-            '(ROADMAP A.12 for the legacy YOLACT head)')
-    per_level = [make_priors(fh, fw, cfg.head_kernel_sizes,
-                             cfg.pred_scales[lvl])
-                 for lvl, (fh, fw) in enumerate(cfg.feature_shapes())]
+    """Concatenated priors over all FPN levels, [num_priors, 4]: the FCA
+    head's kernel-shaped anchors, or the legacy YOLACT head's aspect-ratio
+    anchors (reference prediction_head.py make_priors)."""
+    per_level = []
+    for lvl, (fh, fw) in enumerate(cfg.feature_shapes()):
+        if cfg.head_type == 'legacy':
+            per_level.append(make_yolact_priors(
+                fh, fw, aspect_ratios=(1.0, 0.5, 2.0),
+                scales=tuple(cfg.pred_scales[lvl]),
+                max_size=max(cfg.pad_w, cfg.pad_h)))
+        else:
+            per_level.append(make_priors(fh, fw, cfg.head_kernel_sizes,
+                                         cfg.pred_scales[lvl]))
     return np.concatenate(per_level, axis=0)

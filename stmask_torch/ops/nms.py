@@ -1,18 +1,23 @@
-"""Cross-class fast NMS with fixed capacities (port of
-``stmask_tpu/ops/nms.py``: ``_top_k_padded`` and ``cc_fast_nms``).
+"""Static-shape NMS family with fixed capacities (port of
+``stmask_tpu/ops/nms.py``): cross-class fast NMS (the mAP column, with the
+optional mask-IoU blend), per-class fast NMS and exact per-class greedy NMS
+(the mAP* column).
 
 Invalid slots carry score ``NEG_INF`` and a ``valid`` mask rides along
 instead of shrinking tensors.  Top-k is a stable descending sort, so tied
-scores keep the lower index first, as ``jax.lax.top_k`` does.
+scores keep the lower index first, as ``jax.lax.top_k`` does.  The greedy
+scan is kernel B5 on the card (``kernels/greedy_nms.py``), one launch for
+all the classes of a frame.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.greedy_nms import greedy_nms_keep
 from .boxes import jaccard
 
 NEG_INF = -1e10
@@ -38,17 +43,125 @@ class NMSResult(NamedTuple):
 
 
 def cc_fast_nms(boxes: torch.Tensor, scores: torch.Tensor,
-                iou_threshold: float = 0.5, top_k: int = 200) -> NMSResult:
+                iou_threshold: float = 0.5, top_k: int = 200,
+                mask_fn: Optional[Callable] = None) -> NMSResult:
     """Cross-class fast NMS (reference detection.py:139-187).
 
     Args:
       boxes: [P, 4] decoded point-form boxes.
       scores: [P] combined scores; entries that failed the confidence
         pre-filter must already be ``NEG_INF``.
+      mask_fn: optional ``idx [K] -> [K, Hm, Wm]`` binarized masks of the
+        top-k candidates; suppression then uses ``0.5 * (box_iou +
+        mask_iou)`` (``nms_as_miou``, detection.py:154-158).
     """
     top_scores, idx = _top_k_padded(scores, top_k)
     boxes_k = boxes[idx]
-    iou = torch.triu(jaccard(boxes_k, boxes_k), diagonal=1)
-    iou_max = iou.max(dim=0).values
+    iou = jaccard(boxes_k, boxes_k)
+    if mask_fn is not None:
+        miou = mask_iou_matrix(mask_fn(idx).reshape(top_k, -1))
+        iou = 0.5 * (iou + miou)
+    iou_max = torch.triu(iou, diagonal=1).max(dim=0).values
     valid = (iou_max <= iou_threshold) & (top_scores > NEG_INF / 2)
     return NMSResult(idx, valid, top_scores)
+
+
+def mask_iou_matrix(flat_masks: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of [N, H*W] binarized masks (one matmul, reference
+    box_utils.py:435-447); exact integer counts with TF32 off."""
+    inter = flat_masks @ flat_masks.T                         # [N, N]
+    area = flat_masks.sum(dim=1)
+    union = area[:, None] + area[None, :] - inter
+    return inter / torch.clamp(union, min=1e-6)
+
+
+class ClassNMSResult(NamedTuple):
+    idx: torch.Tensor      # [D] indices into input priors
+    classes: torch.Tensor  # [D] 1-based class ids
+    scores: torch.Tensor   # [D]
+    valid: torch.Tensor    # [D]
+
+
+def _best_over_classes(keep: torch.Tensor, top_scores: torch.Tensor,
+                       idx: torch.Tensor, max_dets: int) -> ClassNMSResult:
+    """The global score sort of the per-class survivors, capped at
+    ``max_dets`` (classes [C-1, K] flattened class-major)."""
+    num_fg, top_k = idx.shape
+    flat_scores = torch.where(keep, top_scores, NEG_INF).reshape(-1)
+    cls_ids = torch.arange(num_fg, device=idx.device).repeat_interleave(top_k)
+    best_scores, order = _top_k_padded(flat_scores, max_dets)
+    return ClassNMSResult(idx.reshape(-1)[order], cls_ids[order] + 1,
+                          best_scores, best_scores > NEG_INF / 2)
+
+
+def fast_nms(boxes: torch.Tensor, scores_c: torch.Tensor,
+             iou_threshold: float = 0.5, top_k: int = 200,
+             conf_thresh: float = 0.05, max_dets: int = 100
+             ) -> ClassNMSResult:
+    """Per-class fast NMS (reference detection.py:211-263), the mAP* path.
+
+    Args:
+      boxes: [P, 4]; scores_c: [C-1, P] per-class scores (no background).
+    """
+    num_fg = scores_c.shape[0]
+    top_scores, idx = _top_k_padded(scores_c, top_k)          # [C-1, K]
+    boxes_k = boxes[idx.reshape(-1)].reshape(num_fg, top_k, 4)
+    iou = torch.triu(jaccard(boxes_k, boxes_k), diagonal=1)   # [C-1, K, K]
+    iou_max = iou.max(dim=1).values                           # [C-1, K]
+    keep = (iou_max <= iou_threshold) & (top_scores > conf_thresh)
+    return _best_over_classes(keep, top_scores, idx, max_dets)
+
+
+def greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float = 0.5,
+                    iou: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact sequential greedy NMS over *score-sorted* boxes [..., K, 4]
+    with a valid mask [..., K]: a box is suppressed only by an earlier
+    *kept* box.  ``iou`` [..., K, K] overrides the pairwise overlap (e.g.
+    ``_plus_one_iou``).  Every leading index is one group of one launch of
+    kernel B5 on the card; CPU tensors take its plain version."""
+    if iou is None:
+        iou = jaccard(boxes, boxes)
+    k = valid.shape[-1]
+    keep = greedy_nms_keep(iou.reshape(-1, k, k).contiguous(),
+                           valid.reshape(-1, k).contiguous(), iou_threshold)
+    return keep.reshape(valid.shape)
+
+
+def _plus_one_iou(boxes: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU [..., K, K] of [..., K, 4] pixel boxes with the Cython
+    NMS convention: areas ``(x2 - x1 + 1) * (y2 - y1 + 1)``
+    (utils/cython_nms.pyx:31,67-70), in ``nms.py:140``'s order of ops."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1 + 1.0) * (y2 - y1 + 1.0)
+    ix1 = torch.maximum(x1[..., :, None], x1[..., None, :])
+    iy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
+    ix2 = torch.minimum(x2[..., :, None], x2[..., None, :])
+    iy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
+    iw = torch.clamp(ix2 - ix1 + 1.0, min=0.0)
+    ih = torch.clamp(iy2 - iy1 + 1.0, min=0.0)
+    inter = iw * ih
+    return inter / (area[..., :, None] + area[..., None, :] - inter)
+
+
+def greedy_nms_per_class(boxes: torch.Tensor, scores_c: torch.Tensor,
+                         iou_threshold: float = 0.5,
+                         conf_thresh: float = 0.05, top_k: int = 200,
+                         max_dets: int = 100,
+                         scale: float = 640.0) -> ClassNMSResult:
+    """Exact per-class greedy NMS (reference ``traditional_nms``,
+    detection.py:265-312): Cython greedy semantics per class, with the
+    boxes scaled by ``scale`` (``cfg.max_size``) and +1-pixel areas, then
+    a global score sort capped at ``max_dets``.  All classes go through
+    one launch of kernel B5 on the card.
+
+    Args:
+      boxes: [P, 4] normalized point form; scores_c: [C-1, P].
+    """
+    num_fg = scores_c.shape[0]
+    masked = torch.where(scores_c > conf_thresh, scores_c, NEG_INF)
+    top_scores, idx = _top_k_padded(masked, top_k)            # [C-1, K]
+    boxes_k = boxes[idx.reshape(-1)].reshape(num_fg, top_k, 4) * scale
+    keep = greedy_nms_mask(boxes_k, top_scores > NEG_INF / 2, iou_threshold,
+                           iou=_plus_one_iou(boxes_k))
+    return _best_over_classes(keep, top_scores, idx, max_dets)

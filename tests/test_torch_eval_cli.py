@@ -3,8 +3,9 @@ CPU, against ``evaluate_dataset_batched`` of the JAX package's ``eval.py``
 on the same synthetic YouTube-VIS set (3 videos of 3 PNG frames at
 192x256, resized 2x down to the model's 96x128, where both resizes agree
 exactly; gt at 96x128, the size both eval scripts write their masks at)
-and the same weights.  Two lanes of two-frame chunks, so a lane starts its
-next video mid-chunk and one lane idles at the end."""
+and the same weights: the reduced flagship under cc and greedy NMS, and a
+reduced legacy YOLACT preset.  Two lanes of two-frame chunks, so a lane
+starts its next video mid-chunk and one lane idles at the end."""
 
 import json
 import math
@@ -19,7 +20,7 @@ from stmask_torch import eval as t_eval
 from stmask_torch.convert import state_dict_from_flax
 from stmask_torch.data.synthetic import write_ytvis_set
 
-from torch_eval_common import JCFG, TCFG, flax_params
+from torch_eval_common import JCFG, JLEG, TCFG, TLEG, flax_params
 from torch_eval_common import few_torch_threads  # noqa: F401
 
 NAME = 'STMask_plus_resnet50_evaltest'
@@ -63,26 +64,54 @@ def _same_tracks(got, want, score_atol):
         assert g['segmentations'] == w['segmentations']
 
 
-def test_cli_matches_jax_eval_script(setup, registered):
-    """fp32: the JAX eval.py's tracks, scores within 1e-4."""
+def _cli_against_jax(setup, jcfg, jmodel, params, weights, name, tag,
+                     flags=()):
+    """The port's CLI (fp32, 2 lanes x 2-frame chunks) and the JAX
+    eval.py's ``evaluate_dataset_batched`` on ``jcfg`` with the same
+    weights: the same tracks, scores within 1e-4, the same metrics."""
     import eval as j_eval       # the JAX package's eval.py, at the root
-    j_out, t_out = setup['root'] / 'jax.json', setup['root'] / 'port.json'
+    j_out = setup['root'] / f'jax_{tag}.json'
+    t_out = setup['root'] / f'port_{tag}.json'
     args = j_eval.parse_args([
         '--ann_file', setup['ann'], '--img_prefix', setup['prefix'],
         '--mask_det_file', str(j_out), '--eval_metrics', '--fp32',
         '--batch_videos', '2', '--chunk_frames', '2'])
-    j_stats = j_eval.evaluate_dataset_batched(args, JCFG, setup['jmodel'],
-                                              setup['params'])
+    j_stats = j_eval.evaluate_dataset_batched(args, jcfg, jmodel, params)
     assert t_eval.main([
-        '--config', NAME, '--trained_model', setup['weights'],
+        '--config', name, '--trained_model', weights,
         '--ann_file', setup['ann'], '--img_prefix', setup['prefix'],
         '--mask_det_file', str(t_out), '--device', 'cpu', '--fp32',
-        '--batch_videos', '2', '--chunk_frames', '2']) == 0
+        '--batch_videos', '2', '--chunk_frames', '2', *flags]) == 0
     _same_tracks(json.loads(t_out.read_text()), json.loads(j_out.read_text()),
                  1e-4)
     stats = j_evaluate_ytvis(setup['ann'], str(t_out))
     for k in ('mAP', 'AP50', 'AP75', 'AR'):
         assert abs(stats[k] - j_stats[k]) <= 1e-6, k
+
+
+def test_cli_matches_jax_eval_script(setup, registered):
+    """fp32: the JAX eval.py's tracks, scores within 1e-4."""
+    _cli_against_jax(setup, JCFG, setup['jmodel'], setup['params'],
+                     setup['weights'], NAME, 'cc')
+
+
+def test_cli_greedy_nms_matches_jax_eval_script(setup, registered):
+    """--nms greedy (exact per-class greedy NMS, B5's plain version on the
+    CPU): the JAX eval.py's tracks with ``eval_nms_method='greedy'``."""
+    _cli_against_jax(setup, JCFG.replace(eval_nms_method='greedy'),
+                     setup['jmodel'], setup['params'], setup['weights'],
+                     NAME, 'greedy', ('--nms', 'greedy'))
+
+
+def test_cli_legacy_preset_matches_jax_eval_script(setup, monkeypatch):
+    """--config of a reduced YOLACT_legacy_resnet50 (no TF: the simple
+    tracker, whose output is each frame's detections)."""
+    name = 'YOLACT_legacy_resnet50_evaltest'
+    monkeypatch.setitem(t_config.REGISTRY, name, TLEG.replace(name=name))
+    jmodel, params = flax_params(seed=2, cfg=JLEG)
+    weights = str(setup['root'] / 'legacy.pth')
+    torch.save(state_dict_from_flax(params), weights)
+    _cli_against_jax(setup, JLEG, jmodel, params, weights, name, 'legacy')
 
 
 def test_cli_sequential_equals_batched(setup, registered):
@@ -119,8 +148,7 @@ def test_cli_bf16_writes_json_and_map(setup, registered):
 
 @pytest.mark.parametrize('flags', [
     ['--coco'], ['--display'], ['--display_lincomb'],
-    ['--video_dir', 'frames'], ['--benchmark'], ['--nms', 'per_class'],
-    ['--nms', 'greedy'], ['--nms_as_miou'], ['--tensorboard_dir', 'tb']])
+    ['--video_dir', 'frames'], ['--benchmark'], ['--tensorboard_dir', 'tb']])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         t_eval.parse_args(['--ann_file', 'a.json'] + flags)

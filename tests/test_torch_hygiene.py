@@ -88,8 +88,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from stmask_torch.kernels.deform_col2im import deform_col2im_cuda
     from stmask_torch.kernels.deform_conv import deform_conv_cuda
     from stmask_torch.kernels.deform_im2col import deform_im2col_cuda
+    from stmask_torch.kernels.greedy_nms import greedy_nms_cuda
 
     x = torch.zeros(1, 4, 5, 8)
+    with pytest.raises(ValueError, match='CUDA'):
+        greedy_nms_cuda(torch.zeros(2, 5, 5), torch.ones(2, 5, dtype=bool),
+                        0.5)
     with pytest.raises(ValueError, match='CUDA'):
         correlate_cuda(x, x)
     with pytest.raises(ValueError, match='CUDA'):
@@ -123,7 +127,6 @@ def test_unported_paths_raise():
     """Paths outside the ported slices raise instead of running something
     else."""
     from stmask_torch.config import get_config
-    from stmask_torch.inference.candidates import detect_frame
     from stmask_torch.models import STMask
     from stmask_torch.train.train_step import build_train_step
 
@@ -151,19 +154,26 @@ def test_unported_paths_raise():
     for flag in ('--bf16', '--remat'):
         with pytest.raises(NotImplementedError, match='ROADMAP A.9c'):
             overfit_sanity.parse_args([flag])
-    for method in ('per_class', 'greedy'):
-        with pytest.raises(NotImplementedError, match='ROADMAP A.11'):
-            detect_frame(cfg.replace(eval_nms_method=method), {}, None)
+    # the rest of the model surface names A.12: the mask-IoU net, the
+    # other backbones, and training the legacy YOLACT preset
+    with pytest.raises(NotImplementedError, match='ROADMAP A.12'):
+        STMask(cfg.replace(use_maskiou=True))
+    for name in ('STMask_resnet50_gn', 'STMask_darknet53', 'STMask_vgg16'):
+        with pytest.raises(NotImplementedError, match='ROADMAP A.12'):
+            STMask(get_config(name).replace(**small))
+    legacy = STMask(get_config('YOLACT_legacy_resnet50').replace(**small))
+    with pytest.raises(NotImplementedError, match='ROADMAP A.12'):
+        legacy(clip, train=True)
 
 
 @pytest.mark.parametrize('name', sorted(
     ['correlation', 'correlation_bf16', 'deform_im2col', 'deform_conv',
      'deform_conv_bf16', 'deform_conv_bf16_f32off', 'correlation_bwd',
-     'deform_col2im', 'deform_wgrad']))
+     'deform_col2im', 'deform_wgrad', 'greedy_nms']))
 def test_kernel_argtypes_match_the_c_launchers(name):
     """ctypes passes what ``argtypes`` says: each launcher's list must
-    follow its C signature (pointer -> c_void_p, int -> c_int), or a call
-    on the card fails or cuts a pointer to 32 bits."""
+    follow its C signature (pointer -> c_void_p, int -> c_int, float ->
+    c_float), or a call on the card fails or cuts a pointer to 32 bits."""
     import ctypes
 
     from stmask_torch.kernels import KERNELS
@@ -173,6 +183,8 @@ def test_kernel_argtypes_match_the_c_launchers(name):
     sig = re.search(r'extern "C" int ' + kern.symbol + r'\(([^)]*)\)', src)
     assert sig, kern.symbol
     params = [p.strip() for p in sig.group(1).split(',')]
-    want = [ctypes.c_void_p if '*' in p else ctypes.c_int for p in params]
-    assert all('*' in p or p.split()[0] == 'int' for p in params), params
+    scalar = {'int': ctypes.c_int, 'float': ctypes.c_float}
+    assert all('*' in p or p.split()[0] in scalar for p in params), params
+    want = [ctypes.c_void_p if '*' in p else scalar[p.split()[0]]
+            for p in params]
     assert kern.argtypes == want, (kern.symbol, params)

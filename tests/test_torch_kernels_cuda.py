@@ -1,7 +1,7 @@
 """CUDA kernels K1 (correlation, fp32 and bf16), K2 (deformable gather),
 the fused deformable conv (fp32 and bf16), K3 (correlation backward), K4
-(deformable col2im) and the DCN weight gradient (deform_wgrad) against
-their plain PyTorch versions, on the card.  Marked
+(deformable col2im), the DCN weight gradient (deform_wgrad) and B5 (greedy
+NMS) against their plain PyTorch versions, on the card.  Marked
 ``cuda``; without a GPU every test skips with its reason.  Run on a GPU
 machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
@@ -9,6 +9,8 @@ machine with
 import pytest
 import torch
 
+# B5's shapes and inputs are chip_smoke.py phase 10a's
+from chip_smoke import GREEDY_SHAPES, _greedy_inputs
 from stmask_torch.kernels import correlation as K1
 from stmask_torch.kernels import correlation_bwd as K3
 from stmask_torch.kernels import deform_col2im as K4
@@ -638,3 +640,54 @@ def test_kernel_output_under_grad_raises(device):
     with pytest.raises(NotImplementedError, match='ROADMAP A.9e'):
         model(torch.zeros(1, 2, cfg.pad_h, cfg.pad_w, 3, device=device),
               train=True)
+
+
+@pytest.mark.parametrize('shape', GREEDY_SHAPES)
+def test_greedy_nms_kernel(device, shape):
+    """Bit for bit the plain version, and the same over two launches."""
+    from stmask_torch.kernels import greedy_nms as KG
+    g, k = shape
+    iou, valid = _greedy_inputs(torch, device, g, k, seed=g + k)
+    n0 = KG.KERNEL.launches
+    got = KG.greedy_nms_cuda(iou, valid, 0.5)
+    again = KG.greedy_nms_cuda(iou, valid, 0.5)
+    want = KG.greedy_nms_mask_reference(iou, valid, 0.5)
+    torch.cuda.synchronize()
+    assert KG.KERNEL.launches == n0 + 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert not got[0].any()
+    if k > 2 and g > 1:                 # the chain keeps 0, 2, 4, ...
+        chain_valid = valid[1]
+        assert got[1].sum() < chain_valid.sum()
+
+
+def test_greedy_nms_per_class_takes_the_kernel(device):
+    """One launch for all the classes of a frame, equal to the CPU."""
+    from stmask_torch.kernels import greedy_nms as KG
+    from stmask_torch.ops.nms import greedy_nms_per_class
+    gen = torch.Generator().manual_seed(3)
+    lo = torch.rand(2000, 2, generator=gen) * 0.7
+    boxes = torch.cat([lo, lo + 0.05 + torch.rand(2000, 2, generator=gen)
+                       * 0.25], dim=-1)
+    scores = torch.rand(40, 2000, generator=gen) ** 4
+    n0 = KG.KERNEL.launches
+    got = greedy_nms_per_class(boxes.to(device), scores.to(device))
+    assert KG.KERNEL.launches == n0 + 1
+    want = greedy_nms_per_class(boxes, scores)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_greedy_nms_rejects_bad_inputs(device):
+    from stmask_torch.kernels import greedy_nms as KG
+    iou = torch.zeros(2, 1025, 1025, device=device)
+    with pytest.raises(ValueError):
+        KG.greedy_nms_cuda(iou, torch.ones(2, 1025, dtype=torch.bool,
+                                           device=device), 0.5)
+    with pytest.raises(TypeError):
+        KG.greedy_nms_cuda(torch.zeros(2, 5, 5, device=device),
+                           torch.ones(2, 5, device=device), 0.5)
+    with pytest.raises(ValueError):
+        KG.greedy_nms_cuda(torch.zeros(2, 5, 4, device=device),
+                           torch.ones(2, 5, dtype=torch.bool, device=device),
+                           0.5)

@@ -2,12 +2,14 @@
 
 A reduced flagship: ``STMask_plus_resnet50`` at 96x128 with
 ``layers=(1, 3, 3, 1)`` (five DCN sites, three of them stride 2) and 16
-track slots.  Its flax parameters are drawn with numpy from a seed in the
-shapes ``jax.eval_shape`` gives (flax's own init of the model costs about a
-minute on the CPU): LeCun-normal kernels as flax draws them, random
-BatchNorm statistics, DCN offset predictors that move the samples off the
-grid, and a sharper class head so that the untrained model detects and
-tracks objects.  ``state_dict_from_flax`` carries them to the port.
+track slots; and a reduced ``YOLACT_legacy_resnet50`` (one bottleneck a
+stage), the preset without TF.  Flax parameters are drawn with numpy
+from a seed in the shapes ``jax.eval_shape`` gives (flax's own init of
+the model costs about a minute on the CPU): LeCun-normal kernels as flax
+draws them, random BatchNorm statistics, DCN offset predictors that move
+the samples off the grid, and a sharper class head so that the untrained
+model detects and tracks objects.  ``state_dict_from_flax`` carries them
+to the port.
 """
 
 import dataclasses
@@ -52,11 +54,25 @@ JCFG = _reduced(j_get_config('STMask_plus_resnet50'))
 TCFG = _reduced(t_get_config('STMask_plus_resnet50'))
 
 
-def flax_params(seed: int = 0):
-    """(flax STMask, {'params': numpy tree}) of the reduced flagship."""
-    model = JSTMask(JCFG)
+def _reduced_legacy(cfg):
+    """The legacy YOLACT preset (R50 without DCN, no TF) at 96x128 with one
+    bottleneck a stage."""
+    return cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                    layers=(1, 1, 1, 1)),
+                       **KW)
+
+
+JLEG = _reduced_legacy(j_get_config('YOLACT_legacy_resnet50'))
+TLEG = _reduced_legacy(t_get_config('YOLACT_legacy_resnet50'))
+
+
+def flax_params(seed: int = 0, cfg=None):
+    """(flax STMask, {'params': numpy tree}) of the reduced flagship, or of
+    the JAX config ``cfg``."""
+    cfg = cfg or JCFG
+    model = JSTMask(cfg)
     shapes = jax.eval_shape(lambda: model.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, JCFG.pad_h, JCFG.pad_w, 3)),
+        jax.random.PRNGKey(0), jnp.zeros((1, cfg.pad_h, cfg.pad_w, 3)),
         train=False))['params']
     rng = np.random.RandomState(seed)
 
@@ -88,8 +104,9 @@ def flax_params(seed: int = 0):
     return model, {'params': fill(shapes)}
 
 
-def port_model(params):
-    """The port's model with the same weights, eval mode, on the CPU."""
-    model = TSTMask(TCFG)
+def port_model(params, cfg=None):
+    """The port's model (the reduced flagship, or the port's config
+    ``cfg``) with the same weights, eval mode, on the CPU."""
+    model = TSTMask(cfg or TCFG)
     model.load_state_dict(state_dict_from_flax(params), strict=True)
     return model.eval()
