@@ -72,7 +72,8 @@ Phases, in order (any failure raises and exits non-zero):
      --config STMask_plus_resnet50_ali over phase 7's set (the fp32-offset
      bf16 entry 15 times a step); the _ada training step (the fused conv,
      deform_wgrad and K4 22 times a step) with the card against the CPU
-     path, and one _ali step; the kernels' times at FCB's sites;
+     path, and 4 _ali steps (ROADMAP C.7); the kernels' times at FCB's
+     sites;
  10. the mAP* NMS family and the legacy YOLACT preset: B5 (greedy NMS)
      against its plain version, bit for bit, at GREEDY_SHAPES, and its
      times; the flagship's fp32 eval step over phase 4's videos under
@@ -82,7 +83,22 @@ Phases, in order (any failure raises and exits non-zero):
      the simple tracker), its fp32 eval step (no deformable conv or
      correlation launch) with a profile and the model against the CPU
      path, and the eval CLI's defaults with --nms greedy over phase 7's
-     set (greedy_nms 32 times a chunk).
+     set (greedy_nms 32 times a chunk);
+ 11. the rest of the model surface: (a) the fp32 eval step of
+     STMask_resnet50_gn and STMask_darknet53 at full depth and width over
+     phase 4's videos (K1 once a frame, no deformable conv), each model
+     against the CPU path at 96x128, and STMask_vgg16's forward alone with
+     its video step's ValueError (18180 anchors against 15345 priors,
+     ROADMAP C.8); (b) the training step of STMask_resnet50_gn (GroupNorm
+     trained; K1 and K3 once a step) and YOLACT_legacy_resnet50 (no kernel
+     of the port) over phase 6's batches, each against the CPU path at
+     96x128; (c) the flagship at 96x128 under every flag of FLAG_SURFACE:
+     one training step with every key of FLAG_KEYS, and the re-scored eval
+     step, each on the card against the CPU path; then ROADMAP C.7's
+     paths: the fp32 eval step of STMask_plus_resnet50's R101 sibling
+     STMask_plus_base (the fused conv at its 11 DCN sites) and the eval
+     CLI with --config STMask_plus_resnet50_ada over phase 7's set (the
+     bf16 fused conv at 7 + 15 sites a step).
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -194,6 +210,24 @@ DCN_SITES = [  # name, (H, W, Cin) of the DCN input at 384x640, stride
     ('layer2_0', (48, 80, 256), 2), ('layer2_2', (24, 40, 256), 1),
     ('layer2_4', (24, 40, 256), 1), ('layer3_0', (24, 40, 512), 2),
     ('layer3_2', (12, 20, 512), 1)]
+
+
+# the rest of the model surface: the other backbones, the legacy preset's
+# training, the flags, and the R101 / FCB paths of ROADMAP C.7
+EXTRA_EVAL = ('STMask_resnet50_gn', 'STMask_darknet53')
+EXTRA_TRAIN = ('STMask_resnet50_gn', 'YOLACT_legacy_resnet50')
+# the flagship under every flag of the JAX package's config surface
+FLAG_SURFACE = dict(use_maskiou=True, rescore_mask=True,
+                    use_class_existence_loss=True,
+                    use_semantic_segmentation_loss=True,
+                    use_sigmoid_focal_loss=True,
+                    mask_proto_coeff_diversity_loss=True,
+                    mask_proto_loss='l1', use_maskiou_loss=True)
+FLAG_KEYS = ('BIoU', 'C', 'M', 'MIoU', 'D', 'P', 'I', 'E', 'T', 'B_shift',
+             'M_shift', 'S')
+VGG_COUNTS = (18180, 15345)     # the head's anchors, all_priors at 384x640
+R101_DCN_SITES = 11
+ALI_TRAIN_STEPS = 4
 
 
 def _wgrad_at(KW, g, x, off, mask, stride: int, tm: int, split: int):
@@ -423,28 +457,37 @@ def _bf16_model_vs_cpu(torch, dev, cfg, tag: str = '') -> None:
         assert d <= 2 * gap, (key, d, gap)
 
 
-def _train_step_vs_cpu(torch, dev, cfg, tag: str = '') -> dict:
+def _train_step_vs_cpu(torch, dev, cfg, tag: str = '', p3: bool = False,
+                       keys=None) -> dict:
     """One training step at 96x128, full depth, on the card against the
     CPU path.  Losses rtol 2e-3; gradients: relative L2 error 2e-3 over all
     parameters and 2e-2 per parameter (cuDNN and CPU convolutions sum in
     another order, the fused conv is 3xTF32 and K4 adds with atomics, so a
     ReLU whose input lies within rounding of 0 can switch on one side).
-    Returns each parameter's relative error."""
+    ``keys``: the loss keys the step must give, each finite.  Returns each
+    parameter's relative error."""
     from stmask_torch.data.transforms import prepare_batch
     from stmask_torch.models import build_model
     from stmask_torch.train.train_step import build_train_step
     small = cfg.replace(img_h=96, img_w=128)
-    host = _train_batch(small, 99, clips=1)
+    host = _train_batch(small, 99, clips=1, p3=p3)
     res = {}
     for d_ in (torch.device('cpu'), dev):
         mdl = build_model(small, d_, seed=0)
         st_, in_ = build_train_step(small, mdl, d_)
         _, m = st_(in_(), prepare_batch(small, host, d_))
+        # a parameter outside every loss (the centerness banks under the
+        # sigmoid focal loss) has no gradient: zero, as JAX gives it
         res[d_.type] = ({k: float(v) for k, v in m.items()},
-                        {n: p.grad.detach().cpu().double()
+                        {n: (torch.zeros_like(p) if p.grad is None
+                             else p.grad).detach().cpu().double()
                          for n, p in mdl.named_parameters()})
         del mdl, st_, in_
     (cm, cg), (gm, gg) = res['cpu'], res['cuda']
+    assert set(cm) == set(gm), (set(cm), set(gm))
+    if keys is not None:
+        assert set(cm) == set(keys) | {'total', 'gnorm', 'lr'}, set(cm)
+        assert all(np.isfinite(v) for v in gm.values()), gm
     for k in cm:
         print(f'[check] {tag}train card vs CPU {k}: {gm[k]:.6f} vs '
               f'{cm[k]:.6f}')
@@ -506,12 +549,15 @@ def _stage_ms(torch, cfg, model, state, frame, n: int):
                   lambda: postprocess_frame(cfg, out, meta))
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
-def _train_batch(cfg, seed: int, clips: int = TRAIN_CLIPS) -> dict:
+def _train_batch(cfg, seed: int, clips: int = TRAIN_CLIPS,
+                 p3: bool = False) -> dict:
     """A training batch as ClipLoader(image_u8=True) yields it: uint8
     frames [clips, 2, img_h, img_w, 3] from _synthetic_clip; 2-4 boxes a
     frame, one id persisting, one vanishing after the ref frame, one new in
     the next frame and 0-2 more persisting; box masks at prototype
-    resolution packed with np.packbits; the crowd arrays present, empty."""
+    resolution packed with np.packbits; the crowd arrays present, empty.
+    ``p3`` adds the semantic-seg loss's gt, ``masks_p3``: every other
+    prototype pixel (no loader makes it, in the JAX package alike)."""
     from stmask_torch.data.transforms import pad_gt
     rng = np.random.RandomState(seed)
     hp, wp = cfg.pad_h // 4, cfg.pad_w // 4
@@ -543,6 +589,9 @@ def _train_batch(cfg, seed: int, clips: int = TRAIN_CLIPS) -> dict:
                     for k in frames[0]})
     batch = {k: np.stack([o[k] for o in out]) for k in out[0]}
     batch['images'] = batch.pop('image')
+    if p3:
+        batch['masks_p3'] = np.ascontiguousarray(
+            batch['masks_proto'][..., ::2, ::2])
     batch['masks_proto'] = np.packbits(batch['masks_proto'], axis=-1)
     return batch
 
@@ -1183,7 +1232,7 @@ def _fcb_train(torch, dev, smi: str, name: str) -> dict:
     conv, deform_wgrad and K4 at the 7 DCN and 15 FCB sites), finite
     losses, gradients on every conv_offset and conv_adaption; ms/step,
     peak memory and a profile; the card against the CPU at 96x128; then
-    one _ali step with the same counts."""
+    ALI_TRAIN_STEPS _ali steps with the same counts a step."""
     from stmask_torch.config import get_config
     from stmask_torch.data.transforms import prepare_batch
     from stmask_torch.kernels import KERNELS
@@ -1256,7 +1305,10 @@ def _fcb_train(torch, dev, smi: str, name: str) -> dict:
     print(f'[check] _ada train card vs CPU, FCB gradients: relative L2 '
           f'error {fcb} (limit 2e-2 each)', flush=True)
     assert len(fcb) == 6
-    run('STMask_plus_resnet50_ali', 1)
+    ali_ms = run('STMask_plus_resnet50_ali', ALI_TRAIN_STEPS)[4]
+    print(f'[fcb train] STMask_plus_resnet50_ali: {ALI_TRAIN_STEPS} steps '
+          f'with finite losses, all steps {[round(t, 3) for t in ali_ms]} '
+          f'ms ({name}, {smi})', flush=True)
     return dict(ms=med, peak=peak, base=base, busy=busy, launches=launches)
 
 
@@ -1672,6 +1724,271 @@ def _legacy_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
           f'{stats["mAP"]:.6f} ({name}, {smi})', flush=True)
     return dict(stats=stats, timed=timed, launches=launches, peak=peak,
                 tracks=n_tracks)
+
+
+def _extra_eval(torch, dev, smi: str, name: str) -> dict:
+    """Phase 11a: the fp32 eval step (one stream) of STMask_resnet50_gn and
+    STMask_darknet53 at full depth and width over phase 4's videos: K1 once
+    a frame, no deformable conv; ms/frame, busy ms and idle share, launches
+    a frame, peak memory; the model on the card against the CPU at 96x128.
+    Then STMask_vgg16: its forward alone at full width, the card against
+    the CPU, and the video step's ValueError (18180 anchors against 15345
+    priors: ROADMAP C.8)."""
+    from stmask_torch.config import get_config
+    from stmask_torch.inference import build_video_step
+    from stmask_torch.inference.pipeline import normalize_pad
+    from stmask_torch.models import build_model
+    res = {}
+    n_frames = N_VIDEOS * FRAMES_PER_VIDEO
+    for preset in EXTRA_EVAL:
+        cfg = get_config(preset)
+        model = build_model(cfg, dev, seed=0)
+        clips = [_synthetic_clip(cfg.img_h, cfg.img_w, FRAMES_PER_VIDEO,
+                                 seed=v) for v in range(N_VIDEOS)]
+        r = _run_eval_step(torch, dev, cfg, model, clips)
+        print(f'[extra eval] {preset}: launches {r["launches"]} over '
+              f'{n_frames} frames', flush=True)
+        want = dict.fromkeys(r['launches'], 0)
+        want['correlation'] = n_frames
+        assert r['launches'] == want, (preset, r['launches'])
+        print(f'[extra eval] {preset} {cfg.img_h}x{cfg.img_w} fp32 (TF32 '
+              f'off), one stream: {_step_summary(r)} ({name}, {smi})',
+              flush=True)
+        _print_profile(r['rows'], 5)
+        del model
+        _model_vs_cpu(torch, dev, cfg, f'{preset} ')
+        res[preset] = r
+
+    cfg = get_config('STMask_vgg16')
+    model = build_model(cfg, dev, seed=0)
+    x = normalize_pad(cfg, torch.as_tensor(_synthetic_clip(
+        cfg.img_h, cfg.img_w, 1, seed=0)[0]).to(dev))[None]
+    with torch.inference_mode():
+        out = model(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            out = model(x)
+        torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3 / 5
+    for k, v in out.items():
+        assert bool(torch.isfinite(v.float()).all()), k
+    step, init = build_video_step(cfg, model, device=dev)
+    try:
+        step(init(), x[0], True)
+        raise AssertionError('STMask_vgg16: the video step did not raise')
+    except ValueError as e:
+        msg = str(e)
+    assert (f'{VGG_COUNTS[0]} anchors' in msg
+            and f'{VGG_COUNTS[1]} priors' in msg), msg
+    print(f'[extra eval] STMask_vgg16 {cfg.img_h}x{cfg.img_w} fp32: the '
+          f'forward alone {fwd_ms:.3f} ms (mean of 5, synchronized), '
+          f'{out["loc"].shape[1]} anchors; the video step raised: {msg} '
+          f'({name}, {smi})', flush=True)
+    del model, step
+    _model_vs_cpu(torch, dev, cfg, 'STMask_vgg16 ')
+    res['STMask_vgg16'] = dict(forward_ms=fwd_ms)
+    return res
+
+
+def _extra_train(torch, dev, smi: str, name: str) -> dict:
+    """Phase 11b: the training step of STMask_resnet50_gn (GroupNorm
+    trained; K1 and K3 once a step) and YOLACT_legacy_resnet50 (keys B, C,
+    M; no kernel of the port) over phase 6's batches (4 clips = 8 frames
+    at 360x640): launches a step, finite losses, ms/step, busy ms, peak
+    memory; each against the CPU at 96x128."""
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+    from stmask_torch.train.train_step import build_train_step
+    res = {}
+    for preset in EXTRA_TRAIN:
+        cfg = get_config(preset)
+        model = build_model(cfg, dev, seed=0)
+        step, init = build_train_step(cfg, model, dev)
+        batches = [prepare_batch(cfg, _train_batch(cfg, 10 + i), dev)
+                   for i in range(TRAIN_STEPS)]
+        state = init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for k in KERNELS.values():
+            k.launches = 0
+        ms, metrics = [], []
+        for b_ in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b_)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print(f'[extra train] {preset}: launches {launches} over '
+              f'{TRAIN_STEPS} steps; losses {metrics[-1]}', flush=True)
+        want = dict.fromkeys(KERNELS, 0)
+        if cfg.temporal_fusion_module:
+            want.update(correlation=TRAIN_STEPS,
+                        correlation_bwd=TRAIN_STEPS)
+        assert launches == want, (preset, launches)
+        keys = {'B', 'C', 'M'} if cfg.head_type == 'legacy' else \
+            {'BIoU', 'C', 'center', 'M', 'T', 'B_shift', 'M_shift'}
+        for m in metrics:
+            assert set(m) == keys | {'total', 'gnorm', 'lr'}, set(m)
+            assert all(np.isfinite(v) for v in m.values()), m
+        gn = [n_ for n_, p in model.named_parameters()
+              if '.gn' in n_ or 'downsample_gn' in n_]
+        assert bool(gn) == ('gn' in preset), gn
+        assert all(float(p.grad.abs().max()) > 0
+                   for n_, p in model.named_parameters() if n_ in gn)
+        steady = sorted(ms[TRAIN_WARMUP:])
+        med = (steady[len(steady) // 2 - 1] + steady[len(steady) // 2]) / 2
+        rows = _device_events(lambda: step(state, batches[1]), 1)
+        busy = sum(us for _, _, us in rows) / 1e3 if rows else None
+        print(f'[extra train] {preset} {cfg.img_h}x{cfg.img_w} fp32 (TF32 '
+              f'off), {TRAIN_CLIPS} clips = {2 * TRAIN_CLIPS} frames a step: '
+              f'median {med:.3f} ms/step over {len(steady)} steps after '
+              f'{TRAIN_WARMUP} warm-up, all steps {[round(t, 3) for t in ms]}'
+              f'; peak memory {peak / 2**20:.1f} MiB, '
+              f'{(peak - base) / 2**20:.1f} MiB above the '
+              f'{base / 2**20:.1f} MiB allocated at the first step\'s start; '
+              + (f'device busy {busy:.3f} ms a step (idle share '
+                 f'{1 - busy / med:.3f}), {sum(c for _, c, _ in rows)} '
+                 'launches' if rows else 'device busy not measured')
+              + f'; {len(gn)} GroupNorm parameters trained ({name}, {smi})',
+              flush=True)
+        for key, cnt, us in sorted(rows, key=lambda r: -r[2])[:5]:
+            print(f'[profile]   {us / 1e3:8.4f} ms/step {cnt:6d}x  '
+                  f'{key[:100]}')
+        del model, step, state, batches
+        _train_step_vs_cpu(torch, dev, cfg, f'{preset} ')
+        res[preset] = dict(ms=med, busy=busy, peak=peak, base=base,
+                           launches=launches)
+    return res
+
+
+def _flag_surface(torch, dev, smi: str, name: str) -> dict:
+    """Phase 11c: the flagship at 96x128, full depth, under FLAG_SURFACE.
+    One training step (a batch with masks_p3) on the card against the CPU:
+    every key of FLAG_KEYS present and finite, losses and gradients within
+    phase 6's limits.  Then the eval step with the mask-IoU re-scoring:
+    each frame's detections, decoded, suppressed and re-scored on the card
+    and on the CPU from the card's outputs, and two frames of the video
+    step on the card."""
+    from stmask_torch.config import get_config
+    from stmask_torch.inference import build_video_step
+    from stmask_torch.inference.pipeline import detect_and_rescore, normalize_pad
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+    from stmask_torch.ops.anchors import all_priors
+    cfg = get_config('STMask_plus_resnet50').replace(**FLAG_SURFACE)
+    _train_step_vs_cpu(torch, dev, cfg, 'flags ', p3=True, keys=FLAG_KEYS)
+
+    small = cfg.replace(img_h=96, img_w=128)
+    clip = _synthetic_clip(96, 128, 2, seed=9)
+    cpu = torch.device('cpu')
+    card, host = build_model(small, dev, seed=0), build_model(small, cpu,
+                                                              seed=0)
+    priors = torch.as_tensor(all_priors(small))
+    with torch.inference_mode():
+        preds = card(normalize_pad(small, torch.from_numpy(clip[0]))[None]
+                     .to(dev))
+        got = detect_and_rescore(small, card, preds, 0, priors.to(dev))
+        want = detect_and_rescore(small, host, {k: v.cpu() for k, v in preds.items()},
+                       0, priors)
+    got = type(got)(*(t.cpu() for t in got))
+    same = bool(torch.equal(got.valid, want.valid)
+                and torch.equal(got.cls[want.valid], want.cls[want.valid]))
+    d = float((got.score - want.score)[want.valid].abs().max())
+    print(f'[flags] rescored detect card vs CPU at 96x128: '
+          f'{int(want.valid.sum())} detections, validity and classes '
+          f'{"equal" if same else "DIFFER"}, max|score diff| {d:.3e} (atol '
+          '1e-5: the mask-IoU net in cuDNN against the CPU)', flush=True)
+    assert int(want.valid.sum()) >= 5 and same and d <= 1e-5, d
+    step, init = build_video_step(small, card, uint8_input=True, device=dev)
+    for k in KERNELS.values():
+        k.launches = 0
+    state = init()
+    for f, frame in enumerate(clip):
+        state, out = step(state, frame, f == 0)
+        for t in out:
+            if t.is_floating_point():
+                assert bool(torch.isfinite(t).all()), f
+    assert KERNELS['correlation'].launches == 2
+    print(f'[flags] {small.name} + {sorted(FLAG_SURFACE)}: the training '
+          'step and the re-scored eval step ran on the card and agree with '
+          f'the CPU ({name}, {smi})', flush=True)
+    return dict(detections=int(want.valid.sum()), score_diff=d)
+
+
+def _r101_eval(torch, dev, smi: str, name: str) -> dict:
+    """C.7: the fp32 eval step (one stream) of STMask_plus_base (R101 with
+    11 DCN sites, FCA, TF) at full width over phase 4's videos: the fused
+    conv 11 times and K1 once a frame; the model against the CPU."""
+    from stmask_torch.config import get_config
+    from stmask_torch.models import build_model
+    cfg = get_config('STMask_plus_base')
+    assert _dcn_sites(cfg) == R101_DCN_SITES
+    model = build_model(cfg, dev, seed=0)
+    clips = [_synthetic_clip(cfg.img_h, cfg.img_w, FRAMES_PER_VIDEO, seed=v)
+             for v in range(N_VIDEOS)]
+    r = _run_eval_step(torch, dev, cfg, model, clips)
+    n_frames = N_VIDEOS * FRAMES_PER_VIDEO
+    print(f'[r101 eval] launches {r["launches"]} over {n_frames} frames',
+          flush=True)
+    want = dict.fromkeys(r['launches'], 0)
+    want.update(deform_conv=R101_DCN_SITES * n_frames, correlation=n_frames)
+    assert r['launches'] == want, r['launches']
+    print(f'[r101 eval] STMask_plus_base {cfg.img_h}x{cfg.img_w} fp32 (TF32 '
+          f'off), one stream: {_step_summary(r)} ({name}, {smi})',
+          flush=True)
+    _print_profile(r['rows'], 5)
+    del model
+    _model_vs_cpu(torch, dev, cfg, 'STMask_plus_base ')
+    return r
+
+
+def _ada_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
+                  tmp: str) -> dict:
+    """C.7: the eval CLI's defaults with --config STMask_plus_resnet50_ada
+    over phase 7's set, with --time_device: the bf16 fused conv (bf16
+    offsets) at the 7 DCN and 15 FCB sites a step, the bf16 K1 once a
+    lane-frame; frames/s end to end and device-only, peak memory, mAP."""
+    import math
+
+    from stmask_torch import eval as cli
+    from stmask_torch.kernels import KERNELS
+    out_json = f'{tmp}/results_ada.json'
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k.launches = 0
+    stats = cli.evaluate(['--ann_file', ann, '--img_prefix', prefix,
+                          '--eval_metrics', '--config',
+                          'STMask_plus_resnet50_ada', '--mask_det_file',
+                          out_json, '--time_device'])
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = (stats['n_chunks'] + 1) * EVAL_CHUNK
+    print(f'[ada cli] launches {launches} over {stats["n_chunks"]} chunks '
+          f'and the warm-up chunk ({steps} steps)', flush=True)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(deform_conv_bf16=(7 + FCB_PER_FRAME) * steps,
+                correlation_bf16=EVAL_LANES * steps)
+    assert launches == want, (launches, want)
+    for key in ('mAP', 'AP50', 'AP75', 'AR'):
+        assert math.isfinite(stats[key]), stats
+    with open(out_json) as fh:
+        n_tracks = len(json.load(fh))
+    assert n_tracks, 'no track in the results JSON'
+    print(f'[ada cli] STMask_plus_resnet50_ada bf16, {EVAL_LANES} streams x '
+          f'{EVAL_CHUNK}-frame chunks, --time_device: {stats["e2e_fps"]:.2f} '
+          f'frames/s end to end, {stats["device_fps"]:.2f} frames/s '
+          f'device-only ({stats["device_ms_per_chunk"]:.3f} ms a chunk), '
+          f'deform_conv_bf16 {7 + FCB_PER_FRAME} launches a step, peak '
+          f'memory {peak / 2**20:.1f} MiB, {n_tracks} tracks, mAP '
+          f'{stats["mAP"]:.6f} ({name}, {smi})', flush=True)
+    return dict(stats=stats, launches=launches, peak=peak)
 
 
 def main() -> int:
@@ -2491,6 +2808,14 @@ def main() -> int:
     legacy = _legacy_eval_step(torch, dev, smi, name)
     legacy_cli = _legacy_eval_cli(torch, dev, smi, name, ev['ann'],
                                   ev['prefix'], eval_tmp.name)
+
+    # ---- 11. the other backbones, legacy training, the flags, C.7 ----------
+    extra_eval = _extra_eval(torch, dev, smi, name)
+    extra_train = _extra_train(torch, dev, smi, name)
+    flags = _flag_surface(torch, dev, smi, name)
+    r101 = _r101_eval(torch, dev, smi, name)
+    ada_cli = _ada_eval_cli(torch, dev, smi, name, ev['ann'], ev['prefix'],
+                            eval_tmp.name)
     eval_tmp.cleanup()
 
     by_of = _by_of
@@ -2695,6 +3020,19 @@ def main() -> int:
         row['legacy_eval_launches'] = legacy['launches'][row['name']]
         row['mapstar_greedy_eval_launches'] = \
             mapstar['greedy']['launches'][row['name']]
+    gn_train = extra_train['STMask_resnet50_gn']
+    for row in table['kernels']:
+        n_ = row['name']
+        row['gn_eval_launches'] = \
+            extra_eval['STMask_resnet50_gn']['launches'][n_]
+        row['darknet_eval_launches'] = \
+            extra_eval['STMask_darknet53']['launches'][n_]
+        row['gn_train_launches_per_step'] = \
+            gn_train['launches'][n_] // TRAIN_STEPS
+        row['legacy_train_launches'] = \
+            extra_train['YOLACT_legacy_resnet50']['launches'][n_]
+        row['r101_eval_launches'] = r101['launches'][n_]
+        row['ada_cli_launches'] = ada_cli['launches'][n_]
     table['mapstar'] = {tag: r['ms'] for tag, r in mapstar.items()}
     table['legacy'] = dict(
         eval_ms_per_frame=legacy['ms'], eval_busy_ms=legacy['busy'],
@@ -2703,6 +3041,21 @@ def main() -> int:
         cli_e2e_fps=legacy_cli['stats']['e2e_fps'],
         cli_device_fps=legacy_cli['timed']['device_fps'],
         cli_peak_mib=legacy_cli['peak'] / 2**20)
+    table['extra'] = {
+        'eval_ms_per_frame': {k: r['ms'] for k, r in extra_eval.items()
+                              if 'ms' in r},
+        'eval_busy_ms': {k: r['busy'] for k, r in extra_eval.items()
+                         if 'busy' in r},
+        'vgg16_forward_ms': extra_eval['STMask_vgg16']['forward_ms'],
+        'train_ms_per_step': {k: r['ms'] for k, r in extra_train.items()},
+        'train_busy_ms': {k: r['busy'] for k, r in extra_train.items()},
+        'train_peak_mib': {k: r['peak'] / 2**20
+                           for k, r in extra_train.items()},
+        'flags_rescore_score_diff': flags['score_diff'],
+        'r101_eval_ms_per_frame': r101['ms'], 'r101_eval_busy_ms':
+            r101['busy'],
+        'ada_cli_e2e_fps': ada_cli['stats']['e2e_fps'],
+        'ada_cli_device_fps': ada_cli['stats']['device_fps']}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

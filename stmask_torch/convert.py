@@ -5,7 +5,13 @@ the keys ``stmask_tpu/convert.py::map_torch_key`` reads.  This module
 inverts that mapping: HWIO conv kernels become OIHW, Dense ``[in, out]``
 kernels become ``[out, in]``, and FrozenBatchNorm ``scale/bias/mean/var``
 become ``weight/bias/running_mean/running_var`` (plus the reference's
-``num_batches_tracked``).  So a released reference checkpoint loads into
+``num_batches_tracked``).  The JAX converter has no keys for the ResNet-GN,
+DarkNet53 and VGG16 backbones, ``class_existence_fc`` or the mask-IoU net:
+the port names those modules after the flax path, joined with dots
+(GroupNorm ``scale/bias`` become ``weight/bias``).  A ``ConvTranspose``
+kernel (flax, ``transpose_kernel=False``: HWIO, applied unflipped) becomes
+torch's ``[in, out, kh, kw]`` flipped in both taps, since torch's
+transposed conv flips its kernel.  So a released reference checkpoint loads into
 the port with plain ``load_state_dict``, and a flax tree converts with
 ``state_dict_from_flax``.  The same mapping carries a flax gradient (or
 an updated parameter tree) onto the port's keys; ``include_bn=False``
@@ -23,17 +29,27 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-# MakeNet conv names -> proto_net Sequential indices
-_PROTO_IDX = {'conv0': 0, 'conv1': 2, 'conv2': 4, 'conv4': 8, 'conv5': 10}
 _BN_NAMES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
              'var': 'running_var'}
+_GN_NAMES = {'scale': 'weight', 'bias': 'bias'}
+# a top-level module of each backbone the reference keys do not cover
+_FLAT_BACKBONE = ('gn1', 'stem_conv', 'conv_fc6')
 
 
-def _module_key(path: Tuple[str, ...]) -> Tuple[str, str]:
+def _module_key(path: Tuple[str, ...], flat_backbone: bool = False
+                ) -> Tuple[str, str]:
     """flax module path (without the leaf) -> (torch module key, kind);
-    kind in {conv, bn, linear, align} (align: an FCB module, whose own leaf
-    ``adaption_kernel`` is the deformable kernel)."""
+    kind in {conv, deconv, bn, gn, linear, align} (align: an FCB module,
+    whose own leaf ``adaption_kernel`` is the deformable kernel).
+    ``flat_backbone``: the backbone is ResNet-GN, DarkNet53 or VGG16, whose
+    port modules carry the flax names."""
     top, rest = path[0], path[1:]
+    if top == 'backbone' and flat_backbone:
+        last = rest[-1]
+        kind = ('gn' if last.startswith('gn') or last.endswith('_gn') else
+                'bn' if last.startswith('bn') or last.endswith('_bn') else
+                'conv')
+        return '.'.join(path), kind
     if top == 'backbone':
         if rest[0] in ('conv1', 'bn1'):
             return f'backbone.{rest[0]}', 'bn' if rest[0] == 'bn1' else 'conv'
@@ -51,8 +67,12 @@ def _module_key(path: Tuple[str, ...]) -> Tuple[str, str]:
         m = re.fullmatch(r'(lat|pred|downsample)_(\d+)', rest[0])
         if m:
             return f'fpn.{m.group(1)}_layers.{m.group(2)}', 'conv'
-    if top == 'proto_net' and rest[0] in _PROTO_IDX:
-        return f'proto_net.{_PROTO_IDX[rest[0]]}', 'conv'
+    if top == 'proto_net':
+        # MakeNet: layer i (conv or deconv) is Sequential index 2i
+        m = re.fullmatch(r'(de)?conv(\d+)', rest[0])
+        if m:
+            return (f'proto_net.{2 * int(m.group(2))}',
+                    'deconv' if m.group(1) else 'conv')
     if top == 'prediction_head':
         head = 'prediction_layers.0'
         if rest[0] == 'upfeature':
@@ -76,9 +96,13 @@ def _module_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     if top == 'temporal_net':
         kind = 'linear' if rest[0] in ('fc', 'fc_coeff') else 'conv'
         return f'TemporalNet.{rest[0]}', kind
-    raise KeyError(f'no port parameter for flax module {"/".join(path)} '
-                   '(the mask-IoU net, the semantic-seg and class-existence '
-                   'heads and the other backbones are not ported yet)')
+    if top == 'semantic_seg_conv':
+        return top, 'conv'
+    if top == 'class_existence_fc':
+        return top, 'linear'
+    if top == 'maskiou_net':
+        return f'{top}.{rest[0]}', 'conv'
+    raise KeyError(f'no port parameter for flax module {"/".join(path)}')
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -97,11 +121,15 @@ def state_dict_from_flax(params: Mapping, include_bn: bool = True,
     under ``cfg.freeze_bn == freeze_bn``."""
     if 'params' in params:
         params = params['params']
+    flat = any(k in params.get('backbone', {}) for k in _FLAT_BACKBONE)
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params):
         arr = np.asarray(leaf)
-        key, kind = _module_key(path[:-1])
+        key, kind = _module_key(path[:-1], flat)
         name = path[-1]
+        if kind == 'gn':                     # parameters, always trained
+            sd[f'{key}.{_GN_NAMES[name]}'] = torch.tensor(arr)
+            continue
         if kind == 'bn':
             if not include_bn and (freeze_bn or name in ('mean', 'var')):
                 continue
@@ -113,6 +141,9 @@ def state_dict_from_flax(params: Mapping, include_bn: bool = True,
         if kind == 'align' and name == 'adaption_kernel':
             arr = arr.transpose(3, 2, 0, 1)             # HWIO -> OIHW
             key, name = f'{key}.conv_adaption', 'weight'
+        elif name == 'kernel' and kind == 'deconv':
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO -> IOHW
+            name = 'weight'
         elif name == 'kernel':
             arr = arr.transpose(3, 2, 0, 1) if kind == 'conv' else arr.T
             name = 'weight'

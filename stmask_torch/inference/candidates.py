@@ -9,7 +9,7 @@ validity mask.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -29,6 +29,20 @@ class Detections(NamedTuple):
     track: torch.Tensor       # [D, E] L2-normalized embedding
     centerness: torch.Tensor  # [D]
     valid: torch.Tensor       # [D] bool
+
+
+def rescore_maskiou(cfg: STMaskConfig, maskiou_fn: Callable,
+                    det: Detections, proto: torch.Tensor) -> Detections:
+    """Mask re-scoring by FastMaskIoUNet (``candidates.py:35-48``; the
+    reference's eval.py:291,467, commented out of its main path): each
+    valid detection's score times the predicted mask IoU of its class.
+    Runs behind ``use_maskiou`` with ``rescore_mask`` or ``rescore_bbox``."""
+    soft = generate_mask(proto, det.mask_coeff, det.box)      # [D, Hp, Wp]
+    iou_p = maskiou_fn(soft[..., None])                       # [D, C-1]
+    lbl = torch.clamp(det.cls - 1, min=0).long()
+    per = torch.gather(iou_p, 1, lbl[:, None])[:, 0].to(det.score.dtype)
+    return det._replace(score=torch.where(det.valid, det.score * per,
+                                          det.score))
 
 
 def detect_frame(cfg: STMaskConfig, preds: dict, priors: torch.Tensor,

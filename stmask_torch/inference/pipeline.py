@@ -5,8 +5,10 @@
     video_chunk(states, frames[K, B], is_first[K, B])
         -> (states, FrameOutput[K, B])
 
-run the forward pass, decode, NMS, temporal shift and tracking (the
-simple tracker for models without TF) on the device, with the model and
+run the forward pass, decode, NMS, the mask-IoU re-scoring (under
+``use_maskiou`` with ``rescore_mask`` or ``rescore_bbox``), temporal
+shift and tracking (the simple tracker for models without TF) on the
+device, with the model and
 weights there too.  Nothing in a step waits for the device: the caller
 reads the small per-frame outputs when it needs them (``inference.fetch``,
 ``inference.postprocess``).
@@ -26,9 +28,9 @@ import torch.nn.functional as F
 
 from ..config import MEANS, STD, STMaskConfig
 from ..models.stmask import STMask
-from ..ops.anchors import all_priors
+from ..ops.anchors import all_priors, check_anchor_count
 from ..utils.device import resolve_device
-from .candidates import detect_frame
+from .candidates import Detections, detect_frame, rescore_maskiou
 from .tracker import (FrameOutput, TrackState, init_state, track_step_simple,
                       track_step_tf)
 
@@ -51,6 +53,19 @@ def cast_model(model: STMask, dtype: torch.dtype) -> STMask:
     alike).  ``FrozenBatchNorm`` folds in fp32 from the rounded statistics;
     ``TemporalNet`` computes in its input's dtype on the rounded weights."""
     return model.to(dtype=dtype)
+
+
+def detect_and_rescore(cfg: STMaskConfig, model: STMask, preds: dict,
+                       b: int, priors: torch.Tensor) -> Detections:
+    """Lane ``b`` of a forward's outputs through ``detect_frame`` and, when
+    the config asks for it, ``rescore_maskiou`` (``pipeline.py:48-52``,
+    ``:144-150``)."""
+    proto = preds['proto'][b]
+    det = detect_frame(cfg, {k: preds[k][b] for k in _DECODE_KEYS}, priors,
+                       proto=proto)
+    if cfg.use_maskiou and (cfg.rescore_mask or cfg.rescore_bbox):
+        det = rescore_maskiou(cfg, model.maskiou, det, proto)
+    return det
 
 
 def _prepare(cfg: STMaskConfig, model: STMask, device, compute_dtype):
@@ -96,9 +111,9 @@ def build_video_step(cfg: STMaskConfig, model: STMask,
         frame = torch.as_tensor(frame).to(dev, non_blocking=True)
         frame = normalize_pad(cfg, frame) if uint8_input else frame.float()
         preds = model(frame[None].to(compute_dtype))
-        frame_preds = {k: preds[k][0] for k in _DECODE_KEYS}
+        check_anchor_count(cfg, preds['loc'].shape[1], priors.shape[0])
         proto = preds['proto'][0]
-        det = detect_frame(cfg, frame_preds, priors, proto=proto)
+        det = detect_and_rescore(cfg, model, preds, 0, priors)
         if cfg.temporal_fusion_module:
             state, out = track_step_tf(cfg, model.temporal_shift, state, det,
                                        proto, preds['fpn_feat'][0],
@@ -159,12 +174,11 @@ def build_video_step_batched(cfg: STMaskConfig, model: STMask,
         steps = []
         for k in range(chunk_size):
             preds = model(x[k].to(compute_dtype))
+            check_anchor_count(cfg, preds['loc'].shape[1], priors.shape[0])
             lanes = []
             for b in range(n_videos):
                 proto = preds['proto'][b]
-                det = detect_frame(cfg, {key: preds[key][b]
-                                         for key in _DECODE_KEYS}, priors,
-                                   proto=proto)
+                det = detect_and_rescore(cfg, model, preds, b, priors)
                 if cfg.temporal_fusion_module:
                     states[b], out = track_step_tf(
                         cfg, model.temporal_shift, states[b], det, proto,

@@ -107,11 +107,6 @@ class ResNetBackbone(nn.Module):
     def __init__(self, cfg: BackboneConfig):
         super().__init__()
         self.cfg = cfg
-        name = cfg.name.lower()
-        if not name.startswith('resnet') or 'gn' in name:
-            raise NotImplementedError(
-                f'backbone {cfg.name!r}: only ResNet-50/101 is ported '
-                '(ROADMAP A.12)')
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         self.layers = nn.ModuleList()
@@ -128,6 +123,7 @@ class ResNetBackbone(nn.Module):
             self.layers.append(nn.Sequential(*mods))
             planes *= 2
         self.has_dcn = any(isinstance(m, DCNConv) for m in self.modules())
+        self.channels = tuple(256 * 2 ** s for s in range(len(cfg.layers)))
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, ...]:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -56,6 +57,25 @@ def _ali_offsets(shape: torch.Tensor, ks: Tuple[int, int]) -> torch.Tensor:
     off_x = dx[..., None] + dw[..., None] * grid_x
     return torch.stack([off_y, off_x], dim=-1).reshape(
         shape.shape[:-1] + (2 * ks_h * ks_w,))
+
+
+def focal_conf_bias(cfg: STMaskConfig, n_scales: int) -> np.ndarray:
+    """The conf layer's initial bias under ``use_sigmoid_focal_loss``
+    (``heads.py:62-89``), [n_scales * num_classes]: each prior's
+    background channel +log((1 - pi) / pi), its classes -log((1 - pi) /
+    pi), in the scale-major, class-minor channel layout.
+
+    The JAX package deviates from the reference here on purpose (PARITY.md):
+    the reference (``STMask.py:181-184``) fills the first ``num_priors``
+    channels with the background bias, not each prior's class 0; the port
+    copies JAX.  ``models.stmask.init_random`` and ``init_flax`` write it
+    into the FCA head's conf banks (or FCB's ``conv``) and the legacy
+    head's ``conf_layer``."""
+    pi = cfg.focal_loss_init_pi
+    b0 = float(np.log((1.0 - pi) / pi))
+    bias = np.full((n_scales, cfg.num_classes), -b0, np.float32)
+    bias[:, 0] = b0
+    return bias.reshape(-1)
 
 
 class DeformAdaption(nn.Module):

@@ -85,9 +85,13 @@ class MakeNet(nn.Sequential):
     ``layers/modules/make_net.py:5-57``).
 
     spec entries: (channels, ksize, pad); ksize > 0 is a conv, ksize < 0
-    with channels None a bilinear x|ksize| upsample.  Every layer is
-    followed by ReLU (optionally except the last), so Sequential indices
-    match the reference ``state_dict`` (``proto_net.0``, ``.2``, ...).
+    with channels None a bilinear x|ksize| upsample, ksize < 0 with
+    channels a transposed conv of kernel and stride |ksize|
+    (``layers.py:73``: flax's ``ConvTranspose`` with 'SAME' padding, which
+    at stride = kernel is torch's padding 0; ``pad`` is unused there, as in
+    JAX).  Every layer is followed by ReLU (optionally except the last), so
+    Sequential indices match the reference ``state_dict`` (``proto_net.0``,
+    ``.2``, ...): the flax layer ``conv{i}`` / ``deconv{i}`` is index 2i.
     """
 
     def __init__(self, in_channels: int,
@@ -102,9 +106,8 @@ class MakeNet(nn.Sequential):
             elif out_ch is None:
                 layers.append(Upsample(-k))
             else:
-                raise NotImplementedError(
-                    'make_net deconv entries are not ported (no preset '
-                    'uses them)')
+                layers.append(nn.ConvTranspose2d(ch, out_ch, -k, stride=-k))
+                ch = out_ch
             if i < len(spec) - 1 or include_last_relu:
                 layers.append(nn.ReLU())
         super().__init__(*layers)

@@ -1,13 +1,17 @@
 """STMask model assembly, eval and train branches (port of
 ``stmask_tpu/models/stmask.py``; reference ``STMask.py:19-330``).
 
-backbone -> FPN(P3..P7) -> { ProtoNet on P3, shared FCA head per level
-(or the legacy YOLACT head), TemporalNet for the TF branch }.  Inputs and
+backbone (ResNet, ResNet-GN, DarkNet53 or VGG16, by the preset's name)
+-> FPN(P3..P7) -> { ProtoNet on P3, shared FCA head per level (or the
+legacy YOLACT head), TemporalNet for the TF branch }, and the optional
+semantic-seg conv, class-existence linear and mask-IoU net.  Inputs and
 outputs keep the JAX package's layouts (NHWC images, flat [B, P, D]
 predictions, NHWC feature maps); inside, the network runs NCHW tensors in
 the channels-last memory format, so the NHWC views handed to the
 deformable gather and the correlation cost no copy.
-Parameter names are the reference ``state_dict`` keys.
+Parameter names are the reference ``state_dict`` keys, where the JAX
+package's converter has them; the other backbones, ``class_existence_fc``
+and ``maskiou_net`` carry the flax names.
 """
 
 from __future__ import annotations
@@ -21,11 +25,15 @@ import torch.nn.functional as F
 
 from ..config import STMaskConfig
 from ..ops.correlation import correlate
-from .backbone import DCNConv, ResNetBackbone
+from .backbone import Bottleneck, DCNConv
+from .backbones_extra import (DarkBlock, GNBottleneck, GroupNorm,
+                              construct_backbone)
 from .fpn import FPN
-from .heads import DeformAdaption, FeatureAlign, PredictionHead
+from .heads import (DeformAdaption, FeatureAlign, PredictionHead,
+                    focal_conf_bias)
 from .layers import FrozenBatchNorm, MakeNet
 from .legacy_head import PredictionModule
+from .maskiou import FastMaskIoUNet
 from .temporal import TemporalNet
 
 # ProtoNet spec (reference config.py:667 'mask_proto_net'): 3x conv(256,3)
@@ -41,15 +49,13 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class STMask(nn.Module):
     def __init__(self, cfg: STMaskConfig):
         super().__init__()
-        if cfg.head_type not in ('fc', 'legacy') or cfg.use_maskiou \
-                or cfg.use_semantic_segmentation_loss \
-                or cfg.use_class_existence_loss:
-            raise NotImplementedError(
-                f'{cfg.name}: the mask-IoU net and the semantic-seg and '
-                'class-existence heads are not ported (ROADMAP A.12)')
+        if cfg.head_type not in ('fc', 'legacy'):
+            raise ValueError(f'{cfg.name}: head_type {cfg.head_type!r}, '
+                             "'fc' or 'legacy'")
         self.cfg = cfg
-        self.backbone = ResNetBackbone(cfg.backbone)
-        in_ch = [(256, 512, 1024, 2048)[i]
+        # dispatch on the preset's backbone name (stmask.py:45)
+        self.backbone = construct_backbone(cfg.backbone)
+        in_ch = [self.backbone.channels[i]
                  for i in cfg.backbone.selected_layers]
         self.fpn = FPN(cfg.fpn, in_ch)
         nf = cfg.fpn.num_features
@@ -63,6 +69,13 @@ class STMask(nn.Module):
         if cfg.temporal_fusion_module:
             self.TemporalNet = TemporalNet(
                 2 * nf + cfg.correlation_patch_size ** 2, cfg.mask_proto_n)
+        if cfg.use_semantic_segmentation_loss:
+            self.semantic_seg_conv = nn.Conv2d(nf, cfg.num_classes - 1, 1)
+        if cfg.use_class_existence_loss:
+            # a linear on the mean-pooled P7 (reference STMask.py:114-117)
+            self.class_existence_fc = nn.Linear(nf, cfg.num_classes - 1)
+        if cfg.use_maskiou:
+            self.maskiou_net = FastMaskIoUNet(cfg.num_classes)
 
     def _forward_single(self, x: torch.Tensor, train: bool):
         """NHWC frames [B, H, W, 3] -> (fpn_outs, flat predictions, NCHW
@@ -100,10 +113,6 @@ class STMask(nn.Module):
         c = self.cfg
         sel = c.correlation_selected_layer
         if train:
-            if c.head_type == 'legacy':
-                raise NotImplementedError(
-                    f'{c.name}: training the legacy YOLACT head is not '
-                    'ported (ROADMAP A.12)')
             b, nf, h, w, _ = x.shape
             fpn_outs, out, t2s = self._forward_single(
                 x.reshape(b * nf, h, w, 3), train=True)
@@ -114,6 +123,13 @@ class STMask(nn.Module):
                 t = t2s[sel].permute(0, 2, 3, 1)
                 out['T2S_concat_feat'] = F.relu(torch.cat(
                     [corr, t[0::2], t[1::2]], dim=-1))
+            if c.use_semantic_segmentation_loss:
+                out['segm'] = _nhwc(self.semantic_seg_conv(fpn_outs[0]))
+            if c.use_class_existence_loss:
+                # image-level class logits from the mean-pooled P7
+                # (reference STMask.py:300-301)
+                out['classes'] = self.class_existence_fc(
+                    fpn_outs[-1].mean(dim=(2, 3)))
             return out
         fpn_outs, out, t2s = self._forward_single(x, train=False)
         # the legacy head has no centerness or track branch: neutral values
@@ -135,28 +151,63 @@ class STMask(nn.Module):
         """TemporalNet on RoIAligned [N, 7, 7, C] features."""
         return self.TemporalNet(bbox_feats)
 
+    def maskiou(self, masks: torch.Tensor) -> torch.Tensor:
+        """FastMaskIoUNet on [N, H, W, 1] soft masks -> [N, C - 1] (the 'I'
+        loss and the eval re-scoring; reference STMask.py:71-72)."""
+        return self.maskiou_net(masks)
+
+
+def _conf_bias(model: STMask):
+    """The conf layers' biases, each with its bank's prior count: the FCA
+    head's per bank (FCB's ``conv`` where a bank aligns), or the legacy
+    head's one."""
+    c, head = model.cfg, model.prediction_layers[0]
+    if isinstance(head, PredictionModule):
+        return [(head.conf_layer.bias, len(c.pred_scales[0]) * 3)]
+    return [((m.conv if isinstance(m, FeatureAlign) else m).bias,
+             len(c.pred_scales[0])) for m in head.conf_layer]
+
+
+def _init_focal_bias(model: STMask) -> None:
+    """Under ``use_sigmoid_focal_loss`` the conf biases start at
+    ``heads.focal_conf_bias``, as the JAX package's initializers set them;
+    otherwise they stay zero."""
+    if model.cfg.use_sigmoid_focal_loss:
+        for bias, n in _conf_bias(model):
+            bias.copy_(torch.from_numpy(focal_conf_bias(model.cfg, n)))
+
+
+def _fan_in(w: torch.Tensor, transposed: bool) -> int:
+    """Inputs summed into each output: torch's ConvTranspose2d weight is
+    [in, out, kh, kw], every other kernel [out, in, ...]."""
+    return w.shape[0] * w[0, 0].numel() if transposed else w[0].numel()
+
 
 def init_random(model: STMask, generator: torch.Generator) -> STMask:
     """Seeded random weights for eval runs without a checkpoint.
 
-    Convs and linears are He-normal with zero bias; BatchNorm keeps the
-    identity statistics and each bottleneck's last BN scale is 0.2, so the
-    residual stream stays O(1) through the untrained backbone.  The DCN
-    offset predictors get small weights and a bias of std 0.5 pixels, so
-    the deformable gather samples off the grid; FCB's deformable kernels
-    are He-normal and its ``conv_offset`` predictors of std 0.1, so that
-    ada's offsets are not integers.  Parameters are drawn on the CPU, in
-    module order, so a seed gives the same weights on every device.  Training from these weights loses the ProtoNet (its last
-    ReLU goes dead within tens of steps, in the JAX package alike): the
-    training entry points start from ``init_flax``.
+    Convs and linears are He-normal with zero bias; BatchNorm and
+    GroupNorm keep the identity and the last norm scale of each residual
+    branch (a bottleneck's ``bn3`` or ``gn3``, a DarkNet block's ``bn2``)
+    is 0.2, so the residual stream stays O(1) through the untrained
+    backbone.  The DCN offset predictors get small weights and a bias of
+    std 0.5 pixels, so the deformable gather samples off the grid; FCB's
+    deformable kernels are He-normal and its ``conv_offset`` predictors of
+    std 0.1, so that ada's offsets are not integers.  Parameters are drawn on the CPU, in
+    module order, so a seed gives the same weights on every device.  Under
+    ``use_sigmoid_focal_loss`` the conf biases are the focal init.  Training
+    from these weights loses the ProtoNet (its last ReLU goes dead within
+    tens of steps, in the JAX package alike): the training entry points
+    start from ``init_flax``.
     """
     def normal(shape, std):
         return torch.randn(shape, generator=generator) * std
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                fan_in = _fan_in(m.weight,
+                                 isinstance(m, nn.ConvTranspose2d))
                 m.weight.copy_(normal(m.weight.shape,
                                       math.sqrt(2.0 / fan_in)))
                 if m.bias is not None:
@@ -175,9 +226,12 @@ def init_random(model: STMask, generator: torch.Generator) -> STMask:
             elif isinstance(m, FeatureAlign) and m.conv_offset is not None:
                 m.conv_offset.weight.copy_(
                     normal(m.conv_offset.weight.shape, 0.1))
-        for layer in model.backbone.layers:
-            for block in layer:
-                block.bn3.weight.fill_(0.2)
+        for m in model.modules():
+            last = {Bottleneck: 'bn3', GNBottleneck: 'gn3',
+                    DarkBlock: 'bn2'}.get(type(m))
+            if last:
+                getattr(m, last).weight.fill_(0.2)
+        _init_focal_bias(model)
     return model
 
 
@@ -193,7 +247,10 @@ def init_flax(model: STMask, generator: torch.Generator) -> STMask:
     a plain conv (``backbone.py:41-47``); BatchNorm is the identity.  FCB
     (``heads.py:84-129``): ``conv_offset`` zero, the deformable kernel
     ``normal(0.01)`` (not truncated), ``conv`` LeCun-normal with a zero
-    bias.  Parameters are drawn on the CPU, in module order.
+    bias.  GroupNorm is the identity (scale 1, bias 0); a transposed conv's
+    fan-in is its input channels times its taps, as flax counts it.  Under
+    ``use_sigmoid_focal_loss`` the conf biases are the focal init
+    (``heads.py:62``).  Parameters are drawn on the CPU, in module order.
     """
     def truncated(shape, scale: float, fan_in: int):
         # flax's truncated_normal: the stddev corrected for the truncation
@@ -204,12 +261,16 @@ def init_flax(model: STMask, generator: torch.Generator) -> STMask:
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear, DCNConv)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear,
+                              DCNConv)):
                 scale = 2.0 if isinstance(m, DCNConv) else 1.0
-                m.weight.copy_(truncated(m.weight.shape, scale,
-                                         m.weight[0].numel()))
+                m.weight.copy_(truncated(m.weight.shape, scale, _fan_in(
+                    m.weight, isinstance(m, nn.ConvTranspose2d))))
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
             elif isinstance(m, FrozenBatchNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
@@ -224,6 +285,7 @@ def init_flax(model: STMask, generator: torch.Generator) -> STMask:
                     m.conv_offset.weight.zero_()
                 w = m.conv_adaption.weight
                 w.copy_(torch.randn(w.shape, generator=generator) * 0.01)
+        _init_focal_bias(model)
     return model
 
 

@@ -92,3 +92,21 @@ def all_priors(cfg: STMaskConfig) -> np.ndarray:
             per_level.append(make_priors(fh, fw, cfg.head_kernel_sizes,
                                          cfg.pred_scales[lvl]))
     return np.concatenate(per_level, axis=0)
+
+
+def check_anchor_count(cfg: STMaskConfig, n_anchor: int,
+                       n_priors: int) -> None:
+    """Raise ``ValueError`` when the head emits another number of anchors
+    than ``all_priors`` gives.  The priors assume P3..P7 at strides 8 x
+    2^level (``feature_shapes``), but ``STMask_vgg16``'s backbone ends at
+    stride 16 (its tail keeps the size of stage 4), so its head emits
+    18180 anchors against 15345 priors at 384x640 (912 against 771 at
+    96x128).  The JAX package's ``detect_frame`` fails there on a shape
+    mismatch; the port stops before decode or match and says why
+    (ROADMAP C.8: a fault of the JAX package)."""
+    if n_anchor != n_priors:
+        raise ValueError(
+            f'{cfg.name}: the prediction head emits {n_anchor} anchors '
+            f'but all_priors gives {n_priors} priors at {cfg.pad_h}x'
+            f'{cfg.pad_w}: the backbone\'s selected outputs are not at '
+            'strides 8, 16, 32, as feature_shapes assumes (ROADMAP C.8)')

@@ -34,8 +34,8 @@ from ..utils.device import resolve_device
 from .losses import compute_losses
 from .schedule import learning_rate
 
-GT_KEYS = ('boxes', 'labels', 'ids', 'valid', 'masks_proto', 'crowd_boxes',
-           'crowd_valid')
+GT_KEYS = ('boxes', 'labels', 'ids', 'valid', 'masks_proto', 'masks_p3',
+           'crowd_boxes', 'crowd_valid')
 
 
 class TrainState(NamedTuple):
@@ -54,7 +54,8 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
     ``train_step(state, batch) -> (state, metrics)``; batch on the device:
     images [B, 2, H, W, 3] normalized; boxes [B, 2, G, 4]; labels / ids /
     valid [B, 2, G]; masks_proto [B, 2, G, Hp, Wp] uint8; optionally
-    crowd_boxes [B, 2, Gc, 4] / crowd_valid [B, 2, Gc].  ``metrics`` holds
+    crowd_boxes [B, 2, Gc, 4] / crowd_valid [B, 2, Gc] and, for the
+    semantic-seg loss S, masks_p3 [B, 2, G, H3, W3].  ``metrics`` holds
     each loss, ``total`` and ``gnorm`` as 0-dim tensors on the device (read
     them when needed) and ``lr``, ``learning_rate(cfg, state.step)``.
     Each parameter's ``.grad`` keeps the step's raw (unclipped) gradient
@@ -76,7 +77,10 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
         preds = model(batch['images'], train=True)
         gt = {k: batch[k].reshape((-1,) + batch[k].shape[2:])
               for k in GT_KEYS if k in batch}
-        losses = compute_losses(cfg, preds, gt, priors, model.temporal_shift)
+        # the mask-IoU net's loss 'I' only where the model has the net
+        kw = {'maskiou_fn': model.maskiou} if cfg.use_maskiou else {}
+        losses = compute_losses(cfg, preds, gt, priors, model.temporal_shift,
+                                **kw)
         return sum(losses.values()), losses
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]

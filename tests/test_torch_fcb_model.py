@@ -110,7 +110,9 @@ def test_reduced_fcb_model_eval_matches_flax(fcb_models):
         want_keys)
     x = np.random.RandomState(1).randn(1, jcfg.pad_h, jcfg.pad_w, 3).astype(
         np.float32)
-    ref = jmodel.apply(params, jnp.asarray(x), train=False)
+    # under jax.jit: eagerly, each op shape compiles on its own (~1 min)
+    ref = jax.jit(lambda p, v: jmodel.apply(p, v, train=False))(
+        params, jnp.asarray(x))
     with torch.inference_mode():
         out = tmodel(torch.from_numpy(x))
     assert set(out) == set(MODEL_TOL)

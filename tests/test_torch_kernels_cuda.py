@@ -691,3 +691,66 @@ def test_greedy_nms_rejects_bad_inputs(device):
         KG.greedy_nms_cuda(torch.zeros(2, 5, 4, device=device),
                            torch.ones(2, 5, dtype=torch.bool, device=device),
                            0.5)
+
+
+# ---- the kernels on the paths of the other presets ------------------------
+
+@pytest.mark.parametrize('name', ['STMask_resnet50_gn', 'STMask_darknet53'])
+def test_correlation_kernels_at_preset_p4(device, name):
+    """K1 and K3 at the FPN level the preset correlates (P4 of 384x640, 256
+    channels): one frame for the eval step's K1, 4 clips for the training
+    step's K1 and K3."""
+    from stmask_torch.config import get_config
+    cfg = get_config(name)
+    h, w = cfg.feature_shapes()[cfg.correlation_selected_layer]
+    for b in (1, 4):
+        shape = (b, h, w, cfg.fpn.num_features)
+        g = torch.Generator(device=device).manual_seed(b)
+        x1 = torch.randn(shape, device=device, generator=g)
+        x2 = torch.randn(shape, device=device, generator=g)
+        p = cfg.correlation_patch_size
+        n0 = K1.KERNEL.launches
+        got = K1.correlate_cuda(x1, x2, p)
+        assert K1.KERNEL.launches == n0 + 1
+        want = K1.correlate_reference(x1, x2, p)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        up = torch.randn_like(want)
+        n0 = K3.KERNEL.launches
+        got = K3.correlation_bwd_cuda(up, x1, x2, p, out=want)
+        assert K3.KERNEL.launches == n0 + 1
+        for a, b_ in zip(got, K3.correlation_bwd_reference(up, x1, x2, p,
+                                                           out=want)):
+            torch.testing.assert_close(a, b_, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_deform_conv_at_r101_sites(device):
+    """The fused conv at every DCN site of ``STMask_plus_base`` (R101,
+    dcn_layers (0, 4, 23, 3) at interval 3: 2 sites in layer2, 8 in layer3,
+    1 in layer4), the sites' inputs read off the model's own forward at
+    384x640, each against its plain version at FUSED_ATOL."""
+    from stmask_torch.config import get_config
+    from stmask_torch.models import build_model
+    from stmask_torch.models.backbone import DCNConv
+    cfg = get_config('STMask_plus_base')
+    model = build_model(cfg, device, seed=0)
+    sites = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: sites.append((tuple(a[0].shape), m.stride)))
+        for m in model.modules() if isinstance(m, DCNConv)]
+    x = torch.zeros(1, cfg.pad_h, cfg.pad_w, 3, device=device)
+    n0 = KD.KERNEL.launches
+    with torch.inference_mode():
+        model(x)
+    for h_ in hooks:
+        h_.remove()
+    assert KD.KERNEL.launches == n0 + 11 and len(sites) == 11
+    assert [s for _, s in sites] == [2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 2]
+    del model
+    for (_, cin, h, w), stride in sorted(set(sites)):
+        x, off, mask, wt, bias = _dcn_case(device, h, w, cin, cin, 3, 3,
+                                           stride, 1, 3)
+        got = KD.deform_conv_cuda(x, off, wt, mask, bias, stride, 1)
+        want = KD.deform_conv_reference(x, off, wt, mask, bias, stride, 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=FUSED_ATOL, rtol=0)

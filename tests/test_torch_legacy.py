@@ -118,8 +118,64 @@ def test_legacy_inits_cover_the_head(models):
 
 
 def test_legacy_training_raises(models):
-    with pytest.raises(NotImplementedError, match='ROADMAP A.12'):
-        models[2](torch.zeros(1, 2, TLEG.pad_h, TLEG.pad_w, 3), train=True)
+    """Training the legacy preset (it raised until the port had its train
+    branch; the name is kept).  One clip of chip_smoke.py's synthetic
+    batches through the training forward of both models: raw loc, conf
+    and mask coefficients and the prototypes, held as the eval outputs
+    are.  Then both sides' ``compute_losses`` on JAX's predictions: the
+    keys B (smooth-L1), C (OHEM) and M, each value (rtol 1e-5) and the
+    gradient of the total with respect to every prediction (atol 1e-5
+    relative to max|ref|).  JAX runs the forward and the loss with its
+    gradient under ``jax.jit``."""
+    from chip_smoke import _train_batch
+    from stmask_tpu.train import losses as JLOSS
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.train import losses as TLOSS
+    jmodel, params, tmodel = models
+    batch = {k: v.numpy() for k, v in prepare_batch(
+        TLEG, _train_batch(TLEG, 7, clips=1), torch.device('cpu')).items()}
+    ref = jax.jit(lambda p, v: jmodel.apply(p, v, train=True))(
+        params, jnp.asarray(batch['images']))
+    tmodel.train()
+    try:
+        out = tmodel(torch.from_numpy(batch['images']), train=True)
+    finally:
+        tmodel.eval()
+    tol = dict(loc=2e-3, conf=2e-3, mask_coeff=2e-3, proto=2e-3)
+    assert set(out) == set(tol) and 'T2S_concat_feat' not in ref
+    for key, atol in tol.items():
+        r, m = np.asarray(ref[key]), out[key].detach().numpy()
+        assert m.shape == r.shape, (key, m.shape, r.shape)
+        np.testing.assert_allclose(m, r, rtol=0, atol=atol, err_msg=key)
+
+    gt = {k: batch[k].reshape((-1,) + batch[k].shape[2:])
+          for k in ('boxes', 'labels', 'ids', 'valid', 'masks_proto')}
+    preds_np = {k: np.asarray(ref[k]) for k in tol}
+    priors = TA.all_priors(TLEG)
+
+    def loss_fn(p):
+        d = JLOSS.compute_losses(JLEG, p, {k: jnp.asarray(v) for k, v in
+                                           gt.items()}, jnp.asarray(priors))
+        return sum(d.values()), d
+
+    (_, jl), jg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        {k: jnp.asarray(v) for k, v in preds_np.items()})
+    preds = {k: torch.tensor(v, requires_grad=True)
+             for k, v in preds_np.items()}
+    tl = TLOSS.compute_losses(TLEG, preds, {k: torch.from_numpy(v)
+                                            for k, v in gt.items()},
+                              torch.from_numpy(priors))
+    sum(tl.values()).backward()
+    assert list(tl) == ['B', 'C', 'M'] and set(jl) == set(tl)
+    for k in tl:
+        np.testing.assert_allclose(float(tl[k].detach()), float(jl[k]),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+        assert float(jl[k]) > 0, k
+    for k, p in preds.items():
+        want = np.asarray(jg[k])
+        np.testing.assert_allclose(
+            p.grad.numpy(), want, rtol=0,
+            atol=1e-5 * max(float(np.abs(want).max()), 1e-3), err_msg=k)
 
 
 # ---- the simple tracker ----------------------------------------------------

@@ -3,7 +3,9 @@
 The fixture is ``tests/test_train_parity.py``'s (F = 4 frames in 2 clips,
 P = 300 priors, G = 6 gt slots, persisting / vanishing / new instances).
 Both sides get the same predictions and the same TemporalNet weights
-(carried across with ``state_dict_from_flax``).  Compared: every loss
+(carried across with ``state_dict_from_flax``); JAX's loss and gradient run
+under ``jax.jit`` (eagerly, each new shape of each op compiles on its own,
+which took most of a minute).  Compared: every loss
 value (rtol 1e-5), the gradient of the total with respect to every
 prediction tensor (atol 1e-5 relative to max|ref|: fp32 sums in another
 order), and the TemporalNet parameter gradients and the gradient of
@@ -66,8 +68,8 @@ def test_compute_losses_values_and_gradients(seed):
                               temporal_net_fn=lambda x: fnet.apply(tnp, x))
         return sum(d.values()), d
 
-    (_, jl), (jg, jtg) = jax.value_and_grad(
-        loss_fn, argnums=(0, 1), has_aux=True)(
+    (_, jl), (jg, jtg) = jax.jit(jax.value_and_grad(
+        loss_fn, argnums=(0, 1), has_aux=True))(
         {k: jnp.asarray(v) for k, v in preds_np.items()}, fparams)
 
     preds = {k: torch.tensor(v, requires_grad=True)
@@ -93,13 +95,34 @@ def test_compute_losses_values_and_gradients(seed):
 
 
 def test_unported_loss_keys_raise():
+    """The flags whose keys raised before the port had them (the name is
+    kept) now add their keys: each flag alone, on seed 0's fixture, gives
+    JAX's keys and values (rtol 1e-5; JAX under ``jax.jit``, values only:
+    tests/test_torch_losses_extra.py holds each key's gradient).  S reads
+    P3 gt masks (every other prototype pixel) and P3 logits."""
     preds_np, gt_np = _fixture(0)
+    del preds_np['T2S_concat_feat']
+    rng = np.random.RandomState(7)
+    gt_np['masks_p3'] = np.ascontiguousarray(
+        gt_np['masks_proto'][..., ::2, ::2])
+    h3, w3 = gt_np['masks_p3'].shape[2:]
+    preds_np['segm'] = rng.randn(4, h3, w3, CFG.num_classes - 1).astype(
+        np.float32)
     preds = {k: torch.from_numpy(v) for k, v in preds_np.items()}
     gt = {k: torch.from_numpy(v) for k, v in gt_np.items()}
-    for kw in (dict(use_sigmoid_focal_loss=True),
-               dict(mask_proto_coeff_diversity_loss=True),
-               dict(mask_proto_loss='l1'), dict(use_maskiou_loss=True),
-               dict(use_semantic_segmentation_loss=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP A.12'):
-            TL.compute_losses(TCFG.replace(**kw), preds, gt,
-                              torch.from_numpy(PRIORS), None)
+    for kw, key in ((dict(use_sigmoid_focal_loss=True), 'C'),
+                    (dict(mask_proto_coeff_diversity_loss=True), 'D'),
+                    (dict(mask_proto_loss='l1'), 'P'),
+                    (dict(use_maskiou_loss=True), 'MIoU'),
+                    (dict(use_semantic_segmentation_loss=True), 'S')):
+        jl = jax.jit(lambda p, g, c=CFG.replace(**kw): JL.compute_losses(
+            c, p, g, jnp.asarray(PRIORS)))(
+            {k: jnp.asarray(v) for k, v in preds_np.items()},
+            {k: jnp.asarray(v) for k, v in gt_np.items()})
+        tl = TL.compute_losses(TCFG.replace(**kw), preds, gt,
+                               torch.from_numpy(PRIORS), None)
+        assert key in tl and set(tl) == set(jl), (kw, set(tl), set(jl))
+        assert ('center' in tl) != ('use_sigmoid_focal_loss' in kw)
+        for k in jl:
+            np.testing.assert_allclose(float(tl[k]), float(jl[k]), rtol=1e-5,
+                                       atol=1e-7, err_msg=f'{kw} {k}')

@@ -75,7 +75,9 @@ def flax_init():
     """The flax model and its own initial parameters (numpy)."""
     jmodel = JSTMask(JCFG)
     x = jnp.zeros((1, JCFG.pad_h, JCFG.pad_w, 3), jnp.float32)
-    params = jmodel.init(jax.random.PRNGKey(0), x, train=False)
+    # under jax.jit: eagerly, each op shape compiles on its own (~1 min)
+    params = jax.jit(lambda k, v: jmodel.init(k, v, train=False))(
+        jax.random.PRNGKey(0), x)
     return jmodel, jax.tree_util.tree_map(np.asarray, params['params'])
 
 
@@ -92,7 +94,8 @@ def test_eval_outputs(models):
     jmodel, params, tmodel = models
     x = np.random.RandomState(1).randn(1, JCFG.pad_h, JCFG.pad_w, 3).astype(
         np.float32)
-    ref = jmodel.apply(params, jnp.asarray(x), train=False)
+    ref = jax.jit(lambda p, v: jmodel.apply(p, v, train=False))(
+        params, jnp.asarray(x))
     with torch.inference_mode():
         out = tmodel(torch.from_numpy(x))
     tol = dict(loc=2e-3, conf=1e-4, centerness=1e-4, mask_coeff=2e-3,
