@@ -99,6 +99,21 @@ Phases, in order (any failure raises and exits non-zero):
      STMask_plus_base (the fused conv at its 11 DCN sites) and the eval
      CLI with --config STMask_plus_resnet50_ada over phase 7's set (the
      bf16 fused conv at 7 + 15 sites a step).
+ 12. the eval CLI's other modes and the training overlays: (a)
+     --video_dir --display over one video of phase 7's set (fp32: the
+     fused conv 7 times and K1 once a frame), frames/s; (b) --benchmark over
+     phase 7's set: the stage table (load, step, postprocess, one call a
+     frame), FPS, no JSON, beside phase 4's step; (c) --display
+     --display_lincomb --display_fpn_outs over 2 videos: an overlay, 3
+     proto/ grids and 5 fpn/ grids (P3..P7) a frame, each grid's shape;
+     (d) --coco --eval_metrics over 16 synthetic COCO images at 1280x720
+     (one-frame videos; the bf16 launches a chunk), finite metrics; (e) the
+     training CLI with --vis_every 2 over phase 8's set (4 steps: the
+     overlay files, the overlay forward's launches, ms a call), and a
+     direct save_train_output on the card that leaves every parameter and
+     buffer bit for bit; (f) --metrics_only --tensorboard_dir (an events
+     file, or the JAX script's skip message without TensorBoard); then
+     --video_dir on the card against the CPU at 96x128, reduced depth.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -228,6 +243,16 @@ FLAG_KEYS = ('BIoU', 'C', 'M', 'MIoU', 'D', 'P', 'I', 'E', 'T', 'B_shift',
 VGG_COUNTS = (18180, 15345)     # the head's anchors, all_priors at 384x640
 R101_DCN_SITES = 11
 ALI_TRAIN_STEPS = 4
+# phase 12: the eval CLI's other modes and the training overlays
+COCO_SET = (16, 720, 1280)      # images, height, width
+VIS_STEPS, VIS_EVERY = 4, 2     # training steps, overlays every 2 steps
+# --video_dir on the card against the CPU at 96x128 (reduced depth): the
+# same tracks (count, order, categories), scores within MODES_SCORE_ATOL,
+# decoded masks equal on at least MODES_MASK_SHARE of their pixels; fixed
+# before the first card run (fp32 with TF32 off on the card; the fused
+# conv's 3xTF32 products ~3e-7 from fp32)
+MODES_SCORE_ATOL = 1e-3
+MODES_MASK_SHARE = 0.99
 
 
 def _wgrad_at(KW, g, x, off, mask, stride: int, tm: int, split: int):
@@ -292,9 +317,9 @@ def _device_ms(fn, iters: int) -> float:
     raise RuntimeError('the sleep kernel never outlasted the launches')
 
 
-def _device_events(fn, iters: int):
-    """Run ``fn`` ``iters`` times under torch.profiler; returns the
-    key_averages() rows of device kernels as (name, count, device us)."""
+def _profile(fn, iters: int):
+    """Run ``fn`` once, then ``iters`` times under torch.profiler (host and
+    device activity); returns the profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -304,14 +329,71 @@ def _device_events(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def _device_rows(prof, ranges=()):
+    """The key_averages() rows of device kernels as (name, count, device
+    us); the device-side rows of the ``record_function`` ranges named in
+    ``ranges`` span kernels already counted, and are left out."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, 'self_device_time_total', None)
         if us is None:
             us = getattr(e, 'self_cuda_time_total', 0)
-        if us > 0 and str(e.device_type).endswith('CUDA'):
+        if us > 0 and str(e.device_type).endswith('CUDA') and \
+                e.key not in ranges:
             rows.append((e.key, e.count, us))
     return rows
+
+
+def _device_events(fn, iters: int):
+    """Run ``fn`` ``iters`` times under torch.profiler; returns the
+    key_averages() rows of device kernels as (name, count, device us)."""
+    return _device_rows(_profile(fn, iters))
+
+
+def _host_split(prof, span: str):
+    """Where the host time of the ``record_function`` ranges named ``span``
+    goes: (ranges, mean ms a range, {name: (self ms a range, calls a
+    range)}) over the host events of the range's thread that lie inside a
+    range.  The range's own self time (key ``span``) is the Python that no
+    profiled op covers."""
+    import bisect
+    host = [e for e in prof.events()
+            if not str(e.device_type).endswith('CUDA')]
+    ranges = sorted((e.time_range.start, e.time_range.end, e.thread)
+                    for e in host if e.name == span)
+    if not ranges:
+        return 0, 0.0, {}
+    starts = [r[0] for r in ranges]
+    split = {}
+    for e in host:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i < 0 or e.thread != ranges[i][2] or \
+                e.time_range.end > ranges[i][1]:
+            continue
+        ms, calls = split.get(e.name, (0.0, 0))
+        split[e.name] = (ms + e.self_cpu_time_total / 1e3, calls + 1)
+    n = len(ranges)
+    mean = sum(b - a for a, b, _ in ranges) / n / 1e3
+    return n, mean, {k: (ms / n, c / n) for k, (ms, c) in split.items()}
+
+
+def _print_host_split(tag: str, prof, span: str, top: int = 10) -> None:
+    n, mean, split = _host_split(prof, span)
+    print(f'[host] {tag}: {n} `{span}` ranges, {mean:.3f} ms a range on the '
+          f'host clock (profiler on); self ms a range by host op '
+          f'(`{span}` itself: Python outside the ops)')
+    ranked = sorted(split.items(), key=lambda r: -r[1][0])
+    waits = [r for r in ranked if 'Synchronize' in r[0] or r[0] in (
+        'aten::_local_scalar_dense', 'aten::item')]
+    for k, (ms, c) in ranked[:top] + [r for r in waits
+                                      if r not in ranked[:top]]:
+        print(f'[host]   {ms:8.3f} ms {c:7.1f}x  {k[:80]}')
+    print(f'[host]   device waits: '
+          + (', '.join(f'{k} {ms:.3f} ms {c:.1f}x' for k, (ms, c) in waits)
+             or 'none'))
 
 
 def _ops_s(flops: float, tf32_flops: float = 0.0,
@@ -1043,7 +1125,7 @@ def _train_cli(torch, dev, smi: str, name: str, tmp: str,
     return dict(launches=launches, resumed=resumed_launches, checks=checks,
                 ms_per_step=cli_med, peak=peak, busy=busy, idle=(
                     None if busy is None else 1 - busy / prof_ms),
-                data_ms=per_batch)
+                data_ms=per_batch, ann=ann, prefix=prefix)
 
 
 def _fcb_inputs(torch, dev, h, w, kh, kw, frames, seed):
@@ -1991,6 +2073,294 @@ def _ada_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
     return dict(stats=stats, launches=launches, peak=peak)
 
 
+def _counted(torch, fn, *args):
+    """``fn(*args)`` with every kernel's launch count set to 0 just before
+    it and read just after it: (result, launches)."""
+    from stmask_torch.kernels import KERNELS
+    torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {n: k.launches for n, k in KERNELS.items()}
+
+
+def _fp32_step_only(launches: dict, sites: int, frames: int, tag: str):
+    """The fp32 eval step's launches: the fused conv at each DCN site and K1
+    once a frame, and no other kernel."""
+    assert launches['deform_conv'] == sites * frames, (tag, launches)
+    assert launches['correlation'] == frames, (tag, launches)
+    assert sum(v for n, v in launches.items()
+               if n not in ('deform_conv', 'correlation')) == 0, \
+        (tag, launches)
+
+
+def _other_modes(torch, dev, smi: str, name: str, ann: str, prefix: str,
+                 train_ann: str, train_prefix: str, tmp: str, cc_ms: float,
+                 cli_step_ms: float) -> dict:
+    """Phase 12: the eval CLI's other modes over phase 7's set (12a
+    --video_dir --display over one video, 12b --benchmark, 12c every
+    --display* flag over 2 videos), 12d --coco over a synthetic COCO set,
+    12e the training CLI with --vis_every over phase 8's set and a direct
+    save_train_output, 12f --metrics_only --tensorboard_dir, and
+    --video_dir on the card against the CPU at 96x128 (reduced depth)."""
+    import dataclasses
+    import math
+
+    import cv2
+
+    from stmask_torch import eval as cli
+    from stmask_torch.config import REGISTRY, get_config
+    from stmask_torch.data.synthetic import write_coco_set, write_ytvis_set
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.train import __main__ as train_cli
+    from stmask_torch.train import loop
+    from stmask_torch.utils import rle
+    from stmask_torch.utils.visualization import save_train_output
+
+    cfg = get_config('STMask_plus_resnet50')
+    sites = _dcn_sites(cfg)
+    n_vid, n_fr, h, w = EVAL_SET
+    res = {}
+
+    # 12a: one video's PNG frames as --video_dir, with overlays
+    vdir = os.path.join(prefix, 'video001')
+    disp = f'{tmp}/video_dir'
+    vd, launches = _counted(torch, cli.evaluate, [
+        '--video_dir', vdir, '--display', '--display_dir', disp,
+        '--mask_det_file', f'{tmp}/video_dir.json'])
+    _fp32_step_only(launches, sites, n_fr, '--video_dir')
+    assert vd['n_frames'] == n_fr, vd
+    assert sorted(os.listdir(disp)) == [f'00000_{f:04d}.png'
+                                        for f in range(n_fr)]
+    with open(f'{tmp}/video_dir.json') as fh:
+        tracks = json.load(fh)
+    assert tracks and all(t['video_id'] == 0 and len(t['segmentations'])
+                          == n_fr for t in tracks)
+    res['video_dir'] = dict(vd, launches=launches)
+    print(f'[modes] 12a --video_dir --display, {n_fr} PNG frames at {w}x{h} '
+          f'of one video, fp32: {vd["e2e_fps"]:.2f} frames/s end to end '
+          f'(decode, resize, step, fetch, postprocess, overlay; the first '
+          f'frame included; {vd["seconds"]:.3f} s), {len(tracks)} tracks; '
+          f'launches deform_conv {launches["deform_conv"]}, correlation '
+          f'{launches["correlation"]} ({name}, {smi})', flush=True)
+
+    # 12b: --benchmark over phase 7's set (fewer than 300 frames: all)
+    bench, launches = _counted(torch, cli.evaluate, [
+        '--ann_file', ann, '--img_prefix', prefix, '--benchmark',
+        '--mask_det_file', f'{tmp}/bench.json'])
+    _fp32_step_only(launches, sites, n_vid * n_fr, '--benchmark')
+    assert bench['n_frames'] == n_vid * n_fr, bench
+    assert not os.path.exists(f'{tmp}/bench.json')
+    assert set(bench['stages']) == {'load', 'step', 'postprocess'}
+    assert all(st['calls'] == n_vid * n_fr
+               for st in bench['stages'].values()), bench
+    assert math.isfinite(bench['fps']) and bench['fps'] > 0
+    res['benchmark'] = dict(bench, launches=launches)
+    print(f'[modes] 12b --benchmark, {n_vid} videos x {n_fr} PNG frames at '
+          f'{w}x{h}, fp32, one stream: FPS {bench["fps"]:.3f} after 5 '
+          f'warm-up frames ({1e3 / bench["fps"]:.3f} ms a frame end to end, '
+          f'beside phase 4\'s step alone {cc_ms:.3f} ms a frame); stages ms a '
+          f'frame (host clock; the fetch in postprocess waits for the '
+          f'device): ' + ', '.join(f'{k} {st["avg_ms"]:.3f}' for k, st in
+                                   bench['stages'].items())
+          + f' ({name}, {smi})', flush=True)
+
+    # where 12b's `step` stage spends its host time: one video under
+    # torch.profiler, each StageTimer stage a record_function range
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from stmask_torch.utils import logger
+    env = logger.StageTimer.env
+
+    @contextlib.contextmanager
+    def traced_env(timer, stage):
+        with record_function(stage), env(timer, stage):
+            yield
+
+    logger.StageTimer.env = traced_env
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cli.evaluate(['--ann_file', ann, '--img_prefix', prefix,
+                          '--benchmark', '--max_videos', '1'])
+            torch.cuda.synchronize()
+    finally:
+        logger.StageTimer.env = env
+    for stage in ('step', 'load', 'postprocess'):
+        _print_host_split(f'12b {stage} stage, one video', prof, stage,
+                          top=10 if stage == 'step' else 5)
+
+    # 12c: every --display* flag over 2 videos
+    disp = f'{tmp}/display'
+    shown, launches = _counted(torch, cli.evaluate, [
+        '--ann_file', ann, '--img_prefix', prefix, '--display',
+        '--display_lincomb', '--display_fpn_outs', '--max_videos', '2',
+        '--display_dir', disp, '--mask_det_file', f'{tmp}/display.json'])
+    n = 2 * n_fr
+    _fp32_step_only(launches, sites, n, '--display')
+    overlays = [f for f in os.listdir(disp) if f.endswith('.png')]
+    fpn, proto = os.listdir(f'{disp}/fpn'), os.listdir(f'{disp}/proto')
+    assert len(overlays) == n and len(fpn) == 5 * n and \
+        len(proto) == 3 * n, (len(overlays), len(fpn), len(proto))
+    want = {f'P{i + 3}': (4 * -(-cfg.pad_h // (8 << i)),
+                          4 * -(-cfg.pad_w // (8 << i))) for i in range(5)}
+    want.update(proto_grid=(8 * cfg.pad_h // 4, 4 * cfg.pad_w // 4),
+                running_grid=(8 * cfg.pad_h // 4, 4 * cfg.pad_w // 4),
+                mask=(cfg.pad_h // 4, cfg.pad_w // 4))
+    for sub, files in (('fpn', fpn), ('proto', proto)):
+        for f in files:
+            key = f[len('00001_0000_'):-len('.png')]
+            g = cv2.imread(f'{disp}/{sub}/{f}', cv2.IMREAD_GRAYSCALE)
+            assert g.shape == want[key], (f, g.shape, want[key])
+    res['display'] = dict(shown, launches=launches)
+    print(f'[modes] 12c --display --display_lincomb --display_fpn_outs, 2 '
+          f'videos: {len(overlays)} overlays, {len(proto)} proto/ grids, '
+          f'{len(fpn)} fpn/ grids of shapes {want}; {shown["e2e_fps"]:.2f} '
+          'frames/s end to end with the writing', flush=True)
+
+    # 12d: --coco over 16 images (one-frame videos: every lane starts a
+    # new video at every step)
+    t0 = time.perf_counter()
+    cann, cprefix = write_coco_set(f'{tmp}/coco', *COCO_SET, seed=17,
+                                   gt_hw=(cfg.img_h, cfg.img_w))
+    wrote = time.perf_counter() - t0
+    coco, launches = _counted(torch, cli.evaluate, [
+        '--ann_file', cann, '--img_prefix', cprefix, '--coco',
+        '--eval_metrics', '--mask_det_file', f'{tmp}/coco.json'])
+    steps = (coco['n_chunks'] + 1) * EVAL_CHUNK       # and the warm-up
+    assert coco['n_frames'] == COCO_SET[0], coco
+    assert launches['deform_conv_bf16'] == sites * steps, launches
+    assert launches['correlation_bf16'] == EVAL_LANES * steps, launches
+    assert sum(v for n_, v in launches.items()
+               if not n_.endswith('bf16')) == 0, launches
+    for key in ('mAP', 'AP50', 'AP75', 'AR'):
+        assert math.isfinite(coco[key]), coco
+    res['coco'] = dict(coco, launches=launches)
+    print(f'[modes] 12d --coco --eval_metrics, {COCO_SET[0]} PNG images at '
+          f'{COCO_SET[2]}x{COCO_SET[1]} (written in {wrote:.1f} s), bf16, '
+          f'{EVAL_LANES} streams x {EVAL_CHUNK}-frame chunks: '
+          f'{coco["e2e_fps"]:.2f} frames/s end to end over '
+          f'{coco["n_chunks"]} chunks, mAP {coco["mAP"]:.6f}; launches '
+          f'{launches["deform_conv_bf16"]} deform_conv_bf16 and '
+          f'{launches["correlation_bf16"]} correlation_bf16 over '
+          f'{coco["n_chunks"]} chunks and the warm-up chunk ({name}, {smi})',
+          flush=True)
+
+    # 12e: the training CLI with --vis_every over phase 8's set, each
+    # overlay call timed between two synchronizes
+    vis_ms = []
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_train_output(*a, **kw)
+        torch.cuda.synchronize()
+        vis_ms.append((time.perf_counter() - t) * 1e3)
+
+    loop.save_train_output = timed_save
+    try:
+        out, launches = _counted(torch, train_cli.run, [
+            '--ann_file', train_ann, '--img_prefix', train_prefix,
+            '--batch_size', str(TRAIN_CLIPS), '--max_iter',
+            str(VIS_STEPS), '--validation_epoch', '0', '--vis_every',
+            str(VIS_EVERY), '--vis_dir', f'{tmp}/train_vis',
+            '--save_folder', f'{tmp}/weights', '--log_folder',
+            f'{tmp}/logs'])
+    finally:
+        loop.save_train_output = save_train_output
+    n_vis = VIS_STEPS // VIS_EVERY
+    assert len(vis_ms) == n_vis and out['state'].step == VIS_STEPS
+    forward = {'deform_conv': sites, 'correlation': 1}   # a train forward
+    for n_, per in TRAIN_LAUNCHES.items():
+        assert launches[n_] == per * VIS_STEPS + forward.get(n_, 0) * n_vis, \
+            (n_, launches)
+    files = sorted(os.listdir(f'{tmp}/train_vis'))
+    assert len(files) == 3 * n_vis and {f.split('_')[1] for f in files} == {
+        str(i) for i in range(VIS_EVERY, VIS_STEPS + 1, VIS_EVERY)} and {
+        f.split('_', 3)[3] for f in files} == {'train.png', 'gt.png',
+                                               'gt_ref.png'}, files
+    # a direct call on the card: the model's state stays bit for bit
+    model = out['state'].model
+    batch = prepare_batch(cfg, _train_batch(cfg, seed=21), dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    flags = [m.training for m in model.modules()]
+    save_train_output(cfg, model, batch, f'{tmp}/direct', 0, 0)
+    torch.cuda.synchronize()
+    after = model.state_dict()
+    assert list(after) == list(before)
+    for k, v in before.items():
+        assert after[k].dtype == v.dtype and torch.equal(after[k], v), k
+    assert [m.training for m in model.modules()] == flags
+    assert len(os.listdir(f'{tmp}/direct')) == 3
+    res['vis_every'] = dict(launches=launches, overlay_ms=vis_ms,
+                            median_ms=sorted(vis_ms)[len(vis_ms) // 2])
+    print(f'[modes] 12e training CLI --vis_every {VIS_EVERY}, {VIS_STEPS} '
+          f'steps of {TRAIN_CLIPS} clips over phase 8\'s set: {len(files)} '
+          f'overlay PNGs; save_train_output {[round(t, 3) for t in vis_ms]} '
+          f'ms a call (train forward, match, host drawing, PNG writing; '
+          f'synchronized) beside phase 8\'s CLI {cli_step_ms:.3f} ms/step; '
+          f'launches {dict((k, v) for k, v in launches.items() if v)}; a '
+          f'direct call left all {len(before)} tensors of the model bit for '
+          f'bit ({name}, {smi})', flush=True)
+
+    # 12f: --metrics_only --tensorboard_dir over 12c's results
+    tb = f'{tmp}/tb'
+    cli.evaluate(['--metrics_only', '--ann_file', ann, '--mask_det_file',
+                  f'{tmp}/display.json', '--tensorboard_dir', tb])
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        have_tb = True
+    except ImportError:
+        have_tb = False
+    events = os.listdir(tb) if os.path.isdir(tb) else []
+    assert (len(events) == 1 and events[0].endswith('VIS')) if have_tb \
+        else not events, events
+    res['tensorboard'] = bool(events)
+    print(f'[modes] 12f --metrics_only --tensorboard_dir: '
+          + (f'wrote {events[0]}' if events else
+             'torch.utils.tensorboard does not import here: the JAX '
+             'script\'s skip message, no file'), flush=True)
+
+    # --video_dir on the card against the CPU at 96x128, reduced depth
+    small_name = 'STMask_plus_resnet50_modes96'
+    REGISTRY[small_name] = cfg.replace(
+        name=small_name, img_h=96, img_w=128,
+        backbone=dataclasses.replace(cfg.backbone, layers=(1, 3, 3, 1)))
+    try:
+        _, sprefix = write_ytvis_set(f'{tmp}/small', 1, 6, 192, 256,
+                                     seed=19)
+        got = {}
+        for d in ('cuda', 'cpu'):
+            cli.evaluate(['--config', small_name, '--video_dir',
+                          os.path.join(sprefix, 'video001'), '--device', d,
+                          '--mask_det_file', f'{tmp}/small_{d}.json'])
+            with open(f'{tmp}/small_{d}.json') as fh:
+                got[d] = json.load(fh)
+    finally:
+        REGISTRY.pop(small_name)
+    a, b = got['cuda'], got['cpu']
+    assert len(a) == len(b) > 0, (len(a), len(b))
+    score_d, shares = 0.0, []
+    for ta, tb_ in zip(a, b):
+        assert (ta['video_id'], ta['category_id']) == \
+            (tb_['video_id'], tb_['category_id']), (ta, tb_)
+        score_d = max(score_d, abs(ta['score'] - tb_['score']))
+        for sa, sb in zip(ta['segmentations'], tb_['segmentations']):
+            assert (sa is None) == (sb is None)
+            if sa is not None:
+                shares.append(float((rle.decode(sa) == rle.decode(sb)).mean()))
+    print(f'[check] --video_dir card vs CPU at 96x128 (layers 1,3,3,1), 6 '
+          f'frames: {len(a)} tracks on both, the same order and categories; '
+          f'max|score diff| {score_d:.3e} (limit {MODES_SCORE_ATOL}), masks '
+          f'equal on at least {min(shares):.5f} of pixels (limit '
+          f'{MODES_MASK_SHARE}) over {len(shares)} masks', flush=True)
+    assert score_d <= MODES_SCORE_ATOL and min(shares) >= MODES_MASK_SHARE
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2375,7 +2745,8 @@ def main() -> int:
     # the card's model outputs against the CPU path on a small input
     _model_vs_cpu(torch, dev, cfg)
 
-    # where one steady frame's device time goes (torch.profiler)
+    # where one steady frame's device and host time go (torch.profiler)
+    from torch.profiler import record_function
     state = init_state()
     clip = clips[0]
     for f in range(2):
@@ -2385,9 +2756,11 @@ def main() -> int:
     def frames():
         nonlocal state
         for f in range(2, 2 + n_prof):
-            state, _, _ = step(state, clip[f], False)
+            with record_function('step'):
+                state, _, _ = step(state, clip[f], False)
 
-    rows = _device_events(frames, 1)
+    prof = _profile(frames, 1)
+    rows = _device_rows(prof, ranges=('step',))
     if rows:
         dev_ms = sum(us for _, _, us in rows) / n_prof / 1e3
         n_kern = sum(c for _, c, _ in rows) / n_prof
@@ -2400,6 +2773,7 @@ def main() -> int:
     else:
         print('[profile] torch.profiler recorded no device time: device '
               'busy share not measured')
+    _print_host_split('phase 4 step, steady frames', prof, 'step')
     for stage, ms in _stage_ms(torch, cfg, model, state, clip[6], 9).items():
         print(f'[stage] {ms:8.3f} ms  {stage}')
 
@@ -2791,8 +3165,8 @@ def main() -> int:
     eval_launches = ev['launches']
 
     # ---- 8. the training CLI -----------------------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        tc = _train_cli(torch, dev, smi, name, tmp, train_med)
+    train_tmp = tempfile.TemporaryDirectory()    # phase 12 reads its set
+    tc = _train_cli(torch, dev, smi, name, train_tmp.name, train_med)
 
     # ---- 9. FCB: STMask_plus_resnet50_ada / _ali ---------------------------
     _fcb_checks(torch, dev, err)
@@ -2816,7 +3190,14 @@ def main() -> int:
     r101 = _r101_eval(torch, dev, smi, name)
     ada_cli = _ada_eval_cli(torch, dev, smi, name, ev['ann'], ev['prefix'],
                             eval_tmp.name)
+
+    # ---- 12. the eval CLI's other modes and the training overlays ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        modes = _other_modes(torch, dev, smi, name, ev['ann'], ev['prefix'],
+                             tc['ann'], tc['prefix'], tmp, med,
+                             tc['ms_per_step'])
     eval_tmp.cleanup()
+    train_tmp.cleanup()
 
     by_of = _by_of
     sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
@@ -3033,6 +3414,19 @@ def main() -> int:
             extra_train['YOLACT_legacy_resnet50']['launches'][n_]
         row['r101_eval_launches'] = r101['launches'][n_]
         row['ada_cli_launches'] = ada_cli['launches'][n_]
+    for row in table['kernels']:
+        for mode in ('video_dir', 'benchmark', 'display', 'coco',
+                     'vis_every'):
+            row[f'{mode}_launches'] = modes[mode]['launches'][row['name']]
+    table['modes'] = dict(
+        video_dir_fps=modes['video_dir']['e2e_fps'],
+        benchmark_fps=modes['benchmark']['fps'],
+        benchmark_stage_ms={k: st['avg_ms'] for k, st in
+                            modes['benchmark']['stages'].items()},
+        display_fps=modes['display']['e2e_fps'],
+        coco_fps=modes['coco']['e2e_fps'],
+        vis_overlay_ms=modes['vis_every']['median_ms'],
+        tensorboard_written=modes['tensorboard'])
     table['mapstar'] = {tag: r['ms'] for tag, r in mapstar.items()}
     table['legacy'] = dict(
         eval_ms_per_frame=legacy['ms'], eval_busy_ms=legacy['busy'],

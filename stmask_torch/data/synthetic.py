@@ -1,6 +1,7 @@
 """A synthetic YouTube-VIS-format video set, written from a seed: PNG (or
-JPEG) frames and an annotation JSON with per-frame RLE masks.  Used by the
-tests and by ``chip_smoke.py``, since the repository holds no dataset.
+JPEG) frames and an annotation JSON with per-frame RLE masks; and a
+COCO-format image set made of one-frame videos.  Used by the tests and by
+``chip_smoke.py``, since the repository holds no dataset.
 
 Each video has a smooth random background with mild noise and 1 to 3
 objects (filled ellipses of a flat colour) that move a few pixels a frame;
@@ -115,3 +116,32 @@ def write_ytvis_set(root: str, n_videos: int, n_frames: int, height: int,
                    'categories': [{'id': i, 'name': f'class{i}'}
                                   for i in range(1, N_CLASSES + 1)]}, fh)
     return ann_file, img_prefix
+
+
+def write_coco_set(root: str, n_images: int, height: int, width: int,
+                   seed: int = 0, gt_hw: Optional[Tuple[int, int]] = None
+                   ) -> Tuple[str, str]:
+    """A COCO instance set of ``n_images`` PNG images (the first frames of
+    ``write_ytvis_set``'s videos): one annotation per object with its
+    ``bbox`` (xywh at ``gt_hw``) and RLE ``segmentation``, and sparse
+    category ids (2c + 1 for the video set's class c), as COCO's are;
+    returns (annotation file, image prefix)."""
+    ann_file, img_prefix = write_ytvis_set(root, n_images, 1, height, width,
+                                           seed=seed, gt_hw=gt_hw)
+    with open(ann_file) as fh:
+        vis = json.load(fh)
+    images = [{'id': v['id'], 'file_name': v['file_names'][0],
+               'height': height, 'width': width} for v in vis['videos']]
+    annotations = [{'id': a['id'], 'image_id': a['video_id'],
+                    'category_id': 2 * a['category_id'] + 1,
+                    'bbox': a['bboxes'][0], 'area': a['areas'][0],
+                    'iscrowd': 0, 'segmentation': a['segmentations'][0]}
+                   for a in vis['annotations']
+                   if a['segmentations'][0] is not None]
+    categories = [{'id': 2 * c['id'] + 1, 'name': c['name']}
+                  for c in vis['categories']]
+    coco_file = os.path.join(root, 'instances.json')
+    with open(coco_file, 'w') as fh:
+        json.dump({'images': images, 'annotations': annotations,
+                   'categories': categories}, fh)
+    return coco_file, img_prefix

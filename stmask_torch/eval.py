@@ -9,15 +9,31 @@ By default it steps 8 videos in lockstep, 4 frames a dispatch, in bf16
 frames and postprocesses results, and a queue of depth 2 lets the fetch of
 chunk N overlap the compute of chunk N+1.  It writes a YouTube-VIS results
 JSON and, with ``--eval_metrics``, scores it against the annotations.
-``--sequential`` runs one video at a time (``evaluate_dataset``);
-``--metrics_only`` scores an existing results file.  The model runs on
-``--device`` (default ``cuda``, which raises on a host without a GPU).
+Every mode of the JAX script is ported, with its routing
+(``eval.py:520-556``):
+
+* ``--coco``: the batched path over a COCO instance file, each image a
+  one-frame video, scored against ``COCOAsVideos.to_ytvis_gt``;
+* ``--sequential``, ``--benchmark``, ``--display`` (with
+  ``--display_lincomb``, ``--display_fpn_outs``): one video at a time in
+  the parameters' dtype, fp32 (``evaluate_dataset``); ``--benchmark``
+  prints the stage table and ``FPS:`` and writes no JSON; ``--display``
+  writes overlays to ``--display_dir`` (what ``web/server.py --image_dir``
+  serves);
+* ``--video_dir D``: one directory of frames as one video, fp32;
+* ``--metrics_only``: scores an existing results file, and with
+  ``--tensorboard_dir`` writes the metrics as TensorBoard scalars.
+
+The model runs on ``--device`` (default ``cuda``, which raises on a host
+without a GPU).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 import sys
 import time
 from collections import deque
@@ -26,18 +42,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-
-# flags of the JAX package's eval.py that the port does not run yet ->
-# their ROADMAP item
-_OTHER_MODES = 'ROADMAP "Next": the eval CLI\'s other modes'
-UNPORTED = {
-    'coco': f'the COCO image eval ({_OTHER_MODES})',
-    'display': f'the overlays of --display* ({_OTHER_MODES})',
-    'video_dir': f'the single-video mode ({_OTHER_MODES})',
-    'benchmark': f'the stage table of --benchmark ({_OTHER_MODES})',
-    'tensorboard_dir': f'TensorBoard export ({_OTHER_MODES})',
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description='stmask_torch evaluation')
@@ -48,19 +52,40 @@ def parse_args(argv=None):
     p.add_argument('--ann_file', default=None)
     p.add_argument('--img_prefix', default=None)
     p.add_argument('--mask_det_file', default='results/results.json')
+    p.add_argument('--benchmark', action='store_true',
+                   help='frames/s after 5 warm-up frames and a table of the '
+                        'load, step and postprocess stages (sequential, '
+                        'fp32; no JSON)')
     p.add_argument('--metrics_only', action='store_true')
     p.add_argument('--eval_metrics', action='store_true',
                    help='score results against --ann_file annotations')
     p.add_argument('--max_videos', type=int, default=-1)
     p.add_argument('--score_threshold', type=float, default=0.0)
+    p.add_argument('--video_dir', default=None,
+                   help='directory of frames (*.jpg, *.jpeg, *.png) for a '
+                        'single video')
+    p.add_argument('--display', action='store_true',
+                   help='write detection overlays to --display_dir')
+    p.add_argument('--display_lincomb', action='store_true',
+                   help='with --display, also write the prototype '
+                        'linear-combination breakdown of the top detection '
+                        '(reference eval.py:91, output_utils.py:168)')
+    p.add_argument('--display_fpn_outs', action='store_true',
+                   help='with --display, also write channel-activation '
+                        'grids of each FPN level (reference eval.py:65, '
+                        'output_utils.py:225-244)')
+    p.add_argument('--display_dir', default='results/display')
     p.add_argument('--batch_videos', type=int, default=8,
                    help='video streams stepped in lockstep')
     p.add_argument('--chunk_frames', type=int, default=4,
                    help='frames per dispatch')
     p.add_argument('--sequential', action='store_true',
-                   help='one video at a time')
-    p.add_argument('--bf16', action='store_true', default=True)
+                   help='one video at a time, in fp32')
+    p.add_argument('--bf16', action='store_true', default=True,
+                   help='the batched path\'s compute dtype (default)')
     p.add_argument('--fp32', dest='bf16', action='store_false')
+    p.add_argument('--coco', action='store_true',
+                   help='image-level COCO eval (images as 1-frame videos)')
     p.add_argument('--time_device', action='store_true',
                    help='wait for every dispatch to report device-only '
                         'frames/s (no host/device overlap)')
@@ -78,24 +103,10 @@ def parse_args(argv=None):
     p.add_argument('--nms_as_miou', action='store_true',
                    help='blend box IoU with mask IoU in cc NMS '
                         '(reference detection.py:154-158)')
-    # the JAX package's eval.py flags that are not ported yet (they raise)
-    p.add_argument('--coco', action='store_true')
-    p.add_argument('--video_dir', default=None)
-    p.add_argument('--display', action='store_true')
-    p.add_argument('--display_lincomb', action='store_true')
-    p.add_argument('--display_fpn_outs', action='store_true')
-    p.add_argument('--display_dir', default='results/display')
-    p.add_argument('--benchmark', action='store_true')
-    p.add_argument('--tensorboard_dir', default=None)
-    args = p.parse_args(argv)
-    for flag, what in UNPORTED.items():
-        val = getattr(args, flag)
-        if flag == 'display':
-            val = args.display or args.display_lincomb or \
-                args.display_fpn_outs
-        if val:
-            raise NotImplementedError(f'--{flag}: {what} is not ported')
-    return args
+    p.add_argument('--tensorboard_dir', default=None,
+                   help='with --metrics_only, also write the metrics as '
+                        'TensorBoard scalars (reference eval.py:850-852)')
+    return p.parse_args(argv)
 
 
 def load_model(args):
@@ -156,15 +167,80 @@ def _decode(path: str, pin: bool) -> torch.Tensor:
     return img.pin_memory() if pin else img
 
 
-def _score(args, json_results, fps: Dict) -> Dict:
+def _score(args, json_results, fps: Dict,
+           gt: Optional[Dict] = None) -> Dict:
+    """With ``--eval_metrics``, the metrics of ``json_results`` against
+    ``gt`` (default: the ``--ann_file`` annotations) and ``fps``."""
     if not args.eval_metrics:
         return fps
     from .utils.ytvis_eval import evaluate_ytvis
-    with open(args.ann_file) as fh:
-        gt = json.load(fh)
+    if gt is None:
+        with open(args.ann_file) as fh:
+            gt = json.load(fh)
     stats = evaluate_ytvis(gt, json_results)
     print(json.dumps(stats, indent=2))
     return dict(stats, **fps)
+
+
+def _write_display(args, cfg, pre: Dict, out, vid: int, f: int) -> None:
+    """One frame's tracked detections drawn on its resized frame, to
+    ``{display_dir}/{vid:05d}_{f:04d}.png`` (``--display`` and the web
+    viewer; ``eval.py:121-146``)."""
+    import cv2
+
+    from .utils.visualization import draw_detections
+    os.makedirs(args.display_dir, exist_ok=True)
+    keep = np.asarray(out.keep)
+    img_h, img_w = pre['img_shape']
+    img = pre['image'].cpu().numpy()[:img_h, :img_w]     # uint8 RGB
+    idx = np.nonzero(keep)[0]
+    pad_h, pad_w = pre['pad_shape']
+    boxes = np.asarray(out.box)[idx] * [pad_w, pad_h, pad_w, pad_h]
+    masks = np.asarray(out.mask)[idx]
+    masks_up = np.stack([
+        cv2.resize(m.astype(np.float32), (img_w, img_h)) > 0.5
+        for m in masks]) if len(idx) else None
+    over = draw_detections(img, boxes, np.asarray(out.cls)[idx],
+                           np.asarray(out.score)[idx], masks_up,
+                           np.asarray(out.obj_id)[idx], cfg.classes)
+    cv2.imwrite(os.path.join(args.display_dir, f'{vid:05d}_{f:04d}.png'),
+                cv2.cvtColor(over, cv2.COLOR_RGB2BGR))
+
+
+def _write_grids(args, sub: str, grids: Dict[str, np.ndarray], vid: int,
+                 f: int) -> None:
+    """Each grid min-max scaled to 8-bit grey, to
+    ``{display_dir}/{sub}/{vid:05d}_{f:04d}_{name}.png``."""
+    import cv2
+    out_dir = os.path.join(args.display_dir, sub)
+    os.makedirs(out_dir, exist_ok=True)
+    for name, g in grids.items():
+        gmin, gmax = float(g.min()), float(g.max())
+        img = ((g - gmin) / max(gmax - gmin, 1e-6) * 255).astype(np.uint8)
+        cv2.imwrite(os.path.join(out_dir, f'{vid:05d}_{f:04d}_{name}.png'),
+                    img)
+
+
+def _write_lincomb(args, dbg: Dict, vid: int, f: int) -> None:
+    """The prototype linear-combination breakdown of the frame's top
+    detection (``--display_lincomb``, ``eval.py:149-167``; reference
+    output_utils.py:168)."""
+    from .utils.visualization import display_lincomb
+    valid = dbg['det_valid'].cpu().numpy()
+    if not valid.any():
+        return
+    top = int(np.nonzero(valid)[0][0])
+    coeff = np.tanh(dbg['mask_coeff'][top].float().cpu().numpy())
+    _write_grids(args, 'proto', display_lincomb(
+        dbg['proto'].float().cpu().numpy(), coeff), vid, f)
+
+
+def _write_fpn_outs(args, dbg: Dict, vid: int, f: int) -> None:
+    """Channel-activation grids of each FPN level (``--display_fpn_outs``,
+    ``eval.py:170-185``; reference output_utils.py:225-244)."""
+    from .utils.visualization import display_fpn_outs
+    _write_grids(args, 'fpn', display_fpn_outs(
+        [x.float().cpu().numpy() for x in dbg['fpn_outs']]), vid, f)
 
 
 def evaluate_dataset_batched(args, cfg, model) -> Dict:
@@ -183,8 +259,14 @@ def evaluate_dataset_batched(args, cfg, model) -> Dict:
 
     dev = resolve_device(args.device)
     b, k = args.batch_videos, args.chunk_frames
-    dataset = YTVISDataset(args.ann_file, args.img_prefix,
-                           has_annotations=args.eval_metrics)
+    if args.coco:
+        from .data.coco import COCOAsVideos, COCODataset
+        dataset = COCOAsVideos(COCODataset(
+            args.ann_file, args.img_prefix,
+            has_annotations=args.eval_metrics))
+    else:
+        dataset = YTVISDataset(args.ann_file, args.img_prefix,
+                               has_annotations=args.eval_metrics)
     video_chunk, make_states = build_video_step_batched(
         cfg, model, b, k, uint8_input=True, device=dev,
         compute_dtype=_dtype(args))
@@ -307,47 +389,96 @@ def evaluate_dataset_batched(args, cfg, model) -> Dict:
     per_frame.sort(key=lambda r: (r['video_id'], r['frame_id']))
     json_results = results2json_videoseg(per_frame, args.mask_det_file)
     print(f'wrote {len(json_results)} tracks to {args.mask_det_file}')
-    return _score(args, json_results, fps)
+    gt = dataset.to_ytvis_gt() if args.coco and args.eval_metrics else None
+    return _score(args, json_results, fps, gt)
+
+
+def _sequential_frame(args, cfg, video_step, state, path: str, vid: int,
+                      f: int, dev: torch.device, timer):
+    """One frame of the sequential eval loops: decode and preprocess (stage
+    ``load`` of ``timer``), the step (``step``), the fetch of the kept rows
+    and their postprocess (``postprocess``); then, with ``--display``, the
+    overlay and the grids of the step's debug dict, where the step returns
+    one.  Returns (state, the frame's result)."""
+    from .data.transforms import preprocess_frame_u8
+    from .inference.fetch import compact_frame, fetch_kept
+    from .inference.postprocess import postprocess_frame
+
+    with timer.env('load'):
+        pre = preprocess_frame_u8(cfg, _decode(path, dev.type == 'cuda'), dev)
+    with timer.env('step'):
+        state, out, *dbg = video_step(state, pre['image'], f == 0)
+    with timer.env('postprocess'):
+        # only the kept rows' masks leave the device
+        out = compact_frame(*fetch_kept(out))
+        meta = {'video_id': vid, 'frame_id': f,
+                'img_shape': pre['img_shape'], 'pad_shape': pre['pad_shape']}
+        result = postprocess_frame(cfg, out, meta,
+                                   score_threshold=args.score_threshold)
+    if args.display:
+        _write_display(args, cfg, pre, out, vid, f)
+        if dbg and args.display_lincomb:
+            _write_lincomb(args, dbg[0], vid, f)
+        if dbg and args.display_fpn_outs:
+            _write_fpn_outs(args, dbg[0], vid, f)
+    return state, result
 
 
 def evaluate_dataset(args, cfg, model) -> Dict:
-    """One video at a time, one frame a dispatch (``eval.py:398-480``)."""
-    from .data.transforms import preprocess_frame_u8
+    """One video at a time, one frame a dispatch (``eval.py:398-480``), in
+    the parameters' dtype, fp32, whatever ``--bf16`` says: the JAX script
+    casts nothing here.  Host time per stage (load, step, postprocess)
+    goes into a ``StageTimer``; with ``--display`` each frame's overlay
+    (and the ``--display_lincomb`` / ``--display_fpn_outs`` grids) is
+    written.  ``--benchmark`` starts its clock after frame 5, stops after
+    the first video that brings the count to 300 frames, prints the stage
+    table and ``FPS:``, writes no JSON and returns {'fps', 'n_frames',
+    'stages'}; otherwise the JSON is written and the frames/s (and, with
+    ``--eval_metrics``, the metrics) are returned."""
     from .data.ytvis import YTVISDataset
-    from .inference.fetch import compact_frame, fetch_kept
     from .inference.pipeline import build_video_step
-    from .inference.postprocess import postprocess_frame, \
-        results2json_videoseg
+    from .inference.postprocess import results2json_videoseg
     from .utils.device import resolve_device
+    from .utils.logger import StageTimer
 
     dev = resolve_device(args.device)
     dataset = YTVISDataset(args.ann_file, args.img_prefix,
                            has_annotations=args.eval_metrics)
+    debug = args.display and args.display_lincomb
+    debug_fpn = args.display and args.display_fpn_outs
     video_step, make_state = build_video_step(
-        cfg, model, uint8_input=True, device=dev,
-        compute_dtype=_dtype(args))
+        cfg, model, uint8_input=True, debug=debug, debug_fpn=debug_fpn,
+        device=dev)
+    timer = StageTimer()
     vids = dataset.video_ids()
     if args.max_videos > 0:
         vids = vids[:args.max_videos]
 
     results = []
     n_frames = 0
+    t_start = None
     t0 = time.perf_counter()
     for vi, vid in enumerate(vids):
         state = make_state()
         nf = dataset.num_frames(vid)
         for f in range(nf):
-            img = _decode(dataset.frame_path(vid, f), dev.type == 'cuda')
-            pre = preprocess_frame_u8(cfg, img, dev)
-            state, out = video_step(state, pre['image'], f == 0)
-            out = compact_frame(*fetch_kept(out))
-            meta = {'video_id': vid, 'frame_id': f,
-                    'img_shape': pre['img_shape'],
-                    'pad_shape': pre['pad_shape']}
-            results.append(postprocess_frame(
-                cfg, out, meta, score_threshold=args.score_threshold))
+            state, result = _sequential_frame(
+                args, cfg, video_step, state, dataset.frame_path(vid, f),
+                vid, f, dev, timer)
+            results.append(result)
             n_frames += 1
+            if args.benchmark and n_frames == 5:
+                t_start = time.perf_counter()      # warm-up excluded
         print(f'video {vi + 1}/{len(vids)} ({nf} frames) done')
+        if args.benchmark and n_frames >= 300:
+            break
+
+    if args.benchmark and t_start is not None:
+        fps = (n_frames - 5) / (time.perf_counter() - t_start)
+        timer.print_stats()
+        print(f'FPS: {fps:.2f}')
+        return {'fps': fps, 'n_frames': n_frames, 'stages': timer.stats()}
+
     dt = time.perf_counter() - t0
     json_results = results2json_videoseg(results, args.mask_det_file)
     print(f'wrote {len(json_results)} tracks to {args.mask_det_file}')
@@ -355,20 +486,76 @@ def evaluate_dataset(args, cfg, model) -> Dict:
                                        'n_frames': n_frames, 'seconds': dt})
 
 
+def evaluate_video_dir(args, cfg, model) -> Dict:
+    """Single-video mode: the ``*.jpg``, ``*.jpeg`` and ``*.png`` frames of
+    ``--video_dir``, sorted, as video 0, in the parameters' dtype (fp32)
+    -> the results JSON and, with ``--display``, overlays
+    (``eval.py:483-517``; reference evaluate_single / evalimages,
+    eval.py:703-755).  Returns the frame count and frames/s end to end."""
+    from .inference.pipeline import build_video_step
+    from .inference.postprocess import results2json_videoseg
+    from .utils.device import resolve_device
+    from .utils.logger import StageTimer
+
+    frames = sorted(sum((glob.glob(os.path.join(args.video_dir, ext))
+                         for ext in ('*.jpg', '*.jpeg', '*.png')), []))
+    if not frames:
+        print('no frames found in', args.video_dir)
+        return {'n_frames': 0}
+    dev = resolve_device(args.device)
+    video_step, make_state = build_video_step(cfg, model, uint8_input=True,
+                                              device=dev)
+    state = make_state()
+    timer = StageTimer()
+    results = []
+    t0 = time.perf_counter()
+    for f, path in enumerate(frames):
+        state, result = _sequential_frame(args, cfg, video_step, state,
+                                          path, 0, f, dev, timer)
+        results.append(result)
+    dt = time.perf_counter() - t0
+    results2json_videoseg(results, args.mask_det_file)
+    print(f'processed {len(frames)} frames -> {args.mask_det_file}')
+    return {'e2e_fps': len(frames) / dt, 'n_frames': len(frames),
+            'seconds': dt}
+
+
+def _export_scalars(log_dir: str, stats: Dict) -> None:
+    """The metrics as TensorBoard scalars ``valid_metrics/{name}`` at step
+    1 (reference eval.py:850-852); skipped, as the JAX script does, where
+    TensorBoard does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print('tensorboard not available; skipping scalar export',
+              file=sys.stderr)
+        return
+    writer = SummaryWriter(log_dir=log_dir, filename_suffix='VIS')
+    for name, value in stats.items():
+        writer.add_scalar(f'valid_metrics/{name}', value, 1)
+    writer.close()
+
+
 def evaluate(argv=None) -> Dict:
-    """Parse ``argv`` and run the mode it asks for; returns the metrics
-    (and frames/s) as a dict."""
+    """Parse ``argv`` and run the mode it asks for, routed as
+    ``eval.py:520-556`` routes it; returns the metrics and frames/s (or,
+    under ``--benchmark``, the FPS and the stage table) as a dict."""
     args = parse_args(argv)
     if args.metrics_only:
         from .utils.ytvis_eval import evaluate_ytvis
         stats = evaluate_ytvis(args.ann_file, args.mask_det_file)
         print(json.dumps(stats, indent=2))
+        if args.tensorboard_dir:
+            _export_scalars(args.tensorboard_dir, stats)
         return stats
+    if args.video_dir is not None:
+        cfg, model = load_model(args)
+        return evaluate_video_dir(args, cfg, model)
     if args.ann_file is None:
         raise SystemExit('need --ann_file (and --img_prefix) for dataset '
                          'eval')
     cfg, model = load_model(args)
-    if args.sequential:
+    if args.sequential or args.benchmark or args.display:
         return evaluate_dataset(args, cfg, model)
     return evaluate_dataset_batched(args, cfg, model)
 

@@ -89,7 +89,8 @@ def _prepare(cfg: STMaskConfig, model: STMask, device, compute_dtype):
 def build_video_step(cfg: STMaskConfig, model: STMask,
                      uint8_input: bool = False, debug: bool = False,
                      device: torch.device | str = 'cuda',
-                     compute_dtype: torch.dtype = torch.float32
+                     compute_dtype: torch.dtype = torch.float32,
+                     debug_fpn: bool = False
                      ) -> Tuple[Callable, Callable[[], TrackState]]:
     """Returns (video_step, make_init_state).
 
@@ -98,9 +99,11 @@ def build_video_step(cfg: STMaskConfig, model: STMask,
     resized uint8 [img_h, img_w, 3] frame (numpy or tensor) normalized and
     padded on the device, then cast to ``compute_dtype``.  ``debug=True``
     additionally returns {'proto', 'mask_coeff', 'det_valid'} of the
-    pre-tracking detections.  The model is moved to ``device`` (default
-    ``cuda``; raises when there is no GPU) and cast to ``compute_dtype``;
-    fp32 runs with TF32 off.
+    pre-tracking detections (the ``--display_lincomb`` surface);
+    ``debug_fpn=True`` returns that dict too, with ``fpn_outs``, the frame's
+    P3..P7 as NHWC [h, w, C] maps (``--display_fpn_outs``).  The model is
+    moved to ``device`` (default ``cuda``; raises when there is no GPU) and
+    cast to ``compute_dtype``; fp32 runs with TF32 off.
     """
     dev, model, priors, make_init_state = _prepare(cfg, model, device,
                                                    compute_dtype)
@@ -110,7 +113,8 @@ def build_video_step(cfg: STMaskConfig, model: STMask,
                    ) -> Tuple[TrackState, FrameOutput]:
         frame = torch.as_tensor(frame).to(dev, non_blocking=True)
         frame = normalize_pad(cfg, frame) if uint8_input else frame.float()
-        preds = model(frame[None].to(compute_dtype))
+        preds = model(frame[None].to(compute_dtype),
+                      return_fpn_outs=debug_fpn)
         check_anchor_count(cfg, preds['loc'].shape[1], priors.shape[0])
         proto = preds['proto'][0]
         det = detect_and_rescore(cfg, model, preds, 0, priors)
@@ -120,9 +124,12 @@ def build_video_step(cfg: STMaskConfig, model: STMask,
                                        preds['T2S_feat'][0], is_first)
         else:
             state, out = track_step_simple(cfg, state, det, proto, is_first)
-        if debug:
-            return state, out, {'proto': proto, 'mask_coeff': det.mask_coeff,
-                                'det_valid': det.valid}
+        if debug or debug_fpn:
+            dbg = {'proto': proto, 'mask_coeff': det.mask_coeff,
+                   'det_valid': det.valid}
+            if debug_fpn:
+                dbg['fpn_outs'] = tuple(f[0] for f in preds['fpn_outs'])
+            return state, out, dbg
         return state, out
 
     return video_step, make_init_state

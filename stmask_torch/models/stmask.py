@@ -102,10 +102,13 @@ class STMask(nn.Module):
         out['proto'] = _nhwc(proto).float()
         return fpn_outs, out, t2s
 
-    def forward(self, x: torch.Tensor, train: bool = False
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                return_fpn_outs: bool = False) -> Dict[str, torch.Tensor]:
         """Eval: NHWC frames [B, H, W, 3] -> decode-ready outputs (softmaxed
-        conf, ``fpn_feat`` with TF; ``stmask.py:152-174``).  Train: two-frame
+        conf, ``fpn_feat`` with TF; ``stmask.py:152-174``);
+        ``return_fpn_outs`` (eval only) adds the P3..P7 pyramid as
+        ``fpn_outs``, a tuple of NHWC [B, h, w, C] maps (the
+        ``--display_fpn_outs`` surface, ``stmask.py:107-111``).  Train: two-frame
         clips [B, 2, H, W, 3], flattened clip-major, -> raw conf logits and,
         with TF, ``T2S_concat_feat`` = relu(cat[correlation(ref, next),
         T2S_ref, T2S_next]) on FPN level ``correlation_selected_layer``
@@ -144,6 +147,8 @@ class STMask(nn.Module):
         out['T2S_feat'] = _nhwc(t2s[sel])
         if c.temporal_fusion_module:
             out['fpn_feat'] = _nhwc(fpn_outs[sel])
+        if return_fpn_outs:
+            out['fpn_outs'] = tuple(_nhwc(f) for f in fpn_outs)
         return out
 
     def temporal_shift(self, bbox_feats: torch.Tensor

@@ -9,8 +9,9 @@ and step decay, checkpoints every ``--save_interval`` iterations, on Ctrl-C
 and at the end, ``--resume latest|interrupt|path``, ``--init_weights`` from
 a reference-keyed ``.pth``, in-train validation every
 ``--validation_epoch`` epochs through the eval CLI's batched bf16 path,
-and a JSON-lines log.  The initial weights are drawn as the JAX package
-draws them (``models.stmask.init_flax``, seed 0).  Batches come from
+overlays of the batch every ``--vis_every`` steps, and a JSON-lines log.
+The initial weights are drawn as the JAX package draws them
+(``models.stmask.init_flax``, seed 0).  Batches come from
 ``ClipLoader`` (uint8 frames, packed masks) through the loop's
 ``Prefetcher``.  The model runs on ``--device`` (default ``cuda``, which
 raises on a host without a GPU).
@@ -60,17 +61,12 @@ def parse_args(argv=None):
                    help='override the input width')
     p.add_argument('--img_h', type=int, default=None)
     p.add_argument('--vis_every', type=int, default=0,
-                   help='every N steps write overlays of the batch (not '
-                        'ported: raises)')
+                   help='every N steps write train / gt overlays of the '
+                        'batch to --vis_dir (debug)')
     p.add_argument('--vis_dir', default='results/train_vis')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
-    args = p.parse_args(argv)
-    if args.vis_every > 0:
-        raise NotImplementedError(
-            '--vis_every: the training overlays (utils/visualization.py) '
-            'are not ported (ROADMAP A.7b)')
-    return args
+    return p.parse_args(argv)
 
 
 def validate(args, cfg, model, epoch: int, iteration: int
@@ -154,7 +150,8 @@ def run(argv=None) -> Optional[Dict]:
                   keep_latest=args.keep_latest, resume=args.resume,
                   device=dev, validate=valid,
                   validation_epoch=args.validation_epoch,
-                  session_data={'args': vars(args), 'config': cfg.name})
+                  session_data={'args': vars(args), 'config': cfg.name},
+                  vis_every=args.vis_every, vis_dir=args.vis_dir)
     t = loader.timing
     n = max(t['batches'], 1)
     print(f'[data] {int(t["batches"])} batches of {args.batch_size} clips; '

@@ -18,6 +18,9 @@ path, ``'latest'`` or ``'interrupt'``.  A step's metrics are copied to the
 host behind it and read after the next step is dispatched, so the host
 never waits for the step in flight.  ``validate(model, epoch, iteration)``
 runs after every ``validation_epoch``-th epoch and its result is logged.
+With ``vis_every`` N > 0, every N-th iteration writes the overlays of
+its batch to ``vis_dir`` (``utils.visualization.save_train_output``, as
+``train.py:243-247``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..data.loader import Prefetcher
 from ..data.transforms import prepare_batch
 from ..models.stmask import STMask
 from ..utils.logger import Log, MovingAverage
+from ..utils.visualization import save_train_output
 from .checkpoint import CheckpointManager, InterruptSaver, parse_ckpt_name
 from .train_step import TrainState, build_train_step
 
@@ -75,7 +79,8 @@ def train(cfg: STMaskConfig, model: STMask,
           device: torch.device | str = 'cuda',
           validate: Optional[Callable[[STMask, int, int], Optional[Dict]]]
           = None, validation_epoch: int = 0,
-          session_data: Optional[Dict] = None) -> TrainState:
+          session_data: Optional[Dict] = None, vis_every: int = 0,
+          vis_dir: str = 'results/train_vis') -> TrainState:
     """Train until ``cfg.max_iter``; returns the final state."""
     train_step, init_state = build_train_step(cfg, model, device)
     state = init_state()
@@ -161,8 +166,8 @@ def train(cfg: STMaskConfig, model: STMask,
                             consume(pending)
                             pending = None
                         apply_delayed()
-                    state, metrics = train_step(state,
-                                                _on_step_stream(item, dev))
+                    batch = _on_step_stream(item, dev)
+                    state, metrics = train_step(state, batch)
                     iteration += 1
                     saver.update(state, epoch, iteration)
                     if pending is not None:
@@ -173,6 +178,9 @@ def train(cfg: STMaskConfig, model: STMask,
                     if iteration % save_interval == 0:
                         print('Saving state, iter:', iteration)
                         ckpt.save(state, epoch, iteration)
+                    if vis_every > 0 and iteration % vis_every == 0:
+                        save_train_output(cfg, model, batch, vis_dir, epoch,
+                                          iteration)
             finally:
                 batches.close()
             if pending is not None:

@@ -1,7 +1,9 @@
-"""JSON-lines training log (port of ``stmask_tpu/utils/logger.py``:
-``Log`` and ``MovingAverage``; reference ``utils/logger.py:22-120``).
+"""JSON-lines training log, console progress bar and the benchmark's stage
+timer (port of ``stmask_tpu/utils/logger.py``: ``Log``, ``MovingAverage``,
+``ProgressBar``, ``StageTimer``; reference ``utils/logger.py:22-120``,
+``utils/functions.py``, ``utils/timer.py``).
 
-One file per config name: a session header with the device, then one
+One log file per config name: a session header with the device, then one
 entry per logged iteration.
 """
 
@@ -79,3 +81,65 @@ class MovingAverage:
 
     def __len__(self):
         return len(self.window)
+
+
+class ProgressBar:
+    """Console progress bar (reference utils/functions.py:48-84)."""
+
+    def __init__(self, length: int = 30, max_val: int = 100):
+        self.length = length
+        self.max_val = max(max_val, 1)
+
+    def get_bar(self, val: int) -> str:
+        fill = int(self.length * min(val, self.max_val) / self.max_val)
+        return '\u2588' * fill + '\u2591' * (self.length - fill)
+
+    def set_val(self, val: int) -> str:
+        return self.get_bar(val)
+
+
+class StageTimer:
+    """Host wall time of named stages, for ``--benchmark``'s table
+    (reference ``utils/timer.py``).  CUDA launches return before the device
+    finishes, so a stage's time is its host time: a stage that waits for
+    the device (the fetch of a step's outputs) carries the device time of
+    the stages before it."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+
+    class _Env:
+        def __init__(self, timer, name):
+            self.timer = timer
+            self.name = name
+
+        def __enter__(self):
+            self.t0 = time.perf_counter()
+
+        def __exit__(self, *a):
+            dt = time.perf_counter() - self.t0
+            self.timer.totals[self.name] = \
+                self.timer.totals.get(self.name, 0.0) + dt
+            self.timer.calls[self.name] = \
+                self.timer.calls.get(self.name, 0) + 1
+            return False
+
+    def env(self, name: str) -> '_Env':
+        return self._Env(self, name)
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        """stage -> {'total_s', 'calls', 'avg_ms'}, by total, largest
+        first."""
+        return {k: {'total_s': self.totals[k], 'calls': self.calls[k],
+                    'avg_ms': 1000 * self.totals[k] / self.calls[k]}
+                for k in sorted(self.totals, key=lambda k: -self.totals[k])}
+
+    def print_stats(self):
+        if not self.totals:
+            return
+        width = max(len(k) for k in self.totals)
+        print(f'{"stage".ljust(width)}  total_s   calls   avg_ms')
+        for k, st in self.stats().items():
+            print(f'{k.ljust(width)}  {st["total_s"]:7.3f}  '
+                  f'{st["calls"]:6d}  {st["avg_ms"]:7.2f}')

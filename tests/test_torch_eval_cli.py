@@ -20,7 +20,8 @@ from stmask_torch import eval as t_eval
 from stmask_torch.convert import state_dict_from_flax
 from stmask_torch.data.synthetic import write_ytvis_set
 
-from torch_eval_common import JCFG, JLEG, TCFG, TLEG, flax_params
+from torch_eval_common import (JCFG, JLEG, TCFG, TLEG, flax_params,
+                               same_tracks)
 from torch_eval_common import few_torch_threads  # noqa: F401
 
 NAME = 'STMask_plus_resnet50_evaltest'
@@ -53,17 +54,6 @@ def _port(setup, out, *extra):
         *extra])
 
 
-def _same_tracks(got, want, score_atol):
-    """The same tracks in the same order (so the same track ids), identical
-    RLE in every frame, scores within ``score_atol``."""
-    assert len(got) == len(want) > 0
-    for g, w in zip(got, want):
-        assert g['video_id'] == w['video_id']
-        assert g['category_id'] == w['category_id']
-        assert abs(g['score'] - w['score']) <= score_atol
-        assert g['segmentations'] == w['segmentations']
-
-
 def _cli_against_jax(setup, jcfg, jmodel, params, weights, name, tag,
                      flags=()):
     """The port's CLI (fp32, 2 lanes x 2-frame chunks) and the JAX
@@ -82,7 +72,7 @@ def _cli_against_jax(setup, jcfg, jmodel, params, weights, name, tag,
         '--ann_file', setup['ann'], '--img_prefix', setup['prefix'],
         '--mask_det_file', str(t_out), '--device', 'cpu', '--fp32',
         '--batch_videos', '2', '--chunk_frames', '2', *flags]) == 0
-    _same_tracks(json.loads(t_out.read_text()), json.loads(j_out.read_text()),
+    same_tracks(json.loads(t_out.read_text()), json.loads(j_out.read_text()),
                  1e-4)
     stats = j_evaluate_ytvis(setup['ann'], str(t_out))
     for k in ('mAP', 'AP50', 'AP75', 'AR'):
@@ -121,7 +111,7 @@ def test_cli_sequential_equals_batched(setup, registered):
     a, b = setup['root'] / 'seq.json', setup['root'] / 'bat.json'
     _port(setup, a, '--fp32', '--sequential')
     _port(setup, b, '--fp32', '--batch_videos', '2', '--chunk_frames', '2')
-    _same_tracks(json.loads(a.read_text()), json.loads(b.read_text()), 1e-5)
+    same_tracks(json.loads(a.read_text()), json.loads(b.read_text()), 1e-5)
 
 
 def test_cli_bf16_writes_json_and_map(setup, registered):
@@ -144,14 +134,6 @@ def test_cli_bf16_writes_json_and_map(setup, registered):
                              '--mask_det_file', str(out)])
     want = j_evaluate_ytvis(setup['ann'], str(out))
     assert all(abs(again[k] - want[k]) <= 1e-12 for k in want)
-
-
-@pytest.mark.parametrize('flags', [
-    ['--coco'], ['--display'], ['--display_lincomb'],
-    ['--video_dir', 'frames'], ['--benchmark'], ['--tensorboard_dir', 'tb']])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        t_eval.parse_args(['--ann_file', 'a.json'] + flags)
 
 
 def test_default_flags():

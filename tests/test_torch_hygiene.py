@@ -147,9 +147,13 @@ def test_unported_paths_raise():
     for kw in (dict(remat=True), dict(compute_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
             build_train_step(cfg, STMask(cfg), device='cpu', **kw)
-    from stmask_torch.train.__main__ import parse_args
-    with pytest.raises(NotImplementedError, match='ROADMAP A.7b'):
-        parse_args(['--vis_every', '10'])
+    # the eval CLI's other modes and the training overlays (A.7b) are
+    # ported: nothing in the package names the item or the old label
+    # (tests/test_torch_eval_modes.py, _coco.py and _visualization.py hold
+    # them against JAX)
+    hits = [f for f in sorted((ROOT / 'stmask_torch').rglob('*.py'))
+            if 'A.7b' in f.read_text() or 'ROADMAP "Next"' in f.read_text()]
+    assert not hits, hits
     from stmask_torch import overfit_sanity
     for flag in ('--bf16', '--remat'):
         with pytest.raises(NotImplementedError, match='ROADMAP A.9c'):

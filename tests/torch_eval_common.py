@@ -110,3 +110,14 @@ def port_model(params, cfg=None):
     model = TSTMask(cfg or TCFG)
     model.load_state_dict(state_dict_from_flax(params), strict=True)
     return model.eval()
+
+
+def same_tracks(got, want, score_atol):
+    """The same tracks in the same order (so the same track ids), identical
+    RLE in every frame, scores within ``score_atol``."""
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g['video_id'] == w['video_id']
+        assert g['category_id'] == w['category_id']
+        assert abs(g['score'] - w['score']) <= score_atol
+        assert g['segmentations'] == w['segmentations']
