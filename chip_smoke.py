@@ -114,6 +114,28 @@ Phases, in order (any failure raises and exits non-zero):
      buffer bit for bit; (f) --metrics_only --tensorboard_dir (an events
      file, or the JAX script's skip message without TensorBoard); then
      --video_dir on the card against the CPU at 96x128, reduced depth.
+ 13. data-parallel training and the serving artifact: (a) DP_RANKS gloo
+     ranks spawned on the one card, each with its share of phase 6's
+     first DP_STEPS batches (2 clips of 4), from the same seeded weights
+     (rank 1's shifted, which replicate undoes): the losses and gnorm of
+     each step against one process over the whole batches, the last
+     step's raw gradients and parameters against one process's step from
+     rank 0's own state, the control (each shard's losses and gradients
+     with its own normalizers, averaged) outside the limits at the first
+     and the last step, the witness (one process, cuDNN deterministic,
+     the network over two 2-clip slices) beside them, launches a rank and
+     step (phase 6's), ms/step a rank beside phase 6's, peak memory, the
+     gradients' all_reduce alone; (b) an NCCL process group of world size
+     1 on the card: its collectives and 2 training steps against phase
+     6's, then the training CLI under torchrun --nproc_per_node=1 for 2
+     steps over phase 8's set; (c) python -m stmask_torch.export of the
+     fp32 single-stream step and of the bf16 2-stream 2-frame step, each
+     loaded in a fresh process that imports no model code and run over
+     phase 4's videos against the live step (ids and kept slots equal,
+     box / score / mask within EXPORT_ATOL; launches: 7 fused conv and 1
+     K1 a frame, 14 bf16 fused conv and 4 bf16 K1 a chunk), with the
+     export, save and load seconds, the artifact's size and the CLI's
+     --bench frames/s beside phase 4's step.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -133,6 +155,7 @@ and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -2361,6 +2384,626 @@ def _other_modes(torch, dev, smi: str, name: str, ann: str, prefix: str,
     return res
 
 
+# ---- phase 13: data-parallel training and the serving artifact ----------
+DP_RANKS, DP_STEPS = 2, 4      # ranks on the one card, steps
+# the ranks against one process over the whole batch from the same state
+# (the first step, from the seeded weights, and the last, from rank 0's
+# state): losses and gnorm rtol 1e-4.  The raw gradient's |diff| / |ref|
+# and its worst parameter's max|diff| / max|ref|, each limit between the
+# sound readings and the control's (each shard's gradient with its own
+# normalizers, averaged: DDP's), card runs on an H100 80GB HBM3 at 700 W:
+# first step 2.01e-4 and 7.25e-3 in every run (limits 1e-3, 2e-2; the
+# control 1.85e-2, 0.198); last step 9.2e-5 to 1.13e-3 and 2.5e-3 to 1.81e-2
+# (limits 4e-3, 5e-2; the control 1.34e-2, 0.380).  One process's step
+# run twice parts by 3e-7 (K4's atomics); the script's witness, one
+# process with cuDNN deterministic running the network over two 2-clip
+# slices with the losses over all 4 clips, gives the ranks' 2.01e-4 and
+# 7.25e-3 to the last digit: the split batch alone accounts for it (its
+# sums round otherwise, and units near a ReLU or OHEM kink carry that
+# into the gradient).  Along two
+# trajectories (each step from its own previous one) rtol 5e-2: with
+# random weights (M ~1e5, gnorm ~1e4, no clip) the losses of steps 1-3
+# moved by up to 4.9e-3 in card runs
+DP_LOSS_RTOL = 1e-4
+DP_L2_REL = (1e-3, 4e-3)        # first step, last step
+DP_PARAM_REL = (2e-2, 5e-2)
+DP_TRAJ_RTOL = 5e-2
+DP_LOSSES = ('BIoU', 'C', 'center', 'M', 'T', 'B_shift', 'M_shift',
+             'total')
+# the exported artifacts against the live steps (the same kernels in the
+# same order): ids and kept slots equal, box, score and mask within 1e-5
+EXPORT_ATOL = 1e-5
+EXPORT_BATCHED = (2, 2)         # streams, frames a chunk (bf16 artifact)
+EXPORT_BENCH_PASSES = 1
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def _dp_rank(rank: int, world: int, port: int, tmp: str, hosts) -> None:
+    """One rank of phase 13a (spawned): the flagship from seed 0 (rank 1
+    first shifts every parameter, which replicate must undo), its share of
+    each host batch, DP_STEPS training steps with the launches counted
+    around each; rank 0 saves its state before the last step, and the
+    last step's raw gradients and parameters."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR='localhost', MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as dist
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+    from stmask_torch.parallel import initialize_multihost, replicate
+    from stmask_torch.train.train_step import build_train_step
+
+    dev = initialize_multihost(device='cuda')
+    assert dist.get_backend() == 'gloo', dist.get_backend()
+    cfg = get_config('STMask_plus_resnet50')
+    model = build_model(cfg, dev, seed=0)
+    if rank == 1:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.5)
+    step, init = build_train_step(cfg, model, dev)
+    state = replicate(init())
+    params = list(model.parameters())
+
+    def diff_to_rank0(ts):
+        flat = torch.cat([t.detach().reshape(-1) for t in ts])
+        ref = flat.clone()
+        dist.broadcast(ref, src=0)
+        return float((flat - ref).abs().max())
+
+    out = {'metrics': [], 'launches': [], 'ms': [],
+           'param_diff': [diff_to_rank0(params)]}
+    n = TRAIN_CLIPS // world
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, host in enumerate(hosts):
+        local = prepare_batch(cfg, {k: v[rank * n:(rank + 1) * n]
+                                    for k, v in host.items()}, dev)
+        if i == len(hosts) - 1 and rank == 0:
+            out['before_last'] = (
+                {k: p.detach().cpu() for k, p in model.named_parameters()},
+                [m.cpu() for m in state.momentum], int(state.count))
+        torch.cuda.synchronize()
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        out['ms'].append((time.perf_counter() - t0) * 1e3)
+        out['launches'].append({n_: k.launches for n_, k in KERNELS.items()})
+        out['metrics'].append({k: float(v) for k, v in m.items()})
+        if i == 0 and rank == 0:
+            out['grads0'] = {k: p.grad.cpu()
+                             for k, p in model.named_parameters()}
+    out['peak'] = torch.cuda.max_memory_allocated()
+    out['grad_diff'] = diff_to_rank0([p.grad for p in params])
+    out['param_diff'].append(diff_to_rank0(params))
+    if rank == 0:
+        out['grads'] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        out['params'] = {k: p.detach().cpu()
+                         for k, p in model.named_parameters()}
+    # the collective alone: the step's all_reduce of every gradient
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    ar = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    out['all_reduce_ms'], out['all_reduce_mib'] = sorted(ar)[1], \
+        flat.numel() * 4 / 2**20
+    torch.save(out, f'{tmp}/rank{rank}.pt')
+    dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _split_forward(torch, model, parts: int):
+    """Within the block, ``model``'s forward runs over ``parts`` equal
+    slices of its clips and concatenates their outputs (every output leads
+    with the frame or clip axis)."""
+    if parts == 1:
+        yield
+        return
+    fwd = model.forward
+
+    def split(x, train=False):
+        outs = [fwd(x_, train=train) for x_ in x.chunk(parts)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    model.forward = split
+    try:
+        yield
+    finally:
+        del model.forward
+
+
+def _load_train_state(torch, model, state, saved):
+    """``state`` with ``saved`` (parameters by name, momentum, count)."""
+    params, momentum, count = saved
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(params[k])
+        for m, v in zip(state.momentum, momentum):
+            m.copy_(v)
+    return state._replace(count=torch.tensor(count, device=state.count.device),
+                          step=count)
+
+
+def _data_parallel(torch, dev, smi: str, name: str, train_med: float) -> dict:
+    """Phase 13a: DP_RANKS gloo ranks on the one card against one process
+    over the concatenated batches, and the per-shard control."""
+    import torch.multiprocessing as tmp_mp
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.models import build_model
+    from stmask_torch.train.train_step import build_train_step
+
+    cfg = get_config('STMask_plus_resnet50')
+    hosts = [_train_batch(cfg, 10 + i) for i in range(DP_STEPS)]
+    tmp = tempfile.TemporaryDirectory()
+    t_spawn = time.perf_counter()
+    ctx = tmp_mp.start_processes(
+        _dp_rank, args=(DP_RANKS, _free_port(), tmp.name, hosts),
+        nprocs=DP_RANKS, join=False, start_method='spawn')
+    try:
+        # meanwhile: one process over the whole batches, and the control
+        model = build_model(cfg, dev, seed=0)
+        init_sd = {k: v.detach().cpu().clone()
+                   for k, v in model.state_dict().items()}
+        step, init = build_train_step(cfg, model, dev)
+
+        def from_init():
+            model.load_state_dict(init_sd)
+            return init()
+
+        def grads():
+            return {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+        def per_shard(host, reset):
+            """Each shard's step alone from ``reset()``'s state, with its
+            own normalizers: (each shard's metrics, the gradients
+            averaged), DDP's semantics."""
+            n, shards, avg = TRAIN_CLIPS // DP_RANKS, [], {}
+            for r in range(DP_RANKS):
+                _, m = step(reset(), prepare_batch(cfg, {
+                    k: v[r * n:(r + 1) * n] for k, v in host.items()}, dev))
+                shards.append({k: float(v) for k, v in m.items()})
+                for k, g in grads().items():
+                    avg[k] = avg.get(k, 0) + g / DP_RANKS
+            return shards, avg
+
+        state = init()
+        ref = []
+        for host in hosts:
+            state, m = step(state, prepare_batch(cfg, host, dev))
+            ref.append({k: float(v) for k, v in m.items()})
+            if len(ref) == 1:
+                grads0 = grads()
+        shards, control_g = per_shard(hosts[0], from_init)
+        # the noise floor: one process's first step again
+        step(from_init(), prepare_batch(cfg, hosts[0], dev))
+        repeat_g = grads()
+        # the witness of the cause: cuDNN deterministic, the 4-clip first
+        # step, again, and with the network over DP_RANKS slices of the
+        # clips (outputs concatenated; the losses and their normalizers
+        # over the whole batch, as the ranks' are)
+        cudnn = torch.backends.cudnn
+        flags = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            witness = []
+            for parts in (1, 1, DP_RANKS):
+                with _split_forward(torch, model, parts):
+                    step(from_init(), prepare_batch(cfg, hosts[0], dev))
+                witness.append(grads())
+        finally:
+            cudnn.deterministic, cudnn.benchmark = flags
+        while not ctx.join(timeout=600):
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t_spawn
+    ranks = [torch.load(f'{tmp.name}/rank{r}.pt', weights_only=False)
+             for r in range(DP_RANKS)]
+    tmp.cleanup()
+
+    want = dict.fromkeys(ranks[0]['launches'][0], 0)
+    want.update(TRAIN_LAUNCHES)
+    keys = DP_LOSSES + ('gnorm',)
+
+    def rel(got, ref_):
+        return {k: abs(got[k] - ref_[k]) / max(abs(ref_[k]), 1e-30)
+                for k in keys}
+
+    traj = {}
+    for r, rk in enumerate(ranks):
+        assert rk['param_diff'] == [0.0, 0.0] and rk['grad_diff'] == 0.0, \
+            (r, rk['param_diff'], rk['grad_diff'])
+        for i, (got, m) in enumerate(zip(rk['metrics'], ref)):
+            assert rk['launches'][i] == want, (r, i, rk['launches'][i])
+            for k, v in rel(got, m).items():
+                traj[k] = max(traj.get(k, 0.0), v)
+        steady = sorted(rk['ms'][1:])
+        ms = [round(t, 3) for t in rk['ms']]
+        print(f'[dp] rank {r}: launches per step {rk["launches"][-1]} (each '
+              f'of {DP_STEPS} steps); ms/step {ms} (median after the first '
+              f'{steady[len(steady) // 2]:.3f}; '
+              f'phase 6 alone, 4 clips: {train_med:.3f}); peak memory '
+              f'{rk["peak"] / 2**20:.1f} MiB; all_reduce of '
+              f'{rk["all_reduce_mib"]:.1f} MiB of gradients (gloo, one '
+              f'card) {rk["all_reduce_ms"]:.3f} ms', flush=True)
+    for i, m in enumerate(ref):
+        print(f'[dp] step {i}: one process ' + ', '.join(
+            f'{k} {m[k]:.6f}' for k in keys) + '; ranks ' + ', '.join(
+            f'{k} {ranks[0]["metrics"][i][k]:.6f}' for k in keys))
+    print('[dp] along the trajectories, max relative difference '
+          + ', '.join(f'{k} {v:.3e}' for k, v in traj.items())
+          + f' (rtol {DP_TRAJ_RTOL})', flush=True)
+    assert max(traj.values()) <= DP_TRAJ_RTOL, traj
+    first = rel(ranks[0]['metrics'][0], ref[0])
+    control = {k: sum(s_[k] for s_ in shards) / DP_RANKS for k in DP_LOSSES}
+    c_rel = {k: abs(control[k] - ref[0][k]) / abs(ref[0][k])
+             for k in DP_LOSSES}
+    print('[dp] control, each shard\'s losses with its own normalizers '
+          'averaged (step 0): relative difference ' + ', '.join(
+              f'{k} {v:.3e}' for k, v in c_rel.items())
+          + f' (must exceed rtol {DP_LOSS_RTOL})', flush=True)
+    assert max(c_rel.values()) > DP_LOSS_RTOL, c_rel
+
+    # the last step from rank 0's own state: losses, raw gradients and
+    # parameters
+    def before_last():
+        return _load_train_state(torch, model, init(),
+                                 ranks[0]['before_last'])
+
+    state, m = step(before_last(), prepare_batch(cfg, hosts[-1], dev))
+    last = rel(ranks[0]['metrics'][-1], {k: float(v) for k, v in m.items()})
+    grads3 = grads()
+    prev = ranks[0]['before_last'][0]
+    upd = {k: p.detach().cpu() - prev[k] for k, p in
+           model.named_parameters()}
+    _, control_g3 = per_shard(hosts[-1], before_last)
+
+    def diff(got, want):
+        """(|got - want| / |want| over every tensor, the worst tensor's
+        max|got - want| / max|want|)."""
+        num = den = worst = 0.0
+        for k, w in want.items():
+            d = (got[k] - w).double()
+            num += float((d ** 2).sum())
+            den += float((w.double() ** 2).sum())
+            worst = max(worst, float(d.abs().max())
+                        / max(float(w.abs().max()), 1e-30))
+        return (num / den) ** 0.5, worst
+
+    g0 = diff(ranks[0]['grads0'], grads0)
+    g0_noise = diff(repeat_g, grads0)
+    g0_control = diff(control_g, grads0)
+    g3 = diff(ranks[0]['grads'], grads3)
+    g3_control = diff(control_g3, grads3)
+    w_noise = diff(witness[1], witness[0])
+    w_split = diff(witness[2], witness[0])
+    u3 = diff({k: v - prev[k] for k, v in ranks[0]['params'].items()}, upd)
+    same = {k: max(first[k], last[k]) for k in keys}
+    print('[dp] from the same state (step 0, and step '
+          f'{DP_STEPS - 1} from rank 0\'s), max relative difference '
+          + ', '.join(f'{k} {v:.3e}' for k, v in same.items())
+          + f' (rtol {DP_LOSS_RTOL})', flush=True)
+    print(f'[dp] raw gradient, |diff| / |ref| and the worst parameter\'s '
+          f'max|diff| / max|ref|: step 0 {g0[0]:.3e}, {g0[1]:.3e} (limits '
+          f'{DP_L2_REL[0]}, {DP_PARAM_REL[0]}; one process run twice '
+          f'{g0_noise[0]:.3e}, {g0_noise[1]:.3e}; the control '
+          f'{g0_control[0]:.3e}, {g0_control[1]:.3e}, which must exceed '
+          f'both limits); step {DP_STEPS - 1} {g3[0]:.3e}, {g3[1]:.3e}, '
+          f'its update {u3[0]:.3e}, {u3[1]:.3e} (limits {DP_L2_REL[1]}, '
+          f'{DP_PARAM_REL[1]}; the control {g3_control[0]:.3e}, '
+          f'{g3_control[1]:.3e}, which must exceed both) ({name}, {smi}; '
+          f'{wall:.1f} s with the ranks\' start)', flush=True)
+    print(f'[dp] witness, one process with cuDNN deterministic, step 0: '
+          f'the 4-clip step run twice {w_noise[0]:.3e}, {w_noise[1]:.3e}; '
+          f'the network over {DP_RANKS} slices of {TRAIN_CLIPS // DP_RANKS} '
+          f'clips (the losses over all {TRAIN_CLIPS}) against one pass '
+          f'{w_split[0]:.3e}, {w_split[1]:.3e}', flush=True)
+    assert max(same.values()) <= DP_LOSS_RTOL, same
+    for i, (d, c) in enumerate(((g0, g0_control), (g3, g3_control))):
+        assert c[0] > DP_L2_REL[i] and c[1] > DP_PARAM_REL[i], (i, c)
+        assert d[0] <= DP_L2_REL[i] and d[1] <= DP_PARAM_REL[i], (i, d)
+    assert u3[0] <= DP_L2_REL[1] and u3[1] <= DP_PARAM_REL[1], u3
+    del model, step, state
+    torch.cuda.empty_cache()
+    return dict(launches=ranks[0]['launches'][-1], ms=ranks[0]['ms'],
+                ms_rank1=ranks[1]['ms'], peak=[rk['peak'] for rk in ranks],
+                all_reduce_ms=ranks[0]['all_reduce_ms'], same=same,
+                traj=traj, control=c_rel, grad0=g0, grad0_noise=g0_noise,
+                grad0_control=g0_control, grad_last=g3, update_last=u3,
+                grad_last_control=g3_control, witness_noise=w_noise,
+                witness_split=w_split,
+                wall=wall)
+
+
+def _nccl_world1(torch, dev, phase6: list) -> dict:
+    """Phase 13b: an NCCL process group of world size 1 on the card, its
+    collectives and 2 training steps against phase 6's."""
+    import torch.distributed as dist
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.models import build_model
+    from stmask_torch.parallel import (all_gather_cat, all_reduce_sum,
+                                       replicate)
+    from stmask_torch.train.train_step import build_train_step
+
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{_free_port()}', world_size=1, rank=0,
+                            device_id=torch.device(
+                                'cuda', torch.cuda.current_device()))
+    try:
+        t = torch.arange(6.0, device=dev)
+        s, gathered = t.clone(), [torch.empty_like(t)]
+        dist.all_reduce(s)
+        dist.all_gather(gathered, t)
+        dist.broadcast(s, src=0)
+        torch.cuda.synchronize()
+        assert torch.equal(s, t) and torch.equal(gathered[0], t)
+        assert all_reduce_sum(t) is t and all_gather_cat(t) is t
+        cfg = get_config('STMask_plus_resnet50')
+        model = build_model(cfg, dev, seed=0)
+        step, init = build_train_step(cfg, model, dev)
+        state = replicate(init())
+        got, launches = [], []
+        for i in range(2):
+            batch = prepare_batch(cfg, _train_batch(cfg, 10 + i), dev)
+            (state, m), ln = _counted(torch, step, state, batch)
+            got.append({k: float(v) for k, v in m.items()})
+            launches.append(ln)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    rel = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+               for k in DP_LOSSES + ('gnorm',))
+           for g, w in zip(got, phase6)]
+    print(f'[nccl] world size 1, backend {backend}: all_reduce, all_gather '
+          f'and broadcast on the card; 2 training steps against phase 6\'s '
+          f'first two: max relative difference {rel[0]:.3e} (step 0, from '
+          f'the same seeded weights; rtol {DP_LOSS_RTOL}), {rel[1]:.3e} '
+          f'(step 1, along the trajectories; rtol {DP_TRAJ_RTOL}); '
+          f'launches {launches}', flush=True)
+    assert backend == 'nccl', backend
+    assert rel[0] <= DP_LOSS_RTOL and rel[1] <= DP_TRAJ_RTOL, rel
+    want = dict.fromkeys(launches[0], 0)
+    want.update(TRAIN_LAUNCHES)
+    assert all(ln == want for ln in launches), launches
+    del model, step, state
+    torch.cuda.empty_cache()
+
+    return dict(launches=launches[-1], rel=rel)
+
+
+def _start_clis(ann: str, prefix: str, tmp: str) -> dict:
+    """Phase 13's command-line runs, started together: the training CLI
+    under torchrun with one process (2 steps of phase 6's batch over phase
+    8's set), and python -m stmask_torch.export of the fp32 single-stream
+    step and of the bf16 EXPORT_BATCHED step (seeded random weights, as
+    phase 4's).  tag -> (start time, process, output file)."""
+    n_b, k_b = EXPORT_BATCHED
+    cmds = {
+        'torchrun': ['-m', 'torch.distributed.run', '--standalone',
+                     '--nproc_per_node=1', '-m', 'stmask_torch.train',
+                     '--ann_file', ann, '--img_prefix', prefix,
+                     '--batch_size', str(TRAIN_CLIPS), '--max_iter', '2',
+                     '--num_workers', '4', '--save_folder', f'{tmp}/w',
+                     '--log_folder', f'{tmp}/logs'],
+        'fp32': ['-m', 'stmask_torch.export', '--out', f'{tmp}/fp32.stmask'],
+        'bf16': ['-m', 'stmask_torch.export', '--out', f'{tmp}/bf16.stmask',
+                 '--bf16', '--batched', str(n_b), '--chunk', str(k_b)]}
+    root = os.path.dirname(os.path.abspath(__file__))
+    started = {}
+    for tag, cmd in cmds.items():
+        log = f'{tmp}/{tag}.out'
+        with open(log, 'w') as f:
+            started[tag] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, *cmd], cwd=root, stdout=f,
+                stderr=subprocess.STDOUT), log)
+    return started
+
+
+def _finish(tag: str, started) -> tuple:
+    """Wait for one of _start_clis' processes: (its output, seconds)."""
+    t0, p, log = started
+    p.wait(timeout=900)
+    secs = time.perf_counter() - t0
+    with open(log) as f:
+        out = f.read()
+    assert p.returncode == 0, (tag, out[-4000:])
+    return out, secs
+
+
+def _torchrun_cli(started, tmp: str) -> float:
+    """The torchrun run of _start_clis: exit 0 and its one checkpoint."""
+    _, secs = _finish('torchrun', started)
+    saved = sorted(os.listdir(f'{tmp}/w'))
+    print(f'[torchrun] --nproc_per_node=1 -m stmask_torch.train, 2 steps of '
+          f'{TRAIN_CLIPS} clips over phase 8\'s set: exit 0 in {secs:.1f} s '
+          f'(start-up included, beside the export CLIs), checkpoints '
+          f'{saved}', flush=True)
+    assert saved == ['STMask_plus_resnet50_1_2.pth'], saved
+    return secs
+
+
+_ARTIFACT_RUN = r'''
+import json, sys, time
+sys.path.insert(0, %(root)r)
+import numpy as np
+import torch
+t0 = time.perf_counter()
+from stmask_torch.export import load_exported
+step, meta = load_exported(%(path)r)
+load_s = time.perf_counter() - t0
+from stmask_torch.kernels import KERNELS
+frames = np.load(%(frames)r)            # [V, F, H, W, 3]
+n, k = meta['batched'], meta['chunk_size']
+calls = []
+if n:
+    first = np.zeros((k, n), bool)
+    for c in range(frames.shape[1] // k):
+        calls.append((np.ascontiguousarray(
+            frames[:n, c * k:(c + 1) * k].transpose(1, 0, 2, 3, 4)),
+            first | (c == 0) & (np.arange(k) == 0)[:, None]))
+else:
+    for v in range(frames.shape[0]):
+        for f in range(frames.shape[1]):
+            calls.append((frames[v, f], f == 0))
+torch.cuda.synchronize()
+for kk in KERNELS.values():
+    kk.launches = 0
+outs, ms = [], []
+state = None
+for fr, first in calls:
+    if state is None or (not n and first):
+        state = step.init_state()
+    t = time.perf_counter()
+    state, out = step(state, torch.from_numpy(fr), torch.as_tensor(first))
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t) * 1e3)
+    outs.append({f: getattr(out, f).cpu() for f in
+                 ('keep', 'obj_id', 'box', 'score', 'mask')})
+launches = {name: kk.launches for name, kk in KERNELS.items()}
+weights = {str(t.device) for t in step._fn.state_dict().values()}
+mods = sorted(m for m in sys.modules if m.startswith('stmask_torch.'))
+from stmask_torch.export import bench_artifact
+bench = bench_artifact(%(path)r, %(passes)d)
+torch.save({'outs': outs, 'launches': launches, 'ms': ms, 'load_s': load_s,
+            'weights': sorted(weights), 'mods': mods, 'bench': bench},
+           %(out)r)
+'''
+
+
+def _export_phase(torch, dev, smi: str, name: str, clips, live_ms: float,
+                  tmp: str, started: dict) -> dict:
+    """Phase 13c: the export CLIs' fp32 single-stream and bf16 batched
+    artifacts (started by _start_clis), each loaded in a fresh process
+    that imports no model code, run over ``clips`` against the live step
+    and timed alone by bench_artifact (what the CLI's --bench runs)."""
+    from stmask_torch.config import get_config
+    from stmask_torch.inference.pipeline import (build_video_step,
+                                                 build_video_step_batched)
+    from stmask_torch.models import build_model
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_config('STMask_plus_resnet50')
+    np.save(f'{tmp}/frames.npy', np.stack(clips))
+    n_b, k_b = EXPORT_BATCHED
+    arts = ('fp32', 'bf16')
+    cli = {}
+    for tag in arts:
+        out, secs = _finish(tag, started[tag])
+        wrote = [ln for ln in out.splitlines() if ln.startswith('wrote ')]
+        m = re.search(r'in ([\d.]+) s export \+ ([\d.]+) s save', wrote[0])
+        cli[tag] = dict(line=wrote[0], export_s=float(m.group(1)),
+                        save_s=float(m.group(2)), wall=secs,
+                        mb=os.path.getsize(f'{tmp}/{tag}.stmask') / 1e6)
+        print(f'[export] {tag}: {wrote[0]}; the CLI took {secs:.1f} s with '
+              'its start-up, beside the other CLIs', flush=True)
+    runs = {}
+    for tag in arts:             # one at a time: each is timed
+        code = _ARTIFACT_RUN % dict(root=root, path=f'{tmp}/{tag}.stmask',
+                                    frames=f'{tmp}/frames.npy',
+                                    out=f'{tmp}/{tag}.pt',
+                                    passes=EXPORT_BENCH_PASSES)
+        res = subprocess.run([sys.executable, '-c', code], cwd=tmp,
+                             capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, (tag, res.stdout[-3000:],
+                                     res.stderr[-3000:])
+        runs[tag] = torch.load(f'{tmp}/{tag}.pt', weights_only=False)
+        mods = runs[tag]['mods']
+        assert not [m for m in mods if m.startswith(
+            ('stmask_torch.models', 'stmask_torch.inference.pipeline'))], mods
+        assert runs[tag]['weights'] == [str(torch.device('cuda', 0))], \
+            runs[tag]['weights']
+
+    # the live steps on the same weights
+    live = {}
+    model = build_model(cfg, dev, seed=0)
+    step, init_state = build_video_step(cfg, model, uint8_input=True,
+                                        device=dev)
+    outs = []
+    for clip in clips:
+        state = init_state()
+        for f, frame in enumerate(clip):
+            state, out = step(state, frame, f == 0)
+            outs.append(out)
+    live['fp32'] = outs
+    model = build_model(cfg, dev, seed=0)
+    chunk, make_states = build_video_step_batched(
+        cfg, model, n_videos=n_b, chunk_size=k_b, uint8_input=True,
+        device=dev, compute_dtype=torch.bfloat16)
+    states, outs = make_states(), []
+    frames = np.stack(clips)
+    for c in range(FRAMES_PER_VIDEO // k_b):
+        fr = np.ascontiguousarray(frames[:n_b, c * k_b:(c + 1) * k_b]
+                                  .transpose(1, 0, 2, 3, 4))
+        first = np.zeros((k_b, n_b), bool)
+        first[0] = c == 0
+        states, out = chunk(states, fr, first)
+        outs.append(out)
+    live['bf16'] = outs
+    del model, step, chunk
+    torch.cuda.empty_cache()
+
+    per_call = {'fp32': 1, 'bf16': n_b * k_b}
+    result = {}
+    for tag, run in runs.items():
+        worst, kept = 0.0, 0
+        for got, want in zip(run['outs'], live[tag]):
+            for f in ('keep', 'obj_id'):
+                assert torch.equal(got[f], getattr(want, f).cpu()), (tag, f)
+            for f in ('box', 'score', 'mask'):
+                d = float((got[f].float() - getattr(want, f).float().cpu())
+                          .abs().max())
+                worst = max(worst, d)
+            kept += int(got['keep'].sum())
+        n_calls = len(run['outs'])
+        frames_ = n_calls * per_call[tag]
+        launches = run['launches']
+        steady = sorted(run['ms'][WARMUP_FRAMES:])
+        med = steady[len(steady) // 2]
+        b = run['bench']
+        print(f'[export] {tag} artifact in a fresh process ({len(run["mods"])}'
+              f' modules of stmask_torch, none of models or the pipeline; '
+              f'weights on {run["weights"]}): {n_calls} calls, {frames_} '
+              f'frames, {kept} kept tracks; against the live step: keep and '
+              f'obj_id equal, box / score / mask max|diff| {worst:.3e} (atol '
+              f'{EXPORT_ATOL}); load {run["load_s"]:.2f} s with the imports; '
+              f'median {med:.3f} ms a call after {WARMUP_FRAMES}; '
+              f'bench_artifact, {EXPORT_BENCH_PASSES} passes: '
+              f'{b["value"]:.2f} frames/s (min {b["min"]:.2f}, max '
+              f'{b["max"]:.2f}) against the live fp32 step\'s '
+              f'{1e3 / live_ms:.2f} ({live_ms:.3f} ms/frame, phase 4); '
+              f'launches {launches} ({name}, {smi})', flush=True)
+        assert kept > 0 and worst <= EXPORT_ATOL, (tag, kept, worst)
+        if tag == 'fp32':
+            _fp32_step_only(launches, 7, frames_, 'fp32 artifact')
+        else:
+            assert launches['deform_conv_bf16'] == 7 * n_calls * k_b, launches
+            assert launches['correlation_bf16'] == frames_, launches
+            assert sum(v for n_, v in launches.items() if n_ not in (
+                'deform_conv_bf16', 'correlation_bf16')) == 0, launches
+        result[tag] = dict(cli[tag], launches=launches, worst=worst,
+                           ms=med, load_s=run['load_s'], frames=frames_,
+                           bench=b)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2380,6 +3023,12 @@ def main() -> int:
     from stmask_torch.models import build_model
     from stmask_torch.utils.device import resolve_device
 
+    t_script = time.perf_counter()
+
+    def mark(phase) -> None:
+        print(f'[phase] {phase} at {time.perf_counter() - t_script:.1f} s',
+              flush=True)
+
     dev = resolve_device('cuda')            # also turns TF32 off
     smi = _nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -2387,6 +3036,7 @@ def main() -> int:
           f'device {name} ({smi})', flush=True)
 
     # ---- 1. build ---------------------------------------------------------
+    mark(1)
     secs = build.build(KERNEL_NAMES)
     print(f'[build] {" + ".join(KERNEL_NAMES)} with nvcc '
           f'{" ".join(build.NVCC_FLAGS)}: {secs:.2f} s', flush=True)
@@ -2400,6 +3050,7 @@ def main() -> int:
             for ln in spills), (lib, spills)
 
     # ---- 2. the frame resize against cv2, then K1 vs plain ----------------
+    mark(2)
     _resize_vs_cv2(torch, dev)
 
     err = {n: 0.0 for n in KERNELS}
@@ -2461,6 +3112,7 @@ def main() -> int:
                 assert torch.equal(a, a2), 'K3 differs between two launches'
 
     # ---- 3. K2 vs plain ---------------------------------------------------
+    mark(3)
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
         x, off, mask = _dcn_inputs(torch, dev, h, w, cin, stride, i)
         got = K2.deform_im2col_cuda(x, off, mask, 3, 3, stride)
@@ -2675,6 +3327,7 @@ def main() -> int:
         del ts, grads
 
     # ---- 4. main path -----------------------------------------------------
+    mark(4)
     cfg = get_config('STMask_plus_resnet50')
     model = build_model(cfg, dev, seed=0)
     step, init_state = build_video_step(cfg, model, uint8_input=True,
@@ -2778,6 +3431,7 @@ def main() -> int:
         print(f'[stage] {ms:8.3f} ms  {stage}')
 
     # ---- 5. kernel times ----------------------------------------------------
+    mark(5)
     x1 = torch.randn(1, 24, 40, 256, device=dev, generator=g)
     x2 = torch.randn(1, 24, 40, 256, device=dev, generator=g)
     k1_ms = _device_ms(lambda: K1.correlate_cuda(x1, x2, 11), 200)
@@ -2921,6 +3575,7 @@ def main() -> int:
           f'({smi})', flush=True)
 
     # ---- 6. the training step ----------------------------------------------
+    mark(6)
     from stmask_torch.data.transforms import prepare_batch
     from stmask_torch.train.loop import train
     from stmask_torch.train.train_step import build_train_step
@@ -2951,6 +3606,7 @@ def main() -> int:
     want = dict.fromkeys(KERNELS, 0)
     want.update({n_: per * TRAIN_STEPS for n_, per in TRAIN_LAUNCHES.items()})
     assert train_launches == want, (train_launches, want)
+    phase6 = [{k: float(v) for k, v in m.items()} for m in metrics]
     for i, m in enumerate(metrics):
         vals = {k: float(v) for k, v in m.items()}
         print(f'[train] step {i}: ' + ', '.join(
@@ -3160,15 +3816,18 @@ def main() -> int:
           f'the SGEMM alone {wg_lib:.5f} ms ({smi})', flush=True)
 
     # ---- 7. the eval CLI --------------------------------------------------
+    mark(7)
     eval_tmp = tempfile.TemporaryDirectory()     # phase 9 reads its set
     ev = _eval_cli(torch, dev, smi, name, eval_tmp.name)
     eval_launches = ev['launches']
 
     # ---- 8. the training CLI -----------------------------------------------
+    mark(8)
     train_tmp = tempfile.TemporaryDirectory()    # phase 12 reads its set
     tc = _train_cli(torch, dev, smi, name, train_tmp.name, train_med)
 
     # ---- 9. FCB: STMask_plus_resnet50_ada / _ali ---------------------------
+    mark(9)
     _fcb_checks(torch, dev, err)
     fcb_eval = _fcb_eval_step(torch, dev, smi, name)
     fcb_cli = _fcb_eval_cli(torch, dev, smi, name, ev['ann'], ev['prefix'],
@@ -3177,6 +3836,7 @@ def main() -> int:
     fcb_t = _fcb_times(torch, dev, smi)
 
     # ---- 10. the mAP* NMS family (B5) and the legacy YOLACT preset ---------
+    mark(10)
     greedy_t = _greedy_checks(torch, dev, smi, err)
     mapstar = _mapstar_eval(torch, dev, smi, name, cc_ms=med)
     legacy = _legacy_eval_step(torch, dev, smi, name)
@@ -3184,6 +3844,7 @@ def main() -> int:
                                   ev['prefix'], eval_tmp.name)
 
     # ---- 11. the other backbones, legacy training, the flags, C.7 ----------
+    mark(11)
     extra_eval = _extra_eval(torch, dev, smi, name)
     extra_train = _extra_train(torch, dev, smi, name)
     flags = _flag_surface(torch, dev, smi, name)
@@ -3192,11 +3853,22 @@ def main() -> int:
                             eval_tmp.name)
 
     # ---- 12. the eval CLI's other modes and the training overlays ---------
+    mark(12)
     with tempfile.TemporaryDirectory() as tmp:
         modes = _other_modes(torch, dev, smi, name, ev['ann'], ev['prefix'],
                              tc['ann'], tc['prefix'], tmp, med,
                              tc['ms_per_step'])
     eval_tmp.cleanup()
+
+    # ---- 13. data-parallel training and the serving artifact -------------
+    mark(13)
+    torch.cuda.empty_cache()
+    dp = _data_parallel(torch, dev, smi, name, train_med)
+    with tempfile.TemporaryDirectory() as tmp:
+        started = _start_clis(tc['ann'], tc['prefix'], tmp)
+        nccl = _nccl_world1(torch, dev, phase6[:2])
+        nccl['torchrun_s'] = _torchrun_cli(started.pop('torchrun'), tmp)
+        exp = _export_phase(torch, dev, smi, name, clips, med, tmp, started)
     train_tmp.cleanup()
 
     by_of = _by_of
@@ -3427,6 +4099,39 @@ def main() -> int:
         coco_fps=modes['coco']['e2e_fps'],
         vis_overlay_ms=modes['vis_every']['median_ms'],
         tensorboard_written=modes['tensorboard'])
+    ops = {'correlation': 'stmask::correlate',
+           'correlation_bf16': 'stmask::correlate',
+           'deform_conv': 'stmask::deform_conv',
+           'deform_conv_bf16': 'stmask::deform_conv',
+           'deform_conv_bf16_f32off': 'stmask::deform_conv',
+           'greedy_nms': 'stmask::greedy_nms_keep',
+           'deform_im2col': 'ctypes (on no path)'}
+    for row in table['kernels']:
+        n_ = row['name']
+        row['binding'] = ops.get(n_, 'ctypes, in an autograd backward')
+        row['dp_rank_launches_per_step'] = dp['launches'][n_]
+        row['nccl_world1_launches_per_step'] = nccl['launches'][n_]
+        row['export_fp32_launches'] = exp['fp32']['launches'][n_]
+        row['export_bf16_launches'] = exp['bf16']['launches'][n_]
+    table['parallel'] = dict(
+        ranks=DP_RANKS, rank_ms_per_step=dp['ms'],
+        rank1_ms_per_step=dp['ms_rank1'], phase6_ms_per_step=train_med,
+        rank_peak_mib=[b / 2**20 for b in dp['peak']],
+        all_reduce_ms=dp['all_reduce_ms'], loss_rel=dp['same'],
+        trajectory_rel=dp['traj'],
+        control_rel=dp['control'], grad0_rel=dp['grad0'],
+        grad0_noise_rel=dp['grad0_noise'],
+        grad0_control_rel=dp['grad0_control'],
+        grad_last_rel=dp['grad_last'], update_last_rel=dp['update_last'],
+        grad_last_control_rel=dp['grad_last_control'],
+        witness_noise_rel=dp['witness_noise'],
+        witness_split_rel=dp['witness_split'],
+        nccl_rel=nccl['rel'], torchrun_s=nccl['torchrun_s'])
+    table['export'] = {tag: dict(
+        export_s=r['export_s'], save_s=r['save_s'], load_s=r['load_s'],
+        mb=r['mb'], bench_fps=r['bench']['value'], ms_per_call=r['ms'],
+        max_abs_diff=r['worst']) for tag, r in exp.items()}
+    table['export']['live_fp32_ms_per_frame'] = med
     table['mapstar'] = {tag: r['ms'] for tag, r in mapstar.items()}
     table['legacy'] = dict(
         eval_ms_per_frame=legacy['ms'], eval_busy_ms=legacy['busy'],
@@ -3450,6 +4155,7 @@ def main() -> int:
             r101['busy'],
         'ada_cli_e2e_fps': ada_cli['stats']['e2e_fps'],
         'ada_cli_device_fps': ada_cli['stats']['device_fps']}
+    mark('end')
     print(json.dumps(table))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1,5 +1,10 @@
 """Hand-written CUDA kernels of the port (sm_90a), each beside its plain
-PyTorch version.  Nothing is built or loaded at import time."""
+PyTorch version.  Nothing is built or loaded at import time.
+
+Importing the package registers the custom ops ``stmask::correlate``,
+``stmask::deform_conv`` and ``stmask::greedy_nms_keep`` (the kernel on
+CUDA tensors, the plain version on CPU tensors, and a fake implementation
+for ``torch.export``), which an exported program calls."""
 
 from . import (correlation, correlation_bwd, deform_col2im, deform_conv,
                deform_im2col, deform_wgrad, greedy_nms)

@@ -157,3 +157,13 @@ def check_cuda(name: str, *tensors: torch.Tensor,
             raise RuntimeError(
                 f'{name}: a wrapper records no gradient; call the '
                 'differentiable op in stmask_torch.ops instead')
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd would record an op on ``tensors`` (None skipped).
+    The ``stmask::`` custom ops have no autograd formula, so the wrappers
+    send such calls past them: a CPU call to the differentiable plain
+    version, a CUDA call to the kernel's wrapper, which refuses it
+    (``check_cuda``)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

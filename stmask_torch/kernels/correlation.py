@@ -2,10 +2,13 @@
 its plain versions.
 
 Replaces ``stmask_tpu/kernels/correlation_pallas.py::correlate_pallas``.
-``correlate`` dispatches on the tensors' device and type: CPU tensors take
-``correlate_reference`` (fp32: the translation of ``ops/correlation.py:40-53``;
-bf16: the Pallas kernel's arithmetic), CUDA tensors take the kernel of their
-type in ``csrc/correlation.cu`` or raise.
+``correlate`` calls the custom op ``stmask::correlate``, which dispatches on
+the tensors' device: CPU tensors take ``correlate_reference`` (fp32: the
+translation of ``ops/correlation.py:40-53``; bf16: the Pallas kernel's
+arithmetic), CUDA tensors take the kernel of their type in
+``csrc/correlation.cu`` or raise.  Being an op, it is traced by
+``torch.export`` (its fake implementation gives the output's shape) and
+called by an exported program.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .build import CudaKernel, check_cuda
+from .build import CudaKernel, check_cuda, records_grad
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL = CudaKernel('correlation', 'stmask_correlation', _ARGTYPES)
@@ -74,8 +77,29 @@ def correlate_cuda(x1: torch.Tensor, x2: torch.Tensor, patch_size: int = 11,
     return out
 
 
+@torch.library.custom_op('stmask::correlate', mutates_args=(),
+                         device_types='cuda')
+def _correlate_op(x1: torch.Tensor, x2: torch.Tensor, patch_size: int,
+                  apply_activation: bool) -> torch.Tensor:
+    return correlate_cuda(x1, x2, patch_size, apply_activation)
+
+
+@_correlate_op.register_kernel('cpu')
+def _(x1, x2, patch_size, apply_activation):
+    return correlate_reference(x1, x2, patch_size, apply_activation)
+
+
+@_correlate_op.register_fake
+def _(x1, x2, patch_size, apply_activation):
+    b, h, w, _ = x1.shape
+    return x1.new_empty((b, h, w, patch_size * patch_size),
+                        dtype=torch.float32)
+
+
 def correlate(x1: torch.Tensor, x2: torch.Tensor, patch_size: int = 11,
               apply_activation: bool = True) -> torch.Tensor:
-    if x1.device.type == 'cpu':
-        return correlate_reference(x1, x2, patch_size, apply_activation)
-    return correlate_cuda(x1, x2, patch_size, apply_activation)
+    if records_grad(x1, x2):
+        if x1.device.type == 'cpu':
+            return correlate_reference(x1, x2, patch_size, apply_activation)
+        return correlate_cuda(x1, x2, patch_size, apply_activation)
+    return torch.ops.stmask.correlate(x1, x2, patch_size, apply_activation)

@@ -3,7 +3,8 @@ fp32 and bf16, and its plain versions.
 
 Replaces ``stmask_tpu/ops/deform_conv.py::deform_conv2d``
 (``deform_conv.py:31-89`` with ``ops/sampling.py:48-85``).  ``deform_conv``
-dispatches on the device and type: CPU tensors take
+calls the custom op ``stmask::deform_conv`` (traced by ``torch.export``),
+which dispatches on the device and type: CPU tensors take
 ``deform_conv_reference`` (fp32: the gather of ``deform_im2col_reference``
 contracted with one matmul; bf16: the JAX package's bf16 rounding points),
 CUDA tensors take the kernel of their type in ``csrc/deform_conv.cu`` or
@@ -21,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from .build import CudaKernel, check_cuda
+from .build import CudaKernel, check_cuda, records_grad
 from .deform_im2col import deform_im2col_reference
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
@@ -190,10 +191,35 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
     return out
 
 
+@torch.library.custom_op('stmask::deform_conv', mutates_args=(),
+                         device_types='cuda')
+def _deform_conv_op(x: torch.Tensor, offset: torch.Tensor,
+                    weight: torch.Tensor, mask: Optional[torch.Tensor],
+                    bias: Optional[torch.Tensor], stride: int,
+                    dilation: int) -> torch.Tensor:
+    return deform_conv_cuda(x, offset, weight, mask, bias, stride, dilation)
+
+
+@_deform_conv_op.register_kernel('cpu')
+def _(x, offset, weight, mask, bias, stride, dilation):
+    return deform_conv_reference(x, offset, weight, mask, bias, stride,
+                                 dilation)
+
+
+@_deform_conv_op.register_fake
+def _(x, offset, weight, mask, bias, stride, dilation):
+    b, ho, wo, _ = offset.shape
+    return x.new_empty((b, ho, wo, weight.shape[0]))
+
+
 def deform_conv(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
                 mask: Optional[torch.Tensor], bias: Optional[torch.Tensor],
                 stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    if x.device.type == 'cpu':
-        return deform_conv_reference(x, offset, weight, mask, bias, stride,
-                                     dilation)
-    return deform_conv_cuda(x, offset, weight, mask, bias, stride, dilation)
+    if records_grad(x, offset, weight, mask, bias):
+        if x.device.type == 'cpu':
+            return deform_conv_reference(x, offset, weight, mask, bias,
+                                         stride, dilation)
+        return deform_conv_cuda(x, offset, weight, mask, bias, stride,
+                                dilation)
+    return torch.ops.stmask.deform_conv(x, offset, weight, mask, bias, stride,
+                                        dilation)

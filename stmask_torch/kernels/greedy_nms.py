@@ -3,9 +3,10 @@ plain version.
 
 Replaces ``stmask_tpu/ops/nms.py::greedy_nms_mask`` (an XLA ``fori_loop``),
 which ``greedy_nms_per_class`` vmaps over the classes; here the classes are
-the groups of one launch.  ``greedy_nms_keep`` dispatches on the tensors'
-device: CPU tensors take ``greedy_nms_mask_reference`` (the loop in torch),
-CUDA tensors the kernel in ``csrc/greedy_nms.cu`` or raise.
+the groups of one launch.  ``greedy_nms_keep`` calls the custom op
+``stmask::greedy_nms_keep`` (traced by ``torch.export``), which dispatches
+on the tensors' device: CPU tensors take ``greedy_nms_mask_reference`` (the
+loop in torch), CUDA tensors the kernel in ``csrc/greedy_nms.cu`` or raise.
 """
 
 from __future__ import annotations
@@ -60,8 +61,23 @@ def greedy_nms_cuda(iou: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+@torch.library.custom_op('stmask::greedy_nms_keep', mutates_args=(),
+                         device_types='cuda')
+def _greedy_nms_op(iou: torch.Tensor, valid: torch.Tensor,
+                   thr: float) -> torch.Tensor:
+    return greedy_nms_cuda(iou, valid, thr)
+
+
+@_greedy_nms_op.register_kernel('cpu')
+def _(iou, valid, thr):
+    return greedy_nms_mask_reference(iou, valid, thr)
+
+
+@_greedy_nms_op.register_fake
+def _(iou, valid, thr):
+    return valid.new_empty(valid.shape)
+
+
 def greedy_nms_keep(iou: torch.Tensor, valid: torch.Tensor,
                     thr: float) -> torch.Tensor:
-    if iou.device.type == 'cpu':
-        return greedy_nms_mask_reference(iou, valid, thr)
-    return greedy_nms_cuda(iou, valid, thr)
+    return torch.ops.stmask.greedy_nms_keep(iou, valid, float(thr))

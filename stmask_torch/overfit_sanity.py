@@ -127,7 +127,10 @@ def main(argv=None) -> None:
     from .train.checkpoint import ckpt_name
     from .train.train_step import build_train_step
     from .utils.device import resolve_device
+    from .utils.hostguard import wait_for_quiet_host
 
+    print('[hostguard]', json.dumps(wait_for_quiet_host(max_wait_s=300.0)),
+          flush=True)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     dev = resolve_device(args.device)

@@ -15,9 +15,20 @@ The initial weights are drawn as the JAX package draws them
 ``ClipLoader`` (uint8 frames, packed masks) through the loop's
 ``Prefetcher``.  The model runs on ``--device`` (default ``cuda``, which
 raises on a host without a GPU).
-One process trains on one device: the loader takes every clip
-(``shard_indices(num_shards=1)``) until multi-GPU is ported (ROADMAP
-A.13).
+
+Data-parallel over N processes, one card each (``train.py:86-89``,
+``:125-147``):
+
+    torchrun --nproc_per_node=N -m stmask_torch.train --ann_file A ...
+
+Each process loads its shard of every epoch (``ClipLoader(num_shards=N,
+shard_id=rank)``, an epoch being the shard's clips over ``--batch_size``)
+and ``--batch_size`` is per process, so a step takes N x ``--batch_size``
+clips; autoscaling sees the per-process ``--batch_size``, as the JAX
+package's ``train.py`` does.  The processes compute the single-process step over the
+whole batch (``parallel/mesh.py``); rank 0 writes the checkpoints, the log
+and the validation.  NCCL joins ranks with a card each; ranks on the CPU,
+or several on one card, use gloo.
 """
 
 from __future__ import annotations
@@ -101,10 +112,10 @@ def run(argv=None) -> Optional[Dict]:
 
     from ..config import get_config
     from ..convert import load_reference_weights
-    from ..data.loader import ClipLoader
+    from ..data.loader import ClipLoader, shard_indices
     from ..data.ytvis import YTVISDataset
     from ..models.stmask import STMask, init_flax
-    from ..utils.device import resolve_device
+    from ..parallel import initialize_multihost, rank, world_size
     from .loop import train
     from .schedule import autoscale
 
@@ -119,7 +130,7 @@ def run(argv=None) -> Optional[Dict]:
         cfg = cfg.replace(img_w=args.img_w)
     if args.img_h is not None:
         cfg = cfg.replace(img_h=args.img_h)
-    dev = resolve_device(args.device)
+    dev = initialize_multihost(device=args.device)
 
     if args.ann_file is None or args.img_prefix is None:
         print('No --ann_file/--img_prefix given; nothing to train on.',
@@ -128,7 +139,9 @@ def run(argv=None) -> Optional[Dict]:
 
     dataset = YTVISDataset(args.ann_file, args.img_prefix)
     loader = ClipLoader(cfg, dataset, args.batch_size,
-                        num_workers=args.num_workers, image_u8=True)
+                        num_workers=args.num_workers,
+                        num_shards=world_size(), shard_id=rank(),
+                        image_u8=True)
     model = init_flax(STMask(cfg), torch.Generator().manual_seed(0))
     if args.init_weights:
         if not args.init_weights.endswith('.pth'):
@@ -143,8 +156,9 @@ def run(argv=None) -> Optional[Dict]:
             return None
         return validate(args, cfg, mdl, epoch, iteration)
 
+    shard = shard_indices(loader.index, 0, world_size(), rank())
     state = train(cfg, model, loader.epoch,
-                  max(1, len(loader.index) // args.batch_size),
+                  max(1, len(shard) // args.batch_size),
                   args.save_folder, args.log_folder,
                   save_interval=args.save_interval,
                   keep_latest=args.keep_latest, resume=args.resume,
@@ -162,7 +176,11 @@ def run(argv=None) -> Optional[Dict]:
 
 
 def main(argv=None) -> int:
-    return 0 if run(argv) is not None else 2
+    try:
+        return 0 if run(argv) is not None else 2
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -21,6 +21,15 @@ runs after every ``validation_epoch``-th epoch and its result is logged.
 With ``vis_every`` N > 0, every N-th iteration writes the overlays of
 its batch to ``vis_dir`` (``utils.visualization.save_train_output``, as
 ``train.py:243-247``).
+
+Under W processes (``stmask_torch.parallel``), each rank passes its own
+shard's batches; the state starts from rank 0's (``parallel.replicate``,
+after a resume, which every rank loads).  Only rank 0 saves checkpoints
+(on Ctrl-C too), writes the log, validates and writes the overlays; the
+others wait for it at a barrier.  That wait lasts a whole validation
+pass, so the process group is opened with ``parallel.GROUP_TIMEOUT``
+(two hours) instead of torch's default, under which NCCL's watchdog
+aborts the waiting ranks after ten minutes.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from ..config import STMaskConfig
 from ..data.loader import Prefetcher
 from ..data.transforms import prepare_batch
 from ..models.stmask import STMask
+from ..parallel.collectives import barrier, rank
+from ..parallel.mesh import replicate
 from ..utils.logger import Log, MovingAverage
 from ..utils.visualization import save_train_output
 from .checkpoint import CheckpointManager, InterruptSaver, parse_ckpt_name
@@ -96,9 +107,17 @@ def train(cfg: STMaskConfig, model: STMask,
             if parsed:
                 start_iter = parsed[2]
             print(f'Resumed from {path} at iteration {start_iter}')
+    state = replicate(state)
+    main = rank() == 0
+
+    def save(epoch, iteration):
+        if main:
+            ckpt.save(state, epoch, iteration)
+        barrier(dev)
 
     log = Log(cfg.name, log_folder,
-              session_data=session_data or {'config': cfg.name})
+              session_data=session_data or {'config': cfg.name}) \
+        if main else None
     loss_avgs: Dict[str, MovingAverage] = {}
     time_avg = MovingAverage()
     pending_delayed = sorted(cfg.delayed_settings)
@@ -169,18 +188,22 @@ def train(cfg: STMaskConfig, model: STMask,
                     batch = _on_step_stream(item, dev)
                     state, metrics = train_step(state, batch)
                     iteration += 1
-                    saver.update(state, epoch, iteration)
-                    if pending is not None:
-                        consume(pending)
-                    pending = (to_host(metrics), epoch, iteration)
+                    if main:
+                        saver.update(state, epoch, iteration)
+                        if pending is not None:
+                            consume(pending)
+                        pending = (to_host(metrics), epoch, iteration)
                     time_avg.append(time.perf_counter() - t0)
                     t0 = time.perf_counter()
                     if iteration % save_interval == 0:
-                        print('Saving state, iter:', iteration)
-                        ckpt.save(state, epoch, iteration)
+                        if main:
+                            print('Saving state, iter:', iteration)
+                        save(epoch, iteration)
                     if vis_every > 0 and iteration % vis_every == 0:
-                        save_train_output(cfg, model, batch, vis_dir, epoch,
-                                          iteration)
+                        if main:
+                            save_train_output(cfg, model, batch, vis_dir,
+                                              epoch, iteration)
+                        barrier(dev)
             finally:
                 batches.close()
             if pending is not None:
@@ -189,9 +212,10 @@ def train(cfg: STMaskConfig, model: STMask,
                 break
             if (validate is not None and validation_epoch > 0
                     and (epoch + 1) % validation_epoch == 0):
-                stats = validate(model, epoch, iteration)
+                stats = validate(model, epoch, iteration) if main else None
                 if stats:
                     log.log('validation', data=stats, epoch=epoch,
                             iter=iteration)
-    ckpt.save(state, num_epochs, iteration)
+                barrier(dev)
+    save(num_epochs, iteration)
     return state

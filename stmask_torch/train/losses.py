@@ -18,6 +18,16 @@ below are frame sums with per-frame positive weights, and
 count F.  Tie orders follow JAX: the OHEM rank is a stable sort
 (``jnp.argsort``), and the positive caps take the lower index first
 (``lax.top_k``).  ``stop_gradient`` becomes ``.detach()``.
+
+Data-parallel training (``stmask_torch.parallel``): under W processes that
+each hold F / W frames, every function returns this rank's share of the
+batch-global value, so that the shares sum to the single-process value
+over the rank-ordered concatenation of the shards, and so do their
+gradients.  The batch-global parts (F and the clip count, OHEM's
+positive count and hard-negative rank, the sigmoid focal loss's kept
+count, P's mean, T's pairs and normalizer) come from detached values
+gathered over the ranks; per-frame terms stay local.  In a single process
+the collectives are the identity.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ from ..ops.boxes import (center_size, decode, elemwise_diou, encode,
 from ..ops.masks import generate_mask
 from ..ops.matcher import match
 from ..ops.roi_align import roi_align
+from ..parallel.collectives import (all_gather_cat, all_reduce_sum, rank,
+                                    world_size)
 
 EPS = 1e-10
 
@@ -101,6 +113,30 @@ def box_loss(cfg: STMaskConfig, priors: torch.Tensor, preds: Dict,
     return per.sum() * cfg.bbox_alpha
 
 
+def _hard_negatives(cfg: STMaskConfig, loss_c: torch.Tensor,
+                    conf_t: torch.Tensor) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """OHEM's selection over the whole batch: this rank's hard-negative
+    mask and the batch's negative count.  ``loss_c`` (detached margins,
+    zero at positives and neutrals) and ``conf_t`` are this rank's
+    flattened anchors; the rank is the stable descending order of every
+    rank's margins, and the count of negatives is 3 x the batch's
+    positives, at most all anchors but one."""
+    n = loss_c.shape[0]
+    loss_all = all_gather_cat(loss_c.detach())
+    conf_all = all_gather_cat(conf_t)
+    pos = conf_all > 0
+    neutral = conf_all < 0
+    num_neg = torch.clamp(cfg.ohem_negpos_ratio * pos.sum(),
+                          max=loss_all.shape[0] - 1)
+    order = torch.sort(-loss_all, stable=True).indices
+    rank_all = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.shape[0], device=order.device))
+    neg = (rank_all < num_neg) & ~pos & ~neutral
+    off = rank() * n
+    return neg[off:off + n], neg.sum()
+
+
 def ohem_conf_loss(cfg: STMaskConfig, preds: Dict,
                    t: MatchedTargets) -> torch.Tensor:
     """OHEM cross-entropy over the flattened batch (``losses.py:143-172``):
@@ -113,18 +149,13 @@ def ohem_conf_loss(cfg: STMaskConfig, preds: Dict,
     lse = torch.logsumexp(conf, dim=-1)
 
     loss_c = torch.where(pos | neutral, 0.0, (lse - conf[:, 0]).detach())
-    num_pos = pos.sum()
-    num_neg = torch.clamp(cfg.ohem_negpos_ratio * num_pos, max=f * p - 1)
-    order = torch.sort(-loss_c, stable=True).indices
-    rank = torch.empty_like(order).scatter_(
-        0, order, torch.arange(f * p, device=order.device))
-    neg = (rank < num_neg) & ~pos & ~neutral
+    neg, n_neg = _hard_negatives(cfg, loss_c, conf_t)
 
     tgt = torch.clamp(conf_t, min=0).long()
     ce = lse - torch.gather(conf, 1, tgt[:, None])[:, 0]
     w = t.pos_w.reshape(-1)
-    neg_w = torch.where(neg, 1.0 / torch.clamp(neg.sum(), min=1)
-                        * cfg.ohem_negpos_ratio * f, 0.0)
+    neg_w = torch.where(neg, 1.0 / torch.clamp(n_neg, min=1)
+                        * cfg.ohem_negpos_ratio * f * world_size(), 0.0)
     weights = torch.where(pos, w, neg_w)
     total = (weights * ce).sum() / (cfg.ohem_negpos_ratio + 1)
     return cfg.conf_alpha * total
@@ -147,8 +178,8 @@ def focal_conf_sigmoid_loss(cfg: STMaskConfig, preds: Dict,
     at[:, 0] = 0.0
     loss = -at * (1 - pt) ** cfg.focal_loss_gamma * logpt
     loss = keep * loss.sum(dim=-1)
-    denom = torch.clamp(keep.sum(), min=1.0)
-    return cfg.conf_alpha * loss.sum() / denom * f
+    denom = torch.clamp(all_reduce_sum(keep.sum()), min=1.0)
+    return cfg.conf_alpha * loss.sum() / denom * (f * world_size())
 
 
 def focal_conf_loss(cfg: STMaskConfig, preds: Dict,
@@ -163,11 +194,7 @@ def focal_conf_loss(cfg: STMaskConfig, preds: Dict,
     neutral = conf_t < 0
     loss_c = torch.logsumexp(conf, dim=-1) - conf[:, 0]
     loss_c = torch.where(pos | neutral, 0.0, loss_c)
-    num_neg = torch.clamp(cfg.ohem_negpos_ratio * pos.sum(), max=f * p - 1)
-    order = torch.sort(-loss_c.detach(), stable=True).indices
-    rank = torch.empty_like(order).scatter_(
-        0, order, torch.arange(f * p, device=order.device))
-    neg = (rank < num_neg) & ~pos & ~neutral
+    neg, _ = _hard_negatives(cfg, loss_c, conf_t)
     keep = pos | neg
     tgt = torch.clamp(conf_t, min=0).long()
     logpt = torch.gather(torch.log_softmax(conf, dim=-1), 1,
@@ -211,11 +238,12 @@ def proto_loss(cfg: STMaskConfig, preds: Dict) -> torch.Tensor:
     mean |proto| over the reference's expected area x 0.1; ``disj``,
     -mean(max over prototypes of log_softmax(proto))."""
     proto = preds['proto']
+    w = world_size()              # the batch's mean: equal shards
     if cfg.mask_proto_loss == 'l1':
         l1_expected_area = 20 * 20 / 70 / 70
-        return proto.abs().mean() / l1_expected_area * 0.1
+        return proto.abs().mean() / w / l1_expected_area * 0.1
     if cfg.mask_proto_loss == 'disj':
-        return -torch.log_softmax(proto, dim=-1).amax(dim=-1).mean()
+        return -torch.log_softmax(proto, dim=-1).amax(dim=-1).mean() / w
     raise ValueError(f'unknown mask_proto_loss {cfg.mask_proto_loss!r}')
 
 
@@ -373,17 +401,47 @@ def track_loss(cfg: STMaskConfig, preds: Dict,
     emb = emb.reshape(-1, emb.shape[-1])                     # [F*cap, E]
     ids = torch.gather(t.ids_t, 1, idx).reshape(-1)
     w = (torch.gather(t.pos_w, 1, idx) * valid).reshape(-1)
+    if world_size() == 1:
+        return cfg.track_alpha * _pair_loss(emb, ids, w)
+    # the batch's pairs: the value from every rank's rows (detached, the
+    # same on every rank), the gradient from this rank's rows against all
+    # others; each pair's loss is symmetric, so the derivative of
+    # sum_{i<j} l(e_i, e_j) by a row e_i is sum_{j != i} of the first
+    # argument's derivative of l(e_i, e_j)
+    emb_all, ids_all = all_gather_cat(emb.detach()), all_gather_cat(ids)
+    w_all = all_gather_cat(w)
+    value = _pair_loss(emb_all, ids_all, w_all)
+    n = emb.shape[0]
+    mine = torch.arange(n, device=emb.device) + rank() * n
+    other = (torch.arange(emb_all.shape[0], device=emb.device)[None, :]
+             != mine[:, None])
+    lw = w[:, None] * w_all[None, :] * other
+    grad = (_pair_terms(emb @ emb_all.T, ids, ids_all) * lw).sum() \
+        / torch.clamp(torch.triu(w_all[:, None] * w_all[None, :],
+                                 diagonal=1).sum(), min=EPS)
+    return cfg.track_alpha * (grad - grad.detach() + value / world_size())
 
-    cos = (emb @ emb.T + 1.0) / 2.0
-    inst_eq = ((ids[:, None] == ids[None, :]) & (ids[:, None] > 0)).float()
-    lw = torch.triu(w[:, None] * w[None, :], diagonal=1)
-    cos = torch.triu(cos, diagonal=1)
+
+def _pair_terms(dot: torch.Tensor, ids_a: torch.Tensor,
+                ids_b: torch.Tensor) -> torch.Tensor:
+    """The contrastive loss of each pair of embeddings from their dot
+    products: -log of the cosine similarity mapped to [0, 1] for the same
+    instance, -log of its complement otherwise."""
+    cos = (dot + 1.0) / 2.0
+    inst_eq = ((ids_a[:, None] == ids_b[None, :])
+               & (ids_a[:, None] > 0)).float()
     eps = cos.new_tensor(EPS)
-    loss_m = -(inst_eq * torch.log(torch.maximum(cos, eps))
-               + (1.0 - inst_eq) * torch.log(torch.maximum(1.0 - cos, eps)))
-    loss_m = torch.triu(loss_m, diagonal=1)
-    denom = torch.maximum(lw.sum(), eps)
-    return cfg.track_alpha * (loss_m * lw).sum() / denom
+    return -(inst_eq * torch.log(torch.maximum(cos, eps))
+             + (1.0 - inst_eq) * torch.log(torch.maximum(1.0 - cos, eps)))
+
+
+def _pair_loss(emb: torch.Tensor, ids: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """T over the pairs i < j of ``emb`` [N, E], weighted by w_i w_j and
+    normalized by the weights' sum (``losses.py:452-478``)."""
+    lw = torch.triu(w[:, None] * w[None, :], diagonal=1)
+    terms = torch.triu(_pair_terms(emb @ emb.T, ids, ids), diagonal=1)
+    return (terms * lw).sum() / torch.clamp(lw.sum(), min=EPS)
 
 
 def track_to_segment_loss(cfg: STMaskConfig,
@@ -455,9 +513,10 @@ def track_to_segment_loss(cfg: STMaskConfig,
     per = _bce(pred, mask_t).sum(dim=(2, 3)) / bw / bh
     loss_m = torch.where(valid, per, 0.0).sum(dim=1) / n_pos
     has_pos = valid.any(dim=1).float()
-    out = {'B_shift': (loss_b * has_pos).sum() / b * cfg.boxshift_alpha}
+    nb = b * world_size()                     # the batch's clip count
+    out = {'B_shift': (loss_b * has_pos).sum() / nb * cfg.boxshift_alpha}
     if cfg.maskshift_loss:
-        out['M_shift'] = (loss_m * has_pos).sum() / b * cfg.maskshift_alpha
+        out['M_shift'] = (loss_m * has_pos).sum() / nb * cfg.maskshift_alpha
     return out
 
 
@@ -467,7 +526,8 @@ def compute_losses(cfg: STMaskConfig, preds: Dict, gt: Dict,
                    maskiou_fn: Callable = None
                    ) -> Dict[str, torch.Tensor]:
     """All training losses for one flattened frame batch
-    (``losses.py:595-651``).
+    (``losses.py:595-651``); under W processes, this rank's shares of the
+    losses of the batch of every rank (see the module's docstring).
 
     Args:
       preds: model train outputs (frames flattened [F = 2B, ...]).
@@ -520,6 +580,6 @@ def compute_losses(cfg: STMaskConfig, preds: Dict, gt: Dict,
     if cfg.use_semantic_segmentation_loss and 'segm' in preds:
         losses['S'] = semantic_segmentation_loss(
             cfg, preds['segm'], gt['masks_p3'], gt['labels'], gt['valid'])
-    f = t.pos.shape[0]
+    f = t.pos.shape[0] * world_size()          # the batch's frame count
     exempt = ('T', 'B_shift', 'M_shift')
     return {k: (v if k in exempt else v / f) for k, v in losses.items()}

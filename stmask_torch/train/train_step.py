@@ -18,6 +18,14 @@ advances; ``count``, the optimizer's own step that the learning rate reads,
 does not.  The skip is a ``torch.where`` on the card, so a step never waits
 for the host.  Parameters and momentum are updated in place (the model
 stays channels-last, so does every buffer).
+
+Under W processes (``stmask_torch.parallel``; the same parameters on every
+rank, ``parallel.replicate``) each rank's losses are its shares of the
+batch-global losses (``losses.py``); the step sums the shares' gradients
+and the losses over the ranks in one ``all_reduce``, so that the norm, the
+clip, the non-finite skip and the update are those of the single-process
+step over the rank-ordered concatenation of the shards, on every rank: a
+rank whose own shard is finite skips the step when another's is not.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from ..config import STMaskConfig
 from ..models.layers import set_bn_affine_trainable
 from ..models.stmask import STMask
 from ..ops.anchors import all_priors
+from ..parallel.collectives import world_size
 from ..utils.device import resolve_device
 from .losses import compute_losses
 from .schedule import learning_rate
@@ -57,16 +66,17 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
     crowd_boxes [B, 2, Gc, 4] / crowd_valid [B, 2, Gc] and, for the
     semantic-seg loss S, masks_p3 [B, 2, G, H3, W3].  ``metrics`` holds
     each loss, ``total`` and ``gnorm`` as 0-dim tensors on the device (read
-    them when needed) and ``lr``, ``learning_rate(cfg, state.step)``.
-    Each parameter's ``.grad`` keeps the step's raw (unclipped) gradient
-    until the next step starts.
+    them when needed; the batch-global values on every rank) and ``lr``,
+    ``learning_rate(cfg, state.step)``.  Each parameter's ``.grad`` keeps
+    the step's raw (unclipped) gradient of the whole batch until the next
+    step starts.
 
     The model is moved to ``device`` (default ``cuda``; raises when there
     is no GPU) in the channels-last format, with TF32 off.
     """
     if remat or compute_dtype is not None:
         raise NotImplementedError('remat and compute_dtype are not ported '
-                                  '(ROADMAP A.9)')
+                                  '(ROADMAP A.9c)')
     dev = resolve_device(device)
     set_bn_affine_trainable(model, not cfg.freeze_bn)
     model.to(device=dev, memory_format=torch.channels_last).train()
@@ -92,6 +102,8 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
         with torch.no_grad():
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in params]
+            if world_size() > 1:
+                total, losses = _sum_over_ranks(params, grads, total, losses)
             gnorm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
             finite = torch.isfinite(total) & torch.isfinite(gnorm)
@@ -120,3 +132,22 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
                           torch.zeros((), dtype=torch.long, device=dev), 0)
 
     return train_step, init_state
+
+
+def _sum_over_ranks(params: List[torch.Tensor], grads: List[torch.Tensor],
+                    total: torch.Tensor, losses: Dict[str, torch.Tensor]):
+    """Sum the gradients (written back into ``grads`` and each ``.grad``)
+    and the losses over the ranks, in one ``all_reduce`` of a flat buffer;
+    returns the summed (total, losses)."""
+    keys = list(losses)
+    vals = torch.stack([total.detach()] + [losses[k].detach() for k in keys])
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [vals.to(grads[0].dtype)])
+    torch.distributed.all_reduce(flat)
+    off = 0
+    for p, g in zip(params, grads):
+        g.copy_(flat[off:off + g.numel()].view(g.shape))
+        p.grad = g
+        off += g.numel()
+    vals = flat[off:]
+    return vals[0], dict(zip(keys, vals[1:]))

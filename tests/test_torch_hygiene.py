@@ -201,3 +201,30 @@ def test_kernel_argtypes_match_the_c_launchers(name):
     want = [ctypes.c_void_p if '*' in p else scalar[p.split()[0]]
             for p in params]
     assert kern.argtypes == want, (kern.symbol, params)
+
+
+_IMPORT_ONE = r'''
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(sorted(n for n in sys.modules
+             if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'flax',
+                                            'stmask_tpu',
+                                            'stmask_torch.models'))))
+'''
+
+
+@pytest.mark.parametrize('module', [
+    'stmask_torch.parallel', 'stmask_torch.parallel.mesh',
+    'stmask_torch.parallel.collectives', 'stmask_torch.export',
+    'stmask_torch.utils.hostguard'])
+def test_new_modules_stand_alone(module):
+    """Each module of the multi-process, export and host-guard slice
+    imports alone in a fresh process, with no JAX and no stmask_tpu; the
+    artifact's loader (``stmask_torch.export``) and the collectives also
+    without the model code."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', _IMPORT_ONE, module],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == '[]', res.stdout

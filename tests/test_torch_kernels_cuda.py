@@ -754,3 +754,101 @@ def test_fused_deform_conv_at_r101_sites(device):
         want = KD.deform_conv_reference(x, off, wt, mask, bias, stride, 1)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=FUSED_ATOL, rtol=0)
+
+
+# ---- the stmask:: custom ops (the binding torch.export traces) ------------
+
+def _op_cases(device):
+    """(op, args, the direct wrapper, its CudaKernel) of every entry."""
+    from stmask_torch.kernels import greedy_nms as KG
+    g = torch.Generator(device=device).manual_seed(31)
+    x1 = torch.randn(1, 24, 40, 256, device=device, generator=g)
+    x2 = torch.randn(1, 24, 40, 256, device=device, generator=g)
+    # offsets and mask as channel slices of one tensor, read in place
+    x, _, _, wt, bias = _dcn_case(device, 24, 40, 256, 256, 3, 3, 1, 1, 32)
+    om = torch.randn(1, 24, 40, 27, device=device, generator=g)
+    om = torch.cat([om[..., :18] * 2.0, torch.sigmoid(om[..., 18:])], -1)
+    off, mask = om[..., :18], om[..., 18:]
+    iou, valid = _greedy_inputs(torch, device, 40, 200, seed=33)
+    bf = torch.bfloat16
+    dcn = torch.ops.stmask.deform_conv
+    return [
+        (torch.ops.stmask.correlate, (x1, x2, 11, True), K1.correlate_cuda,
+         K1.KERNEL),
+        (torch.ops.stmask.correlate, (x1.to(bf), x2.to(bf), 11, True),
+         K1.correlate_cuda, K1.KERNEL_BF16),
+        (dcn, (x, off, wt, mask, bias, 1, 1), KD.deform_conv_cuda,
+         KD.KERNEL),
+        (dcn, (x.to(bf), off.to(bf), wt.to(bf), mask.to(bf), bias.to(bf), 1,
+               1), KD.deform_conv_cuda, KD.KERNEL_BF16),
+        (dcn, (x.to(bf), off, wt.to(bf), None, None, 1, 1),
+         KD.deform_conv_cuda, KD.KERNEL_BF16_F32OFF),
+        (torch.ops.stmask.greedy_nms_keep, (iou, valid, 0.5),
+         KG.greedy_nms_cuda, KG.KERNEL)]
+
+
+def test_custom_ops_are_the_kernels(device):
+    """On CUDA tensors each op is its hand-written kernel: one launch a
+    call, bit for bit the direct call (offset and mask read in place as
+    channel slices)."""
+    for op, args, direct, kernel in _op_cases(device):
+        n0 = kernel.launches
+        got = op(*args)
+        assert kernel.launches == n0 + 1, kernel.symbol
+        want = direct(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kernel.symbol
+
+
+def test_custom_ops_opcheck_on_the_card(device):
+    """``torch.library.opcheck`` of every entry on CUDA tensors: the fake
+    implementation's shape and dtype, no hidden mutation."""
+    for op, args, _, kernel in _op_cases(device):
+        torch.library.opcheck(op.default, args)
+
+
+def test_exported_step_on_the_card(device, tmp_path):
+    """The reduced flagship's fp32 video step exported on the card, saved
+    and loaded: equal to the live step over three frames (ids and kept
+    slots equal, box / score / mask within 1e-5), with the fused conv at
+    each DCN site and K1 once a frame; the weights on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from stmask_torch.config import get_config
+    from stmask_torch.export import (export_video_step, load_exported,
+                                     save_exported)
+    from stmask_torch.inference import build_video_step
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+
+    cfg = get_config('STMask_plus_resnet50')
+    cfg = cfg.replace(img_h=96, img_w=128, track_capacity=16,
+                      backbone=dataclasses.replace(cfg.backbone,
+                                                   layers=(1, 3, 3, 1)))
+    exported, meta = export_video_step(cfg, build_model(cfg, device, 0),
+                                       device=device)
+    save_exported(exported, meta, str(tmp_path / 'a.stmask'))
+    step, _ = load_exported(str(tmp_path / 'a.stmask'))
+    assert {t.device for t in step._fn.state_dict().values()} == {
+        torch.device('cuda', 0)}
+    live, init = build_video_step(cfg, build_model(cfg, device, 0),
+                                  uint8_input=True, device=device)
+    rng = np.random.RandomState(0)
+    frames = rng.randint(0, 256, (3, 96, 128, 3), dtype=np.uint8)
+    sa, sl = step.init_state(), init()
+    for k, fr in enumerate(frames):
+        for kk in KERNELS.values():
+            kk.launches = 0
+        sa, got = step(sa, fr, k == 0)
+        torch.cuda.synchronize()
+        launches = {n: kk.launches for n, kk in KERNELS.items()}
+        sl, want = live(sl, fr, k == 0)
+        assert launches['deform_conv'] == 5 and launches['correlation'] == 1
+        assert sum(launches.values()) == 6, launches
+        for f in ('keep', 'obj_id'):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        for f in ('box', 'score', 'mask'):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                       rtol=0, atol=1e-5)
