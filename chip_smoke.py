@@ -136,6 +136,20 @@ Phases, in order (any failure raises and exits non-zero):
      K1 a frame, 14 bf16 fused conv and 4 bf16 K1 a chunk), with the
      export, save and load seconds, the artifact's size and the CLI's
      --bench frames/s beside phase 4's step.
+ 14. bf16 training and remat: (a) the bf16 entries of deform_wgrad, K4
+     (each also with fp32 offsets) and K3 against their plain versions
+     (one bf16 ulp of each value plus 2^-12 of max|ref|; d_w, d_offset,
+     d_mask, dx1 and dx2 bit for bit over two launches) and their times
+     and bounds: at the flagship's 7 sites and FCB's 15 (bf16 and fp32
+     offsets) x 8 frames, K3 at [4, 24, 40, 256]; (b) the flagship's
+     training step over phase 6's batches in each mode of
+     build_train_step (fp32, remat, bf16, bf16 + remat): launches a step,
+     ms/step, peak memory above the first step's start; remat against
+     plain from the same state with cuDNN deterministic (gradients within
+     1e-6 of their L2 norm, beside two plain steps), and bf16's losses
+     against fp32's; (c) two bf16 + remat steps of
+     STMask_plus_resnet50_ali (the f32off entries), finite losses and
+     peak memory.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -3004,6 +3018,357 @@ def _export_phase(torch, dev, smi: str, name: str, clips, live_ms: float,
     return result
 
 
+# phase 14: bf16 training and remat.  The bf16 backward entries against
+# their plain versions: both sum in fp32 from the same bf16 values and round
+# once, so a value may differ by one bf16 ulp (2^-7 of it) where the sums'
+# order decides, plus 2^-12 of max|ref| for values near 0 (fixed before the
+# entries' first run on the card)
+BF16_BWD_RTOL = 2.0 ** -7
+BF16_BWD_ATOL = 2.0 ** -12
+# the training step's modes (build_train_step's remat and compute_dtype),
+# each run for MODE_STEPS steps of phase 6's batches from seeded weights
+MODE_STEPS = 4
+# launches a step of each mode: remat runs the forward twice (the second
+# time inside the backward)
+MODE_LAUNCHES = {
+    'fp32': TRAIN_LAUNCHES,
+    'remat': dict(TRAIN_LAUNCHES, deform_conv=14, correlation=2),
+    'bf16': {'deform_conv_bf16': 7, 'deform_wgrad_bf16': 7,
+             'deform_col2im_bf16': 7, 'correlation_bf16': 1,
+             'correlation_bwd_bf16': 1},
+    'bf16_remat': {'deform_conv_bf16': 14, 'deform_wgrad_bf16': 7,
+                   'deform_col2im_bf16': 7, 'correlation_bf16': 2,
+                   'correlation_bwd_bf16': 1}}
+# remat against the plain step from the same state, cuDNN deterministic:
+# the relative L2 of the whole gradient (K4 adds dx with atomics, so two
+# plain runs differ by ~2.5e-7 too)
+REMAT_GRAD_REL = 1e-6
+ALI_BF16_STEPS = 2
+# the bf16 + remat steps of STMask_plus_resnet50_ali: the backbone's 7
+# sites with bf16 offsets, FCB's 15 with fp32 ones
+ALI_BF16_LAUNCHES = {'deform_conv_bf16': 14,
+                     'deform_conv_bf16_f32off': 2 * FCB_PER_FRAME,
+                     'deform_wgrad_bf16': 7,
+                     'deform_wgrad_bf16_f32off': FCB_PER_FRAME,
+                     'deform_col2im_bf16': 7,
+                     'deform_col2im_bf16_f32off': FCB_PER_FRAME,
+                     'correlation_bf16': 2, 'correlation_bwd_bf16': 1}
+
+
+def _bf16_err(got, again, want, same: bool = True) -> float:
+    """max|got - want| / max|want| of a bf16 entry's output, after checking
+    its type, the tolerance (BF16_BWD_RTOL of each value plus BF16_BWD_ATOL
+    of max|want|) and, when ``same``, that a second launch gave it bit for
+    bit."""
+    import torch
+    assert got.dtype == want.dtype and got.shape == want.shape, \
+        (got.dtype, want.dtype)
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    lim = BF16_BWD_RTOL * w.abs() + BF16_BWD_ATOL * scale
+    d = (g - w).abs()
+    assert bool((d <= lim).all()), (float(d.max()), scale)
+    if same:
+        assert torch.equal(got, again)
+    return float(d.max()) / max(scale, 1e-30)
+
+
+def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
+    """Phase 14a: the bf16 entries of deform_wgrad, K4 and K3 against their
+    plain versions and timed beside them, with their bounds: at the
+    flagship's 7 DCN sites x 8 frames (bf16 offsets and mask), at FCB's 15
+    sites x 8 frames with bf16 offsets (_ada) and with fp32 ones (_ali, the
+    f32off entries), and K3 at [4, 24, 40, 256] (fp32 g and out, as K1's
+    bf16 entry writes them).  Bounds: the bytes of the bf16 (and fp32)
+    tensors read and written once; deform_wgrad's product as a bf16
+    tensor-core product (2MNK at the bf16 peak) plus the gather's fp32
+    flops, K4's and K3's fp32 flops as in phase 6.  deform_wgrad's library
+    column is cuBLAS's bf16 GEMM g^T @ cols alone (cols gathered
+    beforehand: not the same function)."""
+    from stmask_torch.kernels import correlation_bwd as K3
+    from stmask_torch.kernels import deform_col2im as K4
+    from stmask_torch.kernels import deform_wgrad as KW
+    from stmask_torch.kernels.deform_conv import deform_cols_bf16
+    bf = torch.bfloat16
+    frames = 2 * TRAIN_CLIPS
+    acc = {k: {} for k in ('deform_wgrad_bf16', 'deform_col2im_bf16',
+                           'deform_wgrad_bf16_fcb', 'deform_col2im_bf16_fcb',
+                           'deform_wgrad_bf16_f32off',
+                           'deform_col2im_bf16_f32off')}
+    lib = {'sites': 0.0, 'fcb': 0.0}
+
+    def one(tag, key, dcols, x, off, mask, kh, kw, stride, gen, cout):
+        k = kh * kw
+        m = dcols.shape[0]
+        g = torch.randn(m, cout, device=dev, generator=gen).to(bf)
+        got = KW.deform_wgrad_cuda(g, x, off, mask, kh, kw, stride)
+        again = KW.deform_wgrad_cuda(g, x, off, mask, kh, kw, stride)
+        want = KW.deform_wgrad_reference(g, x, off, mask, kh, kw, stride)
+        torch.cuda.synchronize()
+        e_w = _bf16_err(got, again, want)
+        del got, again, want
+        got = K4.deform_col2im_cuda(dcols, x, off, mask, kh, kw, stride)
+        again = K4.deform_col2im_cuda(dcols, x, off, mask, kh, kw, stride)
+        want = K4.deform_col2im_reference(dcols, x, off, mask, kh, kw,
+                                          stride)
+        torch.cuda.synchronize()
+        assert want[1].dtype == off.dtype
+        e_4 = max(_bf16_err(got[0], again[0], want[0], same=False),
+                  _bf16_err(got[1], again[1], want[1]),
+                  0.0 if mask is None else _bf16_err(got[2], again[2],
+                                                     want[2]))
+        del got, again, want
+        wk = 'deform_wgrad' + key
+        ck = 'deform_col2im' + key
+        for name_, e in ((wk, e_w), (ck, e_4)):
+            base = name_.replace('_fcb', '')
+            err[base] = max(err[base], e)
+        fl = _dcn_cost(torch, x, off.float(), stride, kh, kw,
+                       modulated=mask is not None)[1]
+        n_mask = 0 if mask is None else mask.numel()
+        nb = (2 * (x.numel() + n_mask + g.numel() + cout * k * x.shape[3])
+              + off.element_size() * off.numel())
+        ms = _device_ms(lambda: KW.deform_wgrad_cuda(g, x, off, mask, kh, kw,
+                                                     stride), 20)
+        call = _time_ms(lambda: KW.deform_wgrad_cuda(g, x, off, mask, kh, kw,
+                                                     stride), 20)
+        plain = _time_ms(lambda: KW.deform_wgrad_reference(
+            g, x, off, mask, kh, kw, stride), 2, warmup=1)
+        bw, byw = _tally(acc[wk], ms, call, plain, nb, fl,
+                         bf16_flops=2 * m * cout * k * x.shape[3])
+        cols = deform_cols_bf16(x, off, mask, kh, kw, stride).to(bf)
+        l_ms = _device_ms(lambda: g.t() @ cols, 20)
+        del cols
+        nb4, fl4 = _col2im_cost(torch, x, off.float(), stride, kh=kh, kw=kw,
+                                modulated=mask is not None)
+        nb4 = (2 * (dcols.numel() + 2 * x.numel() + 2 * n_mask)
+               + 2 * off.element_size() * off.numel())
+        ms4 = _device_ms(lambda: K4.deform_col2im_cuda(
+            dcols, x, off, mask, kh, kw, stride), 20)
+        call4 = _time_ms(lambda: K4.deform_col2im_cuda(
+            dcols, x, off, mask, kh, kw, stride), 20)
+        plain4 = _time_ms(lambda: K4.deform_col2im_reference(
+            dcols, x, off, mask, kh, kw, stride), 2, warmup=1)
+        b4, by4 = _tally(acc[ck], ms4, call4, plain4, nb4, fl4)
+        print(f'[bf16 bwd] {tag}: deform_wgrad{key} {ms:.5f} ms (device), '
+              f'call {call:.5f}, plain {plain:.5f}, bound {bw:.5f} ({byw}), '
+              f'max|diff| {e_w:.3e} of max|ref|, the bf16 GEMM alone '
+              f'{l_ms:.5f}; deform_col2im{key} {ms4:.5f} ms, call '
+              f'{call4:.5f}, plain {plain4:.5f}, bound {b4:.5f} ({by4}), '
+              f'max|diff| {e_4:.3e} of max|ref|', flush=True)
+        return l_ms
+
+    for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
+        dcols, x, off, mask = _dcn_train_inputs(torch, dev, h, w, cin,
+                                                stride, frames, 'random',
+                                                1400 + i)
+        gen = torch.Generator(device=dev).manual_seed(1450 + i)
+        lib['sites'] += one(f'{site} x {frames} frames', '_bf16',
+                            dcols.to(bf), x.to(bf), off.to(bf), mask.to(bf),
+                            3, 3, stride, gen, cin)
+        del dcols, x, off, mask
+    for i, (h, w, kh, kw) in enumerate(FCB_SITES):
+        x, off, _ = _fcb_inputs(torch, dev, h, w, kh, kw, frames, 1500 + i)
+        off = off.clamp(-2, 2)
+        gen = torch.Generator(device=dev).manual_seed(1550 + i)
+        dcols = torch.randn(frames * h * w, kh * kw * 256, device=dev,
+                            generator=gen).to(bf)
+        xb = x.to(bf)
+        for key, o in (('_bf16_fcb', off.to(bf)), ('_bf16_f32off', off)):
+            l_ms = one(f'FCB {h}x{w} {kh}x{kw} x {frames} frames', key,
+                       dcols, xb, o, None, kh, kw, 1, gen, 256)
+            if key == '_bf16_f32off':
+                lib['fcb'] += l_ms
+        del x, off, dcols, xb
+
+    tshape = (TRAIN_CLIPS, 24, 40, 256)
+    gen = torch.Generator(device=dev).manual_seed(1600)
+    up, x1, x2, out = _corr_bwd_inputs(torch, dev, tshape, 11, gen)
+    x1, x2 = x1.to(bf), x2.to(bf)
+    got = K3.correlation_bwd_cuda(up, x1, x2, 11, out)
+    again = K3.correlation_bwd_cuda(up, x1, x2, 11, out)
+    want = K3.correlation_bwd_reference(up, x1, x2, 11, out)
+    torch.cuda.synchronize()
+    e3 = max(_bf16_err(a, a2, b) for a, a2, b in zip(got, again, want))
+    err['correlation_bwd_bf16'] = max(err['correlation_bwd_bf16'], e3)
+    k3 = {}
+    ms = _device_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11, out),
+                    200)
+    call = _time_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11, out),
+                    200)
+    plain = _time_ms(lambda: K3.correlation_bwd_reference(
+        up, x1, x2, 11, out), 5)
+    b, h_, w_, c = tshape
+    nb = 4 * 2 * b * h_ * w_ * 121 + 2 * 4 * b * h_ * w_ * c
+    bound, by = _tally(k3, ms, call, plain, nb, _corr_bwd_cost(tshape, 11)[1])
+    print(f'[bf16 bwd] correlation_bwd_bf16 {list(tshape)} P 11 (bf16 x1, '
+          f'x2, dx1, dx2; fp32 g, out): {ms:.5f} ms (device), call '
+          f'{call:.5f}, plain {plain:.5f}, bound {bound:.5f} ({by}), '
+          f'max|diff| {e3:.3e} of max|ref|, bit-identical over two launches',
+          flush=True)
+    acc['correlation_bwd_bf16'] = k3
+    for key, a in acc.items():
+        print(f'[bf16 bwd] summed, {key}: {a["ms"]:.5f} ms (device), per call '
+              f'{a["call_ms"]:.5f} ms, plain {a["plain_ms"]:.5f} ms, bound '
+              f'{a["bound_ms"]:.5f} ms ({_by_of(a)}) ({smi})', flush=True)
+    print(f'[bf16 bwd] the bf16 GEMM g^T @ cols alone (cuBLAS), summed: 7 '
+          f'sites {lib["sites"]:.5f} ms, FCB 15 sites {lib["fcb"]:.5f} ms '
+          f'(device) ({smi})', flush=True)
+    return dict(acc=acc, lib=lib)
+
+
+def _train_modes(torch, dev, smi: str, name: str, hosts) -> dict:
+    """Phase 14b: the flagship's training step (4 clips = 8 frames at
+    360x640, phase 6's batches) in each mode of build_train_step: fp32,
+    remat, bf16, bf16 + remat.  Each from the same seeded weights for
+    MODE_STEPS steps: launches a step (MODE_LAUNCHES), finite losses,
+    ms/step (median of steps 1-3), peak memory above the first step's
+    start.  Then, with cuDNN deterministic, one remat step against one
+    plain step from the same state (gradients within REMAT_GRAD_REL of the
+    whole gradient's L2, losses within 1e-6), beside two plain steps;
+    and the bf16 step's losses against the fp32 step's, read."""
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+    from stmask_torch.train.train_step import build_train_step
+    cfg = get_config('STMask_plus_resnet50')
+    batches = [prepare_batch(cfg, h_, dev) for h_ in hosts[:MODE_STEPS]]
+    modes = (('fp32', {}), ('remat', dict(remat=True)),
+             ('bf16', dict(compute_dtype=torch.bfloat16)),
+             ('bf16_remat', dict(remat=True, compute_dtype=torch.bfloat16)))
+    res = {}
+    for tag, kw in modes:
+        model = build_model(cfg, dev, seed=0)
+        step, init = build_train_step(cfg, model, dev, **kw)
+        state = init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for k in KERNELS.values():
+            k.launches = 0
+        ms, metrics = [], []
+        for b_ in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b_)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() - base
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({n_: per * MODE_STEPS
+                     for n_, per in MODE_LAUNCHES[tag].items()})
+        assert launches == want, (tag, launches, want)
+        for m in metrics:
+            assert all(np.isfinite(v) for v in m.values()), (tag, m)
+        assert all(p.grad is None or p.grad.dtype == torch.float32
+                   for p in model.parameters()), tag
+        med = sorted(ms[1:])[len(ms[1:]) // 2]
+        res[tag] = dict(ms=med, all_ms=ms, peak=peak, base=base,
+                        metrics=metrics, launches=launches,
+                        per_step={n_: v // MODE_STEPS
+                                  for n_, v in launches.items() if v})
+        print(f'[modes] {tag}: median {med:.3f} ms/step over steps 1-'
+              f'{MODE_STEPS - 1}, all {[round(t, 3) for t in ms]}; peak '
+              f'{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB '
+              f'allocated at the first step\'s start; launches a step '
+              f'{res[tag]["per_step"]}; losses of step 0 '
+              f'{metrics[0]} ({name}, {smi})', flush=True)
+        del model, step, state
+        torch.cuda.empty_cache()
+    f0, b0 = res['fp32']['metrics'][0], res['bf16']['metrics'][0]
+    gap = {k: abs(b0[k] - f0[k]) / max(abs(f0[k]), 1e-30) for k in f0
+           if k != 'lr'}
+    print(f'[modes] bf16 against fp32, step 0 from the same weights and '
+          f'batch, |bf16 - fp32| / |fp32|: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in gap.items()), flush=True)
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    runs = {}
+    try:
+        for tag, kw in (('plain', {}), ('plain_again', {}),
+                        ('remat', dict(remat=True))):
+            model = build_model(cfg, dev, seed=0)
+            step, init = build_train_step(cfg, model, dev, **kw)
+            _, m = step(init(), batches[0])
+            runs[tag] = ({k: float(v) for k, v in m.items()},
+                         [(torch.zeros_like(p) if p.grad is None else p.grad)
+                          .detach().clone() for p in model.parameters()])
+            del model, step
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+
+    def rel(a, b):
+        num = sum(float((x - y).double().norm()) ** 2 for x, y in zip(a, b))
+        den = sum(float(y.double().norm()) ** 2 for y in b)
+        return (num / den) ** 0.5
+
+    (pl, pg), (al, ag), (rl, rg) = (runs[k] for k in ('plain', 'plain_again',
+                                                      'remat'))
+    r_rel, noise = rel(rg, pg), rel(ag, pg)
+    l_rel = max(abs(rl[k] - pl[k]) / max(abs(pl[k]), 1e-30) for k in pl)
+    print(f'[modes] remat against plain from the same state (cuDNN '
+          f'deterministic): gradient relative L2 {r_rel:.3e} (limit '
+          f'{REMAT_GRAD_REL:.0e}), losses max relative {l_rel:.3e}; two plain '
+          f'steps: {noise:.3e}', flush=True)
+    assert r_rel <= REMAT_GRAD_REL and l_rel <= 1e-6, (r_rel, l_rel)
+    del runs, batches
+    torch.cuda.empty_cache()
+    return dict(res=res, remat_rel=r_rel, noise=noise, loss_rel=l_rel,
+                gap=gap)
+
+
+def _ali_bf16_remat(torch, dev, smi: str, name: str, hosts) -> dict:
+    """Phase 14c: ALI_BF16_STEPS bf16 + remat steps of
+    STMask_plus_resnet50_ali (FCB's fp32 analytic offsets) over phase 6's
+    batches: finite losses, launches a step (ALI_BF16_LAUNCHES), peak
+    memory above the first step's start."""
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+    from stmask_torch.train.train_step import build_train_step
+    cfg = get_config('STMask_plus_resnet50_ali')
+    model = build_model(cfg, dev, seed=0)
+    step, init = build_train_step(cfg, model, dev, remat=True,
+                                  compute_dtype=torch.bfloat16)
+    batches = [prepare_batch(cfg, h_, dev) for h_ in hosts[:ALI_BF16_STEPS]]
+    state = init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in KERNELS.values():
+        k.launches = 0
+    ms, metrics = [], []
+    for b_ in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b_)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({n_: per * ALI_BF16_STEPS
+                 for n_, per in ALI_BF16_LAUNCHES.items()})
+    assert launches == want, (launches, want)
+    for m in metrics:
+        assert all(np.isfinite(v) for v in m.values()), m
+    print(f'[ali bf16] STMask_plus_resnet50_ali bf16 + remat, '
+          f'{ALI_BF16_STEPS} steps of {TRAIN_CLIPS} clips: losses {metrics}; '
+          f'steps {[round(t, 3) for t in ms]} ms; peak {peak / 2**20:.1f} MiB '
+          f'above the {base / 2**20:.1f} MiB allocated at the first step\'s '
+          f'start; launches {launches} ({name}, {smi})', flush=True)
+    del model, step, state, batches
+    torch.cuda.empty_cache()
+    return dict(ms=ms, peak=peak, base=base, launches=launches,
+                metrics=metrics)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3871,6 +4236,13 @@ def main() -> int:
         exp = _export_phase(torch, dev, smi, name, clips, med, tmp, started)
     train_tmp.cleanup()
 
+    # ---- 14. bf16 training and remat ------------------------------------
+    mark(14)
+    torch.cuda.empty_cache()
+    bwd = _bf16_backward(torch, dev, smi, err)
+    tmodes = _train_modes(torch, dev, smi, name, hosts)
+    ali16 = _ali_bf16_remat(torch, dev, smi, name, hosts)
+
     by_of = _by_of
     sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
              'are their sum')
@@ -4002,6 +4374,84 @@ def main() -> int:
         'shape': fcb_sites.replace('one 384x640 frame',
                                    f'{2 * TRAIN_CLIPS} 384x640 frames') +
         '; bf16 x and weight, fp32 offsets'})
+    bf16_path = (f'bf16 + remat training step of STMask_plus_resnet50, '
+                 f'{MODE_STEPS} steps of {TRAIN_CLIPS} clips')
+    ali_path = (f'bf16 + remat training step of STMask_plus_resnet50_ali, '
+                f'{ALI_BF16_STEPS} steps of {TRAIN_CLIPS} clips')
+    b16 = bwd['acc']
+    fcb_acc = fcb_t['acc']
+    for row_name, key, src, replaces, path, n_launch, fp32_ms, lib_ms, \
+            shape in (
+            ('deform_wgrad_bf16', 'deform_wgrad_bf16', 'deform_wgrad.cu',
+             'stmask_tpu/ops/deform_conv.py:347 (the transpose of jnp.dot '
+             'in deform_conv2d_window :270, bf16)', bf16_path,
+             tmodes['res']['bf16_remat']['launches']['deform_wgrad_bf16'],
+             wgt['ms'], bwd['lib']['sites'],
+             sites.replace('one 384x640 frame', '8 384x640 frames')
+             + '; bf16 g, x, offset, mask and d_w'),
+            ('deform_wgrad_bf16_f32off', 'deform_wgrad_bf16_f32off',
+             'deform_wgrad.cu',
+             'stmask_tpu/ops/deform_conv.py:347 (FCB\'s sites, '
+             'stmask_tpu/models/heads.py:124, fp32 offsets)', ali_path,
+             ali16['launches']['deform_wgrad_bf16_f32off'],
+             fcb_acc['deform_wgrad']['ms'], bwd['lib']['fcb'],
+             fcb_sites.replace('one 384x640 frame', '8 384x640 frames')
+             + '; bf16 g, x and d_w, fp32 offsets'),
+            ('deform_col2im_bf16', 'deform_col2im_bf16', 'deform_col2im.cu',
+             'stmask_tpu/ops/deform_conv.py:152 (_make_window_gather VJP, '
+             'with deform_conv2d_window :270, bf16)', bf16_path,
+             tmodes['res']['bf16_remat']['launches']['deform_col2im_bf16'],
+             k4['ms'], None,
+             sites.replace('one 384x640 frame', '8 384x640 frames')
+             + '; bf16 dcols, x, offset, mask and their gradients'),
+            ('deform_col2im_bf16_f32off', 'deform_col2im_bf16_f32off',
+             'deform_col2im.cu',
+             'stmask_tpu/ops/deform_conv.py:152 (FCB\'s sites, fp32 '
+             'offsets)', ali_path,
+             ali16['launches']['deform_col2im_bf16_f32off'],
+             fcb_acc['deform_col2im']['ms'], None,
+             fcb_sites.replace('one 384x640 frame', '8 384x640 frames')
+             + '; bf16 dcols, x and dx, fp32 offsets and d_offset'),
+            ('correlation_bwd_bf16', 'correlation_bwd_bf16',
+             'correlation_bwd.cu',
+             'stmask_tpu/ops/correlation.py:22 (its XLA transpose in bf16)',
+             bf16_path,
+             tmodes['res']['bf16_remat']['launches']['correlation_bwd_bf16'],
+             k3_ms, None,
+             f'x1, x2 [{TRAIN_CLIPS},24,40,256] bf16, g, out '
+             f'[{TRAIN_CLIPS},24,40,121] fp32; one launch')):
+        a_ = b16[key]
+        row = {'name': row_name, 'route': 'cuda',
+               'source': f'stmask_torch/kernels/csrc/{src}',
+               'replaces': replaces, 'launches': n_launch,
+               'launches_path': path, 'max_abs_err': err[row_name],
+               'max_abs_err_is': 'relative to max|ref|', 'ms': a_['ms'],
+               'call_ms': a_['call_ms'], 'plain_ms': a_['plain_ms'],
+               'bound_ms': a_['bound_ms'], 'bound_by': _by_of(a_),
+               'library_ms': lib_ms, 'fp32_ms': fp32_ms, 'shape': shape}
+        if lib_ms is not None:
+            row['library_is'] = ('cuBLAS\'s bf16 GEMM g^T @ cols alone '
+                                 '(the columns gathered beforehand)')
+        fcb_key = key + '_fcb'
+        if fcb_key in b16:
+            f_ = b16[fcb_key]
+            row.update(fcb_ada_ms=f_['ms'], fcb_ada_call_ms=f_['call_ms'],
+                       fcb_ada_plain_ms=f_['plain_ms'],
+                       fcb_ada_bound_ms=f_['bound_ms'],
+                       fcb_ada_shape=fcb_sites.replace(
+                           'one 384x640 frame', '8 384x640 frames')
+                       + '; bf16 offsets (_ada)')
+        table['kernels'].append(row)
+    table['train_modes'] = {
+        tag: dict(ms_per_step=r['ms'], peak_mib_above_start=r['peak'] / 2**20,
+                  launches_per_step=r['per_step'])
+        for tag, r in tmodes['res'].items()}
+    table['train_modes'].update(
+        remat_grad_rel=tmodes['remat_rel'],
+        plain_twice_grad_rel=tmodes['noise'],
+        remat_loss_rel=tmodes['loss_rel'], bf16_loss_gap=tmodes['gap'],
+        ali_bf16_remat_ms=ali16['ms'],
+        ali_bf16_remat_peak_mib_above_start=ali16['peak'] / 2**20)
     fcb_paths = {
         'deform_conv': ('1 frame', 'eval (STMask_plus_resnet50_ada, fp32) '
                         '15 a frame, training 15 a step'),

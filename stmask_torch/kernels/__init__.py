@@ -18,6 +18,11 @@ KERNELS = {'correlation': correlation.KERNEL,
            'deform_conv_bf16': deform_conv.KERNEL_BF16,
            'deform_conv_bf16_f32off': deform_conv.KERNEL_BF16_F32OFF,
            'correlation_bwd': correlation_bwd.KERNEL,
+           'correlation_bwd_bf16': correlation_bwd.KERNEL_BF16,
            'deform_col2im': deform_col2im.KERNEL,
+           'deform_col2im_bf16': deform_col2im.KERNEL_BF16,
+           'deform_col2im_bf16_f32off': deform_col2im.KERNEL_BF16_F32OFF,
            'deform_wgrad': deform_wgrad.KERNEL,
+           'deform_wgrad_bf16': deform_wgrad.KERNEL_BF16,
+           'deform_wgrad_bf16_f32off': deform_wgrad.KERNEL_BF16_F32OFF,
            'greedy_nms': greedy_nms.KERNEL}

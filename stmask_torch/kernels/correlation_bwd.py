@@ -1,5 +1,5 @@
-"""Backward of the cross-frame correlation: CUDA kernel K3 and its plain
-version.
+"""Backward of the cross-frame correlation: CUDA kernel K3 (fp32 and bf16
+entries) and its plain version.
 
 Replaces the XLA transpose of ``stmask_tpu/ops/correlation.py::correlate``
 that the JAX package differentiates in training.  ``correlation_bwd``
@@ -8,6 +8,10 @@ CUDA tensors take the kernel in ``csrc/correlation_bwd.cu`` or raise.  With
 ``out`` (the forward's output after its leaky ReLU) both apply the
 activation's derivative to ``g`` themselves, with JAX's rule: slope 1 where
 ``out >= 0`` (so at exactly 0), else 0.1.
+
+The bf16 entry takes bf16 x1 and x2 with the fp32 ``g`` and ``out`` of K1's
+bf16 entry, whose output is fp32; it sums in fp32 and rounds dx1 and dx2 to
+bf16, the type of the JAX package's cotangents of its bf16 features.
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ import torch.nn.functional as F
 
 from .build import CudaKernel, check_cuda
 
-KERNEL = CudaKernel('correlation_bwd', 'stmask_correlation_bwd',
-                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                    + [ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+KERNEL = CudaKernel('correlation_bwd', 'stmask_correlation_bwd', _ARGTYPES)
+KERNEL_BF16 = CudaKernel('correlation_bwd', 'stmask_correlation_bwd_bf16',
+                         _ARGTYPES)
 
 
 def correlation_bwd_reference(g: torch.Tensor, x1: torch.Tensor,
@@ -31,7 +36,13 @@ def correlation_bwd_reference(g: torch.Tensor, x1: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch gradients (dx1, dx2) [B, H, W, C] of the correlation
     from ``g`` [B, H, W, P^2]: before its activation, or through it when
-    ``out`` is given."""
+    ``out`` is given.  bf16 x1 and x2 take the sums in fp32 and round them
+    to bf16."""
+    if x1.dtype == torch.bfloat16:
+        dx1, dx2 = correlation_bwd_reference(
+            g.float(), x1.float(), x2.float(), patch_size,
+            None if out is None else out.float())
+        return dx1.to(x1.dtype), dx2.to(x2.dtype)
     if out is not None:
         g = torch.where(out >= 0, g, g * 0.1)
     b, h, w, c = x1.shape
@@ -66,11 +77,21 @@ def correlation_bwd_cuda(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
                          patch_size: int = 11,
                          out: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K3 on fp32 CUDA tensors (shapes as above): x1, x2 and ``out``
-    contiguous, ``g`` with evenly spaced pixels (``pixel_stride``)."""
-    tensors = (x1, x2) if out is None else (x1, x2, out)
-    check_cuda('correlation_bwd_cuda', *tensors)
-    check_cuda('correlation_bwd_cuda', g, x1, contiguous=False)
+    """Kernel K3 on CUDA tensors (shapes as above): x1, x2 and ``out``
+    contiguous, ``g`` with evenly spaced pixels (``pixel_stride``); x1 and
+    x2 fp32 or bf16, ``g`` and ``out`` fp32."""
+    dt = x1.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'correlation_bwd_cuda: {dt} is neither float32 nor '
+                        'bfloat16')
+    check_cuda('correlation_bwd_cuda', x1, x2, dtype=dt)
+    if out is not None:
+        check_cuda('correlation_bwd_cuda', out, dtype=torch.float32)
+    check_cuda('correlation_bwd_cuda', g, dtype=torch.float32,
+               contiguous=False)
+    if any(t.device != x1.device for t in (g, out) if t is not None):
+        raise ValueError('correlation_bwd_cuda: expected CUDA tensors on one '
+                         'device')
     if x1.dim() != 4 or x1.shape != x2.shape:
         raise ValueError(f'correlation_bwd_cuda: x1 {tuple(x1.shape)} and x2 '
                          f'{tuple(x2.shape)} must be equal [B, H, W, C]')
@@ -89,7 +110,8 @@ def correlation_bwd_cuda(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
                          f'and evenly spaced pixels, got strides {g.stride()}')
     dx1 = torch.empty_like(x1)
     dx2 = torch.empty_like(x2)
-    KERNEL(g.data_ptr(), None if out is None else out.data_ptr(),
+    kernel = KERNEL if dt == torch.float32 else KERNEL_BF16
+    kernel(g.data_ptr(), None if out is None else out.data_ptr(),
            x1.data_ptr(), x2.data_ptr(), dx1.data_ptr(), dx2.data_ptr(),
            ldg, b, h, w, c, patch_size,
            torch.cuda.current_stream(x1.device).cuda_stream)

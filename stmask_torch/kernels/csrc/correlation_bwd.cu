@@ -1,5 +1,7 @@
-// K3: backward of the cross-frame local correlation, fp32, NHWC, with the
-// leaky ReLU's derivative folded in: one launch gives both gradients.
+// K3: backward of the cross-frame local correlation, NHWC, with the leaky
+// ReLU's derivative folded in: one launch gives both gradients.  Two
+// entries: fp32, and bf16 features (x1, x2, dx1, dx2 bf16; g and out fp32,
+// as K1's bf16 entry writes its output in fp32).
 //
 // Replaces: the XLA transpose of stmask_tpu/ops/correlation.py::correlate,
 // which the JAX package differentiates in training (models/stmask.py:139);
@@ -61,13 +63,25 @@
 // Why fp32 FMAs and not tensor cores: the band fills P / (tile + 2r), about
 // 22%, of a dense [tile, tile + 2r] product, and the path is fp32 with TF32
 // off, so it would need 3xTF32 products: more work than the band itself.
+//
+// The bf16 entry is the same kernel with the source rows converted to fp32
+// as they are staged (plain loads of 4 channels at a time, since cp.async
+// copies bytes as they are, and S stays fp32), the sums in fp32 as above
+// and each output rounded to bf16 once, when it is written.  Its loads do
+// not overlap the previous row's math the way cp.async does: a first
+// version, right and simple (ROADMAP B lists its second pass).
+
+#include <cuda_bf16.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int TX = 4;            // columns of a thread's register tile
 constexpr int MAX_TILE = 64;     // columns per block
@@ -88,28 +102,56 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(pred ? 4 : 0));
 }
 
+// T: the features' type (float or bf16); g and out are fp32 in both.
+template <typename T>
 struct Args {
   const float* g;
   const float* out;        // nullptr: no activation, g' = g
-  const float* x1;
-  const float* x2;
-  float* dx1;
-  float* dx2;
+  const T* x1;
+  const T* x2;
+  T* dx1;
+  T* dx2;
   int64_t ldg;             // g's pixel stride (floats)
   int H, W, C;
   int tile, cq, cq_log2, nslice, ldc, vec;
   int chunk;               // G slabs staged at a time in the prologue
 };
 
-// Stage source row s's tile of columns x0 - r ... into S, one commit group.
-template <int P>
-__device__ __forceinline__ void stage_row(const Args& a, float* S,
-                                          const float* X, int b, int s,
-                                          int x0, int c0) {
+// Four bf16 channels at p (8-byte aligned) as fp32.
+__device__ __forceinline__ float4 ld_bf16x4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Stage source row s's tile of columns x0 - r ... into S, one commit group
+// (bf16: converted by plain loads, the group empty).
+template <int P, typename T>
+__device__ __forceinline__ void stage_row(const Args<T>& a, float* S,
+                                          const T* X, int b, int s, int x0,
+                                          int c0) {
   constexpr int R = (P - 1) / 2;
   const int rows = a.tile + 2 * R;
   const int64_t row = (static_cast<int64_t>(b) * a.H + s) * a.W;
-  if (a.vec) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int cs = 4 * a.cq;
+    const int per = a.vec ? a.cq : cs;    // loads a staged row
+    for (int e = threadIdx.x; e < rows * per; e += blockDim.x) {
+      const int k = e / per, c = c0 + (a.vec ? 4 * (e % per) : e % per);
+      const int xs = x0 - R + k;
+      const bool ok = xs >= 0 && xs < a.W && c < a.C;
+      const T* src = X + (row + xs) * a.C + c;
+      float* dst = S + k * a.ldc + c - c0;
+      if (a.vec)
+        *reinterpret_cast<float4*>(dst) =
+            ok ? ld_bf16x4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+      else
+        *dst = ok ? __bfloat162float(*src) : 0.f;
+    }
+  } else if (a.vec) {
     for (int e = threadIdx.x; e < rows * a.cq; e += blockDim.x) {
       const int k = e >> a.cq_log2, c = c0 + 4 * (e & (a.cq - 1));
       const int xs = x0 - R + k;
@@ -137,8 +179,8 @@ __device__ __forceinline__ void stage_row(const Args& a, float* S,
 // dy whose s lies in the image (the main loop reads no other).  g's (and
 // out's) values as read are staged `a.chunk` slabs at a time into `raw`
 // [2][chunk][tile + 2r][P], zero outside the image.
-template <int P>
-__device__ __forceinline__ void fill_g(const Args& a, float* G, float* raw,
+template <int P, typename T>
+__device__ __forceinline__ void fill_g(const Args<T>& a, float* G, float* raw,
                                        bool second, int b, int y, int x0) {
   constexpr int R = (P - 1) / 2;
   const int rows = a.tile + 2 * R;
@@ -182,8 +224,8 @@ __device__ __forceinline__ void fill_g(const Args& a, float* G, float* raw,
   }
 }
 
-template <int P>
-__global__ void correlation_bwd_kernel(const Args a) {
+template <int P, typename T>
+__global__ void correlation_bwd_kernel(const Args<T> a) {
   constexpr int R = (P - 1) / 2;
   extern __shared__ __align__(16) float smem[];
   const int rows = a.tile + 2 * R;
@@ -199,13 +241,13 @@ __global__ void correlation_bwd_kernel(const Args a) {
   const int y = blockIdx.y;
   const int b = blockIdx.z >> 1;
   const bool second = blockIdx.z & 1;          // dx2
-  const float* const X = second ? a.x1 : a.x2;
+  const T* const X = second ? a.x1 : a.x2;
   const int ncol = min(a.tile, a.W - x0);
   // the source rows within r of row y
   const int s0 = max(0, y - R);
   const int s1 = min(a.H, y + R + 1);
 
-  fill_g<P>(a, G, S, second, b, y, x0);
+  fill_g<P, T>(a, G, S, second, b, y, x0);
 
   const int grp = threadIdx.x >> a.cq_log2;    // columns TX*grp ...
   const int q = threadIdx.x & (a.cq - 1);      // channels c0 + 4q ...
@@ -216,13 +258,13 @@ __global__ void correlation_bwd_kernel(const Args a) {
 #pragma unroll
   for (int t = 0; t < TX; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  stage_row<P>(a, S, X, b, s0, x0, c0);
+  stage_row<P, T>(a, S, X, b, s0, x0, c0);
   for (int s = s0; s < s1; ++s) {
     const int buf = (s - s0) & 1;
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();            // s's row landed; s - 1's math done
     if (s + 1 < s1)
-      stage_row<P>(a, S + (buf ^ 1) * s_elems, X, b, s + 1, x0, c0);
+      stage_row<P, T>(a, S + (buf ^ 1) * s_elems, X, b, s + 1, x0, c0);
     if (active) {
       // out[i0 + t] += G[dy][e][i0 + t] * S[i0 + t + e]: a window of TX
       // rows of S slides over e, each G float4 feeds TX columns
@@ -261,32 +303,51 @@ __global__ void correlation_bwd_kernel(const Args a) {
   }
 
   if (!active) return;
-  float* const D = second ? a.dx2 : a.dx1;
+  T* const D = second ? a.dx2 : a.dx1;
   const float fc = static_cast<float>(a.C);
   const int c = c0 + 4 * q;
 #pragma unroll
   for (int t = 0; t < TX; ++t) {
     if (i0 + t >= ncol) break;
-    float* const p =
+    T* const p =
         D + ((static_cast<int64_t>(b) * a.H + y) * a.W + x0 + i0 + t) * a.C +
         c;
     const float4 v = make_float4(acc[t].x / fc, acc[t].y / fc, acc[t].z / fc,
                                  acc[t].w / fc);
-    if (a.vec) {
-      if (c < a.C) *reinterpret_cast<float4*>(p) = v;
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (a.vec) {
+        if (c < a.C) {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+          uint2 raw;
+          raw.x = *reinterpret_cast<const unsigned*>(&lo);
+          raw.y = *reinterpret_cast<const unsigned*>(&hi);
+          *reinterpret_cast<uint2*>(p) = raw;
+        }
+        continue;
+      }
     } else {
-      const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (c + u < a.C) p[u] = vv[u];
+      if (a.vec) {
+        if (c < a.C) *reinterpret_cast<float4*>(p) = v;
+        continue;
+      }
     }
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (c + u < a.C) {
+        if constexpr (std::is_same<T, bf16>::value)
+          p[u] = __float2bfloat16_rn(vv[u]);
+        else
+          p[u] = vv[u];
+      }
   }
 }
 
-template <int P>
-cudaError_t launch(const Args& base, int B, cudaStream_t stream) {
+template <int P, typename T>
+cudaError_t launch(const Args<T>& base, int B, cudaStream_t stream) {
   constexpr int R = (P - 1) / 2;
-  Args a = base;
+  Args<T> a = base;
   // equal column tiles of at most MAX_TILE columns, each a whole number
   // of TX, with G within G_BYTES
   const int max_tile = std::min(MAX_TILE, G_BYTES / (P * P * 4) / TX * TX);
@@ -313,37 +374,32 @@ cudaError_t launch(const Args& base, int B, cudaStream_t stream) {
       (static_cast<size_t>(P) * P * a.tile + overlay) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        correlation_bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        correlation_bwd_kernel<P, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int threads = a.tile / TX * a.cq;
   const dim3 grid(ntile * a.nslice, a.H, 2 * B);
-  correlation_bwd_kernel<P><<<grid, threads, smem, stream>>>(a);
+  correlation_bwd_kernel<P, T><<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// g: [B, H, W, P*P] with channel stride 1 and pixel stride ldg >= P*P;
-// out: [B, H, W, P*P] contiguous, or null when the forward applied no
-// activation; x1, x2, dx1, dx2: [B, H, W, C] contiguous.  All fp32.  P odd,
-// 1 to 31.  Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int stmask_correlation_bwd(const float* g, const float* out,
-                                      const float* x1, const float* x2,
-                                      float* dx1, float* dx2, int ldg, int B,
-                                      int H, int W, int C, int P,
-                                      void* stream) {
+// Check the arguments and launch the kernel of patch size P; `align`: the
+// byte alignment the vectorized loads and stores need (4 channels).
+template <typename T>
+int run(const float* g, const float* out, const T* x1, const T* x2, T* dx1,
+        T* dx2, int ldg, int B, int H, int W, int C, int P, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || P <= 0 || P % 2 == 0 ||
       P > 31 || ldg < P * P || H > 65535 || B > 32767)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr uintptr_t align = 4 * sizeof(T);
   const bool vec = C % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(x2) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dx1) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dx2) % 16 == 0;
-  const Args a{g, out, x1, x2, dx1, dx2, ldg, H, W, C, 0, 0, 0, 0, 0,
-               vec ? 1 : 0};
+                   reinterpret_cast<uintptr_t>(x1) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(x2) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(dx1) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(dx2) % align == 0;
+  const Args<T> a{g, out, x1, x2, dx1, dx2, ldg, H, W, C, 0, 0, 0, 0, 0,
+                  vec ? 1 : 0};
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (P) {
@@ -365,4 +421,30 @@ extern "C" int stmask_correlation_bwd(const float* g, const float* out,
     default: e = launch<31>(a, B, s); break;
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// g: [B, H, W, P*P] with channel stride 1 and pixel stride ldg >= P*P;
+// out: [B, H, W, P*P] contiguous, or null when the forward applied no
+// activation; x1, x2, dx1, dx2: [B, H, W, C] contiguous.  All fp32.  P odd,
+// 1 to 31.  Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int stmask_correlation_bwd(const float* g, const float* out,
+                                      const float* x1, const float* x2,
+                                      float* dx1, float* dx2, int ldg, int B,
+                                      int H, int W, int C, int P,
+                                      void* stream) {
+  return run<float>(g, out, x1, x2, dx1, dx2, ldg, B, H, W, C, P, stream);
+}
+
+// As stmask_correlation_bwd with x1, x2, dx1 and dx2 bf16 (g and out
+// fp32): the sums in fp32, each output rounded to bf16.
+extern "C" int stmask_correlation_bwd_bf16(const float* g, const float* out,
+                                           const __nv_bfloat16* x1,
+                                           const __nv_bfloat16* x2,
+                                           __nv_bfloat16* dx1,
+                                           __nv_bfloat16* dx2, int ldg, int B,
+                                           int H, int W, int C, int P,
+                                           void* stream) {
+  return run<bf16>(g, out, x1, x2, dx1, dx2, ldg, B, H, W, C, P, stream);
 }

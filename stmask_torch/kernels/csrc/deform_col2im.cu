@@ -1,5 +1,6 @@
 // K4: backward of the window-clamped modulated deformable gather (col2im),
-// fp32, NHWC.
+// NHWC.  Entries: fp32; bf16 (dcols, x, mask, dx and d_mask bf16; the
+// offsets and d_offset bf16, or fp32 beside bf16 data).
 //
 // Replaces: the custom VJP of stmask_tpu/ops/deform_conv.py::
 // _make_window_gather (deform_conv.py:152-267) together with the autodiff
@@ -69,12 +70,47 @@
 // are written once at the end (under a channel split, the splits' partials
 // are summed in split order by a second small kernel), so they are
 // bit-identical across launches.
+//
+// The bf16 entries run the same kernel on values converted to fp32 as they
+// are read (dcols and x by plain loads of 4 channels, into the same fp32
+// shared memory; cp.async copies bytes as they are), with every sum in
+// fp32 as above: dx into an fp32 buffer, rounded to bf16 by a third small
+// kernel, and d_offset and d_mask rounded to their types once, when they
+// are written.  The JAX package's VJP gives those types (bf16 dx and
+// d_mask; d_offset in the offsets' type).  A first version, right and
+// simple (ROADMAP B lists its second pass).
 
+#include <cuda_bf16.h>
+
+#include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+__device__ __forceinline__ float f32(float v) { return v; }
+__device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Four bf16 channels at p (8-byte aligned) as fp32.
+__device__ __forceinline__ float4 ld_bf16x4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
 constexpr int CC = 32;            // channels per chunk
 constexpr int LANES = 4;          // lanes an item or a pixel, 8 channels each
@@ -141,10 +177,11 @@ __device__ __forceinline__ int64_t item_site(const Shape& g, int b, int oy0,
 // the rows that are first the footprint's pixels (x) and then the tile's
 // items (dcols).  src[row] is the row's first element in x or dcols, or -1
 // (zeros: outside the image, or past its last output site); zeros past
-// Cin.  VEC 4: cp.async, left in flight; VEC 1: plain loads.
-template <int VEC>
-__device__ __forceinline__ void load_chunk(const float* __restrict__ img,
-                                           const float* __restrict__ dcols,
+// Cin.  VEC 4: fp32 by cp.async, left in flight, bf16 by plain loads of 4
+// channels; VEC 1: plain loads.  Shared memory holds fp32 either way.
+template <int VEC, typename T>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ img,
+                                           const T* __restrict__ dcols,
                                            float* sx, const int64_t* src,
                                            int npix, int cin, int c0, int r0,
                                            int r1) {
@@ -154,12 +191,15 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ img,
     const int c = c0 + (q % PER) * VEC;
     const int64_t off = src[row];
     const bool in = off >= 0 && c < cin;
-    const float* from = in ? (row < npix ? img : dcols) + off + c : img;
+    const T* from = in ? (row < npix ? img : dcols) + off + c : img;
     float* dst = sx + q * VEC;          // sdc follows sx: rows are contiguous
-    if constexpr (VEC == 4) {
+    if constexpr (VEC == 4 && kF32<T>) {
       cp_async16(dst, from, in ? 16 : 0);
+    } else if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(dst) =
+          in ? ld_bf16x4(from) : make_float4(0.f, 0.f, 0.f, 0.f);
     } else {
-      *dst = in ? *from : 0.f;
+      *dst = in ? f32(*from) : 0.f;
     }
   }
 }
@@ -179,12 +219,14 @@ __device__ __forceinline__ void add_dx(float* dst, int c, int n,
   }
 }
 
-template <int VEC>
+// T: the type of dcols, x and the mask (and of d_mask); TO: the offsets'
+// (and d_offset's).  dx: fp32 sums (the output itself in fp32).
+template <int VEC, typename T = float, typename TO = T>
 __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
-    const float* __restrict__ dcols, const float* __restrict__ x,
-    const float* __restrict__ offset, const float* __restrict__ mask,
-    float* __restrict__ dx, float* __restrict__ doffset,
-    float* __restrict__ dmask, float* __restrict__ part, Shape g) {
+    const T* __restrict__ dcols, const T* __restrict__ x,
+    const TO* __restrict__ offset, const T* __restrict__ mask,
+    float* __restrict__ dx, TO* __restrict__ doffset,
+    T* __restrict__ dmask, float* __restrict__ part, Shape g) {
   extern __shared__ float4 smem4[];
   const int K = g.kh * g.kw;
   const int n_items = g.ty * g.tx * K;
@@ -213,7 +255,7 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
   const int x0 = ox0 * g.stride - pad_w - g.radius;
   const int ch_begin = blockIdx.z * g.chunks_per_split;
   const int ch_end = min(ch_begin + g.chunks_per_split, g.n_chunks);
-  const float* img = x + static_cast<int64_t>(b) * g.H * g.W * g.Cin;
+  const T* img = x + static_cast<int64_t>(b) * g.H * g.W * g.Cin;
   float* dimg = dx + static_cast<int64_t>(b) * g.H * g.W * g.Cin;
 
   for (int row = threadIdx.x; row < npix; row += THREADS) {
@@ -225,8 +267,8 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
   for (int i = threadIdx.x; i <= npix; i += THREADS) bstart[i] = 0;
   __syncthreads();
   if (ch_begin < ch_end)
-    load_chunk<VEC>(img, dcols, sx, src, npix, g.Cin, ch_begin * CC, 0,
-                    npix);
+    load_chunk<VEC, T>(img, dcols, sx, src, npix, g.Cin, ch_begin * CC, 0,
+                       npix);
   // Each item's corner weights, once per block: the footprint index of its
   // corner (fy - 1, fx - 1), the corners with a weight or a derivative
   // (bits 0-8), m, hy, dhy, hx, dhx, and m * hy * hx at the four corners
@@ -240,9 +282,9 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
     if (site >= 0) {
       const int st = it - k * g.ty * g.tx;
       const int oy = oy0 + st / g.tx, ox = ox0 + st % g.tx;
-      const float oyf = offset[site * 2 * K + 2 * k];
-      const float oxf = offset[site * 2 * K + 2 * k + 1];
-      const float m = mask != nullptr ? mask[site * K + k] : 1.f;
+      const float oyf = f32(offset[site * 2 * K + 2 * k]);
+      const float oxf = f32(offset[site * 2 * K + 2 * k + 1]);
+      const float m = mask != nullptr ? f32(mask[site * K + k]) : 1.f;
       const int fy = static_cast<int>(floorf(oyf));
       const int fx = static_cast<int>(floorf(oxf));
       const int ry = oy * g.stride - pad_h + (k / g.kw) * g.dilation + fy -
@@ -348,8 +390,8 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
   __syncthreads();
   const int n_valid = bstart[npix];
   if (ch_begin < ch_end)
-    load_chunk<VEC>(img, dcols, sx, src, npix, g.Cin, ch_begin * CC, npix,
-                    npix + n_valid);
+    load_chunk<VEC, T>(img, dcols, sx, src, npix, g.Cin, ch_begin * CC,
+                       npix, npix + n_valid);
 
   const int lane = threadIdx.x & 31;
   const int l = lane & (LANES - 1);           // lane within the group
@@ -406,7 +448,8 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
     }
     __syncthreads();                 // sx read: the next chunk's x may come
     if (ch + 1 < ch_end)
-      load_chunk<VEC>(img, dcols, sx, src, npix, g.Cin, c0 + CC, 0, npix);
+      load_chunk<VEC, T>(img, dcols, sx, src, npix, g.Cin, c0 + CC, 0,
+                         npix);
     // dx, one footprint pixel per group: the sum over the items anchored
     // at the pixel and at its left, upper and upper-left neighbours (per
     // row, two adjacent buckets: one contiguous run), then one reduction
@@ -437,8 +480,8 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
     }
     __syncthreads();                 // sdc read
     if (ch + 1 < ch_end)
-      load_chunk<VEC>(img, dcols, sx, src, npix, g.Cin, c0 + CC, npix,
-                      npix + n_valid);
+      load_chunk<VEC, T>(img, dcols, sx, src, npix, g.Cin, c0 + CC, npix,
+                         npix + n_valid);
   }
   __syncthreads();
 
@@ -453,18 +496,19 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
       dst[2] = ss[pos * 3 + 2];
     } else {
       const float m = sgeo[pos * GEO + 3].w;
-      if (dmask != nullptr) dmask[item] = ss[pos * 3];
-      doffset[2 * item] = m * ss[pos * 3 + 1];
-      doffset[2 * item + 1] = m * ss[pos * 3 + 2];
+      if (dmask != nullptr) st(dmask + item, ss[pos * 3]);
+      st(doffset + 2 * item, m * ss[pos * 3 + 1]);
+      st(doffset + 2 * item + 1, m * ss[pos * 3 + 2]);
     }
   }
 }
 
 // the splits' partials summed in split order: d_mask, d_offset
+template <typename T, typename TO>
 __global__ void deform_col2im_finish_kernel(const float* __restrict__ part,
-                                            const float* __restrict__ mask,
-                                            float* __restrict__ doffset,
-                                            float* __restrict__ dmask,
+                                            const T* __restrict__ mask,
+                                            TO* __restrict__ doffset,
+                                            T* __restrict__ dmask,
                                             int64_t items, int n_split) {
   const int64_t item = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                        threadIdx.x;
@@ -476,18 +520,28 @@ __global__ void deform_col2im_finish_kernel(const float* __restrict__ part,
     s_y += p[1];
     s_x += p[2];
   }
-  const float m = mask != nullptr ? mask[item] : 1.f;
-  if (dmask != nullptr) dmask[item] = s_m;
-  doffset[2 * item] = m * s_y;
-  doffset[2 * item + 1] = m * s_x;
+  const float m = mask != nullptr ? f32(mask[item]) : 1.f;
+  if (dmask != nullptr) st(dmask + item, s_m);
+  st(doffset + 2 * item, m * s_y);
+  st(doffset + 2 * item + 1, m * s_x);
 }
 
-template <int VEC>
-cudaError_t launch(const float* dcols, const float* x, const float* offset,
-                   const float* mask, float* dx, float* doffset, float* dmask,
-                   float* part, int B, const Shape& g, int n_split, int smem,
-                   cudaStream_t stream) {
-  auto* kern = deform_col2im_tile_kernel<VEC>;
+// dx's fp32 sums rounded to bf16
+__global__ void deform_col2im_round_kernel(const float* __restrict__ dx32,
+                                           bf16* __restrict__ dx, int64_t n) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    dx[i] = __float2bfloat16_rn(dx32[i]);
+}
+
+// dxh: the bf16 dx that the fp32 sums in dx are rounded into (bf16 only).
+template <int VEC, typename T, typename TO>
+cudaError_t launch(const T* dcols, const T* x, const TO* offset,
+                   const T* mask, float* dx, bf16* dxh, TO* doffset,
+                   T* dmask, float* part, int B, const Shape& g, int n_split,
+                   int smem, cudaStream_t stream) {
+  auto* kern = deform_col2im_tile_kernel<VEC, T, TO>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -496,12 +550,60 @@ cudaError_t launch(const float* dcols, const float* x, const float* offset,
   kern<<<grid, THREADS, smem, stream>>>(dcols, x, offset, mask, dx, doffset,
                                         dmask, part, g);
   e = cudaGetLastError();
-  if (e != cudaSuccess || part == nullptr) return e;
-  const int64_t items = static_cast<int64_t>(B) * g.Ho * g.Wo * g.kh * g.kw;
-  deform_col2im_finish_kernel<<<static_cast<unsigned>((items + 255) / 256),
-                                256, 0, stream>>>(part, mask, doffset, dmask,
-                                                  items, n_split);
-  return cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (part != nullptr) {
+    const int64_t items =
+        static_cast<int64_t>(B) * g.Ho * g.Wo * g.kh * g.kw;
+    deform_col2im_finish_kernel<T, TO>
+        <<<static_cast<unsigned>((items + 255) / 256), 256, 0, stream>>>(
+            part, mask, doffset, dmask, items, n_split);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if constexpr (!kF32<T>) {
+    const int64_t n = static_cast<int64_t>(B) * g.H * g.W * g.Cin;
+    deform_col2im_round_kernel<<<static_cast<unsigned>(
+                                     std::min<int64_t>((n + 255) / 256, 4096)),
+                                 256, 0, stream>>>(dx, dxh, n);
+    e = cudaGetLastError();
+  }
+  return e;
+}
+
+// Check the arguments and the plan (see the entries below) and launch.
+template <typename T, typename TO>
+int run(const T* dcols, const T* x, const TO* offset, const T* mask,
+        float* dx, bf16* dxh, TO* doffset, T* dmask, float* part, int B,
+        int H, int W, int Cin, int Ho, int Wo, int kh, int kw, int stride,
+        int dilation, int radius, int ty, int tx, int fh, int fw,
+        int n_split, int smem, void* stream) {
+  if (B < 0 || H <= 0 || W <= 0 || Cin <= 0 || Ho < 0 || Wo < 0 || kh <= 0 ||
+      kw <= 0 || stride <= 0 || dilation <= 0 || radius <= 0 || ty <= 0 ||
+      tx <= 0 || n_split <= 0 || (mask == nullptr) != (dmask == nullptr) ||
+      (n_split > 1) != (part != nullptr) ||
+      fh < (ty - 1) * stride + (kh - 1) * dilation + 2 * radius + 2 ||
+      fw < (tx - 1) * stride + (kw - 1) * dilation + 2 * radius + 2 ||
+      smem < ((fh * fw + ty * tx * kh * kw) * (CC + 2) +
+              ty * tx * kh * kw * (4 * GEO + 4 + 3 + 1) + 2 * fh * fw + 2) *
+                 static_cast<int>(sizeof(float)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Ho == 0 || Wo == 0) return static_cast<int>(cudaSuccess);
+  const auto s = static_cast<cudaStream_t>(stream);
+  Shape g{H, W, Cin, Ho, Wo, kh, kw, stride, dilation, radius, ty, tx, fh, fw,
+        (Wo + tx - 1) / tx, 0, (Cin + CC - 1) / CC};
+  g.chunks_per_split = (g.n_chunks + n_split - 1) / n_split;
+  // 4 channels a load (16 bytes of fp32, 8 of bf16) and a float4 of dx
+  constexpr uintptr_t align = 4 * sizeof(T);
+  const bool aligned = Cin % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(dcols) % align == 0 &&
+                       reinterpret_cast<uintptr_t>(x) % align == 0 &&
+                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const cudaError_t e =
+      aligned ? launch<4>(dcols, x, offset, mask, dx, dxh, doffset, dmask,
+                          part, B, g, n_split, smem, s)
+              : launch<1>(dcols, x, offset, mask, dx, dxh, doffset, dmask,
+                          part, B, g, n_split, smem, s);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -523,29 +625,37 @@ extern "C" int stmask_deform_col2im(const float* dcols, const float* x,
                                     int stride, int dilation, int radius,
                                     int ty, int tx, int fh, int fw,
                                     int n_split, int smem, void* stream) {
-  if (B < 0 || H <= 0 || W <= 0 || Cin <= 0 || Ho < 0 || Wo < 0 || kh <= 0 ||
-      kw <= 0 || stride <= 0 || dilation <= 0 || radius <= 0 || ty <= 0 ||
-      tx <= 0 || n_split <= 0 || (mask == nullptr) != (dmask == nullptr) ||
-      (n_split > 1) != (part != nullptr) ||
-      fh < (ty - 1) * stride + (kh - 1) * dilation + 2 * radius + 2 ||
-      fw < (tx - 1) * stride + (kw - 1) * dilation + 2 * radius + 2 ||
-      smem < ((fh * fw + ty * tx * kh * kw) * (CC + 2) +
-              ty * tx * kh * kw * (4 * GEO + 4 + 3 + 1) + 2 * fh * fw + 2) *
-                 static_cast<int>(sizeof(float)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || Ho == 0 || Wo == 0) return static_cast<int>(cudaSuccess);
-  const auto s = static_cast<cudaStream_t>(stream);
-  Shape g{H, W, Cin, Ho, Wo, kh, kw, stride, dilation, radius, ty, tx, fh, fw,
-        (Wo + tx - 1) / tx, 0, (Cin + CC - 1) / CC};
-  g.chunks_per_split = (g.n_chunks + n_split - 1) / n_split;
-  const bool aligned = Cin % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(dcols) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  const cudaError_t e =
-      aligned ? launch<4>(dcols, x, offset, mask, dx, doffset, dmask, part, B,
-                          g, n_split, smem, s)
-              : launch<1>(dcols, x, offset, mask, dx, doffset, dmask, part, B,
-                          g, n_split, smem, s);
-  return static_cast<int>(e);
+  return run<float, float>(dcols, x, offset, mask, dx, nullptr, doffset,
+                           dmask, part, B, H, W, Cin, Ho, Wo, kh, kw, stride,
+                           dilation, radius, ty, tx, fh, fw, n_split, smem,
+                           stream);
+}
+
+// As stmask_deform_col2im with dcols, x, mask, offset, dx, d_offset and
+// d_mask bf16; dx32: [B, H, W, Cin] fp32, zeroed by the caller, where dx
+// sums before it is rounded into dx.
+extern "C" int stmask_deform_col2im_bf16(
+    const __nv_bfloat16* dcols, const __nv_bfloat16* x,
+    const __nv_bfloat16* offset, const __nv_bfloat16* mask, float* dx32,
+    __nv_bfloat16* dx, __nv_bfloat16* doffset, __nv_bfloat16* dmask,
+    float* part, int B, int H, int W, int Cin, int Ho, int Wo, int kh,
+    int kw, int stride, int dilation, int radius, int ty, int tx, int fh,
+    int fw, int n_split, int smem, void* stream) {
+  return run(dcols, x, offset, mask, dx32, dx, doffset, dmask, part, B, H, W,
+             Cin, Ho, Wo, kh, kw, stride, dilation, radius, ty, tx, fh, fw,
+             n_split, smem, stream);
+}
+
+// As stmask_deform_col2im_bf16 with fp32 offsets and d_offset (FCB's
+// analytic offsets).
+extern "C" int stmask_deform_col2im_bf16_f32off(
+    const __nv_bfloat16* dcols, const __nv_bfloat16* x, const float* offset,
+    const __nv_bfloat16* mask, float* dx32, __nv_bfloat16* dx,
+    float* doffset, __nv_bfloat16* dmask, float* part, int B, int H, int W,
+    int Cin, int Ho, int Wo, int kh, int kw, int stride, int dilation,
+    int radius, int ty, int tx, int fh, int fw, int n_split, int smem,
+    void* stream) {
+  return run(dcols, x, offset, mask, dx32, dx, doffset, dmask, part, B, H, W,
+             Cin, Ho, Wo, kh, kw, stride, dilation, radius, ty, tx, fh, fw,
+             n_split, smem, stream);
 }

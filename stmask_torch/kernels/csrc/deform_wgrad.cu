@@ -1,6 +1,7 @@
-// Weight gradient of the modulated deformable conv, fp32, NHWC, with the
-// gather fused into the GEMM: d_w straight from (x, offset, mask, g), the
-// sampled columns never written to device memory.
+// Weight gradient of the modulated deformable conv, NHWC, with the gather
+// fused into the GEMM: d_w straight from (x, offset, mask, g), the sampled
+// columns never written to device memory.  Entries: fp32; bf16 (g, x, mask
+// and d_w bf16, the offsets bf16 or fp32).
 //
 // Replaces, in the DCN backward of the training path, K2 (deform_im2col.cu,
 // which wrote cols [M, K*Cin]) and the cuBLAS SGEMM g^T @ cols after it.
@@ -73,6 +74,14 @@
 //   4-byte copies of g: right, and slow.  Any kh, kw, stride and dilation,
 //   with or without the modulation.
 // - Registers: 128 a thread at most, no spill (ptxas).
+//
+// The bf16 entries take the general path above with the bf16 sample of the
+// fused conv's bf16 entry (deform_gather.cuh: bf16_sample, the JAX
+// package's bf16 values) and g converted to fp32 as it is loaded.  Both
+// operands are then bf16 values, exact in TF32, so the lo parts are zero
+// and the products exact; the sums are fp32 as above, and d_w is rounded
+// to bf16 once, when it is written.  A first version, right and simple
+// (ROADMAP B lists its second pass: bf16 wgmma on the fast path).
 
 #include "deform_gather.cuh"
 
@@ -179,11 +188,19 @@ __device__ __forceinline__ void hold(uint32_t& x) {
   asm volatile("" : "+r"(x)::"memory");
 }
 
-struct Params : Sample<float> {
-  const float* g;        // [M, N]
-  float* dw;             // [N, Ktot]
+// T: the type of g, x, the mask and d_w; TO: the offsets' (T, or fp32
+// beside bf16).
+template <typename T = float, typename TO = T>
+struct Params : Sample<T, TO> {
+  const T* g;            // [M, N]
+  T* dw;                 // [N, Ktot]
   int N;
 };
+
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // One (site, tap) of a chunk: each corner's first channel as an element
 // index into x (-1 outside the image) and its weight with the modulation
@@ -202,10 +219,11 @@ struct Cursor {
 
 // g rows [m0, m0 + BS), channels [n0, n0 + TM) into one stage, [BS][LDG];
 // zero past the last site or channel (the fast path has no channel past
-// the last: Cout is a multiple of TM there).
-template <bool FAST, int TM>
-__device__ __forceinline__ void load_g(const Params& p, float* gs, int m0,
-                                       int n0) {
+// the last: Cout is a multiple of TM there).  bf16 g is converted by plain
+// loads, as it is read.
+template <bool FAST, int TM, typename T, typename TO>
+__device__ __forceinline__ void load_g(const Params<T, TO>& p, float* gs,
+                                       int m0, int n0) {
   using G = Geo<TM>;
   constexpr int LDG = G::LDG, NT = G::NT;
   const int tid = threadIdx.x;
@@ -226,16 +244,18 @@ __device__ __forceinline__ void load_g(const Params& p, float* gs, int m0,
       const int e = tid + i * NT;
       const int r = e / TM, c = e % TM;
       const bool ok = m0 + r < p.M && n0 + c < p.N;
-      cp_async4(gs + r * LDG + c,
-                ok ? p.g + static_cast<int64_t>(m0 + r) * p.N + n0 + c : p.g,
-                ok);
+      const T* src = p.g + static_cast<int64_t>(m0 + r) * p.N + n0 + c;
+      if constexpr (kF32<T>)
+        cp_async4(gs + r * LDG + c, ok ? src : p.g, ok);
+      else
+        gs[r * LDG + c] = ok ? ld(src) : 0.f;
     }
   }
 }
 
-template <bool FAST, int TM>
+template <bool FAST, int TM, typename T = float, typename TO = T>
 __global__ void __launch_bounds__(2 * TM, FAST ? 256 / TM : 1)
-    deform_wgrad_kernel(const Params p) {
+    deform_wgrad_kernel(const Params<T, TO> p) {
   using G = Geo<TM>;
   constexpr int LDG = G::LDG, NT = G::NT, G_STAGE = G::G_STAGE;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -484,13 +504,13 @@ __global__ void __launch_bounds__(2 * TM, FAST ? 256 / TM : 1)
     for (int h = 0; h < 2; ++h) {
       const int n = n0 + row0 + 8 * h;
       if (n >= p.N) continue;
-      float* o = p.dw + static_cast<int64_t>(n) * p.Ktot;
+      T* o = p.dw + static_cast<int64_t>(n) * p.Ktot;
 #pragma unroll
       for (int jb = 0; jb < 8; ++jb) {
         const int j = j0 + 8 * jb + 2 * t4;
 #pragma unroll
         for (int q = 0; q < 2; ++q)
-          if (j + q < p.Ktot) o[j + q] = acc[4 * jb + 2 * h + q];
+          if (j + q < p.Ktot) st(o + j + q, acc[4 * jb + 2 * h + q]);
       }
     }
     return;
@@ -513,33 +533,62 @@ __global__ void __launch_bounds__(2 * TM, FAST ? 256 / TM : 1)
                                                          float (&v)[4]) {
     const int n = n0 + r, j = j0 + c;
     if (n >= p.N) return;
-    float* o = p.dw + static_cast<int64_t>(n) * p.Ktot + j;
-    if (FAST && j < p.Ktot) {
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (j + q < p.Ktot) o[q] = v[q];
+    T* o = p.dw + static_cast<int64_t>(n) * p.Ktot + j;
+    if constexpr (FAST) {
+      if (j < p.Ktot) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        return;
+      }
     }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (j + q < p.Ktot) st(o + q, v[q]);
   });
   cluster.sync();                  // keep every partial tile alive until read
 }
 
-template <bool FAST, int TM>
-int launch(const Params& p, int split, void* stream) {
+template <bool FAST, int TM, typename T = float, typename TO = T>
+int launch(const Params<T, TO>& p, int split, void* stream) {
   using G = Geo<TM>;
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t e =
-        allow_clusters(deform_wgrad_kernel<FAST, TM>, G::SMEM_BYTES);
+    const cudaError_t e = allow_clusters(deform_wgrad_kernel<FAST, TM, T, TO>,
+                                         G::SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const cudaError_t e = launch_split(
-      deform_wgrad_kernel<FAST, TM>, (p.Ktot + TN - 1) / TN,
+      deform_wgrad_kernel<FAST, TM, T, TO>, (p.Ktot + TN - 1) / TN,
       (p.N + TM - 1) / TM, split, G::SMEM_BYTES, stream, p, G::NT);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The arguments every entry takes, checked.
+bool bad_args(int B, int H, int W, int Cin, int Ho, int Wo, int Cout, int kh,
+              int kw, int stride, int dilation, int split) {
+  return B < 0 || H <= 0 || W <= 0 || Cin <= 0 || Ho < 0 || Wo < 0 ||
+         Cout <= 0 || kh <= 0 || kw <= 0 || stride <= 0 || dilation <= 0 ||
+         split < 1 || split > MAX_SPLIT || (split & (split - 1)) != 0 ||
+         static_cast<int64_t>(B) * H * W * Cin > INT32_MAX ||
+         static_cast<int64_t>(B) * Ho * Wo > INT32_MAX ||
+         static_cast<int64_t>(kh) * kw * Cin > INT32_MAX;
+}
+
+// The bf16 entries: the general path, the 128-channel tile.
+template <typename TO>
+int launch_bf16(const bf16* g, const bf16* x, const TO* offset,
+                const bf16* mask, bf16* dw, int B, int H, int W, int Cin,
+                int Ho, int Wo, int Cout, int kh, int kw, int stride,
+                int dilation, int tm, int split, void* stream) {
+  if (tm != 128 || bad_args(B, H, W, Cin, Ho, Wo, Cout, kh, kw, stride,
+                            dilation, split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int k = kh * kw;
+  const Params<bf16, TO> p{{x, offset, mask, H, W, Cin, Ho, Wo, kh, kw,
+                            stride, dilation, B * Ho * Wo, k * Cin, 2 * k, k},
+                           g, dw, Cout};
+  return launch<false, 128>(p, split, stream);
 }
 
 }  // namespace
@@ -562,19 +611,36 @@ extern "C" int stmask_deform_wgrad(const float* g, const float* x,
                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(dw) % 16 == 0;
-  if (B < 0 || H <= 0 || W <= 0 || Cin <= 0 || Ho < 0 || Wo < 0 ||
-      Cout <= 0 || kh <= 0 || kw <= 0 || stride <= 0 || dilation <= 0 ||
-      split < 1 || split > MAX_SPLIT || (split & (split - 1)) != 0 ||
-      (tm != 128 && tm != 256) || (tm == 256 && !fast) ||
-      static_cast<int64_t>(B) * H * W * Cin > INT32_MAX ||
-      static_cast<int64_t>(B) * Ho * Wo > INT32_MAX ||
-      static_cast<int64_t>(kh) * kw * Cin > INT32_MAX)
+  if ((tm != 128 && tm != 256) || (tm == 256 && !fast) ||
+      bad_args(B, H, W, Cin, Ho, Wo, Cout, kh, kw, stride, dilation, split))
     return static_cast<int>(cudaErrorInvalidValue);
   const int k = kh * kw;
-  const Params p{{x, offset, mask, H, W, Cin, Ho, Wo, kh, kw, stride,
-                  dilation, B * Ho * Wo, k * Cin, 2 * k, k},
-                 g, dw, Cout};
+  const Params<> p{{x, offset, mask, H, W, Cin, Ho, Wo, kh, kw, stride,
+                    dilation, B * Ho * Wo, k * Cin, 2 * k, k},
+                   g, dw, Cout};
   if (tm == 256) return launch<true, 256>(p, split, stream);
   return fast ? launch<true, 128>(p, split, stream)
               : launch<false, 128>(p, split, stream);
+}
+
+// As stmask_deform_wgrad with g, x, mask and dw bf16 and bf16 offsets
+// (tm 128): the bf16 sample, the sums in fp32, d_w rounded to bf16.
+extern "C" int stmask_deform_wgrad_bf16(
+    const __nv_bfloat16* g, const __nv_bfloat16* x,
+    const __nv_bfloat16* offset, const __nv_bfloat16* mask,
+    __nv_bfloat16* dw, int B, int H, int W, int Cin, int Ho, int Wo,
+    int Cout, int kh, int kw, int stride, int dilation, int tm, int split,
+    void* stream) {
+  return launch_bf16(g, x, offset, mask, dw, B, H, W, Cin, Ho, Wo, Cout, kh,
+                     kw, stride, dilation, tm, split, stream);
+}
+
+// As stmask_deform_wgrad_bf16 with fp32 offsets (FCB's analytic ones).
+extern "C" int stmask_deform_wgrad_bf16_f32off(
+    const __nv_bfloat16* g, const __nv_bfloat16* x, const float* offset,
+    const __nv_bfloat16* mask, __nv_bfloat16* dw, int B, int H, int W,
+    int Cin, int Ho, int Wo, int Cout, int kh, int kw, int stride,
+    int dilation, int tm, int split, void* stream) {
+  return launch_bf16(g, x, offset, mask, dw, B, H, W, Cin, Ho, Wo, Cout, kh,
+                     kw, stride, dilation, tm, split, stream);
 }

@@ -1,5 +1,5 @@
 """Backward of the window-clamped deformable gather (col2im): CUDA kernel
-K4 and its plain version.
+K4 (fp32 and bf16 entries) and its plain version.
 
 Replaces the custom VJP of ``stmask_tpu/ops/deform_conv.py::
 _make_window_gather`` together with the autodiff of the hat weights and the
@@ -19,6 +19,11 @@ where d == u (JAX's d|x|/dx is 1 at 0), -0.5 * sign(d - u) where
 |d - u| == 1 (``jnp.maximum`` splits a tie), 0 beyond and for a corner
 outside the window [-r, r + 1].  It is not DCNv2's floor-based rule: at an
 integer offset the two differ (``csrc/deform_col2im.cu`` has the formulas).
+
+The bf16 entries (bf16 ``dcols``, ``x`` and mask; the offsets bf16, or fp32
+beside bf16 data) compute in fp32 from the values as read and round each
+gradient to its input's type, as the JAX package's VJP types them: dx and
+d_mask bf16, d_offset bf16 or fp32.  dx sums in an fp32 buffer first.
 """
 
 from __future__ import annotations
@@ -30,10 +35,17 @@ from typing import Optional, Tuple
 import torch
 
 from .build import CudaKernel, check_cuda
+from .deform_conv import check_types
 
+_INTS = [ctypes.c_int] * 17 + [ctypes.c_void_p]
 KERNEL = CudaKernel('deform_col2im', 'stmask_deform_col2im',
-                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
-                    + [ctypes.c_void_p])
+                    [ctypes.c_void_p] * 8 + _INTS)
+# the bf16 entries take one more pointer: dx's fp32 sums
+KERNEL_BF16 = CudaKernel('deform_col2im', 'stmask_deform_col2im_bf16',
+                         [ctypes.c_void_p] * 9 + _INTS)
+KERNEL_BF16_F32OFF = CudaKernel('deform_col2im',
+                                'stmask_deform_col2im_bf16_f32off',
+                                [ctypes.c_void_p] * 9 + _INTS)
 
 CHUNK = 32                    # channels a block stages at a time (csrc CC)
 SMEM_LIMIT = 232448           # shared memory one block may take on sm_90
@@ -127,11 +139,20 @@ def deform_col2im_reference(dcols: torch.Tensor, x: torch.Tensor,
       dcols: [B*Ho*Wo, K*Cin], the gradient of K2's ``cols`` (taps outer,
         channels inner); x: [B, H, W, Cin]; offset: [B, Ho, Wo, 2K], (dy, dx)
         interleaved and already clamped to [-radius, radius]; mask:
-        [B, Ho, Wo, K] or None.
+        [B, Ho, Wo, K] or None.  All fp32, or dcols, x and mask bf16 with
+        bf16 or fp32 offsets.
     Returns:
       dx [B, H, W, Cin], d_offset [B, Ho, Wo, 2K] (before the clamp's own
-      factor), d_mask [B, Ho, Wo, K] or None.
+      factor), d_mask [B, Ho, Wo, K] or None, each in its input's type (in
+      bf16 computed in fp32 and rounded).
     """
+    if x.dtype == torch.bfloat16:
+        dx, d_off, d_mask = deform_col2im_reference(
+            dcols.float(), x.float(), offset.float(),
+            None if mask is None else mask.float(), kh, kw, stride,
+            dilation, radius)
+        return (dx.to(x.dtype), d_off.to(offset.dtype),
+                None if mask is None else d_mask.to(mask.dtype))
     b, h, w, cin = x.shape
     _, ho, wo, _ = offset.shape
     k = kh * kw
@@ -187,9 +208,11 @@ def deform_col2im_cuda(dcols: torch.Tensor, x: torch.Tensor,
                        radius: int = 2
                        ) -> Tuple[torch.Tensor, torch.Tensor,
                                   Optional[torch.Tensor]]:
-    """Kernel K4 on contiguous fp32 CUDA tensors (shapes as above)."""
-    tensors = (dcols, x, offset) + (() if mask is None else (mask,))
-    check_cuda('deform_col2im_cuda', *tensors)
+    """Kernel K4 on contiguous CUDA tensors (shapes and types as above)."""
+    dt = check_types('deform_col2im_cuda', x, offset)
+    check_cuda('deform_col2im_cuda', *(t for t in (dcols, x, mask)
+                                       if t is not None), dtype=dt)
+    check_cuda('deform_col2im_cuda', offset, dtype=offset.dtype)
     b, h, w, cin = x.shape
     k = kh * kw
     if offset.dim() != 4 or offset.shape[0] != b or offset.shape[3] != 2 * k:
@@ -205,18 +228,26 @@ def deform_col2im_cuda(dcols: torch.Tensor, x: torch.Tensor,
     if radius < 1:
         raise ValueError(f'deform_col2im_cuda: radius {radius} < 1')
     plan = col2im_plan(b, ho, wo, cin, kh, kw, stride, dilation, radius)
-    dx = torch.zeros_like(x)
     d_offset = torch.empty_like(offset)
     d_mask = None if mask is None else torch.empty_like(mask)
     part = (torch.empty(plan.n_split, b * ho * wo * k, 3, device=x.device)
             if plan.n_split > 1 else None)
-    KERNEL(dcols.data_ptr(), x.data_ptr(), offset.data_ptr(),
-           None if mask is None else mask.data_ptr(), dx.data_ptr(),
-           d_offset.data_ptr(), None if d_mask is None else d_mask.data_ptr(),
-           None if part is None else part.data_ptr(),
-           b, h, w, cin, ho, wo, kh, kw, stride, dilation, radius, plan.ty,
-           plan.tx, plan.fh, plan.fw, plan.n_split, plan.smem,
-           torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (dcols.data_ptr(), x.data_ptr(), offset.data_ptr(),
+            None if mask is None else mask.data_ptr())
+    outs = (d_offset.data_ptr(),
+            None if d_mask is None else d_mask.data_ptr(),
+            None if part is None else part.data_ptr(),
+            b, h, w, cin, ho, wo, kh, kw, stride, dilation, radius, plan.ty,
+            plan.tx, plan.fh, plan.fw, plan.n_split, plan.smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if dt == torch.float32:
+        dx = torch.zeros_like(x)
+        KERNEL(*ptrs, dx.data_ptr(), *outs)
+    else:
+        dx32 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x)
+        kernel = KERNEL_BF16 if offset.dtype == dt else KERNEL_BF16_F32OFF
+        kernel(*ptrs, dx32.data_ptr(), dx.data_ptr(), *outs)
     return dx, d_offset, d_mask
 
 

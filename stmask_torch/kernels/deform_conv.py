@@ -124,6 +124,24 @@ def _site_stride(t: torch.Tensor, ho: int, wo: int, width: int) -> int:
     return -1
 
 
+def check_types(name: str, x: torch.Tensor, offset: torch.Tensor
+                ) -> torch.dtype:
+    """x's type, once it is fp32 or bf16 and the offsets are of its type
+    or, beside bf16 x, fp32 (FCB's analytic offsets) on x's device; else
+    raises.  The deformable kernels' entries take these pairs only."""
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'{name}: {dt} is neither float32 nor bfloat16')
+    off_dt = offset.dtype
+    if off_dt != dt and (dt, off_dt) != (torch.bfloat16, torch.float32):
+        raise TypeError(f'{name}: {off_dt} offsets with {dt} inputs (only '
+                        'bf16 inputs take fp32 offsets)')
+    if offset.device != x.device:
+        raise ValueError(f'{name}: expected CUDA tensors on one device, got '
+                         f'{offset.device} and {x.device}')
+    return dt
+
+
 def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
                      weight: torch.Tensor, mask: Optional[torch.Tensor],
                      bias: Optional[torch.Tensor], stride: int = 1,
@@ -138,22 +156,13 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
     alignment).  Any input that requires a gradient raises while autograd
     records (``check_cuda``): the kernel's output has no gradient, so the
     training path calls ``ops.deform_conv.deform_conv_window``."""
-    dt = x.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'deform_conv_cuda: {dt} is neither float32 nor '
-                        'bfloat16')
+    dt = check_types('deform_conv_cuda', x, offset)
     off_dt = offset.dtype
-    if off_dt != dt and (dt, off_dt) != (torch.bfloat16, torch.float32):
-        raise TypeError(f'deform_conv_cuda: {off_dt} offsets with {dt} '
-                        'inputs (only bf16 inputs take fp32 offsets)')
     check_cuda('deform_conv_cuda', *(t for t in (x, weight, bias)
                                      if t is not None), dtype=dt)
     check_cuda('deform_conv_cuda', x, *(t for t in (mask,) if t is not None),
                dtype=dt, contiguous=False)
     check_cuda('deform_conv_cuda', offset, dtype=off_dt, contiguous=False)
-    if offset.device != x.device:
-        raise ValueError(f'deform_conv_cuda: expected CUDA tensors on one '
-                         f'device, got {offset.device} and {x.device}')
     b, h, w, cin = x.shape
     if weight.dim() != 4 or weight.shape[3] != cin:
         raise ValueError(f'deform_conv_cuda: weight {tuple(weight.shape)} '

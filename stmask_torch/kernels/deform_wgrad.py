@@ -1,5 +1,6 @@
 """Weight gradient of the modulated deformable conv with the gather fused
-into the GEMM: CUDA kernel ``deform_wgrad`` and its plain version.
+into the GEMM: CUDA kernel ``deform_wgrad`` (fp32 and bf16 entries) and its
+plain versions.
 
 Replaces, in the training path's DCN backward, K2 (``deform_im2col``) and
 the matmul ``g.t() @ cols`` after it; in the JAX package, the transpose of
@@ -11,6 +12,13 @@ take ``deform_wgrad_reference``, CUDA tensors take the kernel in
 
 ``wgrad_plan`` chooses how the kernel cuts a call (its tiles and the
 cluster that splits the sites); the kernel takes the split as it is.
+
+The bf16 entries (bf16 ``g``, ``x`` and mask; the offsets bf16, or fp32
+beside bf16 data, as the forward's entries take them) gather the columns
+as the bf16 forward does (``deform_conv.deform_cols_bf16``: the JAX
+package's bf16 values), sum their exact products in fp32 and round d_w to
+bf16, the type of the JAX package's weight cotangent before its cast back
+to the fp32 master.
 """
 
 from __future__ import annotations
@@ -22,11 +30,15 @@ from typing import Optional
 import torch
 
 from .build import CudaKernel, check_cuda
+from .deform_conv import check_types, deform_cols_bf16
 from .deform_im2col import deform_im2col_reference
 
-KERNEL = CudaKernel('deform_wgrad', 'stmask_deform_wgrad',
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
-                    + [ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+KERNEL = CudaKernel('deform_wgrad', 'stmask_deform_wgrad', _ARGTYPES)
+KERNEL_BF16 = CudaKernel('deform_wgrad', 'stmask_deform_wgrad_bf16',
+                         _ARGTYPES)
+KERNEL_BF16_F32OFF = CudaKernel('deform_wgrad',
+                                'stmask_deform_wgrad_bf16_f32off', _ARGTYPES)
 
 # the kernel's tiles (csrc/deform_wgrad.cu): TM output channels, 64 a
 # warpgroup (128 with 256 threads, two blocks an SM; 256 with 512 threads,
@@ -89,10 +101,16 @@ def deform_wgrad_reference(g: torch.Tensor, x: torch.Tensor,
       g: [B*Ho*Wo, Cout], the output's gradient; x: [B, H, W, Cin];
         offset: [B, Ho, Wo, 2K] with (dy, dx) interleaved per tap, taps
         row-major (K = kh*kw); mask: [B, Ho, Wo, K] (already sigmoid-ed)
-        or None.
+        or None.  All fp32, or g, x and mask bf16 with bf16 or fp32
+        offsets.
     Returns:
-      d_w [Cout, kh, kw, Cin].
+      d_w [Cout, kh, kw, Cin] in x's type: in bf16 the columns of
+      ``deform_cols_bf16``, the product summed in fp32 and rounded.
     """
+    if x.dtype == torch.bfloat16:
+        cols = deform_cols_bf16(x, offset, mask, kh, kw, stride, dilation)
+        return (g.float().t() @ cols).to(torch.bfloat16).reshape(
+            g.shape[1], kh, kw, x.shape[3])
     cols = deform_im2col_reference(x, offset, mask, kh, kw, stride,
                                    dilation)
     return (g.t() @ cols).reshape(g.shape[1], kh, kw, x.shape[3])
@@ -101,10 +119,13 @@ def deform_wgrad_reference(g: torch.Tensor, x: torch.Tensor,
 def deform_wgrad_cuda(g: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
                       mask: Optional[torch.Tensor], kh: int, kw: int,
                       stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    """The kernel on contiguous fp32 CUDA tensors (shapes as above), cut as
-    ``wgrad_plan`` says."""
-    tensors = (g, x, offset) if mask is None else (g, x, offset, mask)
-    check_cuda('deform_wgrad_cuda', *tensors)
+    """The kernel on contiguous CUDA tensors (shapes and types as above),
+    cut as ``wgrad_plan`` says.  The bf16 entries take the kernel's general
+    path (one sample an element, the 128-channel tile)."""
+    dt = check_types('deform_wgrad_cuda', x, offset)
+    check_cuda('deform_wgrad_cuda', *(t for t in (g, x, mask)
+                                      if t is not None), dtype=dt)
+    check_cuda('deform_wgrad_cuda', offset, dtype=offset.dtype)
     b, h, w, cin = x.shape
     k = kh * kw
     if offset.dim() != 4 or offset.shape[0] != b or offset.shape[3] != 2 * k:
@@ -118,12 +139,13 @@ def deform_wgrad_cuda(g: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
         raise ValueError(f'deform_wgrad_cuda: g {tuple(g.shape)} is not '
                          f'[{b * ho * wo}, Cout]')
     cout = g.shape[1]
-    fast = (cin % 32 == 0 and cout % 128 == 0 and x.data_ptr() % 16 == 0
-            and g.data_ptr() % 16 == 0)
+    fast = (dt == torch.float32 and cin % 32 == 0 and cout % 128 == 0
+            and x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
     plan = wgrad_plan(b * ho * wo, cout, k * cin, fast)
-    dw = torch.empty((cout, kh, kw, cin), dtype=torch.float32,
-                     device=x.device)
-    KERNEL(g.data_ptr(), x.data_ptr(), offset.data_ptr(),
+    dw = torch.empty((cout, kh, kw, cin), dtype=dt, device=x.device)
+    kernel = (KERNEL if dt == torch.float32 else
+              KERNEL_BF16 if offset.dtype == dt else KERNEL_BF16_F32OFF)
+    kernel(g.data_ptr(), x.data_ptr(), offset.data_ptr(),
            None if mask is None else mask.data_ptr(), dw.data_ptr(),
            b, h, w, cin, ho, wo, cout, kh, kw, stride, dilation, plan.tm,
            plan.split,

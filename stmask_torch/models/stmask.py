@@ -121,9 +121,11 @@ class STMask(nn.Module):
                 x.reshape(b * nf, h, w, 3), train=True)
             if c.temporal_fusion_module:
                 f = fpn_outs[sel].permute(0, 2, 3, 1)     # NHWC view
-                corr = correlate(f[0::2].contiguous(), f[1::2].contiguous(),
-                                 c.correlation_patch_size)
+                # K1 writes fp32 from bf16 features; JAX's bf16 correlation
+                # is bf16, and so is its concatenation with T2S
                 t = t2s[sel].permute(0, 2, 3, 1)
+                corr = correlate(f[0::2].contiguous(), f[1::2].contiguous(),
+                                 c.correlation_patch_size).to(t.dtype)
                 out['T2S_concat_feat'] = F.relu(torch.cat(
                     [corr, t[0::2], t[1::2]], dim=-1))
             if c.use_semantic_segmentation_loss:

@@ -17,6 +17,13 @@ the product, no ``cols`` matrix in device memory), one matmul gives the
 column gradient, and K4 (``kernels.deform_col2im``) gives those of x,
 offset and mask with JAX's subgradients at integer offsets.  The clamp's
 own gradient is JAX's ``jnp.clip``'s: 1 inside, 0.5 at +-r, 0 beyond.
+
+In bf16 (x, weight, mask and bias bf16; the offsets bf16, or fp32 from
+FCB's analytic offsets) every gradient comes back in its input's type, as
+the JAX package's VJP types it: the column gradient ``g @ w`` is a bf16
+matmul, and the kernels' bf16 entries sum in fp32 and round d_w, dx,
+d_offset and d_mask once (``stmask_tpu/ops/deform_conv.py:180-237``,
+``:346-348``).
 """
 
 from __future__ import annotations
@@ -69,7 +76,7 @@ class _WindowClamp(torch.autograd.Function):
         a = offset.abs()
         r = ctx.radius
         fac = torch.where(a < r, 1.0, torch.where(a == r, 0.5, 0.0))
-        return g * fac, None
+        return g * fac.to(g.dtype), None
 
 
 class _DeformConvWindow(torch.autograd.Function):

@@ -3,6 +3,7 @@
 ``scripts/overfit_sanity.py``).
 
     python -m stmask_torch.overfit_sanity [--steps 400] [--out DIR]
+        [--bf16] [--remat]
 
 Writes a tiny synthetic YouTube-VIS set (4 videos x 8 JPEG frames at
 360x640: two coloured boxes moving over noise, seed 0), trains the full
@@ -13,7 +14,10 @@ batched eval over the training videos and scores them with the
 YouTube-VIS evaluator.  A healthy port overfits to a high mAP (PASS at
 mAP > 0.3); this exercises the loader, the matcher, the losses, the
 optimizer, NMS, tracking, postprocess and the evaluator in one loop.
-It runs on ``--device`` (default ``cuda``).
+It runs on ``--device`` (default ``cuda``).  ``--bf16`` and ``--remat``
+train through ``build_train_step(..., compute_dtype=torch.bfloat16,
+remat=True)``, as the JAX script passes them; the eval is the same bf16
+batched eval either way.
 """
 
 from __future__ import annotations
@@ -102,15 +106,28 @@ def parse_args(argv=None):
     p.add_argument('--debug_nans', action='store_true',
                    help='autograd anomaly detection')
     p.add_argument('--bf16', action='store_true',
-                   help='bf16 training (not ported: raises)')
+                   help='bf16 mixed-precision training step (build_train_'
+                        'step compute_dtype): the forward and its backward '
+                        'in bf16 (on the card the bf16 entries of the fused '
+                        'conv, deform_wgrad, K4, K1 and K3), the master '
+                        'parameters, losses and optimizer fp32')
     p.add_argument('--config', default='STMask_plus_resnet50')
     p.add_argument('--remat', action='store_true',
-                   help='rematerialized forward (not ported: raises)')
-    args = p.parse_args(argv)
-    if args.bf16 or args.remat:
-        raise NotImplementedError('--bf16 and --remat: bf16 training and '
-                                  'remat are not ported (ROADMAP A.9c)')
-    return args
+                   help='rematerialize the forward (torch.utils.checkpoint):'
+                        ' its activations are recomputed in the backward, '
+                        'trading a second forward for the memory they held')
+    return p.parse_args(argv)
+
+
+def build_step(args, cfg, model, dev):
+    """The gate's (train_step, init_state): ``--remat`` and ``--bf16`` as
+    the JAX script passes them to its ``build_train_step``."""
+    import torch
+
+    from .train.train_step import build_train_step
+    return build_train_step(
+        cfg, model, dev, remat=args.remat,
+        compute_dtype=torch.bfloat16 if args.bf16 else None)
 
 
 def main(argv=None) -> None:
@@ -125,7 +142,6 @@ def main(argv=None) -> None:
     from .data.ytvis import YTVISDataset
     from .models.stmask import STMask, init_flax
     from .train.checkpoint import ckpt_name
-    from .train.train_step import build_train_step
     from .utils.device import resolve_device
     from .utils.hostguard import wait_for_quiet_host
 
@@ -154,7 +170,7 @@ def main(argv=None) -> None:
     loader = ClipLoader(cfg, dataset, args.batch_size, num_workers=8)
 
     model = init_flax(STMask(cfg), torch.Generator().manual_seed(0))
-    train_step, init_state = build_train_step(cfg, model, dev)
+    train_step, init_state = build_step(args, cfg, model, dev)
     state = init_state()
 
     it = 0

@@ -26,13 +26,29 @@ and the losses over the ranks in one ``all_reduce``, so that the norm, the
 clip, the non-finite skip and the update are those of the single-process
 step over the rank-ordered concatenation of the shards, on every rank: a
 rank whose own shard is finite skips the step when another's is not.
+
+``remat`` and ``compute_dtype`` are the JAX package's
+(``train_step.py:69-100``).  ``remat`` wraps the model's forward (the
+casts included) in ``torch.utils.checkpoint``: its activations are
+recomputed in the backward instead of kept.  ``compute_dtype=
+torch.bfloat16`` runs that forward through ``torch.func.functional_call``
+on bf16 copies of every fp32 parameter and buffer (the frozen-BN
+statistics too) and on bf16 images, and casts the bf16 predictions back
+to fp32 before the losses.  The losses' TemporalNet and mask-IoU net run
+on the fp32 parameters, as JAX's ``temporal_net_fn`` and ``maskiou_fn``
+close over the uncast ones.  The casts are differentiable, so every
+gradient reaches its fp32 parameter in fp32 (after the bf16 rounding of
+the weight cotangent); the norm, the clip, the skip, the update and the
+sum over ranks stay fp32.
 """
 
 from __future__ import annotations
 
+from itertools import chain
 from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..config import STMaskConfig
 from ..models.layers import set_bn_affine_trainable
@@ -72,19 +88,40 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
     step starts.
 
     The model is moved to ``device`` (default ``cuda``; raises when there
-    is no GPU) in the channels-last format, with TF32 off.
+    is no GPU) in the channels-last format, with TF32 off.  ``remat``
+    recomputes the forward in the backward; ``compute_dtype`` is None,
+    ``torch.float32`` (the same step) or ``torch.bfloat16`` (the forward
+    and its backward in bf16, everything else fp32; see the top).
     """
-    if remat or compute_dtype is not None:
-        raise NotImplementedError('remat and compute_dtype are not ported '
-                                  '(ROADMAP A.9c)')
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f'compute_dtype {compute_dtype}: None, '
+                         'torch.float32 or torch.bfloat16')
     dev = resolve_device(device)
     set_bn_affine_trainable(model, not cfg.freeze_bn)
     model.to(device=dev, memory_format=torch.channels_last).train()
     priors = torch.as_tensor(all_priors(cfg), device=dev)
     params = list(model.parameters())
 
+    def forward(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if compute_dtype != torch.bfloat16:
+            return model(images, train=True)
+        cast = {n: t.to(compute_dtype) if t.dtype == torch.float32 else t
+                for n, t in chain(model.named_parameters(),
+                                  model.named_buffers())}
+        preds = torch.func.functional_call(
+            model, cast, (images.to(compute_dtype),), {'train': True})
+        return {k: v.float() if v.dtype == compute_dtype else v
+                for k, v in preds.items()}
+
+    if remat:
+        plain_forward = forward
+
+        def forward(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+            return torch.utils.checkpoint.checkpoint(
+                plain_forward, images, use_reentrant=False)
+
     def loss_fn(batch: Dict[str, torch.Tensor]):
-        preds = model(batch['images'], train=True)
+        preds = forward(batch['images'])
         gt = {k: batch[k].reshape((-1,) + batch[k].shape[2:])
               for k in GT_KEYS if k in batch}
         # the mask-IoU net's loss 'I' only where the model has the net

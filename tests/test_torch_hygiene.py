@@ -144,9 +144,16 @@ def test_unported_paths_raise():
         model = STMask(get_config(name).replace(**small, **kw))
         with pytest.raises(NotImplementedError, match='ROADMAP A.9e'):
             model(clip, train=True)
-    for kw in (dict(remat=True), dict(compute_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
-            build_train_step(cfg, STMask(cfg), device='cpu', **kw)
+    # remat and bf16 training (A.9c) are ported: both build, another
+    # compute dtype raises (tests/test_torch_train_remat_bf16.py holds the
+    # steps against the plain step and JAX's bf16 step)
+    for kw in (dict(remat=True), dict(compute_dtype=torch.bfloat16),
+               dict(remat=True, compute_dtype=torch.float32)):
+        step, init = build_train_step(cfg, STMask(cfg), device='cpu', **kw)
+        assert callable(step) and init().step == 0
+    with pytest.raises(ValueError, match='compute_dtype'):
+        build_train_step(cfg, STMask(cfg), device='cpu',
+                         compute_dtype=torch.float16)
     # the eval CLI's other modes and the training overlays (A.7b) are
     # ported: nothing in the package names the item or the old label
     # (tests/test_torch_eval_modes.py, _coco.py and _visualization.py hold
@@ -155,9 +162,11 @@ def test_unported_paths_raise():
             if 'A.7b' in f.read_text() or 'ROADMAP "Next"' in f.read_text()]
     assert not hits, hits
     from stmask_torch import overfit_sanity
-    for flag in ('--bf16', '--remat'):
-        with pytest.raises(NotImplementedError, match='ROADMAP A.9c'):
-            overfit_sanity.parse_args([flag])
+    args = overfit_sanity.parse_args(['--bf16', '--remat'])
+    assert args.bf16 and args.remat
+    hits = [f for f in sorted((ROOT / 'stmask_torch').rglob('*.py'))
+            if 'A.9c' in f.read_text()]
+    assert not hits, hits
     # the rest of the model surface (A.12) is ported: nothing in the
     # package raises naming it, the flags build their modules, the other
     # backbones build, and the legacy preset's training branch runs
@@ -182,7 +191,9 @@ def test_unported_paths_raise():
 @pytest.mark.parametrize('name', sorted(
     ['correlation', 'correlation_bf16', 'deform_im2col', 'deform_conv',
      'deform_conv_bf16', 'deform_conv_bf16_f32off', 'correlation_bwd',
-     'deform_col2im', 'deform_wgrad', 'greedy_nms']))
+     'deform_col2im', 'deform_wgrad', 'greedy_nms', 'correlation_bwd_bf16',
+     'deform_col2im_bf16', 'deform_col2im_bf16_f32off', 'deform_wgrad_bf16',
+     'deform_wgrad_bf16_f32off']))
 def test_kernel_argtypes_match_the_c_launchers(name):
     """ctypes passes what ``argtypes`` says: each launcher's list must
     follow its C signature (pointer -> c_void_p, int -> c_int, float ->

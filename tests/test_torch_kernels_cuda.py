@@ -9,8 +9,10 @@ machine with
 import pytest
 import torch
 
-# B5's shapes and inputs are chip_smoke.py phase 10a's
-from chip_smoke import GREEDY_SHAPES, _greedy_inputs
+# B5's shapes and inputs are chip_smoke.py phase 10a's; the bf16 backward
+# entries' check is its phase 14a's (one bf16 ulp of each value plus 2^-12
+# of max|ref|, bit for bit over two launches where no atomics sum)
+from chip_smoke import GREEDY_SHAPES, _bf16_err, _greedy_inputs
 from stmask_torch.kernels import correlation as K1
 from stmask_torch.kernels import correlation_bwd as K3
 from stmask_torch.kernels import deform_col2im as K4
@@ -852,3 +854,146 @@ def test_exported_step_on_the_card(device, tmp_path):
         for f in ('box', 'score', 'mask'):
             torch.testing.assert_close(getattr(got, f), getattr(want, f),
                                        rtol=0, atol=1e-5)
+
+
+
+@pytest.mark.parametrize('act', [True, False])
+@pytest.mark.parametrize('shape,patch', CORR_BWD_SHAPES)
+def test_correlation_bwd_kernel_bf16(device, shape, patch, act):
+    """K3's bf16 entry (bf16 x1 and x2, fp32 g and out as K1's bf16 entry
+    writes them): bf16 dx1 and dx2, one launch a call, no atomics."""
+    up, x1, x2, out = _corr_bwd_case(device, shape, patch)
+    x1, x2 = x1.bfloat16(), x2.bfloat16()
+    out = out if act else None
+    launches = K3.KERNEL_BF16.launches
+    got = K3.correlation_bwd_cuda(up, x1, x2, patch, out=out)
+    assert K3.KERNEL_BF16.launches == launches + 1
+    again = K3.correlation_bwd_cuda(up, x1, x2, patch, out=out)
+    want = K3.correlation_bwd_reference(up, x1, x2, patch, out=out)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, again, want):
+        assert b.dtype == torch.bfloat16
+        _bf16_err(a, a2, b)
+
+
+def _bf16_case(x, off, mask, off_dtype):
+    return (x.bfloat16(), off.to(off_dtype),
+            None if mask is None else mask.bfloat16())
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(9, 11, 6, 1, 3, 3, 1),
+                                   (24, 40, 256, 1, 3, 3, 1),
+                                   (24, 40, 512, 2, 3, 3, 1)]
+                         + COL2IM_SHAPES[:5])
+def test_deform_col2im_kernel_bf16(device, shape, off_dtype):
+    """K4's bf16 entries (bf16 offsets, and fp32 ones beside bf16 data):
+    dx and d_mask bf16, d_offset in the offsets' type; d_offset and d_mask
+    bit for bit over two launches (dx sums with atomics before it is
+    rounded)."""
+    h, w, cin, stride, kh, kw, dilation = shape
+    dcols, x, off, mask = _col2im_case(device, h, w, cin, stride, 'random',
+                                       16, kh, kw, dilation)
+    kern = (K4.KERNEL_BF16 if off_dtype == torch.bfloat16
+            else K4.KERNEL_BF16_F32OFF)
+    for m in (mask, None):
+        xb, ob, mb = _bf16_case(x, off, m, off_dtype)
+        db = dcols.bfloat16()
+        launches = kern.launches
+        got = K4.deform_col2im_cuda(db, xb, ob, mb, kh, kw, stride, dilation)
+        assert kern.launches == launches + 1
+        again = K4.deform_col2im_cuda(db, xb, ob, mb, kh, kw, stride,
+                                      dilation)
+        want = K4.deform_col2im_reference(db, xb, ob, mb, kh, kw, stride,
+                                          dilation)
+        torch.cuda.synchronize()
+        assert want[1].dtype == off_dtype
+        _bf16_err(got[0], again[0], want[0], same=False)
+        _bf16_err(got[1], again[1], want[1])
+        assert (got[2] is None) == (m is None)
+        if m is not None:
+            _bf16_err(got[2], again[2], want[2])
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(9, 11, 32, 32, 1, 3, 3, 1),
+                                   (24, 40, 256, 256, 2, 3, 3, 1),
+                                   (12, 20, 512, 512, 1, 3, 3, 1)]
+                         + WGRAD_SHAPES)
+def test_deform_wgrad_kernel_bf16(device, shape, off_dtype):
+    """deform_wgrad's bf16 entries: the bf16 forward's columns, d_w in
+    bf16, bit for bit over two launches."""
+    h, w, cin, cout, stride, kh, kw, dilation = shape
+    _, x, off, mask = _col2im_case(device, h, w, cin, stride, 'random', 17,
+                                   kh, kw, dilation)
+    gen = torch.Generator(device=device).manual_seed(18)
+    g = torch.randn(off.shape[0] * off.shape[1] * off.shape[2], cout,
+                    device=device, generator=gen).bfloat16()
+    kern = (KW.KERNEL_BF16 if off_dtype == torch.bfloat16
+            else KW.KERNEL_BF16_F32OFF)
+    for m in (mask, None):
+        xb, ob, mb = _bf16_case(x, off, m, off_dtype)
+        launches = kern.launches
+        got = KW.deform_wgrad_cuda(g, xb, ob, mb, kh, kw, stride, dilation)
+        assert kern.launches == launches + 1
+        again = KW.deform_wgrad_cuda(g, xb, ob, mb, kh, kw, stride,
+                                     dilation)
+        want = KW.deform_wgrad_reference(g, xb, ob, mb, kh, kw, stride,
+                                         dilation)
+        torch.cuda.synchronize()
+        _bf16_err(got, again, want)
+
+
+def test_bf16_backward_wrappers_reject_other_types(device):
+    """Only bf16 data with bf16 or fp32 offsets (K3: bf16 features with
+    fp32 g and out) reach the bf16 entries; any other mix raises."""
+    _, x, off, mask = _col2im_case(device, 9, 11, 32, 1, 'random', 19)
+    g = torch.zeros(2 * 9 * 11, 32, device=device)
+    dcols = torch.zeros(2 * 9 * 11, 9 * 32, device=device)
+    for xt, ot in ((x, off.bfloat16()), (x.bfloat16(), off.half()),
+                   (x.half(), off.half())):
+        with pytest.raises(TypeError):
+            KW.deform_wgrad_cuda(g.to(xt.dtype), xt, ot, None, 3, 3)
+        with pytest.raises(TypeError):
+            K4.deform_col2im_cuda(dcols.to(xt.dtype), xt, ot, None, 3, 3)
+    with pytest.raises(TypeError):           # fp32 g beside bf16 x
+        KW.deform_wgrad_cuda(g, x.bfloat16(), off.bfloat16(), None, 3, 3)
+    with pytest.raises(TypeError):           # an fp32 mask beside bf16 x
+        K4.deform_col2im_cuda(dcols.bfloat16(), x.bfloat16(),
+                              off.bfloat16(), mask, 3, 3)
+    up, x1, x2, out = _corr_bwd_case(device, (1, 5, 7, 8), 5)
+    with pytest.raises(TypeError):           # bf16 g
+        K3.correlation_bwd_cuda(up.bfloat16(), x1.bfloat16(), x2.bfloat16(),
+                                5)
+    with pytest.raises(TypeError):           # bf16 x1 with fp32 x2
+        K3.correlation_bwd_cuda(up, x1.bfloat16(), x2, 5)
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+def test_bf16_training_backward_launches_bf16_entries(device, off_dtype):
+    """The window op and the correlation in bf16 differentiate through the
+    bf16 entries, one launch each, and nothing else of the port; every
+    gradient comes back in its input's type."""
+    from stmask_torch.kernels import KERNELS
+    x, off, mask, wt, bias = _dcn_case(device, 12, 20, 64, 64, 3, 3, 1, 1,
+                                       25)
+    leaves = [x.bfloat16(), off.to(off_dtype), wt.bfloat16(),
+              mask.bfloat16(), bias.bfloat16()]
+    leaves = [t.clone().requires_grad_(True) for t in leaves]
+    f1 = torch.randn(2, 6, 10, 32, device=device).bfloat16()
+    f2 = torch.randn(2, 6, 10, 32, device=device).bfloat16()
+    c1, c2 = (t.clone().requires_grad_(True) for t in (f1, f2))
+    out = deform_conv_window(*leaves, radius=2)
+    corr = correlate(c1, c2, 5).to(torch.bfloat16)
+    for k in KERNELS.values():
+        k.launches = 0
+    (out.float().square().sum() + corr.float().sum()).backward()
+    torch.cuda.synchronize()
+    launched = {n: k.launches for n, k in KERNELS.items() if k.launches}
+    suffix = '_bf16' if off_dtype == torch.bfloat16 else '_bf16_f32off'
+    assert launched == {'deform_wgrad' + suffix: 1,
+                        'deform_col2im' + suffix: 1,
+                        'correlation_bwd_bf16': 1}, launched
+    for t in leaves + [c1, c2]:
+        assert t.grad is not None and t.grad.dtype == t.dtype
+        assert bool(torch.isfinite(t.grad.float()).all())
