@@ -141,10 +141,16 @@ Phases, in order (any failure raises and exits non-zero):
      (one bf16 ulp of each value plus 2^-12 of max|ref|; d_w, d_offset,
      d_mask, dx1 and dx2 bit for bit over two launches) and their times
      and bounds: at the flagship's 7 sites and FCB's 15 (bf16 and fp32
-     offsets) x 8 frames, K3 at [4, 24, 40, 256]; (b) the flagship's
+     offsets) x 8 frames, K3 at [4, 24, 40, 256]; deform_wgrad's bf16
+     entries there on their fast path (the route printed), beside the fp32
+     kernel on the same inputs, also checked at every site with bf16 and
+     fp32 offsets, with and without the mask, random, zero and integer
+     offsets, and off the fast path (Cin 48, an unaligned x: the general
+     route); (b) the flagship's
      training step over phase 6's batches in each mode of
      build_train_step (fp32, remat, bf16, bf16 + remat): launches a step,
-     ms/step, peak memory above the first step's start; remat against
+     ms/step, peak memory above the first step's start, the bf16 step's
+     device busy share and top kernels under torch.profiler; remat against
      plain from the same state with cuDNN deterministic (gradients within
      1e-6 of their L2 norm, beside two plain steps), and bf16's losses
      against fp32's; (c) two bf16 + remat steps of
@@ -3073,18 +3079,61 @@ def _bf16_err(got, again, want, same: bool = True) -> float:
     return float(d.max()) / max(scale, 1e-30)
 
 
+def _wgrad_route(KW, g, x) -> str:
+    """The path of deform_wgrad's kernel that a call with ``g`` and ``x``
+    takes (the wrapper's own decision)."""
+    return ('fast' if KW.wgrad_fast(x.shape[3], g.shape[1], x.data_ptr(),
+                                    g.data_ptr()) else 'general')
+
+
+def _wgrad_bf16_matrix(torch, dev, KW, x, off, mask, kh, kw, stride,
+                       cout, gen) -> tuple:
+    """deform_wgrad's bf16 entries at one site under every input they
+    take: bf16 and fp32 offsets, with and without the mask, random, zero
+    and integer (+-1, +-2) offsets; each against the plain version with
+    _bf16_err (bit for bit over two launches).  Returns (routes, worst
+    max|diff| / max|ref|, cases)."""
+    bf = torch.bfloat16
+    xb = x.to(bf)
+    g = torch.randn(off.shape[0] * off.shape[1] * off.shape[2], cout,
+                    device=dev, generator=gen).to(bf)
+    vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=dev)
+    kinds = {'random': off, 'zero': torch.zeros_like(off),
+             'integer': vals[torch.randint(0, 4, off.shape, device=dev,
+                                           generator=gen)]}
+    routes, worst, n = set(), 0.0, 0
+    for o in kinds.values():
+        for od in (bf, torch.float32):
+            for m in (mask, None):
+                ob, mb = o.to(od), None if m is None else m.to(bf)
+                routes.add(_wgrad_route(KW, g, xb))
+                got = KW.deform_wgrad_cuda(g, xb, ob, mb, kh, kw, stride)
+                again = KW.deform_wgrad_cuda(g, xb, ob, mb, kh, kw, stride)
+                want = KW.deform_wgrad_reference(g, xb, ob, mb, kh, kw,
+                                                 stride)
+                torch.cuda.synchronize()
+                worst = max(worst, _bf16_err(got, again, want))
+                n += 1
+    return routes, worst, n
+
+
 def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
     """Phase 14a: the bf16 entries of deform_wgrad, K4 and K3 against their
     plain versions and timed beside them, with their bounds: at the
     flagship's 7 DCN sites x 8 frames (bf16 offsets and mask), at FCB's 15
     sites x 8 frames with bf16 offsets (_ada) and with fp32 ones (_ali, the
     f32off entries), and K3 at [4, 24, 40, 256] (fp32 g and out, as K1's
-    bf16 entry writes them).  Bounds: the bytes of the bf16 (and fp32)
-    tensors read and written once; deform_wgrad's product as a bf16
-    tensor-core product (2MNK at the bf16 peak) plus the gather's fp32
-    flops, K4's and K3's fp32 flops as in phase 6.  deform_wgrad's library
-    column is cuBLAS's bf16 GEMM g^T @ cols alone (cols gathered
-    beforehand: not the same function)."""
+    bf16 entry writes them).  deform_wgrad's bf16 entries also at every
+    site under bf16 and fp32 offsets, with and without the mask, random,
+    zero and integer offsets (checked, not timed), each timed site beside
+    the fp32 kernel on the same inputs in fp32, with the route its kernel
+    takes (fast or general), and two shapes off the fast path (Cin 48, an
+    x one element into its buffer) through the general path.  Bounds: the
+    bytes of the bf16 (and fp32) tensors read and written once;
+    deform_wgrad's product as a bf16 tensor-core product (2MNK at the bf16
+    peak) plus the gather's fp32 flops, K4's and K3's fp32 flops as in
+    phase 6.  deform_wgrad's library column is cuBLAS's bf16 GEMM g^T @
+    cols alone (cols gathered beforehand: not the same function)."""
     from stmask_torch.kernels import correlation_bwd as K3
     from stmask_torch.kernels import deform_col2im as K4
     from stmask_torch.kernels import deform_wgrad as KW
@@ -3096,11 +3145,14 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
                            'deform_wgrad_bf16_f32off',
                            'deform_col2im_bf16_f32off')}
     lib = {'sites': 0.0, 'fcb': 0.0}
+    routes = {}
 
     def one(tag, key, dcols, x, off, mask, kh, kw, stride, gen, cout):
         k = kh * kw
         m = dcols.shape[0]
         g = torch.randn(m, cout, device=dev, generator=gen).to(bf)
+        route = _wgrad_route(KW, g, x)
+        routes.setdefault(key, set()).add(route)
         got = KW.deform_wgrad_cuda(g, x, off, mask, kh, kw, stride)
         again = KW.deform_wgrad_cuda(g, x, off, mask, kh, kw, stride)
         want = KW.deform_wgrad_reference(g, x, off, mask, kh, kw, stride)
@@ -3136,6 +3188,12 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
             g, x, off, mask, kh, kw, stride), 2, warmup=1)
         bw, byw = _tally(acc[wk], ms, call, plain, nb, fl,
                          bf16_flops=2 * m * cout * k * x.shape[3])
+        gf, xf, of = g.float(), x.float(), off.float()
+        mf = None if mask is None else mask.float()
+        f32 = _device_ms(lambda: KW.deform_wgrad_cuda(gf, xf, of, mf, kh, kw,
+                                                      stride), 20)
+        acc[wk]['fp32_ms'] = acc[wk].get('fp32_ms', 0.0) + f32
+        del gf, xf, of, mf
         cols = deform_cols_bf16(x, off, mask, kh, kw, stride).to(bf)
         l_ms = _device_ms(lambda: g.t() @ cols, 20)
         del cols
@@ -3150,13 +3208,25 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
         plain4 = _time_ms(lambda: K4.deform_col2im_reference(
             dcols, x, off, mask, kh, kw, stride), 2, warmup=1)
         b4, by4 = _tally(acc[ck], ms4, call4, plain4, nb4, fl4)
-        print(f'[bf16 bwd] {tag}: deform_wgrad{key} {ms:.5f} ms (device), '
-              f'call {call:.5f}, plain {plain:.5f}, bound {bw:.5f} ({byw}), '
-              f'max|diff| {e_w:.3e} of max|ref|, the bf16 GEMM alone '
-              f'{l_ms:.5f}; deform_col2im{key} {ms4:.5f} ms, call '
+        print(f'[bf16 bwd] {tag}: deform_wgrad{key} route {route}, '
+              f'{ms:.5f} ms (device), call {call:.5f}, plain {plain:.5f}, '
+              f'bound {bw:.5f} ({byw}), max|diff| {e_w:.3e} of max|ref|, the '
+              f'bf16 GEMM alone {l_ms:.5f}, the fp32 kernel {f32:.5f}; '
+              f'deform_col2im{key} {ms4:.5f} ms, call '
               f'{call4:.5f}, plain {plain4:.5f}, bound {b4:.5f} ({by4}), '
               f'max|diff| {e_4:.3e} of max|ref|', flush=True)
         return l_ms
+
+    def matrix(tag, x, off, mask, kh, kw, stride, cout, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        r, e, n = _wgrad_bf16_matrix(torch, dev, KW, x, off, mask, kh, kw,
+                                     stride, cout, gen)
+        err['deform_wgrad_bf16'] = max(err['deform_wgrad_bf16'], e)
+        routes.setdefault('matrix', set()).update(r)
+        print(f'[bf16 wgrad] {tag}: route {"/".join(sorted(r))}, {n} cases '
+              '(bf16 and fp32 offsets, with and without the mask, random, '
+              f'zero and integer offsets): max|diff| {e:.3e} of max|ref|, '
+              'each bit-identical over two launches', flush=True)
 
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
         dcols, x, off, mask = _dcn_train_inputs(torch, dev, h, w, cin,
@@ -3166,7 +3236,10 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
         lib['sites'] += one(f'{site} x {frames} frames', '_bf16',
                             dcols.to(bf), x.to(bf), off.to(bf), mask.to(bf),
                             3, 3, stride, gen, cin)
-        del dcols, x, off, mask
+        del dcols
+        matrix(f'{site} x {frames} frames', x, off, mask, 3, 3, stride, cin,
+               1470 + i)
+        del x, off, mask
     for i, (h, w, kh, kw) in enumerate(FCB_SITES):
         x, off, _ = _fcb_inputs(torch, dev, h, w, kh, kw, frames, 1500 + i)
         off = off.clamp(-2, 2)
@@ -3179,7 +3252,39 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
                        dcols, xb, o, None, kh, kw, 1, gen, 256)
             if key == '_bf16_f32off':
                 lib['fcb'] += l_ms
-        del x, off, dcols, xb
+        del dcols, xb
+        mask = torch.rand(frames, h, w, kh * kw, device=dev, generator=gen)
+        matrix(f'FCB {h}x{w} {kh}x{kw} x {frames} frames', x, off, mask, kh,
+               kw, 1, 256, 1580 + i)
+        del x, off, mask
+    assert routes.keys() == {'_bf16', '_bf16_fcb', '_bf16_f32off',
+                             'matrix'} and all(
+        r == {'fast'} for r in routes.values()), routes
+    # off the fast path: Cin 48, and an x one element into its buffer
+    for tag, (h, w, cin), shift in (('Cin 48', (24, 40, 48), 0),
+                                    ('x one element into its buffer',
+                                     (24, 40, 256), 1)):
+        _, x, off, mask = _dcn_train_inputs(torch, dev, h, w, cin, 1, 2,
+                                            'random', 1590)
+        xb = torch.empty(x.numel() + shift, device=dev, dtype=bf)[shift:]
+        xb = xb.view(x.shape).copy_(x)
+        gen = torch.Generator(device=dev).manual_seed(1591)
+        g = torch.randn(2 * h * w, cin, device=dev, generator=gen).to(bf)
+        route = _wgrad_route(KW, g, xb)
+        assert route == 'general', (tag, route)
+        worst = 0.0
+        for od in (bf, torch.float32):
+            for m in (mask.to(bf), None):
+                got = KW.deform_wgrad_cuda(g, xb, off.to(od), m, 3, 3)
+                again = KW.deform_wgrad_cuda(g, xb, off.to(od), m, 3, 3)
+                want = KW.deform_wgrad_reference(g, xb, off.to(od), m, 3, 3)
+                torch.cuda.synchronize()
+                worst = max(worst, _bf16_err(got, again, want))
+        err['deform_wgrad_bf16'] = max(err['deform_wgrad_bf16'], worst)
+        print(f'[bf16 wgrad] {tag} ([2, {h}, {w}, {cin}], Cout {cin}): '
+              f'route {route}, bf16 and fp32 offsets, with and without the '
+              f'mask: max|diff| {worst:.3e} of max|ref|, each bit-identical '
+              'over two launches', flush=True)
 
     tshape = (TRAIN_CLIPS, 24, 40, 256)
     gen = torch.Generator(device=dev).manual_seed(1600)
@@ -3210,7 +3315,9 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
     for key, a in acc.items():
         print(f'[bf16 bwd] summed, {key}: {a["ms"]:.5f} ms (device), per call '
               f'{a["call_ms"]:.5f} ms, plain {a["plain_ms"]:.5f} ms, bound '
-              f'{a["bound_ms"]:.5f} ms ({_by_of(a)}) ({smi})', flush=True)
+              f'{a["bound_ms"]:.5f} ms ({_by_of(a)})'
+              + (f', the fp32 kernel {a["fp32_ms"]:.5f} ms' if 'fp32_ms' in a
+                 else '') + f' ({smi})', flush=True)
     print(f'[bf16 bwd] the bf16 GEMM g^T @ cols alone (cuBLAS), summed: 7 '
           f'sites {lib["sites"]:.5f} ms, FCB 15 sites {lib["fcb"]:.5f} ms '
           f'(device) ({smi})', flush=True)
@@ -3275,6 +3382,25 @@ def _train_modes(torch, dev, smi: str, name: str, hosts) -> dict:
               f'allocated at the first step\'s start; launches a step '
               f'{res[tag]["per_step"]}; losses of step 0 '
               f'{metrics[0]} ({name}, {smi})', flush=True)
+        if tag == 'bf16':
+            # one steady bf16 step under torch.profiler, as phase 6's
+            rows = _device_events(lambda: step(state, batches[1]), 1)
+            if rows:
+                busy = sum(us for _, _, us in rows) / 1e3
+                res[tag].update(busy=busy, top=[
+                    (key, cnt, us / 1e3) for key, cnt, us in
+                    sorted(rows, key=lambda r: -r[2])[:15]])
+                print(f'[profile] bf16 train step: device busy {busy:.3f} '
+                      f'ms of {med:.3f} ms wall (idle share '
+                      f'{1 - busy / med:.3f}), '
+                      f'{sum(c for _, c, _ in rows)} kernel launches '
+                      f'({smi})', flush=True)
+                for key, cnt, ms_ in res[tag]['top']:
+                    print(f'[profile]   {ms_:8.4f} ms/step {cnt:6d}x  '
+                          f'{key[:100]}')
+            else:
+                print('[profile] torch.profiler recorded no device time for '
+                      'the bf16 train step: device busy share not measured')
         del model, step, state
         torch.cuda.empty_cache()
     f0, b0 = res['fp32']['metrics'][0], res['bf16']['metrics'][0]
@@ -4432,19 +4558,24 @@ def main() -> int:
         if lib_ms is not None:
             row['library_is'] = ('cuBLAS\'s bf16 GEMM g^T @ cols alone '
                                  '(the columns gathered beforehand)')
+        if 'fp32_ms' in a_:
+            row.update(kernel_path='fast (bf16 wgmma)',
+                       fp32_same_inputs_ms=a_['fp32_ms'])
         fcb_key = key + '_fcb'
         if fcb_key in b16:
             f_ = b16[fcb_key]
             row.update(fcb_ada_ms=f_['ms'], fcb_ada_call_ms=f_['call_ms'],
                        fcb_ada_plain_ms=f_['plain_ms'],
                        fcb_ada_bound_ms=f_['bound_ms'],
+                       fcb_ada_fp32_same_inputs_ms=f_.get('fp32_ms'),
                        fcb_ada_shape=fcb_sites.replace(
                            'one 384x640 frame', '8 384x640 frames')
                        + '; bf16 offsets (_ada)')
         table['kernels'].append(row)
     table['train_modes'] = {
         tag: dict(ms_per_step=r['ms'], peak_mib_above_start=r['peak'] / 2**20,
-                  launches_per_step=r['per_step'])
+                  launches_per_step=r['per_step'],
+                  device_busy_ms=r.get('busy'))
         for tag, r in tmodes['res'].items()}
     table['train_modes'].update(
         remat_grad_rel=tmodes['remat_rel'],

@@ -1,11 +1,12 @@
-"""Frame decoding for the eval CLI (the counterpart of
-``stmask_tpu/data/loader.py::load_image_rgb``).
+"""Frame decoding for the eval CLI and the training loader (the
+counterpart of ``stmask_tpu/data/loader.py::load_image_rgb``).
 
-PNG goes through a reader of its own (stdlib ``zlib`` and numpy: 8-bit
-grey, grey + alpha, RGB and RGBA, non-interlaced, all five row filters),
-so a machine without cv2 or PIL still reads PNG frames.  Other formats
-(YouTube-VIS ships JPEG) go through cv2 or PIL, whichever imports.
-``write_png`` writes the synthetic sets of the tests and of
+Where cv2 imports, every frame, PNG included, is read as the JAX loader
+reads it: ``cv2.imread(path, IMREAD_COLOR)`` then BGR -> RGB (palette,
+16-bit and interlaced PNGs alike).  Without cv2, PNG goes through a reader
+of its own (stdlib ``zlib`` and numpy: 8-bit grey, grey + alpha, RGB and
+RGBA, non-interlaced, all five row filters) and other formats through
+PIL.  ``write_png`` writes the synthetic sets of the tests and of
 ``chip_smoke.py``.
 """
 
@@ -100,7 +101,7 @@ def read_png(path: str) -> np.ndarray:
         raise NotImplementedError(
             f'{path}: PNG bit depth {depth}, colour type {color}, interlace '
             f'{interlace}; the reader takes 8-bit grey/RGB/RGBA, '
-            'non-interlaced')
+            'non-interlaced (cv2, where it imports, reads them all)')
     ch = _CHANNELS[color]
     pixels = _unfilter(zlib.decompress(b''.join(idat)), h, w * ch, ch)
     return pixels.reshape(h, w, ch)
@@ -130,16 +131,11 @@ def write_png(path: str, img: np.ndarray, level: int = 1) -> None:
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """A frame file -> uint8 [H, W, 3] RGB, as ``cv2.imread(path,
-    IMREAD_COLOR)`` then BGR -> RGB gives it (grey replicated, alpha
-    dropped)."""
+    """A frame file -> uint8 [H, W, 3] RGB: ``cv2.imread(path,
+    IMREAD_COLOR)`` then BGR -> RGB where cv2 imports; else the PNG reader
+    above (grey replicated, alpha dropped) or PIL."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    if path.lower().endswith('.png'):
-        img = read_png(path)
-        if img.shape[2] <= 2:
-            return np.repeat(img[..., :1], 3, axis=2)
-        return np.ascontiguousarray(img[..., :3])
     try:
         import cv2
     except ImportError:
@@ -149,6 +145,11 @@ def load_image_rgb(path: str) -> np.ndarray:
         if img is None:
             raise ValueError(f'{path}: cv2 could not decode it')
         return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    if path.lower().endswith('.png'):
+        img = read_png(path)
+        if img.shape[2] <= 2:
+            return np.repeat(img[..., :1], 3, axis=2)
+        return np.ascontiguousarray(img[..., :3])
     try:
         from PIL import Image
     except ImportError:

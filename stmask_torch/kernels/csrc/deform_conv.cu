@@ -76,8 +76,10 @@
 // the rounding points of the JAX path.  Each corner weight wy * wx is
 // computed in fp32 and rounded to bf16, each weight * sample product is
 // rounded to bf16, the four are summed in fp32 and rounded, and the
-// modulation multiply is rounded again; the sample is stored to shared
-// memory as bf16.  The weight ring holds bf16, and one
+// modulation multiply is rounded again (two channels at a time: the two
+// roundings of a product are one bf16x2 multiply, deform_gather.cuh's
+// bf16_sample2, which the weight gradient's fast path shares); the sample
+// is stored to shared memory as bf16.  The weight ring holds bf16, and one
 // mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 per 16 columns makes the
 // product exactly (no hi/lo split: bf16 x bf16 is exact in fp32), summed in
 // fp32.  The fp32 sum is rounded to bf16 and then the bias added in bf16.
@@ -200,18 +202,6 @@ struct Raw<bf16> {
   uint2 r[4];
 };
 
-__device__ __forceinline__ float4 widen(const float4& v) { return v; }
-__device__ __forceinline__ float4 widen(const uint2& v) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <typename T, bool FAST>
 struct Gather {
   // fast path: thread -> sites (tid / 8) and (tid / 8 + 32), channels
@@ -265,19 +255,17 @@ struct Gather {
         v.w += cn[s].w[j] * raw.r[j].w;
       }
     } else {
-      float q[4][4];               // [channel][corner]
+      // two channel pairs (deform_gather.cuh: bf16_sample2)
+      uint32_t w2[4], lo[4], hi[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float4 f = widen(raw.r[j]);
-        q[0][j] = f.x;
-        q[1][j] = f.y;
-        q[2][j] = f.z;
-        q[3][j] = f.w;
+        w2[j] = pack_bf16(cn[s].w[j], cn[s].w[j]);
+        lo[j] = raw.r[j].x;
+        hi[j] = raw.r[j].y;
       }
-      v.x = bf16_sample(cn[s].w, q[0], cn[s].m);
-      v.y = bf16_sample(cn[s].w, q[1], cn[s].m);
-      v.z = bf16_sample(cn[s].w, q[2], cn[s].m);
-      v.w = bf16_sample(cn[s].w, q[3], cn[s].m);
+      const uint32_t m2 = pack_bf16(cn[s].m, cn[s].m);
+      const uint32_t a = bf16_sample2(w2, lo, m2), b = bf16_sample2(w2, hi, m2);
+      v = make_float4(bf16_lo(a), bf16_hi(a), bf16_lo(b), bf16_hi(b));
     }
     st.v[4 * s] = v.x;
     st.v[4 * s + 1] = v.y;

@@ -1,8 +1,8 @@
 // Shared by the fused deformable conv (deform_conv.cu) and its weight
 // gradient (deform_wgrad.cu), each built into its own library: the
-// modulated bilinear sample of one (site, tap), cp.async, the TF32 split,
-// the reduction of a thread-block cluster's partial tiles in rank order,
-// and the clustered launch.
+// modulated bilinear sample of one (site, tap) (bf16 also two channels at
+// a time), cp.async, the TF32 split, the reduction of a thread-block
+// cluster's partial tiles in rank order, and the clustered launch.
 //
 // The sample (the forward's and the weight gradient's alike):
 //   bilinear(x[b], py_k, px_k)[c] * m[b, oy, ox, k]
@@ -60,6 +60,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -182,6 +189,44 @@ __device__ __forceinline__ float bf16_sample(const float (&w)[4],
   const float s = rbf(w[0] * v[0]) + rbf(w[1] * v[1]) + rbf(w[2] * v[2]) +
                   rbf(w[3] * v[3]);
   return rbf(rbf(s) * m);
+}
+
+// bf16 pairs: two channels in a 32-bit word, the lower channel in the low
+// half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+// a * b of both halves, each rounded once (a * b + -0: the product of two
+// bf16 values is exact in fp32, so this is rbf of the fp32 product)
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// Two channels of a bf16 sample, the same value as bf16_sample gives each:
+// w2[j] the rounded weight of corner j in both halves, v2[j] the corner's
+// two channels, m2 the modulation in both halves.
+__device__ __forceinline__ uint32_t bf16_sample2(const uint32_t (&w2)[4],
+                                                 const uint32_t (&v2)[4],
+                                                 uint32_t m2) {
+  uint32_t q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) q[j] = mul_bf16x2(w2[j], v2[j]);
+  const float lo = bf16_lo(q[0]) + bf16_lo(q[1]) + bf16_lo(q[2]) +
+                   bf16_lo(q[3]);
+  const float hi = bf16_hi(q[0]) + bf16_hi(q[1]) + bf16_hi(q[2]) +
+                   bf16_hi(q[3]);
+  return mul_bf16x2(pack_bf16(lo, hi), m2);
 }
 
 // One sampled element (site m, column k), for the shapes off the fast

@@ -1,7 +1,7 @@
 // Weight gradient of the modulated deformable conv, NHWC, with the gather
 // fused into the GEMM: d_w straight from (x, offset, mask, g), the sampled
 // columns never written to device memory.  Entries: fp32; bf16 (g, x, mask
-// and d_w bf16, the offsets bf16 or fp32).
+// and d_w bf16, the offsets bf16 or fp32; below the fp32 design).
 //
 // Replaces, in the DCN backward of the training path, K2 (deform_im2col.cu,
 // which wrote cols [M, K*Cin]) and the cuBLAS SGEMM g^T @ cols after it.
@@ -75,13 +75,53 @@
 //   with or without the modulation.
 // - Registers: 128 a thread at most, no spill (ptxas).
 //
-// The bf16 entries take the general path above with the bf16 sample of the
-// fused conv's bf16 entry (deform_gather.cuh: bf16_sample, the JAX
-// package's bf16 values) and g converted to fp32 as it is loaded.  Both
-// operands are then bf16 values, exact in TF32, so the lo parts are zero
-// and the products exact; the sums are fp32 as above, and d_w is rounded
-// to bf16 once, when it is written.  A first version, right and simple
-// (ROADMAP B lists its second pass: bf16 wgmma on the fast path).
+// The bf16 entries (g, x, mask and d_w bf16; the offsets bf16, or fp32 for
+// FCB's analytic ones) compute the bf16 sample of the fused conv's bf16
+// entry (deform_gather.cuh: bf16_sample / bf16_sample2, the JAX package's
+// bf16 values): each hat weight wy * wx rounded to bf16, each weight x
+// value product rounded, the four summed in fp32 in corner order and
+// rounded, then the product with the modulation rounded.  The modulation
+// is therefore kept apart from the corner weights (folding it in, as fp32
+// does, would round m * wy * wx once instead of the JAX package's two
+// roundings).  The product g^T . cols of bf16 values is exact in fp32; it
+// is summed in fp32 and d_w rounded to bf16 once, when it is written.  Its
+// bound: the same 2*M*Cout*K*Cin as one bf16 product (9.2 us a main-path
+// site at the 989 TFLOP/s dense bf16 peak) plus the gather's flops, against
+// half the fp32 path's bytes.
+//
+// bf16 fast path (Cin a multiple of 32, Cout of the tile height, x, g and
+// d_w 16-byte aligned: every DCN site of the flagship and of FCB).  The
+// fp32 fast path's tiles, clusters and gather pipeline, with what bf16
+// allows:
+// - Both operands bf16 in shared memory, each site's 64 values one
+//   128-byte row in the 128-byte swizzle (chunk q of row s at q ^ (s % 8),
+//   patterns 1024-byte aligned).  A = g^T comes by 16-byte cp.async, 64
+//   channels a block [32 sites][64], and is read MN-major (wgmma's
+//   transpose bit for 16-bit A); B, the gathered columns [32 sites][64],
+//   is read MN-major too.  No register fragments, no hi / lo split.
+// - One wgmma.m64n64k16.f32.bf16.bf16 per 16 sites a warpgroup, against
+//   three m64n64k8 TF32 ones per 8 sites on the fp32 path.
+// - The gather as on the fp32 path, in bf16: the corner table once per
+//   (site, tap) three chunks ahead (the weights rounded, two a word, and
+//   the modulation beside them); each thread's 16-byte (TM 128: 8
+//   channels) or 8-byte (TM 256: 4 channels) corner runs by cp.async into
+//   a staging area two chunks ahead (two buffers); and, while chunk kc's
+//   wgmmas run, the combine of chunk kc + 1 into the other B stage, two
+//   channels at a time (bf16_sample2: bf16x2 multiplies for the rounded
+//   products, fp32 adds).
+// - The sums: one chain of wgmmas over the block's sites in fp32
+//   accumulators, with no fresh sum a chunk as on the fp32 path.  The
+//   tensor cores' truncating accumulation moved the fp32 path by ~1e-5 of
+//   max|d_w| over a split's sites; the bf16 result is held to one bf16 ulp
+//   of each value plus 2^-12 of max|d_w|, 24 times that, and the fresh
+//   sums would take 32 more registers.  The split's partial tiles are
+//   added through distributed shared memory in rank order, as on the fp32
+//   path: the same bits on every launch, no atomics.
+// - Registers: 128 a thread at most (two blocks an SM at TM 128), no spill.
+// Other shapes (Cin 48, Cout 96, an unaligned x or g) take the general
+// path above (the 128-channel tile, one bf16_sample an element, g
+// converted to fp32 as it is loaded, three TF32 products of which two are
+// zero): right, and slow.
 
 #include "deform_gather.cuh"
 
@@ -547,6 +587,341 @@ __global__ void __launch_bounds__(2 * TM, FAST ? 256 / TM : 1)
   cluster.sync();                  // keep every partial tile alive until read
 }
 
+// ---- the bf16 fast path --------------------------------------------------
+// Both operands in bf16 in shared memory, each site's 64 values one
+// 128-byte row in the 128-byte swizzle (16-byte chunk q of row s at chunk
+// q ^ (s % 8)), as wgmma reads an MN-major operand.
+constexpr int ROW = 128;                      // bytes of a site's 64 values
+constexpr int B16_STAGE = BS * ROW;           // B: [BS sites][TN columns]
+constexpr int RUNS16 = BS * 4 * TN * 2;       // corner runs [site][4][TN]
+constexpr int SW_ALIGN = 1024;                // one swizzle pattern, 8 rows
+// The descriptors' strides (bytes): SBO from 8 sites to the next 8, LBO
+// from 64 channels of A to the next 64 (each operand of one wgmma is one
+// 64-wide atom, so the hardware does not step by it)
+constexpr int SBO16 = 8 * ROW, LBO16 = BS * ROW;
+
+template <int TM>
+struct Geo16 {
+  static constexpr int NT = 2 * TM;                 // threads
+  static constexpr int CH = TN * BS / NT;           // channels a thread gathers
+  static constexpr int TPS = TN / CH;               // threads a site
+  static constexpr int G_STAGE = TM / 64 * BS * ROW;  // A: [TM / 64][BS][64]
+  static constexpr int SMEM_BYTES = SW_ALIGN + 2 * B16_STAGE + 2 * G_STAGE +
+                                    2 * RUNS16 + 3 * ENTRIES * 32 +
+                                    ENTRIES * 16 + 16;
+  static_assert(TM * TN * 4 <= SMEM_BYTES - SW_ALIGN, "partial tile must fit");
+  static_assert(NT / TPS == BS, "one site a thread");
+  static_assert(CH == 8 || CH == 4, "16- or 8-byte corner runs");
+  static_assert(ENTRIES <= NT, "a thread fills one table entry");
+};
+
+// One (site, tap) of a bf16 chunk: each corner's first channel as an
+// element index into x (-1 outside the image), the corner weights rounded
+// to bf16 (two a word) and the modulation (in both halves), kept apart.
+struct Entry16 {
+  int idx[4];
+  uint32_t w[2];
+  uint32_t m2;
+  uint32_t pad;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The shared-memory matrix descriptor of an MN-major operand in the
+// 128-byte swizzle at shared address a (1024-byte aligned pattern).
+__device__ __forceinline__ uint64_t desc16(uint32_t a) {
+  const uint32_t lo = ((a & 0x3FFFF) >> 4) | ((LBO16 >> 4) << 16);
+  const uint32_t hi = (SBO16 >> 4) | (1u << 30);    // layout 1: 128B swizzle
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// d += A * B on a 64 x 64 x 16 bf16 tile of a warpgroup (fp32 accumulate),
+// both operands MN-major (transposed) from shared memory; d as in
+// wgmma_tf32.  Asynchronous: d belongs to the MMA until wgmma_wait.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int TM, typename TO>
+__global__ void __launch_bounds__(2 * TM, 256 / TM)
+    deform_wgrad_bf16_kernel(const Params<bf16, TO> p) {
+  using G = Geo16<TM>;
+  constexpr int NT = G::NT, CH = G::CH, TPS = G::TPS, G_STAGE = G::G_STAGE;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the swizzle is a function of the address: align the operands to it
+  unsigned char* const base =
+      smem_raw + ((SW_ALIGN - (smem_u32(smem_raw) & (SW_ALIGN - 1))) &
+                  (SW_ALIGN - 1));
+  unsigned char* const b_s = base;                    // [2][BS][ROW]
+  unsigned char* const g_s = b_s + 2 * B16_STAGE;     // [2][TM / 64][BS][ROW]
+  unsigned char* const st_s = g_s + 2 * G_STAGE;      // [2][BS][4][TN] bf16
+  Entry16* const tab = reinterpret_cast<Entry16*>(st_s + 2 * RUNS16);
+  Cursor* const cur = reinterpret_cast<Cursor*>(tab + 3 * ENTRIES);
+  int* const nfw = reinterpret_cast<int*>(cur + ENTRIES);  // filling warps
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int row0 = (warp / 4) * 64 + (warp % 4) * 16 + gq;  // D rows
+  const int j0 = blockIdx.x * TN;
+  const int n0 = blockIdx.y * TM;
+  const int split = blockIdx.z, n_split = gridDim.z;
+  const int nc = (p.M + BS - 1) / BS;
+  const int cb = static_cast<int>(static_cast<int64_t>(nc) * split / n_split);
+  const int ce =
+      static_cast<int>(static_cast<int64_t>(nc) * (split + 1) / n_split);
+
+  // acc[4 j + e]: channel row0 + 8 (e / 2), column 8 j + 2 t4 + e % 2; one
+  // chain of wgmmas over the block's sites (see the top)
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+
+  if (cb < ce) {
+    // log2 entries a site, the filling threads and their taps: as the fp32
+    // fast path
+    const int hsh = (j0 + TN <= p.Ktot &&
+                     j0 / p.Cin == (j0 + TN - 1) / p.Cin) ? 0 : 1;
+    const int e = tid;
+    const bool filler = e < (BS << hsh);
+    auto ftap = [&]() {
+      const int fcol = j0 + 32 * (e & hsh);
+      return fcol < p.Ktot ? fcol / p.Cin : -1;
+    };
+    TapIn in;
+    auto fill = [&](Entry16* t) {
+      Cursor c = cur[e];
+      const int tap = ftap();
+      Corners<bf16> cn;
+      if (c.fm < p.M && tap >= 0) {
+        const int pad_h = (p.kh - 1) / 2 * p.dilation;
+        const int pad_w = (p.kw - 1) / 2 * p.dilation;
+        corners_at(p, c.fb,
+                   c.foy * p.stride - pad_h + (tap / p.kw) * p.dilation,
+                   c.fox * p.stride - pad_w + (tap % p.kw) * p.dilation,
+                   in, cn);
+      } else {
+        cn.img = p.x;
+        cn.m = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cn.idx[j] = -1, cn.w[j] = 0.f;
+      }
+      const int img = static_cast<int>(cn.img - p.x);
+      Entry16 en;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        en.idx[j] = cn.idx[j] >= 0 ? img + cn.idx[j] : -1;
+      en.w[0] = pack_bf16(cn.w[0], cn.w[1]);
+      en.w[1] = pack_bf16(cn.w[2], cn.w[3]);
+      en.m2 = pack_bf16(cn.m, cn.m);
+      en.pad = 0;
+      t[e] = en;
+      c.fm += BS;
+      c.fox += BS;
+      while (c.fox >= p.Wo) {
+        c.fox -= p.Wo;
+        if (++c.foy == p.Ho) c.foy = 0, ++c.fb;
+      }
+      in = tap_in(p, tap >= 0 ? c.fm : p.M, tap);
+      cur[e] = c;
+    };
+    // The gathering thread: site s, columns col .. col + CH - 1 of the tile
+    // (channels ch .. of one tap), in B row s at swizzled byte bo.
+    const int s = tid / TPS;
+    const int col = (tid % TPS) * CH;
+    const int ent = (s << hsh) + ((col / 32) & hsh);   // its table entry
+    const int hcol = j0 + (col & ~31);
+    const int ch = hcol - hcol / p.Cin * p.Cin + col % 32;
+    const int bo = s * ROW + (((col / 8) ^ (s % 8)) << 4) + (col % 8) * 2;
+    // the four corner runs of chunk table t into the staging buffer runs
+    auto stage = [&](const Entry16* t, unsigned char* runs) {
+      const int4 idx = *reinterpret_cast<const int4*>(t[ent].idx);
+      const int ix[4] = {idx.x, idx.y, idx.z, idx.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = ix[j] >= 0;
+        unsigned char* dst = runs + ((s * 4 + j) * TN + col) * 2;
+        const bf16* src = ok ? p.x + ix[j] + ch : p.x;
+        if constexpr (CH == 8)
+          cp_async16(dst, src, ok);
+        else
+          cp_async8(dst, src, ok);
+      }
+    };
+    // the staged runs combined (bf16_sample2) into B at bs
+    auto combine = [&](const Entry16* t, const unsigned char* runs,
+                       unsigned char* bs) {
+      const uint4 wm = *reinterpret_cast<const uint4*>(t[ent].w);
+      const uint32_t w2[4] = {__byte_perm(wm.x, 0, 0x1010),
+                              __byte_perm(wm.x, 0, 0x3232),
+                              __byte_perm(wm.y, 0, 0x1010),
+                              __byte_perm(wm.y, 0, 0x3232)};
+      uint32_t v[4][CH / 2];          // [corner][channel pair]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned char* r = runs + ((s * 4 + j) * TN + col) * 2;
+        if constexpr (CH == 8) {
+          const uint4 q = *reinterpret_cast<const uint4*>(r);
+          v[j][0] = q.x, v[j][1] = q.y, v[j][2] = q.z, v[j][3] = q.w;
+        } else {
+          const uint2 q = *reinterpret_cast<const uint2*>(r);
+          v[j][0] = q.x, v[j][1] = q.y;
+        }
+      }
+      uint32_t o[CH / 2];
+#pragma unroll
+      for (int q = 0; q < CH / 2; ++q) {
+        const uint32_t c4[4] = {v[0][q], v[1][q], v[2][q], v[3][q]};
+        o[q] = bf16_sample2(w2, c4, wm.z);
+      }
+      if constexpr (CH == 8)
+        *reinterpret_cast<uint4*>(bs + bo) = make_uint4(o[0], o[1], o[2], o[3]);
+      else
+        *reinterpret_cast<uint2*>(bs + bo) = make_uint2(o[0], o[1]);
+    };
+    // g rows [m0, m0 + BS), channels [n0, n0 + TM) into stage gs: 64
+    // channels a block [BS][ROW], swizzled; zero past the last site
+    auto load_g16 = [&](unsigned char* gs, int m0) {
+#pragma unroll
+      for (int i = 0; i < BS * TM / 8 / NT; ++i) {
+        const int q = tid + i * NT;
+        const int r = q / (TM / 8), c8 = q % (TM / 8);
+        const bool ok = m0 + r < p.M;
+        cp_async16(gs + (c8 / 8) * BS * ROW + r * ROW +
+                       (((c8 % 8) ^ (r % 8)) << 4),
+                   ok ? p.g + static_cast<int64_t>(m0 + r) * p.N + n0 + 8 * c8
+                      : p.g,
+                   ok);
+      }
+    };
+    const uint32_t a_sh = smem_u32(g_s) + (warp / 4) * BS * ROW;
+    const uint32_t b_sh = smem_u32(b_s);
+
+    if (tid == 0) *nfw = (BS << hsh) / 32;
+    if (filler) {
+      const int fm = cb * BS + (e >> hsh);
+      cur[e] = Cursor{fm, fm / p.Wo / p.Ho, fm / p.Wo % p.Ho, fm % p.Wo};
+      const int tap = ftap();
+      in = tap_in(p, tap >= 0 ? fm : p.M, tap);
+      for (int q = 0; q < 3 && cb + q < ce; ++q) fill(tab + q * ENTRIES);
+    }
+    __syncthreads();
+    load_g16(g_s, cb * BS);
+    stage(tab, st_s);
+    cp_async_commit();
+    if (cb + 1 < ce) stage(tab + ENTRIES, st_s + RUNS16);
+    cp_async_commit();
+    cp_async_wait<1>();              // chunk cb's g and corner runs
+    asm volatile("" ::: "memory");   // (the combine's loads stay below it)
+    combine(tab, st_s, b_s);
+
+    // Chunk kc: its g and B (both combined and landed) are read by the
+    // wgmmas; meanwhile every thread copies g of kc + 1 and its corner runs
+    // of kc + 2, and combines its runs of kc + 1 into the other B stage;
+    // after them the filling warps fill the table of kc + 3.  Each buffer
+    // is rewritten only after the barrier that follows its last reader.
+    for (int kc = cb; kc < ce; ++kc) {
+      const int i = kc - cb;
+      cp_async_wait<0>();            // g of kc, corner runs of kc + 1
+      fence_proxy_async();           // cp.async and B stores, for wgmma
+      __syncthreads();
+      if (kc + 1 < ce) load_g16(g_s + ((i + 1) % 2) * G_STAGE, (kc + 1) * BS);
+      if (kc + 2 < ce)
+        stage(tab + ((i + 2) % 3) * ENTRIES, st_s + (i % 2) * RUNS16);
+      cp_async_commit();
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BS / 16; ++kb)
+        wgmma_bf16(acc, desc16(a_sh + (i % 2) * G_STAGE + kb * 16 * ROW),
+                   desc16(b_sh + (i % 2) * B16_STAGE + kb * 16 * ROW));
+      wgmma_commit();
+      if (kc + 1 < ce)
+        combine(tab + ((i + 1) % 3) * ENTRIES, st_s + ((i + 1) % 2) * RUNS16,
+                b_s + ((i + 1) % 2) * B16_STAGE);
+      wgmma_wait();
+#pragma unroll
+      for (int q = 0; q < 32; ++q) hold(acc[q]);
+      if (kc + 3 < ce && warp < *reinterpret_cast<volatile int*>(nfw))
+        fill(tab + (i % 3) * ENTRIES);
+    }
+    cp_async_wait<0>();
+  }
+
+  // d_w rounded to bf16 once, each element written once (Ktot is a
+  // multiple of 32 here, so a pair or a run of 4 lies wholly inside)
+  if (n_split == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bf16* o = p.dw + static_cast<int64_t>(n0 + row0 + 8 * h) * p.Ktot;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        const int j = j0 + 8 * jb + 2 * t4;
+        if (j < p.Ktot)
+          *reinterpret_cast<uint32_t*>(o + j) =
+              pack_bf16(acc[4 * jb + 2 * h], acc[4 * jb + 2 * h + 1]);
+      }
+    }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  __syncthreads();                 // every thread is done with the stages
+  float* part = reinterpret_cast<float*>(base);        // [TM][TN]
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(part + (row0 + 8 * h) * TN + 8 * jb +
+                                 2 * t4) =
+          make_float2(acc[4 * jb + 2 * h], acc[4 * jb + 2 * h + 1]);
+  cluster.sync();
+  cluster_reduce<TM, TN, NT>(cluster, part, n_split, [&](int r, int c,
+                                                         float (&v)[4]) {
+    const int j = j0 + c;
+    if (j < p.Ktot)
+      *reinterpret_cast<uint2*>(p.dw + static_cast<int64_t>(n0 + r) * p.Ktot +
+                                j) =
+          make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  });
+  cluster.sync();                  // keep every partial tile alive until read
+}
+
+template <int TM, typename TO>
+int launch16(const Params<bf16, TO>& p, int split, void* stream) {
+  using G = Geo16<TM>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e =
+        allow_clusters(deform_wgrad_bf16_kernel<TM, TO>, G::SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const cudaError_t e = launch_split(
+      deform_wgrad_bf16_kernel<TM, TO>, (p.Ktot + TN - 1) / TN, p.N / TM,
+      split, G::SMEM_BYTES, stream, p, G::NT);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool FAST, int TM, typename T = float, typename TO = T>
 int launch(const Params<T, TO>& p, int split, void* stream) {
   using G = Geo<TM>;
@@ -575,20 +950,27 @@ bool bad_args(int B, int H, int W, int Cin, int Ho, int Wo, int Cout, int kh,
          static_cast<int64_t>(kh) * kw * Cin > INT32_MAX;
 }
 
-// The bf16 entries: the general path, the 128-channel tile.
+// The bf16 entries: the bf16 fast path where the fp32 entry takes its
+// fast path, else the general path with the 128-channel tile.
 template <typename TO>
 int launch_bf16(const bf16* g, const bf16* x, const TO* offset,
                 const bf16* mask, bf16* dw, int B, int H, int W, int Cin,
                 int Ho, int Wo, int Cout, int kh, int kw, int stride,
                 int dilation, int tm, int split, void* stream) {
-  if (tm != 128 || bad_args(B, H, W, Cin, Ho, Wo, Cout, kh, kw, stride,
-                            dilation, split))
+  const bool fast = Cin % 32 == 0 && Cout % tm == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(dw) % 16 == 0;
+  if ((tm != 128 && tm != 256) || (tm == 256 && !fast) ||
+      bad_args(B, H, W, Cin, Ho, Wo, Cout, kh, kw, stride, dilation, split))
     return static_cast<int>(cudaErrorInvalidValue);
   const int k = kh * kw;
   const Params<bf16, TO> p{{x, offset, mask, H, W, Cin, Ho, Wo, kh, kw,
                             stride, dilation, B * Ho * Wo, k * Cin, 2 * k, k},
                            g, dw, Cout};
-  return launch<false, 128>(p, split, stream);
+  if (!fast) return launch<false, 128>(p, split, stream);
+  return tm == 256 ? launch16<256>(p, split, stream)
+                   : launch16<128>(p, split, stream);
 }
 
 }  // namespace
@@ -623,8 +1005,9 @@ extern "C" int stmask_deform_wgrad(const float* g, const float* x,
               : launch<false, 128>(p, split, stream);
 }
 
-// As stmask_deform_wgrad with g, x, mask and dw bf16 and bf16 offsets
-// (tm 128): the bf16 sample, the sums in fp32, d_w rounded to bf16.
+// As stmask_deform_wgrad with g, x, mask and dw bf16 and bf16 offsets (tm
+// and the fast path's conditions as there): the bf16 sample, the sums in
+// fp32, d_w rounded to bf16.
 extern "C" int stmask_deform_wgrad_bf16(
     const __nv_bfloat16* g, const __nv_bfloat16* x,
     const __nv_bfloat16* offset, const __nv_bfloat16* mask,

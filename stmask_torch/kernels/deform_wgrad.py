@@ -16,9 +16,15 @@ cluster that splits the sites); the kernel takes the split as it is.
 The bf16 entries (bf16 ``g``, ``x`` and mask; the offsets bf16, or fp32
 beside bf16 data, as the forward's entries take them) gather the columns
 as the bf16 forward does (``deform_conv.deform_cols_bf16``: the JAX
-package's bf16 values), sum their exact products in fp32 and round d_w to
-bf16, the type of the JAX package's weight cotangent before its cast back
-to the fp32 master.
+package's bf16 values, the modulation applied after the rounded corner
+sum), sum their exact products in fp32 and round d_w to bf16 once, the type
+of the JAX package's weight cotangent before its cast back to the fp32
+master.  Both types take the kernel's fast path under the same conditions
+(``wgrad_fast``: Cin a multiple of 32, Cout of 128, x and g 16-byte
+aligned; every DCN site of the flagship and of FCB).  In bf16 it runs one
+bf16 ``wgmma`` per 16 sites on g^T and the gathered columns, both kept in
+bf16 in shared memory in the 128-byte swizzle; other shapes take the
+general path (one sample an element, the 128-channel tile).
 """
 
 from __future__ import annotations
@@ -43,20 +49,36 @@ KERNEL_BF16_F32OFF = CudaKernel('deform_wgrad',
 # the kernel's tiles (csrc/deform_wgrad.cu): TM output channels, 64 a
 # warpgroup (128 with 256 threads, two blocks an SM; 256 with 512 threads,
 # one block an SM) x TN columns, BS sites a chunk.  Shared memory: two
-# stages each of g and of the gathered columns (hi and lo planes, 68 floats
-# per 8 columns and 8 sites), the staged corner runs, three chunks of the
-# corner table (32 bytes an entry), the filling threads' cursors and the
-# count of filling warps
+# stages each of g and of the gathered columns (fp32: hi and lo planes, 68
+# floats per 8 columns and 8 sites; the bf16 fast path: 128 bytes a site's
+# 64 values, behind 1024 bytes of slack that align the swizzle), the staged
+# corner runs (bf16: two buffers), three chunks of the corner table (32
+# bytes an entry), the filling threads' cursors and the count of filling
+# warps
 TN, BS = 64, 32
 ENTRIES = BS * (TN // 32)
+ROW16 = 2 * TN                # bytes of a site's TN bf16 values
 SMS = 132                     # the H100's SMs
 WAVES = 4                     # blocks an SM the plan aims for
 MAX_SPLIT = 16                # blocks of a cluster (non-portable size)
 
 
-def smem_bytes(tm: int) -> int:
+def smem_bytes(tm: int, bf16: bool = False) -> int:
+    """Dynamic shared memory of one block: the fp32 layout (also the bf16
+    general path's), or the bf16 fast path's when ``bf16``."""
+    tables = 3 * ENTRIES * 32 + ENTRIES * 16 + 16
+    if bf16:
+        return (1024 + 2 * BS * ROW16 + 2 * (tm // 64) * BS * ROW16
+                + 2 * BS * 4 * TN * 2 + tables)
     return (4 * (2 * BS * (tm + 8) + 2 * 2 * (BS // 8) * (TN // 8) * 68
-                 + BS * 4 * TN) + 3 * ENTRIES * 32 + ENTRIES * 16 + 16)
+                 + BS * 4 * TN) + tables)
+
+
+def wgrad_fast(cin: int, cout: int, x_ptr: int, g_ptr: int) -> bool:
+    """Whether a call takes the kernel's fast path (fp32 and bf16 alike):
+    Cin a multiple of 32, Cout of 128, x and g 16-byte aligned."""
+    return (cin % 32 == 0 and cout % 128 == 0 and x_ptr % 16 == 0
+            and g_ptr % 16 == 0)
 
 
 @dataclass(frozen=True)
@@ -70,8 +92,8 @@ class WgradPlan:
     smem: int
 
 
-def wgrad_plan(m: int, cout: int, ktot: int, fast: bool = True
-               ) -> WgradPlan:
+def wgrad_plan(m: int, cout: int, ktot: int, fast: bool = True,
+               bf16: bool = False) -> WgradPlan:
     """The tile height: 256 output channels on the fast path (Cin a
     multiple of 32, Cout of the tile height, aligned pointers) when Cout is
     a multiple of 256, so that each gathered column serves twice the
@@ -79,7 +101,8 @@ def wgrad_plan(m: int, cout: int, ktot: int, fast: bool = True
     tile: ``chip_smoke.py`` times both); else 128.
     Then split the ``m`` sites over the fewest blocks of a cluster (a power
     of two, up to 16 with two blocks an SM and 8 with one) that give each
-    SM ``WAVES`` blocks, keeping at least 8 chunks a block."""
+    SM ``WAVES`` blocks, keeping at least 8 chunks a block.  ``bf16``: the
+    bf16 entries (their fast path's shared memory)."""
     tm = 256 if fast and cout % 256 == 0 else 128
     tiles = -(-cout // tm) * -(-ktot // TN)
     chunks = -(-m // BS)
@@ -87,7 +110,7 @@ def wgrad_plan(m: int, cout: int, ktot: int, fast: bool = True
     while (split < MAX_SPLIT * 128 // tm and tiles * split < WAVES * SMS
            and chunks >= 16 * split):
         split *= 2
-    return WgradPlan(tm, split, tiles * split, smem_bytes(tm))
+    return WgradPlan(tm, split, tiles * split, smem_bytes(tm, bf16 and fast))
 
 
 def deform_wgrad_reference(g: torch.Tensor, x: torch.Tensor,
@@ -120,8 +143,14 @@ def deform_wgrad_cuda(g: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
                       mask: Optional[torch.Tensor], kh: int, kw: int,
                       stride: int = 1, dilation: int = 1) -> torch.Tensor:
     """The kernel on contiguous CUDA tensors (shapes and types as above),
-    cut as ``wgrad_plan`` says.  The bf16 entries take the kernel's general
-    path (one sample an element, the 128-channel tile)."""
+    cut as ``wgrad_plan`` says, on the fast path where ``wgrad_fast``
+    holds.  In bf16 that path keeps g and the gathered columns in bf16 in
+    shared memory (each site's 64 values one 128-byte row, 128-byte
+    swizzle) and runs one ``wgmma.m64n64k16`` bf16 product per 16 sites,
+    summed in fp32 and rounded once; the gather (a corner table per (site,
+    tap), cp.async corner runs, the combine overlapped with the products)
+    is the fp32 fast path's.  Other shapes take the general path: one
+    sample an element, the 128-channel tile."""
     dt = check_types('deform_wgrad_cuda', x, offset)
     check_cuda('deform_wgrad_cuda', *(t for t in (g, x, mask)
                                       if t is not None), dtype=dt)
@@ -139,9 +168,9 @@ def deform_wgrad_cuda(g: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
         raise ValueError(f'deform_wgrad_cuda: g {tuple(g.shape)} is not '
                          f'[{b * ho * wo}, Cout]')
     cout = g.shape[1]
-    fast = (dt == torch.float32 and cin % 32 == 0 and cout % 128 == 0
-            and x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
-    plan = wgrad_plan(b * ho * wo, cout, k * cin, fast)
+    fast = wgrad_fast(cin, cout, x.data_ptr(), g.data_ptr())
+    plan = wgrad_plan(b * ho * wo, cout, k * cin, fast,
+                      bf16=dt == torch.bfloat16)
     dw = torch.empty((cout, kh, kw, cin), dtype=dt, device=x.device)
     kernel = (KERNEL if dt == torch.float32 else
               KERNEL_BF16 if offset.dtype == dt else KERNEL_BF16_F32OFF)

@@ -457,13 +457,16 @@ def _check_wgrad(g, x, off, mask, kh, kw, stride, dilation=1, run=None):
     assert torch.equal(got, again)
 
 
-def _wgrad_launch(g, x, off, mask, kh, kw, stride, tm, split):
-    """The kernel's launcher called with an explicit tile height and
-    cluster split (the wrapper always takes ``wgrad_plan``'s)."""
+def _wgrad_launch(g, x, off, mask, kh, kw, stride, tm, split,
+                  kernel=KW.KERNEL):
+    """The kernel's launcher (``kernel``: an entry of deform_wgrad) called
+    with an explicit tile height and cluster split (the wrapper always
+    takes ``wgrad_plan``'s)."""
     b, h, w, cin = x.shape
     _, ho, wo, _ = off.shape
-    dw = torch.empty((g.shape[1], kh, kw, cin), device=x.device)
-    KW.KERNEL(g.data_ptr(), x.data_ptr(), off.data_ptr(),
+    dw = torch.empty((g.shape[1], kh, kw, cin), device=x.device,
+                     dtype=x.dtype)
+    kernel(g.data_ptr(), x.data_ptr(), off.data_ptr(),
               None if mask is None else mask.data_ptr(), dw.data_ptr(),
               b, h, w, cin, ho, wo, g.shape[1], kh, kw, stride, 1, tm, split,
               torch.cuda.current_stream(x.device).cuda_stream)
@@ -942,6 +945,131 @@ def test_deform_wgrad_kernel_bf16(device, shape, off_dtype):
                                          dilation)
         torch.cuda.synchronize()
         _bf16_err(got, again, want)
+
+
+# the bf16 fast path (Cin a multiple of 32, Cout of 128, x and g aligned):
+# the flagship's 7 training sites at 8 frames (H, W, Cin, stride; layer2_2
+# and layer2_4 share a shape), FCB's taps at 24x40 and at 3x5, its smallest
+# map (Cin = Cout = 256)
+WGRAD_BF16_SITES = [(96, 160, 128, 2), (48, 80, 128, 1), (48, 80, 256, 2),
+                    (24, 40, 256, 1), (24, 40, 512, 2), (12, 20, 512, 1)]
+FCB_TAPS = [(3, 3), (3, 5), (5, 3)]
+
+
+def _wgrad_bf16_case(device, x, off, mask, kh, kw, stride, cout, off_dtype,
+                     seed, dilation=1, route='fast'):
+    """deform_wgrad's bf16 entry for ``off_dtype`` with and without the
+    mask: the route ``wgrad_fast`` gives, one launch a call, _bf16_err
+    against the plain version (bit for bit over two launches)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn(off.shape[0] * off.shape[1] * off.shape[2], cout,
+                    device=device, generator=gen).bfloat16()
+    kern = (KW.KERNEL_BF16 if off_dtype == torch.bfloat16
+            else KW.KERNEL_BF16_F32OFF)
+    for m in (mask, None):
+        xb, ob, mb = _bf16_case(x, off, m, off_dtype)
+        fast = KW.wgrad_fast(xb.shape[3], cout, xb.data_ptr(), g.data_ptr())
+        assert fast == (route == 'fast')
+        launches = kern.launches
+        got = KW.deform_wgrad_cuda(g, xb, ob, mb, kh, kw, stride, dilation)
+        assert kern.launches == launches + 1
+        again = KW.deform_wgrad_cuda(g, xb, ob, mb, kh, kw, stride,
+                                     dilation)
+        want = KW.deform_wgrad_reference(g, xb, ob, mb, kh, kw, stride,
+                                         dilation)
+        torch.cuda.synchronize()
+        _bf16_err(got, again, want)
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', WGRAD_BF16_SITES)
+def test_deform_wgrad_bf16_fast_training_sites(device, shape, off_dtype):
+    h, w, cin, stride = shape
+    gen = torch.Generator(device=device).manual_seed(30)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(8, h, w, cin, device=device, generator=gen)
+    off = (torch.randn(8, ho, wo, 18, device=device, generator=gen)
+           * 1.5).clamp(-2, 2)
+    mask = torch.rand(8, ho, wo, 9, device=device, generator=gen)
+    _wgrad_bf16_case(device, x, off, mask, 3, 3, stride, cin, off_dtype, 31)
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('hw', [(24, 40), (3, 5)])
+@pytest.mark.parametrize('taps', FCB_TAPS)
+def test_deform_wgrad_bf16_fast_fcb_sites(device, taps, hw, off_dtype):
+    kh, kw = taps
+    _, x, off, mask = _col2im_case(device, *hw, 256, 1, 'random', 32, kh, kw)
+    _wgrad_bf16_case(device, x, off, mask, kh, kw, 1, 256, off_dtype, 33)
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('kind', ['zero', 'integer'])
+def test_deform_wgrad_bf16_fast_exact_offsets(device, kind, off_dtype):
+    """Zero and integer offsets land on the corners (zero weights beside
+    them), at a layer1 and a layer3 width."""
+    for h, w, cin in ((48, 80, 128), (12, 20, 512)):
+        _, x, off, mask = _col2im_case(device, h, w, cin, 1, kind, 34)
+        _wgrad_bf16_case(device, x, off, mask, 3, 3, 1, cin, off_dtype, 35)
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+def test_deform_wgrad_bf16_fast_ragged_sites(device, off_dtype):
+    """M = 2 x 7 x 9 = 126 sites, not a multiple of the 32-site chunk (the
+    tail zero in both operands), and Cin 32 (each 64-column tile spans two
+    taps) with Cout 128."""
+    _, x, off, mask = _col2im_case(device, 7, 9, 64, 1, 'random', 36)
+    _wgrad_bf16_case(device, x, off, mask, 3, 3, 1, 128, off_dtype, 37)
+    _, x, off, mask = _col2im_case(device, 7, 9, 32, 1, 'random', 38)
+    _wgrad_bf16_case(device, x, off, mask, 3, 3, 1, 128, off_dtype, 39)
+
+
+@pytest.mark.parametrize('tm,split', [(128, 1), (128, 2), (128, 16),
+                                      (256, 1), (256, 8)])
+def test_deform_wgrad_bf16_fast_any_plan(device, tm, split):
+    """Every tile height and cluster size the fast path can be given, with
+    bf16 and fp32 offsets: d_w within _bf16_err of the plain version and
+    the same bits on two launches."""
+    _, x, off, mask = _col2im_case(device, 24, 40, 256, 1, 'random', 40)
+    gen = torch.Generator(device=device).manual_seed(41)
+    g = torch.randn(2 * 24 * 40, 256, device=device,
+                    generator=gen).bfloat16()
+    for od, kern in ((torch.bfloat16, KW.KERNEL_BF16),
+                     (torch.float32, KW.KERNEL_BF16_F32OFF)):
+        xb, ob, mb = _bf16_case(x, off, mask, od)
+        got = _wgrad_launch(g, xb, ob, mb, 3, 3, 1, tm, split, kern)
+        again = _wgrad_launch(g, xb, ob, mb, 3, 3, 1, tm, split, kern)
+        want = KW.deform_wgrad_reference(g, xb, ob, mb, 3, 3)
+        torch.cuda.synchronize()
+        _bf16_err(got, again, want)
+
+
+@pytest.mark.parametrize('case', ['cin48', 'cout96', 'x_unaligned',
+                                  'g_unaligned'])
+def test_deform_wgrad_bf16_off_path(device, case):
+    """Shapes off the fast path take the general path, and are right."""
+    cin = 48 if case == 'cin48' else 64
+    cout = 96 if case == 'cout96' else 128
+    _, x, off, mask = _col2im_case(device, 12, 20, cin, 1, 'random', 42)
+    gen = torch.Generator(device=device).manual_seed(43)
+    g = torch.randn(2 * 12 * 20, cout, device=device,
+                    generator=gen).bfloat16()
+    if case == 'g_unaligned':
+        buf = torch.empty(g.numel() + 1, device=device, dtype=g.dtype)
+        g = buf[1:].view(g.shape).copy_(g)
+    for od in (torch.bfloat16, torch.float32):
+        for m in (mask, None):
+            xb, ob, mb = _bf16_case(x, off, m, od)
+            if case == 'x_unaligned':
+                buf = torch.empty(xb.numel() + 1, device=device,
+                                  dtype=xb.dtype)
+                xb = buf[1:].view(xb.shape).copy_(xb)
+            assert not KW.wgrad_fast(cin, cout, xb.data_ptr(), g.data_ptr())
+            got = KW.deform_wgrad_cuda(g, xb, ob, mb, 3, 3)
+            again = KW.deform_wgrad_cuda(g, xb, ob, mb, 3, 3)
+            want = KW.deform_wgrad_reference(g, xb, ob, mb, 3, 3)
+            torch.cuda.synchronize()
+            _bf16_err(got, again, want)
 
 
 def test_bf16_backward_wrappers_reject_other_types(device):
