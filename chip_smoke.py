@@ -1216,15 +1216,20 @@ def _fcb_checks(torch, dev, err: dict) -> None:
         outs = {}
         for key, o in (('deform_conv_bf16', off.bfloat16()),
                        ('deform_conv_bf16_f32off', off)):
+            route = _conv_route(KD, (xb, o, wb, None, None))
+            assert route == 'fast', (site, key, route)
             got = KD.deform_conv_cuda(xb, o, wb, None, None)
+            again = KD.deform_conv_cuda(xb, o, wb, None, None)
             want = KD.deform_conv_reference(xb, o, wb, None, None)
             torch.cuda.synchronize()
             d = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
             err[key] = max(err[key], d)
             assert got.dtype == torch.bfloat16
+            assert torch.equal(got, again), (site, key)
             assert d <= BF16_REL_ATOL * scale, (site, key, d, scale)
-            line += f'; {key} (8 frames) {d:.3e} of max|ref| {scale:.3e}'
+            line += (f'; {key} (8 frames, {route} route) {d:.3e} of '
+                     f'max|ref| {scale:.3e}, bit-identical twice')
             outs[key] = got
         share, control = (float((outs[k] != want).float().mean()) for k in (
             'deform_conv_bf16_f32off', 'deform_conv_bf16'))
@@ -1480,20 +1485,15 @@ def _fcb_times(torch, dev, smi: str) -> dict:
                         f'bound {bound:.5f} ({by})')
         xb, wb = x.bfloat16(), wt.bfloat16()
         mm = 2 * frames * h * w * 256 * k * 256
+        fp32_8 = ms     # the fp32 sibling at these 8 frames, same inputs
         for key, o in (('deform_conv_bf16', off.bfloat16()),
                        ('deform_conv_bf16_f32off', off)):
-            ms = _device_ms(lambda: KD.deform_conv_cuda(xb, o, wb, None,
-                                                        None), 50)
-            call = _time_ms(lambda: KD.deform_conv_cuda(xb, o, wb, None,
-                                                        None), 50)
-            plain = _time_ms(lambda: KD.deform_conv_reference(
-                xb, o, wb, None, None), 2, warmup=1)
-            nb = (2 * (xb.numel() + wb.numel() + frames * h * w * 256)
-                  + o.element_size() * o.numel())
-            bound, by = _tally(acc[key], ms, call, plain, nb, flops,
-                               bf16_flops=mm)
-            line.append(f'{key} (8 frames) {ms:.5f} ms, call {call:.5f}, '
-                        f'plain {plain:.5f}, bound {bound:.5f} ({by})')
+            r = _bf16_conv_time(torch, KD, (xb, o, wb, None, None, 1, 1),
+                                flops, 50)
+            assert r['route'] == 'fast', (site, key, r['route'])
+            _acc_add(acc[key], r, fp32_ms=fp32_8)
+            line.append(f'{key} (8 frames) {_bf16_conv_line(r)}; fp32 '
+                        f'sibling {fp32_8:.5f} ms')
         off = off.clamp(-2, 2)
         gen = torch.Generator(device=dev).manual_seed(940 + i)
         gg = torch.randn(frames * h * w, 256, device=dev, generator=gen)
@@ -1528,10 +1528,17 @@ def _fcb_times(torch, dev, smi: str) -> dict:
         print(f'[fcb time] {site}: ' + '; '.join(line), flush=True)
         del x, off, wt, xb, wb, gg, dcols
     for key, a in acc.items():
+        extra = ''
+        if 'l2_bytes' in a:
+            extra = (f'; asked of L2 {a["l2_bytes"] / 1e6:.1f} MB, '
+                     f'{a["l2_bytes"] / (a["ms"] * 1e-3) / 1e12:.3f} TB/s; '
+                     f'cuBLAS bf16 GEMM over the gathered columns (not the '
+                     f'same function) {a["library_ms"]:.5f} ms; fp32 '
+                     f'sibling (same inputs) {a["fp32_ms"]:.5f} ms')
         print(f'[fcb time] 15 sites summed, {key}: {a["ms"]:.5f} ms '
               f'(device), per call {a["call_ms"]:.5f} ms, plain '
               f'{a["plain_ms"]:.5f} ms, bound {a["bound_ms"]:.5f} ms '
-              f'({_by_of(a)}) ({smi})', flush=True)
+              f'({_by_of(a)}){extra} ({smi})', flush=True)
     print(f'[fcb time] 15 sites summed, the dcols SGEMM g @ w2 (cuBLAS, 8 '
           f'frames): {sgemm:.5f} ms (device) ({smi})', flush=True)
     return dict(acc=acc, sgemm=sgemm)
@@ -3086,6 +3093,118 @@ def _wgrad_route(KW, g, x) -> str:
                                     g.data_ptr()) else 'general')
 
 
+_CONV_FAST_PATH = ('fast (bf16 wgmma fed by a warp-specialised gather '
+                   'ring)')
+_CONV_LIBRARY_IS = ('cuBLAS\'s bf16 GEMM over the gathered columns alone '
+                    '(the columns made beforehand; not the same function)')
+
+
+def _split_sites(torch, dev) -> list:
+    """(label, arguments of deform_conv_cuda) of the bf16 fused conv's
+    split: the 7 DCN sites (mask, bias, bf16 offsets) and FCB's 48x80 3x5
+    site (v1, no bias), bf16, EVAL_LANES frames each."""
+    out = []
+    for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
+        x, off, mask = _dcn_inputs(torch, dev, h, w, cin, stride, i,
+                                   b=EVAL_LANES)
+        wt, bias = _dcn_weight(torch, dev, 3, 3, cin, cin, i)
+        out.append((site, tuple(t.bfloat16() for t in (x, off, wt, mask,
+                                                        bias)) + (stride, 1)))
+    x, off, wt = _fcb_inputs(torch, dev, 48, 80, 3, 5, EVAL_LANES, 900)
+    out.append(('FCB 48x80 3x5', (x.bfloat16(), off.bfloat16(),
+                                  wt.bfloat16(), None, None, 1, 1)))
+    return out
+
+
+def _split_sum(rows: dict, n: int) -> float:
+    """The whole kernel's ms summed over the first ``n`` sites of a split."""
+    return sum(r['whole'] for r in list(rows.values())[:n])
+
+
+def _conv_route(KD, args) -> str:
+    """The route on which ``KD.deform_conv_cuda(*args)`` (bf16 x) launches
+    the bf16 entry of its offsets' type: read from the split the wrapper
+    hands the entry (0 names the general route; the entry refuses a fast
+    call that the fast route cannot take).  Launches it once."""
+    name = ('KERNEL_BF16' if args[1].dtype == args[0].dtype
+            else 'KERNEL_BF16_F32OFF')
+    kern = getattr(KD, name)
+    splits = []
+
+    def record(*a):
+        splits.append(a[-2])
+        return kern(*a)
+
+    setattr(KD, name, record)
+    try:
+        KD.deform_conv_cuda(*args)
+    finally:
+        setattr(KD, name, kern)
+    return 'fast' if splits[0] > 0 else 'general'
+
+
+def _bf16_conv_time(torch, KD, args, flops: float, iters: int) -> dict:
+    """The fused conv's bf16 entry at one site (``args`` of deform_conv_cuda,
+    bf16 x, weight, mask and bias, bf16 or fp32 offsets): route, device ms,
+    per-call ms, plain ms, the bound (x, offset, mask, weight, bias read
+    once and out written once; the gather's ``flops`` at the fp32 peak and
+    2*M*N*K at the bf16 peak), the bytes the kernel's loads ask of L2 (every
+    corner run of every sample, 4 x 2 bytes a (site, column), once per tile
+    column, and the weight rows once per tile row, from conv_plan) and
+    their rate, and cuBLAS's bf16 GEMM over the gathered columns (the
+    columns made beforehand: the library yardstick, not the same
+    function)."""
+    x, off, wt, mask, bias, stride, dil = args
+    b, ho, wo, _ = off.shape
+    cout, kh, kw, cin = wt.shape
+    m, ktot = b * ho * wo, kh * kw * cin
+    route = _conv_route(KD, args)
+    plan = KD.conv_plan(m, cin, cout, kh, kw, route == 'fast')
+    ms = _device_ms(lambda: KD.deform_conv_cuda(*args), iters)
+    call = _time_ms(lambda: KD.deform_conv_cuda(*args), iters)
+    plain = _time_ms(lambda: KD.deform_conv_reference(*args), 2, warmup=1)
+    nbytes = (sum(t.element_size() * t.numel() for t in (x, off, wt, mask,
+                                                          bias)
+                  if t is not None) + 2 * m * cout)
+    mm = 2 * m * cout * ktot
+    bound, by = _bound_ms(nbytes, flops, bf16_flops=mm)
+    corner = 8 * m * ktot * -(-cout // plan.bn)
+    weight = 2 * ktot * cout * -(-m // plan.bm)
+    cols = KD.deform_cols_bf16(x, off, mask, kh, kw, stride,
+                               dil).to(torch.bfloat16)
+    w2 = wt.reshape(cout, ktot).t()
+    lib = _device_ms(lambda: cols @ w2, iters)
+    del cols
+    return dict(route=route, plan=plan, ms=ms, call_ms=call, plain_ms=plain,
+                bound_ms=bound, by=by, nbytes=nbytes, flops=flops, mm=mm,
+                l2_bytes=corner + weight, corner_bytes=corner,
+                weight_bytes=weight,
+                l2_tb_s=(corner + weight) / (ms * 1e-3) / 1e12,
+                library_ms=lib, bytes_s=nbytes / PEAK_BYTES_PER_S,
+                ops_s=_ops_s(flops, bf16_flops=mm))
+
+
+def _bf16_conv_line(r: dict) -> str:
+    return (f'{r["route"]} route, kernel {r["ms"]:.5f} ms (device), per '
+            f'wrapper call {r["call_ms"]:.5f} ms, plain {r["plain_ms"]:.5f} '
+            f'ms, bound {r["bound_ms"]:.5f} ms ({r["by"]}; {r["nbytes"]} B, '
+            f'{r["flops"]} fp32 flop, {r["mm"]} bf16 flop); asked of L2 '
+            f'{r["corner_bytes"] / 1e6:.1f} MB of corner runs + '
+            f'{r["weight_bytes"] / 1e6:.1f} MB of weight rows, '
+            f'{r["l2_tb_s"]:.3f} TB/s; cuBLAS bf16 GEMM over the gathered '
+            f'columns (not the same function) {r["library_ms"]:.5f} ms; '
+            f'plan {r["plan"]}')
+
+
+def _acc_add(acc: dict, r: dict, **extra) -> None:
+    """Add a site's times and bound to the sums in ``acc``."""
+    for key in ('ms', 'call_ms', 'plain_ms', 'bound_ms', 'bytes_s', 'ops_s',
+                'library_ms', 'l2_bytes'):
+        acc[key] = acc.get(key, 0.0) + r[key]
+    for key, v in extra.items():
+        acc[key] = acc.get(key, 0.0) + v
+
+
 def _wgrad_bf16_matrix(torch, dev, KW, x, off, mask, kh, kw, stride,
                        cout, gen) -> tuple:
     """deform_wgrad's bf16 entries at one site under every input they
@@ -3539,6 +3658,16 @@ def main() -> int:
         assert spills and all(
             re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
             for ln in spills), (lib, spills)
+    # the fused conv's bf16 fast route (not its general route's kernels)
+    entry, fast = '', []
+    for ln in build.ptxas_report('deform_conv'):
+        if 'entry function' in ln:
+            entry = ln
+        elif 'spill' in ln and 'fast_kernel' in entry:
+            fast.append(ln)
+    assert len(fast) == 4 and all(
+        re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
+        for ln in fast), fast
 
     # ---- 2. the frame resize against cv2, then K1 vs plain ----------------
     mark(2)
@@ -3662,7 +3791,9 @@ def main() -> int:
         torch.testing.assert_close(got, want, atol=FUSED_ATOL, rtol=0)
 
     # the bf16 variant: the 7 sites with 8 frames (one step of the batched
-    # eval), then ragged channels, v1, no bias, 3x5 and dilation 2
+    # eval), then ragged channels, v1, no bias, 3x5 and dilation 2; each
+    # call's route printed (the 7 sites and the 3x5 take the fast one, the
+    # rest the general one) and held bit for bit over two launches
     bf16_cases = [(site, h, w, cin, cin, 3, 3, stride, 1, True, True,
                    EVAL_LANES) for site, (h, w, cin), stride in DCN_SITES]
     bf16_cases += [('ragged Cin 6 stride 2 v1 no bias', 9, 11, 6, 5, 3, 3, 2,
@@ -3680,19 +3811,25 @@ def main() -> int:
         args = tuple(None if t is None else t.bfloat16() for t in (
             x, off, wt, mask if v2 else None, bs if bias else None)) + (
                 st, dil)
+        route = _conv_route(KD, args)
+        assert route == ('fast' if cin % 64 == 0 and cout % 128 == 0
+                         and dil == 1 else 'general'), (label, route)
         got = KD.deform_conv_cuda(*args)
+        again = KD.deform_conv_cuda(*args)
         want = KD.deform_conv_reference(*args)
         torch.cuda.synchronize()
         assert got.dtype == torch.bfloat16
+        assert torch.equal(got, again), f'{label}: differs between launches'
         d = float((got.float() - want.float()).abs().max())
         scale = float(want.float().abs().max())
         err['deform_conv_bf16'] = max(err['deform_conv_bf16'], d)
         print(f'[fused bf16] {label}: x {(b, h, w, cin)} Cout {cout} '
-              f'{kh}x{kw} stride {st} dilation {dil}: max|diff| {d:.3e} '
-              f'(max|ref| {scale:.3e}, atol {BF16_REL_ATOL:.4f} of it)',
+              f'{kh}x{kw} stride {st} dilation {dil}, {route} route: '
+              f'max|diff| {d:.3e} (max|ref| {scale:.3e}, atol '
+              f'{BF16_REL_ATOL:.4f} of it), bit-identical over two launches',
               flush=True)
         assert d <= BF16_REL_ATOL * scale, (label, d, scale)
-        del x, off, mask, args, got, want
+        del x, off, mask, args, got, again, want
 
     # K4 at the 7 sites with 8 frames and three offset sets, then v1, FCB's
     # 3x5 / 5x3 taps, dilation 2, ragged Cin, H and W off the tile, and
@@ -4022,9 +4159,11 @@ def main() -> int:
           f'{k1b_plain:.5f} ms, bound {k1b_bound:.5f} ms ({k1b_by}); fp32 '
           f'sibling {k1_ms:.5f} ms')
     # the fused conv at the 7 sites with 8 frames (one step of the batched
-    # eval): bf16 beside fp32.  Bound of bf16: x, offset, mask, weight,
-    # bias read once and out written once at 2 bytes; the gather's flops at
-    # the fp32 peak plus 2*M*N*K at the bf16 tensor-core peak.
+    # eval): bf16 beside fp32 on the same inputs.  Bound of bf16: x,
+    # offset, mask, weight, bias read once and out written once at 2 bytes;
+    # the gather's flops at the fp32 peak plus 2*M*N*K at the bf16
+    # tensor-core peak (_bf16_conv_time, also the L2 reads and the cuBLAS
+    # yardstick).  Every site takes the fast route.
     kdb, kd8 = {}, {}
     for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
         x, off, mask = _dcn_inputs(torch, dev, h, w, cin, stride, i,
@@ -4040,30 +4179,34 @@ def main() -> int:
         call8 = _time_ms(lambda: KD.deform_conv_cuda(
             x, off, wt, mask, bias, stride), 50)
         tally(kd8, ms8, call8, 0.0, 4 * n_el, flops, 3 * mm)
-        xb, offb, wtb, maskb, biasb = (t.bfloat16() for t in (
-            x, off, wt, mask, bias))
-        ms = _device_ms(lambda: KD.deform_conv_cuda(
-            xb, offb, wtb, maskb, biasb, stride), 100)
-        call = _time_ms(lambda: KD.deform_conv_cuda(
-            xb, offb, wtb, maskb, biasb, stride), 100)
-        plain = _time_ms(lambda: KD.deform_conv_reference(
-            xb, offb, wtb, maskb, biasb, stride), 3, warmup=1)
-        bound, by = _bound_ms(2 * n_el, flops, bf16_flops=mm)
-        for key, v in (('ms', ms), ('call_ms', call), ('plain_ms', plain),
-                       ('bound_ms', bound), ('bytes_s',
-                                             2 * n_el / PEAK_BYTES_PER_S),
-                       ('ops_s', _ops_s(flops, bf16_flops=mm))):
-            kdb[key] = kdb.get(key, 0.0) + v
-        print(f'[time] deform_conv bf16 {site} x {EVAL_LANES} frames: kernel '
-              f'{ms:.5f} ms (device), per wrapper call {call:.5f} ms, plain '
-              f'{plain:.5f} ms, bound {bound:.5f} ms ({by}; {2 * n_el} B, '
-              f'{flops} fp32 flop, {mm} bf16 flop); fp32 sibling {ms8:.5f} ms')
-        del x, off, mask, xb, offb, maskb
+        r = _bf16_conv_time(torch, KD, tuple(t.bfloat16() for t in (
+            x, off, wt, mask, bias)) + (stride, 1), flops, 100)
+        assert r['route'] == 'fast', (site, r['route'])
+        _acc_add(kdb, r)
+        print(f'[time] deform_conv bf16 {site} x {EVAL_LANES} frames: '
+              f'{_bf16_conv_line(r)}; fp32 sibling (same inputs) {ms8:.5f} '
+              f'ms', flush=True)
+        del x, off, mask, r
     print(f'[time] deform_conv bf16, 7 sites x {EVAL_LANES} frames summed: '
           f'{kdb["ms"]:.5f} ms (device), per call {kdb["call_ms"]:.5f} ms, '
           f'plain {kdb["plain_ms"]:.5f} ms, bound {kdb["bound_ms"]:.5f} ms; '
-          f'fp32 sibling {kd8["ms"]:.5f} ms (bound {kd8["bound_ms"]:.5f} ms) '
-          f'({smi})', flush=True)
+          f'asked of L2 {kdb["l2_bytes"] / 1e6:.1f} MB, '
+          f'{kdb["l2_bytes"] / (kdb["ms"] * 1e-3) / 1e12:.3f} TB/s; cuBLAS '
+          f'bf16 GEMM over the gathered columns (not the same function) '
+          f'{kdb["library_ms"]:.5f} ms; fp32 sibling {kd8["ms"]:.5f} ms '
+          f'(bound {kd8["bound_ms"]:.5f} ms) ({smi})', flush=True)
+    # where the bf16 kernel's time goes (kernels/conv_split.py: builds
+    # with a part left out), on the fast route and on the general one, the
+    # design every site took before the fast route
+    from stmask_torch.kernels import conv_split
+    conv_split.build_variants()
+    split_sites = _split_sites(torch, dev)
+    kd_split = {}
+    for route in ('fast', 'general'):
+        kd_split[route] = conv_split.split(
+            split_sites, lambda fn: _device_ms(fn, 50), route)
+        conv_split.print_split(route, kd_split[route], smi, EVAL_LANES)
+    del split_sites
 
     # ---- 6. the training step ----------------------------------------------
     mark(6)
@@ -4431,7 +4574,17 @@ def main() -> int:
          'max_abs_err': err['deform_conv_bf16'], 'ms': kdb['ms'],
          'call_ms': kdb['call_ms'], 'plain_ms': kdb['plain_ms'],
          'bound_ms': kdb['bound_ms'], 'bound_by': by_of(kdb),
-         'library_ms': None, 'fp32_ms': kd8['ms'],
+         'library_ms': kdb['library_ms'],
+         'library_is': _CONV_LIBRARY_IS, 'fp32_ms': kd8['ms'],
+         'kernel_path': _CONV_FAST_PATH, 'l2_read_bytes': kdb['l2_bytes'],
+         'general_route_ms': _split_sum(kd_split['general'], 7),
+         'fcb_ada_ms': fcb_t['acc']['deform_conv_bf16']['ms'],
+         'fcb_ada_call_ms': fcb_t['acc']['deform_conv_bf16']['call_ms'],
+         'fcb_ada_plain_ms': fcb_t['acc']['deform_conv_bf16']['plain_ms'],
+         'fcb_ada_bound_ms': fcb_t['acc']['deform_conv_bf16']['bound_ms'],
+         'fcb_ada_library_ms':
+             fcb_t['acc']['deform_conv_bf16']['library_ms'],
+         'fcb_ada_fp32_ms': fcb_t['acc']['deform_conv_bf16']['fp32_ms'],
          'shape': sites.replace('one 384x640 frame',
                                 f'{EVAL_LANES} 384x640 frames in bf16')},
         {'name': 'correlation_bwd', 'route': 'cuda',
@@ -4496,7 +4649,10 @@ def main() -> int:
         'plain_ms': acc['deform_conv_bf16_f32off']['plain_ms'],
         'bound_ms': acc['deform_conv_bf16_f32off']['bound_ms'],
         'bound_by': _by_of(acc['deform_conv_bf16_f32off']),
-        'library_ms': None,
+        'library_ms': acc['deform_conv_bf16_f32off']['library_ms'],
+        'library_is': _CONV_LIBRARY_IS, 'kernel_path': _CONV_FAST_PATH,
+        'fp32_ms': acc['deform_conv_bf16_f32off']['fp32_ms'],
+        'l2_read_bytes': acc['deform_conv_bf16_f32off']['l2_bytes'],
         'shape': fcb_sites.replace('one 384x640 frame',
                                    f'{2 * TRAIN_CLIPS} 384x640 frames') +
         '; bf16 x and weight, fp32 offsets'})

@@ -9,7 +9,10 @@ seconds):
          csrc/<name>.cu
 
 ``<digest>`` hashes the sources and flags, so an edited source is rebuilt
-and a finished build is reused.  nvcc's output (ptxas's registers, shared
+and a finished build is reused.  A variant built with preprocessor
+definitions (``defines``: the measurement builds of
+``kernels/conv_split.py``) hashes them too and lives beside the
+library's own build.  nvcc's output (ptxas's registers, shared
 memory and spills of each kernel) is kept beside the library as
 ``lib<name>_<digest>.log`` and read back by ``ptxas_report``.  The build
 directory ``_build/`` sits next to this file and is listed in
@@ -50,26 +53,32 @@ def _nvcc() -> str:
                        'toolkit')
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Sequence[str] = ()) -> tuple:
+    return NVCC_FLAGS + tuple(f'-D{d}' for d in defines)
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """Where the built library of ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(' '.join(_flags(defines)).encode())
     for src in [CSRC / f'{name}.cu'] + sorted(CSRC.glob('*.cuh')):
         h.update(src.read_bytes())
     return BUILD_DIR / f'lib{name}_{h.hexdigest()[:12]}.so'
 
 
-def build(names: Iterable[str]) -> float:
+def build(names: Iterable[str], defines: Sequence[str] = ()) -> float:
     """Compile every library in ``names`` that is not built yet, one nvcc
-    process per source, all started together.  Returns the wall seconds."""
+    process per source, all started together, each with ``-D`` of every
+    entry of ``defines``.  Returns the wall seconds."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        cmd = [_nvcc(), *_flags(defines), '-o', str(tmp),
+               str(CSRC / f'{name}.cu')]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -96,15 +105,17 @@ def ptxas_report(name: str) -> list:
             if 'Used' in ln or 'spill' in ln or 'entry function' in ln]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    if name not in _LIBS:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    built if needed."""
+    key = ' '.join((name,) + tuple(defines))
+    if key not in _LIBS:
+        build([name], defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
         lib.stmask_cuda_error_string.argtypes = [ctypes.c_int]
         lib.stmask_cuda_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return _LIBS[name]
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
 class CudaKernel:
@@ -115,22 +126,25 @@ class CudaKernel:
     counts successful launches and nothing else.
     """
 
-    def __init__(self, library: str, symbol: str, argtypes: Sequence):
+    def __init__(self, library: str, symbol: str, argtypes: Sequence,
+                 defines: Sequence[str] = ()):
         self.library = library
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.defines = tuple(defines)
         self.launches = 0
         self._fn = None
 
     def __call__(self, *args) -> None:
         if self._fn is None:
-            fn = getattr(load(self.library), self.symbol)
+            fn = getattr(load(self.library, self.defines), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         rc = self._fn(*args)
         if rc != 0:
-            msg = load(self.library).stmask_cuda_error_string(rc).decode()
+            msg = load(self.library, self.defines).stmask_cuda_error_string(
+                rc).decode()
             raise RuntimeError(f'{self.symbol}: CUDA error {rc} ({msg})')
         self.launches += 1
 

@@ -72,8 +72,23 @@
 //   deform_gather.cuh, shared with the weight gradient (deform_wgrad.cu).
 //
 // bf16 (the JAX package's bf16 eval, deform_conv.py:84-88 with
-// sampling.py:83): the same tiles, ring, clusters and epilogue order, with
-// the rounding points of the JAX path.  Each corner weight wy * wx is
+// sampling.py:83) has two routes.  The fast route (below, "the bf16 fast
+// route") takes Cin a multiple of 64, Cout of 128, at most 16 taps,
+// dilation 1 and 16-byte aligned x, weight and out: every DCN site of R50,
+// R101 and FCB.  Its bound on an H100 is the same (the bf16 product at 989
+// TFLOP/s, the gather's fp32 flops), but the gather sets its time: a
+// build without the gather takes under half the whole kernel's time
+// (kernels/conv_split.py; PERF.md).  Each sample asks L2 for 4 corner
+// runs (8 bytes a (site, column), once per tile column) and each tile row
+// for the weight's rows: at the measured times that is 5-6 TB/s asked of
+// L2, so L2's bandwidth may be what limits the gather; no counter of L2
+// traffic or L1 hits was read, and the gather's instructions and latency
+// may limit it as well.  So the MMA warps never wait on the gather:
+// producer warps fill a ring that consumer warpgroups read with wgmma, and
+// the tile is 64 x 256 where Cout allows, which halves the gather.  Every
+// other bf16 call takes the general route: the fp32 design on bf16, with
+// the same tiles, ring, clusters and epilogue order and the rounding points
+// of the JAX path.  Each corner weight wy * wx is
 // computed in fp32 and rounded to bf16, each weight * sample product is
 // rounded to bf16, the four are summed in fp32 and rounded, and the
 // modulation multiply is rounded again (two channels at a time: the two
@@ -92,8 +107,22 @@
 // at unrounded; the sample coordinates are fp32 either way.
 
 #include "deform_gather.cuh"
+#include "wgmma.cuh"
+
+// Measurement builds only (stmask_torch/kernels/conv_split.py; the
+// library's own build leaves it 0): STMASK_DCONV_DROP leaves parts of the
+// bf16 kernels out, bit 1 the products, 2 the gather (A zero), 4 the output
+// stores (kept behind a test that never holds, so that the products stay),
+// 8 the cluster's reduction (each block writes its own partial tile).
+#ifndef STMASK_DCONV_DROP
+#define STMASK_DCONV_DROP 0
+#endif
 
 namespace {
+
+constexpr int DROP = STMASK_DCONV_DROP;
+// A value no output takes: a dropped store is kept behind v == NEVER.
+constexpr float NEVER = -1.2345e-38f;
 
 constexpr int BM = 64;          // output sites per tile
 constexpr int BN = 128;         // output channels per tile
@@ -441,6 +470,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (kb < ke) {
     Gather<T, FAST> gather;
     AStage st;
+    if (!TT::F32 && (DROP & 2)) st = AStage{};   // no gather: A is zero
     Raw<T> raw;
     load_b<T, FAST>(p, b_s, kb * BK, n0);
     cp_async_commit();
@@ -450,8 +480,10 @@ __global__ void __launch_bounds__(THREADS, 2)
       gather.begin(p, m0, kb * BK);
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        gather.issue(s, raw);
-        gather.combine(s, raw, st);
+        if (TT::F32 || !(DROP & 2)) {
+          gather.issue(s, raw);
+          gather.combine(s, raw, st);
+        }
       }
     } else {
       gather.load_scalar(p, m0, kb * BK, st);
@@ -474,24 +506,27 @@ __global__ void __launch_bounds__(THREADS, 2)
         // half of this chunk's products run.  (On the last chunk the
         // current chunk's corners are read again and dropped, so that no
         // branch splits the loads from the products.)
-        if (more) gather.begin(p, m0, (kc + 1) * BK);
+        if (more && (TT::F32 || !(DROP & 2)))
+          gather.begin(p, m0, (kc + 1) * BK);
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
-          gather.issue(s, raw);
-          mma_steps(as, bs, 16 * s);
-          gather.combine(s, raw, st);
+          if (TT::F32 || !(DROP & 2)) gather.issue(s, raw);
+          if (TT::F32 || !(DROP & 1)) mma_steps(as, bs, 16 * s);
+          if (TT::F32 || !(DROP & 2)) gather.combine(s, raw, st);
         }
       } else {
         if (more) gather.load_scalar(p, m0, (kc + 1) * BK, st);
-        mma_steps(as, bs, 0);
-        mma_steps(as, bs, 16);
+        if (TT::F32 || !(DROP & 1)) {
+          mma_steps(as, bs, 0);
+          mma_steps(as, bs, 16);
+        }
       }
       if (more) gather.store(st, a_s + ((i + 1) % 2) * TT::A_STAGE);
     }
     cp_async_wait<0>();
   }
 
-  if (n_split == 1) {
+  if (n_split == 1 || (!TT::F32 && (DROP & 8))) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -504,7 +539,8 @@ __global__ void __launch_bounds__(THREADS, 2)
           const int n = n0 + wn + nt * 8 + 2 * t4;
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            if (n + j < p.N)
+            if (n + j < p.N && (TT::F32 || !(DROP & 4) ||
+                                acc[mt][nt][2 * h + j] == NEVER))
               store_out(o + n + j, epilogue(p, acc[mt][nt][2 * h + j], n + j));
         }
       }
@@ -534,6 +570,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (n + j < p.N) v[j] = epilogue(p, v[j], n + j);
+    if (!TT::F32 && (DROP & 4) && v[0] != NEVER) return;
     if (FAST && n < p.N) {
       if constexpr (TT::F32)
         *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
@@ -545,6 +582,281 @@ __global__ void __launch_bounds__(THREADS, 2)
       for (int j = 0; j < 4; ++j)
         if (n + j < p.N) store_out(o + j, v[j]);
     }
+  });
+  cluster.sync();                  // keep every partial tile alive until read
+}
+
+// ---- the bf16 fast route -------------------------------------------------
+// Cin a multiple of 64, Cout of 128, at most FMAX_TAPS taps, dilation 1,
+// x, weight and out 16-byte aligned (every DCN site of R50, R101 and FCB).
+// One block of FTHREADS threads per BM x BN output tile and K-split: BM x
+// BN is 128 x 128, or 64 x 256 where Cout is a multiple of 256 (each
+// gathered site then serves twice the channels).  Warps 0-7 are two
+// consumer warpgroups, each the wgmmas of a 64 x 128 piece; warps 8-15 are
+// the producers, which gather A and bring B into a ring of FSTAGES stages.
+constexpr int FBK = 64;           // (tap, channel) columns a chunk
+constexpr int FSTAGES = 4;        // ring stages of A and B
+constexpr int FCONSUMERS = 256;   // two warpgroups
+constexpr int FPRODUCERS = 256;   // two warpgroups
+constexpr int FTHREADS = FCONSUMERS + FPRODUCERS;
+constexpr int FMAX_TAPS = 16;     // kh * kw of the fast route
+
+// The tile of BM sites: BN channels, the bytes of a ring stage, and the
+// producers' shares.
+template <int BM>
+struct FTile {
+  static constexpr int BN = 128 * 128 / BM;
+  static constexpr int A_STAGE = BM * SW128_ROW;     // [BM sites][64]
+  static constexpr int B_STAGE = BN * SW128_ROW;     // [BN channels][64]
+  static constexpr int SPP = BM * 8 / FPRODUCERS;    // sites a producer
+  static constexpr int RPP = BN * 8 / FPRODUCERS;    // B rows a producer
+  static_assert(BM == 128 || BM == 64, "128 x 128 or 64 x 256");
+  static_assert(BM * BN * 4 <= FSTAGES * (A_STAGE + B_STAGE),
+                "the split's partial tile fits in the ring");
+};
+
+// Shared memory of a call with `taps` taps: the ring behind the swizzle's
+// alignment, its mbarriers, then the corner table of every tap (16 bytes a
+// site).
+template <int BM>
+constexpr int fsmem(int taps) {
+  return SW128_ALIGN + FSTAGES * (FTile<BM>::A_STAGE + FTile<BM>::B_STAGE) +
+         2 * FSTAGES * 8 + BM * taps * 16;
+}
+
+// One (site, tap) of the gather in 16 bytes: the element index of the
+// corner block's first channel (corner j at + (j / 2) W Cin + (j % 2) Cin,
+// as if every corner lay inside the image), the corner weights rounded to
+// bf16 (two a word; zero for every corner off the image, which is then not
+// read) and the modulation (both halves).
+template <typename TO>
+__device__ __forceinline__ uint4 make_entry(const Params<bf16, TO>& p, int m,
+                                            int t, const TapIn& in) {
+  Corners<bf16> cn;
+  corners_from(p, m, t, in, cn);
+  int first = 0;
+#pragma unroll
+  for (int j = 3; j >= 0; --j)
+    if (cn.idx[j] >= 0)
+      first = static_cast<int>(cn.img - p.x) + cn.idx[j] -
+              ((j >> 1) * p.W + (j & 1)) * p.Cin;
+  return make_uint4(static_cast<uint32_t>(first), pack_bf16(cn.w[0], cn.w[1]),
+                    pack_bf16(cn.w[2], cn.w[3]),
+                    m < p.M ? pack_bf16(cn.m, cn.m) : 0u);
+}
+
+template <int BM, typename TO>
+__global__ void __launch_bounds__(FTHREADS, 1)
+    deform_conv_bf16_fast_kernel(const Params<bf16, TO> p) {
+  using FT = FTile<BM>;
+  constexpr int BN = FT::BN, A_STAGE = FT::A_STAGE, B_STAGE = FT::B_STAGE;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the swizzle is a function of the address: align the ring to it
+  unsigned char* const base =
+      smem_raw + ((SW128_ALIGN - (smem_u32(smem_raw) & (SW128_ALIGN - 1))) &
+                  (SW128_ALIGN - 1));
+  unsigned char* const a_s = base;                        // [S][BM][128]
+  unsigned char* const b_s = a_s + FSTAGES * A_STAGE;     // [S][BN][128]
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(b_s + FSTAGES * B_STAGE);
+  uint4* const tab = reinterpret_cast<uint4*>(bars + 2 * FSTAGES);  // [tap][BM]
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * FSTAGES;
+  // the split's partial tile [BM][BN] fp32 takes the ring's place
+  float* const part = reinterpret_cast<float*>(base);
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int split = blockIdx.z, n_split = gridDim.z;
+  const bool whole = n_split == 1 || (DROP & 8);
+  const int ntap = p.kh * p.kw;
+  const int nk = p.Ktot / FBK;
+  const int kb = static_cast<int>(static_cast<int64_t>(nk) * split / n_split);
+  const int ke =
+      static_cast<int>(static_cast<int64_t>(nk) * (split + 1) / n_split);
+
+  if (tid == 0) {
+    // full: every producer's stores and its cp.async copies (.noinc);
+    // empty: every consumer thread, once its wgmmas have read the stage
+    for (int s = 0; s < FSTAGES; ++s) {
+      mbar_init(full0 + 8 * s, 2 * FPRODUCERS);
+      mbar_init(empty0 + 8 * s, FCONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Chunk kc covers channels 64 (kc / ntap) .. + 63 of tap kc % ntap: the
+  // chunks run channel block by channel block, every tap of a block in
+  // turn (where offsets are smooth, a block's corner runs are read again
+  // from L1 from tap to tap).
+  if (tid < FCONSUMERS) {
+    // Consumers: per chunk, wait for its stage, four k16 wgmmas of this
+    // warpgroup's 64 sites x 128 channels, one group kept in flight; a
+    // stage is handed back once the group that read it is done.
+    const int wg = tid / 128;
+    const int ms = BM == 128 ? 64 * wg : 0;     // the piece's first site
+    const int ns = BM == 128 ? 0 : 128 * wg;    // ... and channel
+    // acc[4 j + e]: site row0 + 8 (e / 2), channel ns + 8 j + 2 t4 + e % 2
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    const int lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int row0 = ms + ((tid / 32) % 4) * 16 + g;
+    const uint32_t a0 = smem_u32(a_s) + ms * SW128_ROW;
+    const uint32_t b0 = smem_u32(b_s) + ns * SW128_ROW;
+    for (int kc = kb; kc < ke; ++kc) {
+      const int i = kc - kb, s = i % FSTAGES;
+      mbar_wait(full0 + 8 * s, (i / FSTAGES) & 1);
+      fence_proxy_async();           // the cp.async copies, for wgmma
+      if (!(DROP & 1)) {
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < FBK / 16; ++k)
+          wgmma_bf16_k128(
+              acc, desc_sw128(a0 + s * A_STAGE + 32 * k, 16, 8 * SW128_ROW),
+              desc_sw128(b0 + s * B_STAGE + 32 * k, 16, 8 * SW128_ROW));
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+      if (i > 0) mbar_arrive(empty0 + 8 * ((i - 1) % FSTAGES));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 64; ++e) hold(acc[e]);
+    if (whole) {
+      // the sum rounded to bf16, the bias added in bf16 (epilogue)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + row0 + 8 * h;
+        if (m >= p.M) continue;
+        bf16* o = p.out + static_cast<int64_t>(m) * p.N + n0 + ns;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 8 * j + 2 * t4;
+          const float v0 = epilogue(p, acc[4 * j + 2 * h], n0 + ns + c);
+          const float v1 =
+              epilogue(p, acc[4 * j + 2 * h + 1], n0 + ns + c + 1);
+          if (!(DROP & 4) || v0 == NEVER)
+            *reinterpret_cast<uint32_t*>(o + c) = pack_bf16(v0, v1);
+        }
+      }
+      return;
+    }
+    __syncthreads();               // every stage consumed, the ring is free
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(part + (row0 + 8 * h) * BN + ns + 8 * j +
+                                   2 * t4) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  } else {
+    // Producers: thread q of a site's eight gathers 8 channels (16 bytes)
+    // of sites ps + 32 j and brings weight rows ps + 32 j.  The corner
+    // table holds every tap (tab[tap][site]); producers 0..BM-1 fill site
+    // pt's entry of the next chunk's tap during the first ntap chunks (its
+    // offset and modulation read one chunk further ahead), behind a
+    // barrier a chunk; after them nothing is refilled.
+    constexpr int PS = FPRODUCERS / 8;
+    const int pt = tid - FCONSUMERS;
+    const int q = pt % 8, ps = pt / 8;
+    const bool filler = pt < BM;
+    const int ldw = p.W * p.Cin;               // from one image row to the next
+    TapIn ahead{0.f, 0.f, 0.f};
+    if (filler && !(DROP & 2)) {
+      const int t = kb % ntap;
+      tab[t * BM + pt] = make_entry(p, m0 + pt, t, tap_in(p, m0 + pt, t));
+      if (kb + 1 < ke) ahead = tap_in(p, m0 + pt, (kb + 1) % ntap);
+    }
+    for (int kc = kb; kc < ke; ++kc) {
+      const int i = kc - kb, s = i % FSTAGES;
+      const int tap = kc % ntap, c0 = (kc / ntap) * FBK;
+      const int col = tap * p.Cin + c0;
+      if (!(DROP & 2) && i < ntap) {
+        // this tap's entries are complete
+        asm volatile("bar.sync 1, %0;\n" ::"n"(FPRODUCERS) : "memory");
+        if (filler && i + 1 < ntap && kc + 1 < ke) {
+          tab[((kc + 1) % ntap) * BM + pt] =
+              make_entry(p, m0 + pt, (kc + 1) % ntap, ahead);
+          if (i + 2 < ntap && kc + 2 < ke)
+            ahead = tap_in(p, m0 + pt, (kc + 2) % ntap);
+        }
+      }
+      mbar_wait(empty0 + 8 * s, ((i / FSTAGES) & 1) ^ 1);
+      // B: weight rows n0 + ps + 32 j, columns col + 8 q .. + 7
+      unsigned char* const bs = b_s + s * B_STAGE;
+#pragma unroll
+      for (int j = 0; j < FT::RPP; ++j) {
+        const int r = ps + PS * j;
+        cp_async16(bs + sw128(r, q),
+                   p.weight + static_cast<int64_t>(n0 + r) * p.Ktot + col +
+                       8 * q,
+                   true);
+      }
+      mbar_arrive_cp_async(full0 + 8 * s);
+      // A: the four corner runs of each site first (a corner of weight
+      // zero, as every one off the image, is not read), then their combine
+      // (deform_gather.cuh: bf16_sample2, the JAX package's bf16 sample)
+      if (!(DROP & 2)) {
+        const uint4* const tt = tab + tap * BM + ps;
+        uint4 v[FT::SPP][4];
+#pragma unroll
+        for (int j = 0; j < FT::SPP; ++j) {
+          const uint4 e = tt[PS * j];
+          const bf16* const px = p.x + static_cast<int>(e.x) + c0 + 8 * q;
+          const bool ok[4] = {(e.y & 0xffffu) != 0u, (e.y >> 16) != 0u,
+                              (e.z & 0xffffu) != 0u, (e.z >> 16) != 0u};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            v[j][c] = make_uint4(0u, 0u, 0u, 0u);
+            if (ok[c])
+              v[j][c] = __ldg(reinterpret_cast<const uint4*>(
+                  px + (c >> 1) * ldw + (c & 1) * p.Cin));
+          }
+        }
+        unsigned char* const as = a_s + s * A_STAGE;
+#pragma unroll
+        for (int j = 0; j < FT::SPP; ++j) {
+          const uint4 e = tt[PS * j];
+          const uint32_t w2[4] = {__byte_perm(e.y, 0, 0x1010),
+                                  __byte_perm(e.y, 0, 0x3232),
+                                  __byte_perm(e.z, 0, 0x1010),
+                                  __byte_perm(e.z, 0, 0x3232)};
+          const uint32_t c4x[4] = {v[j][0].x, v[j][1].x, v[j][2].x,
+                                   v[j][3].x};
+          const uint32_t c4y[4] = {v[j][0].y, v[j][1].y, v[j][2].y,
+                                   v[j][3].y};
+          const uint32_t c4z[4] = {v[j][0].z, v[j][1].z, v[j][2].z,
+                                   v[j][3].z};
+          const uint32_t c4w[4] = {v[j][0].w, v[j][1].w, v[j][2].w,
+                                   v[j][3].w};
+          *reinterpret_cast<uint4*>(as + sw128(ps + PS * j, q)) =
+              make_uint4(bf16_sample2(w2, c4x, e.w),
+                         bf16_sample2(w2, c4y, e.w),
+                         bf16_sample2(w2, c4z, e.w),
+                         bf16_sample2(w2, c4w, e.w));
+        }
+        fence_proxy_async();         // this thread's A stores, for wgmma
+      }
+      mbar_arrive(full0 + 8 * s);
+    }
+    if (whole) return;
+    __syncthreads();               // (the consumers' partial tile follows)
+  }
+
+  // Split K: sum the cluster's partial tiles in rank order
+  // (deform_gather.cuh), round, add the bias and write each row once.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  cluster_reduce<BM, BN, FTHREADS>(cluster, part, n_split,
+                                   [&](int rl, int c, float (&v)[4]) {
+    const int m = m0 + rl, n = n0 + c;
+    if (m >= p.M) return;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = epilogue(p, v[j], n + j);
+    if ((DROP & 4) && v[0] != NEVER) return;
+    *reinterpret_cast<uint2*>(p.out + static_cast<int64_t>(m) * p.N + n) =
+        make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
   });
   cluster.sync();                  // keep every partial tile alive until read
 }
@@ -608,6 +920,66 @@ int launch(const T* x, const TO* offset, const T* mask, const T* weight,
   return static_cast<int>(cudaGetLastError());
 }
 
+// What the fast route needs of a call (the wrapper, kernels/deform_conv.py::
+// conv_fast, chooses the route; a fast call without these is refused).
+bool fast_fits(const void* x, const void* weight, const void* out, int Cin,
+               int Cout, int kh, int kw, int dilation) {
+  return Cin % FBK == 0 && Cout % 128 == 0 && kh * kw <= FMAX_TAPS &&
+         dilation == 1 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(weight) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
+template <int BM, typename TO>
+int launch_fast(const Params<bf16, TO>& p, int split, void* stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = allow_clusters(deform_conv_bf16_fast_kernel<BM, TO>,
+                                         fsmem<BM>(FMAX_TAPS));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const cudaError_t e = launch_split(
+      deform_conv_bf16_fast_kernel<BM, TO>, (p.M + BM - 1) / BM,
+      p.N / FTile<BM>::BN, split, fsmem<BM>(p.kh * p.kw), stream, p,
+      FTHREADS);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 entries, on the wrapper's route: split 0 the general route
+// above, which chooses its own split; else the fast route with that split
+// (a power of two up to MAX_SPLIT that leaves every block a chunk, and a
+// call that fast_fits; refused otherwise), its tile 64 x 256 where Cout is
+// a multiple of 256, else 128 x 128.
+template <typename TO>
+int launch_bf16(const bf16* x, const TO* offset, const bf16* mask,
+                const bf16* weight, const bf16* bias, bf16* out, int B, int H,
+                int W, int Cin, int Ho, int Wo, int Cout, int kh, int kw,
+                int stride, int dilation, int off_ld, int mask_ld, int split,
+                void* stream) {
+  if (split == 0)
+    return launch<bf16, TO>(x, offset, mask, weight, bias, out, B, H, W, Cin,
+                            Ho, Wo, Cout, kh, kw, stride, dilation, off_ld,
+                            mask_ld, stream);
+  if (!fast_fits(x, weight, out, Cin, Cout, kh, kw, dilation) || B < 0 ||
+      H <= 0 || W <= 0 || Ho < 0 || Wo < 0 || kh <= 0 || kw <= 0 ||
+      stride <= 0 || off_ld < 2 * kh * kw ||
+      (mask != nullptr && mask_ld < kh * kw) || split < 1 ||
+      split > MAX_SPLIT || (split & (split - 1)) != 0 ||
+      static_cast<int64_t>(B) * H * W * Cin > INT32_MAX ||
+      static_cast<int64_t>(B) * Ho * Wo > INT32_MAX ||
+      static_cast<int64_t>(kh) * kw * Cin / FBK < split)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params<bf16, TO> p{{x, offset, mask, H, W, Cin, Ho, Wo, kh, kw,
+                            stride, dilation, B * Ho * Wo, kh * kw * Cin,
+                            off_ld, mask_ld},
+                           weight, bias, out, Cout};
+  if (p.M == 0) return static_cast<int>(cudaSuccess);
+  return Cout % 256 == 0 ? launch_fast<64>(p, split, stream)
+                         : launch_fast<128>(p, split, stream);
+}
+
 }  // namespace
 
 // x: [B, H, W, Cin]; offset: [B, Ho, Wo, 2*kh*kw] (dy, dx)-interleaved per
@@ -616,7 +988,12 @@ int launch(const T* x, const TO* offset, const T* mask, const T* weight,
 // or null; out: [B, Ho, Wo, Cout].  All of one type (fp32 for
 // stmask_deform_conv, bf16 for stmask_deform_conv_bf16), or all bf16 but
 // the fp32 offset (stmask_deform_conv_bf16_f32off); x, weight and out
-// contiguous.  Returns cudaGetLastError() after the launch.
+// contiguous.  The bf16 entries also take split, which names the route
+// (kernels/deform_conv.py::conv_plan): 0 the general route, which chooses
+// its own split; 1 to 16, a power of two, the fast route with that many
+// blocks of a cluster sharing a tile's K.  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue, launching nothing, for a fast
+// call that the fast route cannot take).
 extern "C" int stmask_deform_conv(const float* x, const float* offset,
                                   const float* mask, const float* weight,
                                   const float* bias, float* out, int B, int H,
@@ -634,22 +1011,22 @@ extern "C" int stmask_deform_conv_bf16(const void* x, const void* offset,
                                        int H, int W, int Cin, int Ho, int Wo,
                                        int Cout, int kh, int kw, int stride,
                                        int dilation, int off_ld, int mask_ld,
-                                       void* stream) {
-  return launch<bf16, bf16>(
+                                       int split, void* stream) {
+  return launch_bf16<bf16>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(offset),
       static_cast<const bf16*>(mask), static_cast<const bf16*>(weight),
       static_cast<const bf16*>(bias), static_cast<bf16*>(out), B, H, W, Cin,
-      Ho, Wo, Cout, kh, kw, stride, dilation, off_ld, mask_ld, stream);
+      Ho, Wo, Cout, kh, kw, stride, dilation, off_ld, mask_ld, split, stream);
 }
 
 extern "C" int stmask_deform_conv_bf16_f32off(
     const void* x, const float* offset, const void* mask, const void* weight,
     const void* bias, void* out, int B, int H, int W, int Cin, int Ho, int Wo,
     int Cout, int kh, int kw, int stride, int dilation, int off_ld,
-    int mask_ld, void* stream) {
-  return launch<bf16, float>(
+    int mask_ld, int split, void* stream) {
+  return launch_bf16<float>(
       static_cast<const bf16*>(x), offset, static_cast<const bf16*>(mask),
       static_cast<const bf16*>(weight), static_cast<const bf16*>(bias),
       static_cast<bf16*>(out), B, H, W, Cin, Ho, Wo, Cout, kh, kw, stride,
-      dilation, off_ld, mask_ld, stream);
+      dilation, off_ld, mask_ld, split, stream);
 }

@@ -124,6 +124,7 @@
 // zero): right, and slow.
 
 #include "deform_gather.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -205,27 +206,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(desc), "r"(scale_d),
         "n"(OFF), "n"(DESC_HI));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Stores through the generic proxy are seen by wgmma (the async proxy).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Keep x in its register until here (an in-flight wgmma owns it).
-__device__ __forceinline__ void hold(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-__device__ __forceinline__ void hold(uint32_t& x) {
-  asm volatile("" : "+r"(x)::"memory");
 }
 
 // T: the type of g, x, the mask and d_w; TO: the offsets' (T, or fp32
@@ -589,12 +569,12 @@ __global__ void __launch_bounds__(2 * TM, FAST ? 256 / TM : 1)
 
 // ---- the bf16 fast path --------------------------------------------------
 // Both operands in bf16 in shared memory, each site's 64 values one
-// 128-byte row in the 128-byte swizzle (16-byte chunk q of row s at chunk
-// q ^ (s % 8)), as wgmma reads an MN-major operand.
-constexpr int ROW = 128;                      // bytes of a site's 64 values
+// 128-byte row in the 128-byte swizzle (wgmma.cuh: 16-byte chunk q of row
+// s at chunk q ^ (s % 8)), as wgmma reads an MN-major operand.
+constexpr int ROW = SW128_ROW;                // bytes of a site's 64 values
 constexpr int B16_STAGE = BS * ROW;           // B: [BS sites][TN columns]
 constexpr int RUNS16 = BS * 4 * TN * 2;       // corner runs [site][4][TN]
-constexpr int SW_ALIGN = 1024;                // one swizzle pattern, 8 rows
+constexpr int SW_ALIGN = SW128_ALIGN;         // one swizzle pattern, 8 rows
 // The descriptors' strides (bytes): SBO from 8 sites to the next 8, LBO
 // from 64 channels of A to the next 64 (each operand of one wgmma is one
 // 64-wide atom, so the hardware does not step by it)
@@ -625,41 +605,10 @@ struct Entry16 {
   uint32_t pad;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // The shared-memory matrix descriptor of an MN-major operand in the
 // 128-byte swizzle at shared address a (1024-byte aligned pattern).
 __device__ __forceinline__ uint64_t desc16(uint32_t a) {
-  const uint32_t lo = ((a & 0x3FFFF) >> 4) | ((LBO16 >> 4) << 16);
-  const uint32_t hi = (SBO16 >> 4) | (1u << 30);    // layout 1: 128B swizzle
-  return (static_cast<uint64_t>(hi) << 32) | lo;
-}
-
-// d += A * B on a 64 x 64 x 16 bf16 tile of a warpgroup (fp32 accumulate),
-// both operands MN-major (transposed) from shared memory; d as in
-// wgmma_tf32.  Asynchronous: d belongs to the MMA until wgmma_wait.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+  return desc_sw128(a, LBO16, SBO16);
 }
 
 template <int TM, typename TO>
@@ -752,7 +701,7 @@ __global__ void __launch_bounds__(2 * TM, 256 / TM)
     const int ent = (s << hsh) + ((col / 32) & hsh);   // its table entry
     const int hcol = j0 + (col & ~31);
     const int ch = hcol - hcol / p.Cin * p.Cin + col % 32;
-    const int bo = s * ROW + (((col / 8) ^ (s % 8)) << 4) + (col % 8) * 2;
+    const int bo = sw128(s, col / 8) + (col % 8) * 2;
     // the four corner runs of chunk table t into the staging buffer runs
     auto stage = [&](const Entry16* t, unsigned char* runs) {
       const int4 idx = *reinterpret_cast<const int4*>(t[ent].idx);
@@ -807,8 +756,7 @@ __global__ void __launch_bounds__(2 * TM, 256 / TM)
         const int q = tid + i * NT;
         const int r = q / (TM / 8), c8 = q % (TM / 8);
         const bool ok = m0 + r < p.M;
-        cp_async16(gs + (c8 / 8) * BS * ROW + r * ROW +
-                       (((c8 % 8) ^ (r % 8)) << 4),
+        cp_async16(gs + (c8 / 8) * BS * ROW + sw128(r, c8 % 8),
                    ok ? p.g + static_cast<int64_t>(m0 + r) * p.N + n0 + 8 * c8
                       : p.g,
                    ok);
@@ -852,8 +800,9 @@ __global__ void __launch_bounds__(2 * TM, 256 / TM)
       wgmma_fence();
 #pragma unroll
       for (int kb = 0; kb < BS / 16; ++kb)
-        wgmma_bf16(acc, desc16(a_sh + (i % 2) * G_STAGE + kb * 16 * ROW),
-                   desc16(b_sh + (i % 2) * B16_STAGE + kb * 16 * ROW));
+        wgmma_bf16_mn64(
+            acc, desc16(a_sh + (i % 2) * G_STAGE + kb * 16 * ROW),
+            desc16(b_sh + (i % 2) * B16_STAGE + kb * 16 * ROW));
       wgmma_commit();
       if (kc + 1 < ce)
         combine(tab + ((i + 1) % 3) * ENTRIES, st_s + ((i + 1) % 2) * RUNS16,

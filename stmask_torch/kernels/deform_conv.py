@@ -13,11 +13,25 @@ which the JAX package computes in fp32 from bf16 box deltas); they take a
 third entry, which samples at the unrounded offsets.  The weight is given
 as ``[Cout, kh, kw, Cin]``: a DCN module's OIHW weight in the
 channels-last layout, which the kernel reads in place.
+
+The bf16 entries have two routes.  The fast route (``conv_fast``: Cin a
+multiple of 64, Cout of 128, at most 16 taps, dilation 1, x, weight and
+out 16-byte aligned; every DCN site of R50, R101 and FCB) is a Hopper kernel: a
+warp-specialised ring in which producer warps gather the samples and bring
+the weight rows into shared memory in the 128-byte swizzle while two
+consumer warpgroups run bf16 ``wgmma``s on them.  Every other bf16 call
+takes the general route, the fp32 kernel's design on bf16.  ``conv_plan``
+says how a call is cut (route, tile, stages, K-split, shared memory).  The
+wrapper alone chooses the route, from shapes and pointers: it hands the
+bf16 entry the plan's split, whose 0 names the general route; the entry
+launches the route it is given, or refuses a fast call that the fast
+route cannot take.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -26,10 +40,103 @@ from .build import CudaKernel, check_cuda, records_grad
 from .deform_im2col import deform_im2col_reference
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# the bf16 entries also take the plan's split (0: the general route)
+_ARGTYPES_BF16 = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 KERNEL = CudaKernel('deform_conv', 'stmask_deform_conv', _ARGTYPES)
-KERNEL_BF16 = CudaKernel('deform_conv', 'stmask_deform_conv_bf16', _ARGTYPES)
+KERNEL_BF16 = CudaKernel('deform_conv', 'stmask_deform_conv_bf16',
+                         _ARGTYPES_BF16)
 KERNEL_BF16_F32OFF = CudaKernel('deform_conv',
-                                'stmask_deform_conv_bf16_f32off', _ARGTYPES)
+                                'stmask_deform_conv_bf16_f32off',
+                                _ARGTYPES_BF16)
+
+# The kernels' tiles (csrc/deform_conv.cu).  Fast route: 128 sites x 128
+# channels, or 64 x 256 where Cout is a multiple of 256, a block of 512
+# threads (two consumer warpgroups, two of producers), FAST_BK (tap,
+# channel) columns a chunk (one 128-byte row a site or channel),
+# FAST_STAGES ring stages of both operands and their mbarriers behind 1024
+# bytes of slack that align the swizzle, then the corner table of every tap
+# (16 bytes a site; at most FAST_MAX_TAPS taps).  General route (the fp32 design):
+# 64 x 128 tiles of 256 threads, 32 columns a chunk, two A stages (fp32:
+# hi and lo parts) and three weight stages, rows BK + 4 floats or BK + 8
+# bf16 apart.
+FAST_BK, FAST_STAGES = 64, 4
+FAST_MAX_TAPS = 16
+GEN_BM, GEN_BN, GEN_BK, GEN_STAGES = 64, 128, 32, 3
+SMS = 132                     # the H100's SMs
+MAX_SPLIT = 16                # blocks of a cluster (non-portable size)
+
+
+def smem_bytes(fast: bool, bf16: bool = True, taps: int = 9,
+               bm: int = 128) -> int:
+    """Dynamic shared memory of one block of the fast route (bf16 only, a
+    call with ``taps`` taps, tiles of ``bm`` sites: 128 x 128 or 64 x 256)
+    or of the general route in fp32 or bf16."""
+    if fast:
+        return (1024 + FAST_STAGES * (bm + 128 * 128 // bm) * 128
+                + 2 * FAST_STAGES * 8 + bm * taps * 16)
+    ld = GEN_BK + (8 if bf16 else 4)
+    a_stage = (1 if bf16 else 2) * GEN_BM * ld
+    return (2 * a_stage + GEN_STAGES * GEN_BN * ld) * (2 if bf16 else 4)
+
+
+def conv_fast(cin: int, cout: int, kh: int, kw: int, dilation: int,
+              x_ptr: int, w_ptr: int, out_ptr: int) -> bool:
+    """Whether a bf16 call takes the fast route: Cin a multiple of 64, Cout
+    of 128, at most FAST_MAX_TAPS taps, dilation 1, x, weight and out (byte
+    addresses) 16-byte aligned."""
+    return (cin % FAST_BK == 0 and cout % 128 == 0
+            and kh * kw <= FAST_MAX_TAPS and dilation == 1
+            and x_ptr % 16 == 0 and w_ptr % 16 == 0 and out_ptr % 16 == 0)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How a kernel cuts one call: ``route`` 'fast' or 'general', output
+    tiles of ``bm`` sites x ``bn`` channels, ``bk`` columns a chunk,
+    ``stages`` of the ring, K summed by the ``split`` blocks of a cluster,
+    ``blocks`` in all, each of ``threads`` threads with ``smem`` bytes of
+    shared memory.  On the general route ``split`` is 0: its launcher
+    splits K on its own, and ``blocks`` counts the tiles before that."""
+    route: str
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    split: int
+    blocks: int
+    threads: int
+    smem: int
+
+
+def conv_plan(m: int, cin: int, cout: int, kh: int, kw: int,
+              fast: bool = True, bf16: bool = True) -> ConvPlan:
+    """The plan of a call over ``m`` sites.  Fast route (``fast`` and
+    ``bf16``): tiles of 64 sites x 256 channels where Cout is a multiple of
+    256 (a gathered site serves twice the channels), else 128 x 128; the
+    split is the power of two (at most MAX_SPLIT, every block at least two
+    chunks) that gives the fewest waves of the card's SMS blocks (one block
+    an SM) per share of K, the smaller one on a tie, so that K is split
+    only where the tiles alone leave SMs idle.  General
+    route: its tiles, and split 0, which names the route to the bf16 entry
+    (its launcher chooses the split itself)."""
+    if fast and bf16:
+        bm, bn = (64, 256) if cout % 256 == 0 else (128, 128)
+        tiles = -(-m // bm) * (cout // bn)
+        nk = kh * kw * cin // FAST_BK
+
+        def cost(s):
+            return -(-tiles * s // SMS) / s
+
+        split = 1
+        while (2 * split <= MAX_SPLIT and nk >= 4 * split
+               and cost(2 * split) < cost(split)):
+            split *= 2
+        return ConvPlan('fast', bm, bn, FAST_BK, FAST_STAGES, split,
+                        tiles * split, 512,
+                        smem_bytes(True, taps=kh * kw, bm=bm))
+    tiles = -(-m // GEN_BM) * -(-cout // GEN_BN)
+    return ConvPlan('general', GEN_BM, GEN_BN, GEN_BK, GEN_STAGES, 0, tiles,
+                    256, smem_bytes(False, bf16))
 
 
 def _rb(t: torch.Tensor) -> torch.Tensor:
@@ -153,8 +260,9 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
     kh, kw, Cin] is); ``offset`` and ``mask`` may be channel slices of a
     contiguous NHWC tensor (the kernel reads them element by element, so a
     bf16 slice of the 27-channel ``conv_offset_mask`` output needs no
-    alignment).  Any input that requires a gradient raises while autograd
-    records (``check_cuda``): the kernel's output has no gradient, so the
+    alignment).  A bf16 call takes the fast route where ``conv_fast``
+    holds, cut as ``conv_plan`` says, else the general route.  Any input
+    that requires a gradient raises while autograd records (``check_cuda``): the kernel's output has no gradient, so the
     training path calls ``ops.deform_conv.deform_conv_window``."""
     dt = check_types('deform_conv_cuda', x, offset)
     off_dt = offset.dtype
@@ -190,13 +298,20 @@ def deform_conv_cuda(x: torch.Tensor, offset: torch.Tensor,
             mask = mask.contiguous()
             mask_ld = k
     out = torch.empty((b, ho, wo, cout), dtype=dt, device=x.device)
-    kernel = (KERNEL if dt == torch.float32 else
-              KERNEL_BF16 if off_dt == dt else KERNEL_BF16_F32OFF)
-    kernel(x.data_ptr(), offset.data_ptr(),
-           None if mask is None else mask.data_ptr(), weight.data_ptr(),
-           None if bias is None else bias.data_ptr(), out.data_ptr(),
-           b, h, w, cin, ho, wo, cout, kh, kw, stride, dilation, off_ld,
-           mask_ld, torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), offset.data_ptr(),
+            None if mask is None else mask.data_ptr(), weight.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            b, h, w, cin, ho, wo, cout, kh, kw, stride, dilation, off_ld,
+            mask_ld)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if dt == torch.float32:
+        KERNEL(*args, stream)
+        return out
+    plan = conv_plan(b * ho * wo, cin, cout, kh, kw, conv_fast(
+        cin, cout, kh, kw, dilation, x.data_ptr(), weight.data_ptr(),
+        out.data_ptr()))
+    kernel = KERNEL_BF16 if off_dt == dt else KERNEL_BF16_F32OFF
+    kernel(*args, plan.split, stream)
     return out
 
 

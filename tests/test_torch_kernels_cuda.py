@@ -1125,3 +1125,130 @@ def test_bf16_training_backward_launches_bf16_entries(device, off_dtype):
     for t in leaves + [c1, c2]:
         assert t.grad is not None and t.grad.dtype == t.dtype
         assert bool(torch.isfinite(t.grad.float()).all())
+
+
+# ---- the fused conv's bf16 fast route (bf16 wgmma fed by a gather ring) ----
+
+# R50's 7 DCN sites (R101's 11 have their shapes) and FCB's 15, 8 frames
+# each (one eval CLI step): (H, W, Cin = Cout, kh, kw, stride)
+BF16_FAST_SITES = ([(h, w, cin, 3, 3, s) for h, w, cin, s in DCN_SHAPES[3:]]
+                   + [(h, w, 256, kh, kw, 1) for h, w, kh, kw in FCB_SITES])
+
+
+def _offsets_of(kind, off, gen):
+    """Random offsets (some beyond the image), zero ones (every sample on a
+    pixel, three corner weights zero) or +-1 / +-2 (integer, on pixels)."""
+    if kind == 'zero':
+        return torch.zeros_like(off)
+    if kind == 'integer':
+        vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=off.device)
+        return vals[torch.randint(0, 4, off.shape, device=off.device,
+                                  generator=gen)]
+    return off
+
+
+def _fast_case(device, got_fn, x, off, wt, mask, bias, stride, dil=1):
+    """The bf16 entry of the offsets' type, launched twice through the
+    wrapper: within _bf16_atol of the plain version and bit for bit over
+    the two launches.  Returns the route the entry was handed (its split:
+    0 the general route; the entry refuses a fast call it cannot take)."""
+    name = ('KERNEL_BF16' if off.dtype == torch.bfloat16
+            else 'KERNEL_BF16_F32OFF')
+    kern = getattr(KD, name)
+    splits = []
+
+    def record(*args):
+        splits.append(args[-2])
+        return kern(*args)
+
+    n = kern.launches
+    setattr(KD, name, record)
+    try:
+        got = got_fn(x, off, wt, mask, bias, stride, dil)
+        again = got_fn(x, off, wt, mask, bias, stride, dil)
+    finally:
+        setattr(KD, name, kern)
+    assert kern.launches == n + 2 and len(splits) == 2
+    assert splits[0] == splits[1]
+    want = KD.deform_conv_reference(x, off, wt, mask, bias, stride, dil)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=_bf16_atol(want), rtol=0)
+    assert torch.equal(got, again)
+    return 'fast' if splits[0] > 0 else 'general'
+
+
+@pytest.mark.parametrize('kind', ['random', 'zero', 'integer'])
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('site', BF16_FAST_SITES,
+                         ids=lambda s: 'x'.join(map(str, s)))
+def test_fused_bf16_fast_route(device, site, off_dtype, kind):
+    """Every R50, R101 and FCB site at 8 frames, with bf16 and fp32
+    offsets, with and without the mask and the bias: the fast route."""
+    h, w, cin, kh, kw, stride = site
+    x, off, mask, wt, bias = _dcn_case(device, h, w, cin, cin, kh, kw,
+                                       stride, 1, 50, frames=8)
+    gen = torch.Generator(device=device).manual_seed(51)
+    off = _offsets_of(kind, off, gen).to(off_dtype)
+    x, mask, wt, bias = (t.bfloat16() for t in (x, mask, wt, bias))
+    for m in (mask, None):
+        for b in (bias, None):
+            assert _fast_case(device, KD.deform_conv_cuda, x, off, wt, m, b,
+                              stride) == 'fast'
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+def test_fused_bf16_fast_route_reads_strided_slices(device, off_dtype):
+    """Offsets and mask as channel slices of one [.., 27] tensor (site rows
+    54 or 108 bytes apart) go through the fast route, read in place."""
+    x, _, _, wt, bias = (t.bfloat16() for t in _dcn_case(
+        device, 24, 40, 256, 256, 3, 3, 1, 1, 52, frames=8))
+    om = torch.randn(8, 24, 40, 27, device=device).to(off_dtype)
+    om = torch.cat([om[..., :18] * 2.0, torch.sigmoid(om[..., 18:])], -1)
+    off, mask = om[..., :18], om[..., 18:].bfloat16()
+    assert not off.is_contiguous()
+    assert _fast_case(device, KD.deform_conv_cuda, x, off, wt, mask,
+                      bias, 1) == 'fast'
+
+
+def _off_route_case(device, case):
+    """bf16 (x, offset (fp32), mask, weight, bias, dilation) of a shape off
+    the fast route."""
+    cin = {'cin48': 48, 'cin6_cout5': 6}.get(case, 64)
+    cout = {'cout36': 36, 'cin6_cout5': 5}.get(case, 128)
+    dil = 2 if case == 'dilation2' else 1
+    x, off, mask, wt, bias = _dcn_case(device, 13, 17, cin, cout, 3, 3, 1,
+                                       dil, 53, frames=2)
+    x, mask, wt, bias = (t.bfloat16() for t in (x, mask, wt, bias))
+    if case == 'x_unaligned':      # one element into its buffer
+        buf = torch.empty(x.numel() + 1, device=device, dtype=x.dtype)
+        x = buf[1:].view(x.shape).copy_(x)
+    return x, off, mask, wt, bias, dil
+
+
+@pytest.mark.parametrize('case', ['cin48', 'cout36', 'x_unaligned',
+                                  'dilation2', 'cin6_cout5'])
+def test_fused_bf16_off_route(device, case):
+    """Shapes off the fast route take the general route (the fp32 kernel's
+    design on bf16), with both offset types, and are right."""
+    x, off, mask, wt, bias, dil = _off_route_case(device, case)
+    for od in (torch.bfloat16, torch.float32):
+        assert _fast_case(device, KD.deform_conv_cuda, x, off.to(od), wt,
+                          mask, bias, 1, dil) == 'general'
+
+
+@pytest.mark.parametrize('case', ['cin48', 'cout36', 'x_unaligned',
+                                  'dilation2'])
+def test_fused_bf16_entry_refuses_fast_off_route(device, monkeypatch, case):
+    """The bf16 entry launches the route the wrapper names and checks it:
+    handed a fast split for a call that the fast route cannot take, it
+    raises and launches nothing (no fallback to the general route)."""
+    x, off, mask, wt, bias, dil = _off_route_case(device, case)
+    monkeypatch.setattr(KD, 'conv_fast', lambda *a: True)
+    for od, kern in ((torch.bfloat16, KD.KERNEL_BF16),
+                     (torch.float32, KD.KERNEL_BF16_F32OFF)):
+        n = kern.launches
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            KD.deform_conv_cuda(x, off.to(od), wt, mask, bias, 1, dil)
+        assert kern.launches == n
