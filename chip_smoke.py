@@ -6,8 +6,9 @@
 Phases, in order (any failure raises and exits non-zero):
   1. build the CUDA kernels from stmask_torch/kernels/csrc with nvcc (one
      process per source, in parallel) and print ptxas's registers, shared
-     memory and spills of every kernel (K4 and deform_wgrad must not
-     spill);
+     memory and spills of every kernel (K4, among them its two bf16 fast
+     instantiations, the fused conv's fast route and deform_wgrad must
+     not spill);
   2. the frame resize (``resize_u8``) on the card against the machine's cv2
      INTER_LINEAR, bit for bit, at the sizes of RESIZES; K1 (correlation)
      against its plain PyTorch version, main-path and ragged shapes, with
@@ -146,7 +147,11 @@ Phases, in order (any failure raises and exits non-zero):
      kernel on the same inputs, also checked at every site with bf16 and
      fp32 offsets, with and without the mask, random, zero and integer
      offsets, and off the fast path (Cin 48, an unaligned x: the general
-     route); (b) the flagship's
+     route); K4's bf16 entries on their fast route at all 22 sites (the
+     route handed to the entry asserted), beside the general route and
+     the fp32 kernel on the same inputs, off it (Cin 6, an unaligned x:
+     the general route), and the split of both routes (kernels/split.py:
+     builds with a part left out); (b) the flagship's
      training step over phase 6's batches in each mode of
      build_train_step (fp32, remat, bf16, bf16 + remat): launches a step,
      ms/step, peak memory above the first step's start, the bf16 step's
@@ -182,6 +187,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3116,6 +3122,26 @@ def _split_sites(torch, dev) -> list:
     return out
 
 
+def _col2im_split_sites(torch, dev) -> list:
+    """(label, arguments of deform_col2im_cuda) of K4's bf16 split: the 7
+    DCN sites (random offsets clamped to +-2, mask) and FCB's 48x80 3x5
+    site (no mask), bf16 dcols, x and offsets, 2 * TRAIN_CLIPS frames."""
+    bf = torch.bfloat16
+    frames = 2 * TRAIN_CLIPS
+    out = []
+    for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
+        dcols, x, off, mask = _dcn_train_inputs(torch, dev, h, w, cin,
+                                                stride, frames, 'random',
+                                                1700 + i)
+        out.append((site, tuple(t.to(bf) for t in (dcols, x, off, mask))
+                    + (3, 3, stride)))
+    dcols, x, off, _ = _dcn_train_inputs(torch, dev, 48, 80, 256, 1, frames,
+                                         'random', 1710, 3, 5)
+    out.append(('FCB 48x80 3x5', tuple(t.to(bf) for t in (dcols, x, off))
+                + (None, 3, 5, 1)))
+    return out
+
+
 def _split_sum(rows: dict, n: int) -> float:
     """The whole kernel's ms summed over the first ``n`` sites of a split."""
     return sum(r['whole'] for r in list(rows.values())[:n])
@@ -3141,6 +3167,44 @@ def _conv_route(KD, args) -> str:
     finally:
         setattr(KD, name, kern)
     return 'fast' if splits[0] > 0 else 'general'
+
+
+def _col2im_route(K4, args) -> str:
+    """The route on which ``K4.deform_col2im_cuda(*args)`` (bf16 dcols and
+    x) launches the bf16 entry of its offsets' type: read from the route
+    the wrapper hands the entry (1 fast, 0 general; the entry refuses a
+    fast call that the fast route cannot take).  Launches it once."""
+    name = ('KERNEL_BF16' if args[2].dtype == args[1].dtype
+            else 'KERNEL_BF16_F32OFF')
+    kern = getattr(K4, name)
+    routes = []
+
+    def record(*a):
+        routes.append(a[-2])
+        return kern(*a)
+
+    setattr(K4, name, record)
+    try:
+        K4.deform_col2im_cuda(*args)
+    finally:
+        setattr(K4, name, kern)
+    return 'fast' if routes[0] == 1 else 'general'
+
+
+@contextlib.contextmanager
+def _col2im_general(K4):
+    """K4's bf16 calls take the general route (the wrapper's predicate says
+    no), as every call did before the fast route."""
+    fast = K4.col2im_fast
+    K4.col2im_fast = lambda *a: False
+    try:
+        yield
+    finally:
+        K4.col2im_fast = fast
+
+
+_COL2IM_FAST_PATH = ('fast (bf16 rows staged by cp.async in a two-chunk '
+                     'ring, tiles of up to 8 x 8 sites)')
 
 
 def _bf16_conv_time(torch, KD, args, flops: float, iters: int) -> dict:
@@ -3256,7 +3320,11 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
     from stmask_torch.kernels import correlation_bwd as K3
     from stmask_torch.kernels import deform_col2im as K4
     from stmask_torch.kernels import deform_wgrad as KW
+    from stmask_torch.kernels import split as KS
     from stmask_torch.kernels.deform_conv import deform_cols_bf16
+    # K4's split variants build while the entries are checked
+    builds = threading.Thread(target=KS.build_variants, args=(KS.COL2IM,))
+    builds.start()
     bf = torch.bfloat16
     frames = 2 * TRAIN_CLIPS
     acc = {k: {} for k in ('deform_wgrad_bf16', 'deform_col2im_bf16',
@@ -3278,10 +3346,12 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
         torch.cuda.synchronize()
         e_w = _bf16_err(got, again, want)
         del got, again, want
-        got = K4.deform_col2im_cuda(dcols, x, off, mask, kh, kw, stride)
-        again = K4.deform_col2im_cuda(dcols, x, off, mask, kh, kw, stride)
-        want = K4.deform_col2im_reference(dcols, x, off, mask, kh, kw,
-                                          stride)
+        args4 = (dcols, x, off, mask, kh, kw, stride)
+        route4 = _col2im_route(K4, args4)
+        routes.setdefault('col2im' + key, set()).add(route4)
+        got = K4.deform_col2im_cuda(*args4)
+        again = K4.deform_col2im_cuda(*args4)
+        want = K4.deform_col2im_reference(*args4)
         torch.cuda.synchronize()
         assert want[1].dtype == off.dtype
         e_4 = max(_bf16_err(got[0], again[0], want[0], same=False),
@@ -3320,20 +3390,32 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
                                 modulated=mask is not None)
         nb4 = (2 * (dcols.numel() + 2 * x.numel() + 2 * n_mask)
                + 2 * off.element_size() * off.numel())
-        ms4 = _device_ms(lambda: K4.deform_col2im_cuda(
-            dcols, x, off, mask, kh, kw, stride), 20)
-        call4 = _time_ms(lambda: K4.deform_col2im_cuda(
-            dcols, x, off, mask, kh, kw, stride), 20)
-        plain4 = _time_ms(lambda: K4.deform_col2im_reference(
-            dcols, x, off, mask, kh, kw, stride), 2, warmup=1)
+        ms4 = _device_ms(lambda: K4.deform_col2im_cuda(*args4), 20)
+        call4 = _time_ms(lambda: K4.deform_col2im_cuda(*args4), 20)
+        plain4 = _time_ms(lambda: K4.deform_col2im_reference(*args4), 2,
+                          warmup=1)
         b4, by4 = _tally(acc[ck], ms4, call4, plain4, nb4, fl4)
+        # the general route (the design every call took before the fast
+        # route) and the fp32 kernel on the same inputs
+        with _col2im_general(K4):
+            gen4 = _device_ms(lambda: K4.deform_col2im_cuda(*args4), 20)
+        f32in = tuple(None if t is None else t.float()
+                      for t in (dcols, x, off, mask))
+        f32_4 = _device_ms(lambda: K4.deform_col2im_cuda(
+            *f32in, kh, kw, stride), 20)
+        del f32in
+        for k_, v in (('general_ms', gen4), ('fp32_ms', f32_4)):
+            acc[ck][k_] = acc[ck].get(k_, 0.0) + v
+        plan4 = K4.col2im_plan(*off.shape[:3], x.shape[3], kh, kw, stride,
+                               fast=route4 == 'fast')
         print(f'[bf16 bwd] {tag}: deform_wgrad{key} route {route}, '
               f'{ms:.5f} ms (device), call {call:.5f}, plain {plain:.5f}, '
               f'bound {bw:.5f} ({byw}), max|diff| {e_w:.3e} of max|ref|, the '
               f'bf16 GEMM alone {l_ms:.5f}, the fp32 kernel {f32:.5f}; '
-              f'deform_col2im{key} {ms4:.5f} ms, call '
+              f'deform_col2im{key} route {route4}, {ms4:.5f} ms, call '
               f'{call4:.5f}, plain {plain4:.5f}, bound {b4:.5f} ({by4}), '
-              f'max|diff| {e_4:.3e} of max|ref|', flush=True)
+              f'the general route {gen4:.5f}, the fp32 kernel {f32_4:.5f}, '
+              f'max|diff| {e_4:.3e} of max|ref|, plan {plan4}', flush=True)
         return l_ms
 
     def matrix(tag, x, off, mask, kh, kw, stride, cout, seed):
@@ -3376,8 +3458,10 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
         matrix(f'FCB {h}x{w} {kh}x{kw} x {frames} frames', x, off, mask, kh,
                kw, 1, 256, 1580 + i)
         del x, off, mask
-    assert routes.keys() == {'_bf16', '_bf16_fcb', '_bf16_f32off',
-                             'matrix'} and all(
+    # the fast routes of deform_wgrad and K4 at all 22 sites, each entry
+    assert routes.keys() == {'_bf16', '_bf16_fcb', '_bf16_f32off', 'matrix',
+                             'col2im_bf16', 'col2im_bf16_fcb',
+                             'col2im_bf16_f32off'} and all(
         r == {'fast'} for r in routes.values()), routes
     # off the fast path: Cin 48, and an x one element into its buffer
     for tag, (h, w, cin), shift in (('Cin 48', (24, 40, 48), 0),
@@ -3404,6 +3488,46 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
               f'route {route}, bf16 and fp32 offsets, with and without the '
               f'mask: max|diff| {worst:.3e} of max|ref|, each bit-identical '
               'over two launches', flush=True)
+    # K4 off its fast route: Cin 6, and an x one element into its buffer
+    for tag, cin, shift in (('Cin 6', 6, 0),
+                            ('x one element into its buffer', 256, 1)):
+        dcols, x, off, mask = _dcn_train_inputs(torch, dev, 24, 40, cin, 1,
+                                                2, 'random', 1595)
+        xb = torch.empty(x.numel() + shift, device=dev, dtype=bf)[shift:]
+        xb = xb.view(x.shape).copy_(x)
+        worst = 0.0
+        for od in (bf, torch.float32):
+            for m in (mask.to(bf), None):
+                args4 = (dcols.to(bf), xb, off.to(od), m, 3, 3, 1)
+                route = _col2im_route(K4, args4)
+                assert route == 'general', (tag, route)
+                got = K4.deform_col2im_cuda(*args4)
+                again = K4.deform_col2im_cuda(*args4)
+                want = K4.deform_col2im_reference(*args4)
+                torch.cuda.synchronize()
+                worst = max(worst, _bf16_err(got[0], again[0], want[0],
+                                             same=False),
+                            _bf16_err(got[1], again[1], want[1]),
+                            0.0 if m is None else _bf16_err(got[2], again[2],
+                                                            want[2]))
+        err['deform_col2im_bf16'] = max(err['deform_col2im_bf16'], worst)
+        print(f'[bf16 bwd] K4 {tag} ([2, 24, 40, {cin}]): route general, '
+              f'bf16 and fp32 offsets, with and without the mask: max|diff| '
+              f'{worst:.3e} of max|ref|, d_offset and d_mask bit-identical '
+              'over two launches', flush=True)
+    # where K4's bf16 time goes (kernels/split.py: builds with a part left
+    # out) on the general route (the design before the fast route) and on
+    # the fast one
+    builds.join()
+    split_sites = _col2im_split_sites(torch, dev)
+    k4_split = {}
+    for route in ('general', 'fast'):
+        k4_split[route] = KS.split(KS.COL2IM, K4, split_sites,
+                                   K4.deform_col2im_cuda,
+                                   lambda fn: _device_ms(fn, 20), route)
+        KS.print_split(KS.COL2IM, route, k4_split[route], smi,
+                       2 * TRAIN_CLIPS)
+    del split_sites
 
     tshape = (TRAIN_CLIPS, 24, 40, 256)
     gen = torch.Generator(device=dev).manual_seed(1600)
@@ -3436,11 +3560,13 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
               f'{a["call_ms"]:.5f} ms, plain {a["plain_ms"]:.5f} ms, bound '
               f'{a["bound_ms"]:.5f} ms ({_by_of(a)})'
               + (f', the fp32 kernel {a["fp32_ms"]:.5f} ms' if 'fp32_ms' in a
-                 else '') + f' ({smi})', flush=True)
+                 else '')
+              + (f', the general route {a["general_ms"]:.5f} ms'
+                 if 'general_ms' in a else '') + f' ({smi})', flush=True)
     print(f'[bf16 bwd] the bf16 GEMM g^T @ cols alone (cuBLAS), summed: 7 '
           f'sites {lib["sites"]:.5f} ms, FCB 15 sites {lib["fcb"]:.5f} ms '
           f'(device) ({smi})', flush=True)
-    return dict(acc=acc, lib=lib)
+    return dict(acc=acc, lib=lib, k4_split=k4_split)
 
 
 def _train_modes(torch, dev, smi: str, name: str, hosts) -> dict:
@@ -3666,6 +3792,16 @@ def main() -> int:
         elif 'spill' in ln and 'fast_kernel' in entry:
             fast.append(ln)
     assert len(fast) == 4 and all(
+        re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
+        for ln in fast), fast
+    # K4's bf16 fast route: both instantiations (bf16 and fp32 offsets)
+    entry, fast = '', []
+    for ln in build.ptxas_report('deform_col2im'):
+        if 'entry function' in ln:
+            entry = ln
+        elif 'spill' in ln and 'bf16_fast_kernel' in entry:
+            fast.append(ln)
+    assert len(fast) == 2 and all(
         re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
         for ln in fast), fast
 
@@ -4195,17 +4331,18 @@ def main() -> int:
           f'bf16 GEMM over the gathered columns (not the same function) '
           f'{kdb["library_ms"]:.5f} ms; fp32 sibling {kd8["ms"]:.5f} ms '
           f'(bound {kd8["bound_ms"]:.5f} ms) ({smi})', flush=True)
-    # where the bf16 kernel's time goes (kernels/conv_split.py: builds
-    # with a part left out), on the fast route and on the general one, the
-    # design every site took before the fast route
-    from stmask_torch.kernels import conv_split
-    conv_split.build_variants()
+    # where the bf16 kernel's time goes (kernels/split.py: builds with a
+    # part left out), on the fast route and on the general one, the design
+    # every site took before the fast route
+    from stmask_torch.kernels import split as KS
+    KS.build_variants(KS.CONV)
     split_sites = _split_sites(torch, dev)
     kd_split = {}
     for route in ('fast', 'general'):
-        kd_split[route] = conv_split.split(
-            split_sites, lambda fn: _device_ms(fn, 50), route)
-        conv_split.print_split(route, kd_split[route], smi, EVAL_LANES)
+        kd_split[route] = KS.split(KS.CONV, KD, split_sites,
+                                   KD.deform_conv_cuda,
+                                   lambda fn: _device_ms(fn, 50), route)
+        KS.print_split(KS.CONV, route, kd_split[route], smi, EVAL_LANES)
     del split_sites
 
     # ---- 6. the training step ----------------------------------------------
@@ -4714,7 +4851,11 @@ def main() -> int:
         if lib_ms is not None:
             row['library_is'] = ('cuBLAS\'s bf16 GEMM g^T @ cols alone '
                                  '(the columns gathered beforehand)')
-        if 'fp32_ms' in a_:
+        if 'general_ms' in a_:
+            row.update(kernel_path=_COL2IM_FAST_PATH,
+                       general_ms=a_['general_ms'],
+                       fp32_same_inputs_ms=a_['fp32_ms'])
+        elif 'fp32_ms' in a_:
             row.update(kernel_path='fast (bf16 wgmma)',
                        fp32_same_inputs_ms=a_['fp32_ms'])
         fcb_key = key + '_fcb'
@@ -4723,6 +4864,7 @@ def main() -> int:
             row.update(fcb_ada_ms=f_['ms'], fcb_ada_call_ms=f_['call_ms'],
                        fcb_ada_plain_ms=f_['plain_ms'],
                        fcb_ada_bound_ms=f_['bound_ms'],
+                       fcb_ada_general_ms=f_.get('general_ms'),
                        fcb_ada_fp32_same_inputs_ms=f_.get('fp32_ms'),
                        fcb_ada_shape=fcb_sites.replace(
                            'one 384x640 frame', '8 384x640 frames')

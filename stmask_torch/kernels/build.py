@@ -11,7 +11,7 @@ seconds):
 ``<digest>`` hashes the sources and flags, so an edited source is rebuilt
 and a finished build is reused.  A variant built with preprocessor
 definitions (``defines``: the measurement builds of
-``kernels/conv_split.py``) hashes them too and lives beside the
+``kernels/split.py``) hashes them too and lives beside the
 library's own build.  nvcc's output (ptxas's registers, shared
 memory and spills of each kernel) is kept beside the library as
 ``lib<name>_<digest>.log`` and read back by ``ptxas_report``.  The build

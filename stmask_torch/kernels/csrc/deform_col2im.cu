@@ -71,14 +71,28 @@
 // are summed in split order by a second small kernel), so they are
 // bit-identical across launches.
 //
-// The bf16 entries run the same kernel on values converted to fp32 as they
-// are read (dcols and x by plain loads of 4 channels, into the same fp32
-// shared memory; cp.async copies bytes as they are), with every sum in
-// fp32 as above: dx into an fp32 buffer, rounded to bf16 by a third small
-// kernel, and d_offset and d_mask rounded to their types once, when they
-// are written.  The JAX package's VJP gives those types (bf16 dx and
-// d_mask; d_offset in the offsets' type).  A first version, right and
-// simple (ROADMAP B lists its second pass).
+// The bf16 entries (the JAX package's VJP gives their types: bf16 dx and
+// d_mask; d_offset in the offsets' type) keep every sum in fp32: dx into an
+// fp32 buffer that the entry zeroes and then rounds to bf16 (a third small
+// kernel; tiles overlap by their halo, so no block can round its pixels),
+// d_offset and d_mask rounded once, when they are written.  The wrapper
+// names one of two routes (deform_col2im.py: col2im_fast, col2im_plan):
+//   general: the kernel above on values converted to fp32 as they are read
+//            (dcols and x by plain loads of 4 channels into the same fp32
+//            shared memory), for ragged Cin and unaligned pointers;
+//   fast:    Cin a multiple of 8, dcols, x, dx32 and dx 16-byte aligned
+//            (every R50, R101 and FCB training site):
+//            deform_col2im_bf16_fast_kernel below.  The general route's
+//            synchronous loads and its dx pass set its time (a split of it
+//            by builds with parts left out: kernels/split.py, PERF.md); its
+//            fp32 rows also double the shared memory that bounds its tile.
+//            The fast route stages the bf16 rows as they are, by cp.async
+//            in a ring of two chunks that overlaps the next chunk's copies
+//            with both passes, widens them only in registers, and keeps 16
+//            words an item instead of 26, so that two blocks of 512 threads
+//            share an SM at tiles of 30 to 48 sites (4 x 4 in the general
+//            route).  dx's zeroing and rounding stay two launches beside
+//            it, vectorised.
 
 #include <cuda_bf16.h>
 
@@ -88,12 +102,27 @@
 
 #include "common.cuh"
 
+// Measurement builds only (stmask_torch/kernels/split.py; the library's own
+// build leaves it 0): STMASK_COL2IM_DROP leaves parts of the bf16 entries'
+// work out, bit 1 the copies into shared memory, 2 the dot-product pass, 4
+// the dx pass, 8 the dx reductions into device memory (kept behind a test
+// that never holds, so that the sums stay), 16 the zeroing and rounding of
+// dx's fp32 sums.  The fp32 entry ignores it.
+#ifndef STMASK_COL2IM_DROP
+#define STMASK_COL2IM_DROP 0
+#endif
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 template <typename T>
 constexpr bool kF32 = std::is_same<T, float>::value;
+// the parts a measurement build leaves out of the entries of type T
+template <typename T>
+constexpr int kDrop = kF32<T> ? 0 : STMASK_COL2IM_DROP;
+// A value no sum takes: a dropped reduction is kept behind v == NEVER.
+constexpr float NEVER = -1.2345e-38f;
 
 __device__ __forceinline__ float f32(float v) { return v; }
 __device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
@@ -171,6 +200,104 @@ __device__ __forceinline__ int64_t item_site(const Shape& g, int b, int oy0,
   const int oy = oy0 + st / g.tx, ox = ox0 + st % g.tx;
   if (oy >= g.Ho || ox >= g.Wo) return -1;
   return (static_cast<int64_t>(b) * g.Ho + oy) * g.Wo + ox;
+}
+
+// One item's corners (the general kernel computes the same inline), from
+// its site's offset and mask: the footprint row and column (ry, rx) of its
+// corner (fy - 1, fx - 1), m, the hats and
+// their derivatives at the rows fy - 1 .. fy + 1 (hy, dhy) and the columns
+// fx - 1 .. fx + 1 (hx, dhx), the corners with a weight or a derivative
+// (bits 0-8, beside VALID), and the anchor (ay, ax), the corner (fy, fx)
+// clamped into the footprint, with w, m * hy * hx at the four corners
+// anchor + (a, e) that can carry a weight.
+struct ItemCorners {
+  int ry, rx, bits, ay, ax;
+  float m, hy[3], dhy[3], hx[3], dhx[3], w[2][2];
+};
+
+template <typename T, typename TO>
+__device__ __forceinline__ ItemCorners item_corners(
+    const Shape& g, const TO* __restrict__ offset, const T* __restrict__ mask,
+    int64_t site, int k, int it, int oy0, int ox0, int y0, int x0) {
+  ItemCorners c;
+  const int K = g.kh * g.kw;
+  const int pad_h = (g.kh - 1) / 2 * g.dilation;
+  const int pad_w = (g.kw - 1) / 2 * g.dilation;
+  const int st = it - k * g.ty * g.tx;
+  const int oy = oy0 + st / g.tx, ox = ox0 + st % g.tx;
+  const float oyf = f32(offset[site * 2 * K + 2 * k]);
+  const float oxf = f32(offset[site * 2 * K + 2 * k + 1]);
+  const float m = mask != nullptr ? f32(mask[site * K + k]) : 1.f;
+  c.m = m;
+  const int fy = static_cast<int>(floorf(oyf));
+  const int fx = static_cast<int>(floorf(oxf));
+  const int ry = oy * g.stride - pad_h + (k / g.kw) * g.dilation + fy - 1 -
+                 y0;
+  const int rx = ox * g.stride - pad_w + (k % g.kw) * g.dilation + fx - 1 -
+                 x0;
+  c.ry = ry;
+  c.rx = rx;
+  float* hy = c.hy;
+  float* dhy = c.dhy;
+  float* hx = c.hx;
+  float* dhx = c.dhx;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int u = fy - 1 + j;
+    hat(oyf, u, u >= -g.radius && u <= g.radius + 1, &hy[j], &dhy[j]);
+    const int v = fx - 1 + j;
+    hat(oxf, v, v >= -g.radius && v <= g.radius + 1, &hx[j], &dhx[j]);
+  }
+  int bits = VALID;
+#pragma unroll
+  for (int p = 0; p < 9; ++p) {
+    const int j = p / 3, i = p % 3;
+    if (hy[j] * hx[i] != 0.f || dhy[j] * hx[i] != 0.f ||
+        hy[j] * dhx[i] != 0.f)
+      bits |= 1 << p;
+  }
+  // the anchor and the weights of the corners anchor + (a, e); a corner
+  // row or column before the footprint lies outside the window (weight
+  // 0), so the anchor moves onto the next one
+  float(*w)[2] = c.w;
+  w[0][0] = m * (hy[1] * hx[1]);
+  w[0][1] = m * (hy[1] * hx[2]);
+  w[1][0] = m * (hy[2] * hx[1]);
+  w[1][1] = m * (hy[2] * hx[2]);
+  int ay = ry + 1, ax = rx + 1;
+  if (ay < 0) {
+    for (int e = 0; e < 2; ++e) {
+      w[0][e] = ay == -1 ? w[1][e] : 0.f;
+      w[1][e] = 0.f;
+    }
+  }
+  if (ax < 0) {
+    for (int a = 0; a < 2; ++a) {
+      w[a][0] = ax == -1 ? w[a][1] : 0.f;
+      w[a][1] = 0.f;
+    }
+  }
+  c.ay = min(max(ay, 0), g.fh - 1);    // past the end: all weights 0
+  c.ax = min(max(ax, 0), g.fw - 1);
+  c.bits = bits;
+  return c;
+}
+
+// The buckets' starts from their counts (bstart[1 + anchor]): a prefix sum
+// over bstart[0 .. npix] by one warp.
+__device__ __forceinline__ void bucket_starts(int* bstart, int npix) {
+  const int lane = threadIdx.x;
+  int carry = 0;
+  for (int base = 0; base <= npix; base += 32) {
+    int v = base + lane <= npix ? bstart[base + lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (base + lane <= npix) bstart[base + lane] = v + carry;
+    carry += __shfl_sync(0xffffffffu, v, 31);
+  }
 }
 
 // One channel chunk [c0, c0 + CC) into shared memory, rows [r0, r1) of
@@ -266,7 +393,7 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
   }
   for (int i = threadIdx.x; i <= npix; i += THREADS) bstart[i] = 0;
   __syncthreads();
-  if (ch_begin < ch_end)
+  if (!(kDrop<T> & 1) && ch_begin < ch_end)
     load_chunk<VEC, T>(img, dcols, sx, src, npix, g.Cin, ch_begin * CC, 0,
                        npix);
   // Each item's corner weights, once per block: the footprint index of its
@@ -389,7 +516,7 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
   }
   __syncthreads();
   const int n_valid = bstart[npix];
-  if (ch_begin < ch_end)
+  if (!(kDrop<T> & 1) && ch_begin < ch_end)
     load_chunk<VEC, T>(img, dcols, sx, src, npix, g.Cin, ch_begin * CC,
                        npix, npix + n_valid);
 
@@ -408,7 +535,7 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
     if constexpr (VEC == 4) cp_async_wait_all();
     __syncthreads();                 // the chunk, the geometry, the buckets
     // the dot products S, one item per group: d_mask and d_offset's sums
-    for (int pos = group; pos < n_valid; pos += GROUPS) {
+    for (int pos = group; !(kDrop<T> & 2) && pos < n_valid; pos += GROUPS) {
       const float4 g0 = sgeo[pos * GEO], g1 = sgeo[pos * GEO + 1],
                    g2 = sgeo[pos * GEO + 2], g3 = sgeo[pos * GEO + 3];
       const int bits = __float_as_int(g0.y);
@@ -447,14 +574,14 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
       }
     }
     __syncthreads();                 // sx read: the next chunk's x may come
-    if (ch + 1 < ch_end)
+    if (!(kDrop<T> & 1) && ch + 1 < ch_end)
       load_chunk<VEC, T>(img, dcols, sx, src, npix, g.Cin, c0 + CC, 0,
                          npix);
     // dx, one footprint pixel per group: the sum over the items anchored
     // at the pixel and at its left, upper and upper-left neighbours (per
     // row, two adjacent buckets: one contiguous run), then one reduction
     // into device memory
-    for (int pix = group; pix < npix; pix += GROUPS) {
+    for (int pix = group; !(kDrop<T> & 4) && pix < npix; pix += GROUPS) {
       const int py = pix / g.fw, px = pix - py * g.fw;
       const int gy = y0 + py, gx = x0 + px;
       if (gy < 0 || gy >= g.H || gx < 0 || gx >= g.W) continue;
@@ -475,11 +602,12 @@ __global__ void __launch_bounds__(THREADS, 4) deform_col2im_tile_kernel(
         }
       }
       float* dst = dimg + (static_cast<int64_t>(gy) * g.W + gx) * g.Cin + c0;
+      if ((kDrop<T> & 8) && acca.x != NEVER && accb.x != NEVER) continue;
       add_dx<VEC>(dst, ca, g.Cin - c0, acca);
       add_dx<VEC>(dst, cb, g.Cin - c0, accb);
     }
     __syncthreads();                 // sdc read
-    if (ch + 1 < ch_end)
+    if (!(kDrop<T> & 1) && ch + 1 < ch_end)
       load_chunk<VEC, T>(img, dcols, sx, src, npix, g.Cin, c0 + CC, npix,
                          npix + n_valid);
   }
@@ -535,19 +663,360 @@ __global__ void deform_col2im_round_kernel(const float* __restrict__ dx32,
     dx[i] = __float2bfloat16_rn(dx32[i]);
 }
 
-// dxh: the bf16 dx that the fp32 sums in dx are rounded into (bf16 only).
+// ---- The bf16 fast route ------------------------------------------------
+// x over the footprint and the items' dcols rows stay bf16 in shared
+// memory, CC channels a row (64 bytes), copied by cp.async in 16-byte runs
+// (8 channels) into a ring of F_STAGES chunks: chunk c + 1's copies are in
+// flight while chunk c's two passes run, one barrier a chunk.  Values are
+// widened to fp32 in registers only.  The items take slots in bucket order
+// (the sort above), and their dcols rows are staged in that order.  Per
+// slot the block keeps 16 words: the anchor weights for the dx pass, a
+// packed word (the footprint index of the corner (fy - 1, fx - 1) and the
+// corner bits) for the dot pass, the 9 corner sums S_p over the chunks, the
+// item and its row's source; the hats and their derivatives are computed
+// again from the offsets where the sums are weighted, once, at the end.
+// Blocks of 512 threads, two an SM (what hides the passes' latency: one
+// block an SM with larger tiles was slower): the wrapper's plan takes the
+// tile, up to 8 x 8 sites, with the fewest tiles whose shared memory lets
+// two blocks share an SM.  The dx pass takes one footprint pixel a group of
+// 4 lanes (splitting it by anchor row, or by bucket, was slower).
+
+constexpr int F_THREADS = 512;
+constexpr int F_GROUPS = F_THREADS / LANES;
+constexpr int F_STAGES = 2;
+constexpr int F_CORNERS = 9;
+constexpr int F_SHIFT = 12;   // packed word: bits 0-8 the corners, 12-31
+                              // the footprint index of corner (fy-1, fx-1)
+
+// Dynamic shared memory of the fast kernel (deform_col2im.py: fast_smem).
+int64_t fast_smem(int npix, int n_items) {
+  const int64_t rows = static_cast<int64_t>(npix) + n_items;
+  return F_STAGES * rows * CC * 2 +
+         static_cast<int64_t>(n_items) * (16 + 4 * F_CORNERS + 4 + 4) +
+         rows * 4 + (2 * static_cast<int64_t>(npix) + 1) * 4;
+}
+
+// 8 bf16 channels (16 bytes of shared memory) as fp32
+__device__ __forceinline__ void widen8(const bf16* p, float* f) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 4 channels of dx, one reduction into device memory unless all are zero
+__device__ __forceinline__ void red4(float* dst, const float* v) {
+  if (v[0] != 0.f || v[1] != 0.f || v[2] != 0.f || v[3] != 0.f)
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(v[0], v[1], v[2], v[3]));
+}
+
+// Chunk [c0, c0 + CC) of rows [r0, r1) (the footprint's pixels, then the
+// slots) into one ring stage by cp.async, 16 bytes a copy, left in flight;
+// src[row] is the row's first element in x (of this image) or dcols, or -1
+// (zeros); zeros past Cin (a multiple of 8: a run is all in or all out).
+__device__ __forceinline__ void fast_copy(bf16* stage, const bf16* img,
+                                          const bf16* dcols, const int* src,
+                                          int npix, int r0, int r1, int cin,
+                                          int c0) {
+  for (int q = threadIdx.x + r0 * (CC / 8); q < r1 * (CC / 8);
+       q += F_THREADS) {
+    const int row = q / (CC / 8);
+    const int c = c0 + (q % (CC / 8)) * 8;
+    const int off = src[row];
+    const bool in = off >= 0 && c < cin;
+    const bf16* from = in ? (row < npix ? img : dcols) + off + c : img;
+    cp_async16(stage + q * 8, from, in ? 16 : 0);
+  }
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(F_THREADS, 2) deform_col2im_bf16_fast_kernel(
+    const bf16* __restrict__ dcols, const bf16* __restrict__ x,
+    const TO* __restrict__ offset, const bf16* __restrict__ mask,
+    float* __restrict__ dx, TO* __restrict__ doffset,
+    bf16* __restrict__ dmask, float* __restrict__ part, Shape g) {
+  constexpr int DROP = STMASK_COL2IM_DROP;
+  extern __shared__ float4 smem4[];
+  const int K = g.kh * g.kw;
+  const int n_items = g.ty * g.tx * K;
+  const int npix = g.fh * g.fw;
+  const int rows = npix + n_items;
+  // in slot (bucket) order: the items' dcols rows, weights, sums and words
+  bf16* ring = reinterpret_cast<bf16*>(smem4);     // [F_STAGES][rows][CC]
+  float4* sw = reinterpret_cast<float4*>(ring + F_STAGES * rows * CC);
+  float* ssum = reinterpret_cast<float*>(sw + n_items);   // [slot][9]
+  int* spk = reinterpret_cast<int*>(ssum + n_items * F_CORNERS);
+  int* sorted = spk + n_items;                    // the slot's item
+  int* src = sorted + n_items;                    // [rows]
+  int* bstart = src + rows;                       // [npix + 1]
+  int* cursor = bstart + npix + 1;                // [npix]
+  // before the sort, in item order, each item's anchor weights, anchor,
+  // packed word and dcols row wait in ssum
+  float4* tw = reinterpret_cast<float4*>(ssum);
+  int* tanchor = reinterpret_cast<int*>(tw + n_items);
+  int* tpk = tanchor + n_items;
+  int* tsrc = tpk + n_items;
+
+  const int b = blockIdx.y;
+  const int oy0 = (blockIdx.x / g.tiles_x) * g.ty;
+  const int ox0 = (blockIdx.x % g.tiles_x) * g.tx;
+  const int y0 = oy0 * g.stride - (g.kh - 1) / 2 * g.dilation - g.radius;
+  const int x0 = ox0 * g.stride - (g.kw - 1) / 2 * g.dilation - g.radius;
+  const int ch_begin = blockIdx.z * g.chunks_per_split;
+  const int n = min(ch_begin + g.chunks_per_split, g.n_chunks) - ch_begin;
+  const bf16* img = x + static_cast<int64_t>(b) * g.H * g.W * g.Cin;
+  float* dimg = dx + static_cast<int64_t>(b) * g.H * g.W * g.Cin;
+
+  for (int row = threadIdx.x; row < npix; row += F_THREADS) {
+    const int gy = y0 + row / g.fw, gx = x0 + row % g.fw;
+    src[row] = gy >= 0 && gy < g.H && gx >= 0 && gx < g.W
+                   ? (gy * g.W + gx) * g.Cin
+                   : -1;
+  }
+  for (int i = threadIdx.x; i <= npix; i += F_THREADS) bstart[i] = 0;
+  __syncthreads();
+  if (!(DROP & 1) && n > 0)                  // chunk 0's x, in flight
+    fast_copy(ring, img, dcols, src, npix, 0, npix, g.Cin, ch_begin * CC);
+  // each item's packed word, anchor weights and dcols row; items are
+  // counted by their anchor for the buckets
+  for (int it = threadIdx.x; it < n_items; it += F_THREADS) {
+    int k;
+    const int64_t site = item_site(g, b, oy0, ox0, it, &k);
+    int anchor = -1;
+    if (site >= 0) {
+      const ItemCorners c =
+          item_corners(g, offset, mask, site, k, it, oy0, ox0, y0, x0);
+      tpk[it] = (c.ry * g.fw + c.rx) * (1 << F_SHIFT) | (c.bits & 511);
+      tw[it] = make_float4(c.w[0][0], c.w[0][1], c.w[1][0], c.w[1][1]);
+      tsrc[it] = static_cast<int>((site * K + k) * g.Cin);
+      anchor = c.ay * g.fw + c.ax;
+      atomicAdd(bstart + anchor + 1, 1);
+    }
+    tanchor[it] = anchor;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) bucket_starts(bstart, npix);
+  __syncthreads();
+  for (int i = threadIdx.x; i < npix; i += F_THREADS) cursor[i] = bstart[i];
+  __syncthreads();
+  // the sort, stable so that every launch takes the same order (one warp, 32
+  // items at a time; lanes with one anchor rank by lane): each item's slot
+  // receives the item, its weights, its packed word and its dcols row
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    for (int base = 0; base < n_items; base += 32) {
+      const int it = base + lane;
+      const int anchor = it < n_items ? tanchor[it] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, anchor);
+      const int rank = __popc(peers & ((1u << lane) - 1));
+      const int pos = anchor >= 0 ? cursor[anchor] + rank : 0;
+      __syncwarp();
+      if (anchor >= 0 && rank == 0) cursor[anchor] += __popc(peers);
+      __syncwarp();
+      if (anchor < 0) continue;
+      sorted[pos] = it;
+      sw[pos] = tw[it];
+      spk[pos] = tpk[it];
+      src[npix + pos] = tsrc[it];
+    }
+  }
+  __syncthreads();
+  const int n_valid = bstart[npix];
+  const int n_rows = npix + n_valid;
+  if (!(DROP & 1) && n > 0)                  // chunk 0's dcols, in flight
+    fast_copy(ring, img, dcols, src, npix, npix, n_rows, g.Cin,
+              ch_begin * CC);
+  for (int i = threadIdx.x; i < n_valid * F_CORNERS; i += F_THREADS)
+    ssum[i] = 0.f;
+
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (LANES - 1);           // lane within the group
+  const int group = threadIdx.x / LANES;
+  const unsigned gmask = ((1u << LANES) - 1) << (lane & ~(LANES - 1));
+  const float inv_fw = 1.f / g.fw;  // pixel / fw, exact for these sizes
+  for (int i = 0; i < n; ++i) {
+    const int c0 = (ch_begin + i) * CC;
+    const bf16* sx = ring + (i % F_STAGES) * rows * CC;
+    const bf16* sdc = sx + npix * CC;
+    cp_async_wait_all();
+    __syncthreads();                 // chunk i landed; chunk i - 1 read
+    if (!(DROP & 1) && i + 1 < n)
+      fast_copy(ring + ((i + 1) % F_STAGES) * rows * CC, img, dcols, src,
+                npix, 0, n_rows, g.Cin, c0 + CC);
+    // the dot products S_p, one slot per group, two corners at a time: the
+    // lane's 8 channels in two chains, the lanes' parts summed by a fixed
+    // butterfly, added to the slot's sums in chunk order
+    for (int s = group; !(DROP & 2) && s < n_valid; s += F_GROUPS) {
+      const int pk = spk[s];
+      float d[8];
+      widen8(sdc + s * CC + l * 8, d);
+      const int q0 = pk >> F_SHIFT;
+      for (int bits = pk & 511; bits != 0;) {
+        int p[2];
+        float sp[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {    // the next two corners (or one)
+          p[h] = bits != 0 ? __ffs(bits) - 1 : -1;
+          bits &= bits - 1;
+          const int c = p[h] < 0 ? p[0] : p[h];  // none left: read p[0]'s
+          float v[8];
+          widen8(sx + (q0 + (c / 3) * g.fw + c % 3) * CC + l * 8, v);
+          float sa = d[0] * v[0], sb = d[4] * v[4];
+#pragma unroll
+          for (int j = 1; j < 4; ++j) {
+            sa = fmaf(d[j], v[j], sa);
+            sb = fmaf(d[4 + j], v[4 + j], sb);
+          }
+          sp[h] = sa + sb;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sp[h] += __shfl_xor_sync(gmask, sp[h], 1, LANES);
+          sp[h] += __shfl_xor_sync(gmask, sp[h], 2, LANES);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (l == 0 && p[h] >= 0) ssum[s * F_CORNERS + p[h]] += sp[h];
+      }
+    }
+    // dx, one footprint pixel a group: the sum over the slots anchored at
+    // the pixel and at its left, upper and upper-left neighbours (per row,
+    // two adjacent buckets: one contiguous run), two slots at a time, then
+    // one reduction into device memory for each 4 channels
+    for (int pix = group; !(DROP & 4) && pix < npix; pix += F_GROUPS) {
+      const int py = __float2int_rz((pix + 0.5f) * inv_fw);
+      const int px = pix - py * g.fw;
+      const int gy = y0 + py, gx = x0 + px;
+      if (gy < 0 || gy >= g.H || gx < 0 || gx >= g.W) continue;
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {      // the anchor's row: pixel - a rows
+        if (py < a) continue;
+        const int own = pix - a * g.fw;
+        const int mid = bstart[own];
+        const int lo = px > 0 ? bstart[own - 1] : mid;
+        const int hi = bstart[own + 1];
+        for (int s = lo; s < hi; s += 2) {
+          float w[2], v[2][8];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // before mid: the left neighbour's
+            const int t = min(s + h, hi - 1);
+            const float4 w4 = sw[t];
+            w[h] = s + h >= hi ? 0.f
+                   : t < mid   ? (a ? w4.w : w4.y)
+                               : (a ? w4.z : w4.x);
+            widen8(sdc + t * CC + l * 8, v[h]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[j] = fmaf(w[h], v[h][j], acc[j]);
+        }
+      }
+      if (c0 + l * 8 >= g.Cin) continue;
+      if ((DROP & 8) && acc[0] != NEVER) continue;
+      float* dst = dimg + (static_cast<int64_t>(gy) * g.W + gx) * g.Cin + c0 +
+                   l * 8;
+      red4(dst, acc);
+      red4(dst + 4, acc + 4);
+    }
+  }
+  __syncthreads();
+
+  // the sums weighted by the hats and their derivatives, computed again
+  // from the offsets, in corner order; under a channel split, partials
+  for (int s = threadIdx.x; s < n_valid; s += F_THREADS) {
+    const int pk = spk[s];
+    int k;
+    const int64_t item =
+        item_site(g, b, oy0, ox0, sorted[s], &k) * K + k;
+    const float oyf = f32(offset[2 * item]);
+    const float oxf = f32(offset[2 * item + 1]);
+    const int fy = static_cast<int>(floorf(oyf));
+    const int fx = static_cast<int>(floorf(oxf));
+    float hy[3], dhy[3], hx[3], dhx[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int u = fy - 1 + j;
+      hat(oyf, u, u >= -g.radius && u <= g.radius + 1, &hy[j], &dhy[j]);
+      const int v = fx - 1 + j;
+      hat(oxf, v, v >= -g.radius && v <= g.radius + 1, &hx[j], &dhx[j]);
+    }
+    float s_m = 0.f, s_y = 0.f, s_x = 0.f;
+#pragma unroll
+    for (int p = 0; p < F_CORNERS; ++p) {
+      if (!(pk & (1 << p))) continue;
+      const int j = p / 3, i = p % 3;
+      const float sp = ssum[s * F_CORNERS + p];
+      s_m += hy[j] * hx[i] * sp;
+      s_y += dhy[j] * hx[i] * sp;
+      s_x += hy[j] * dhx[i] * sp;
+    }
+    if (part != nullptr) {                    // channel split: partials
+      float* dst = part + (static_cast<int64_t>(blockIdx.z) * gridDim.y *
+                               g.Ho * g.Wo * K + item) * 3;
+      dst[0] = s_m;
+      dst[1] = s_y;
+      dst[2] = s_x;
+    } else {
+      const float m = mask != nullptr ? f32(mask[item]) : 1.f;
+      if (dmask != nullptr) st(dmask + item, s_m);
+      st(doffset + 2 * item, m * s_y);
+      st(doffset + 2 * item + 1, m * s_x);
+    }
+  }
+}
+
+// dx's fp32 sums rounded to bf16, 8 a thread (the fast route: n a multiple
+// of 8, both 16-byte aligned)
+__global__ void deform_col2im_round8_kernel(const float4* __restrict__ dx32,
+                                            uint4* __restrict__ dx,
+                                            int64_t n8) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n8; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float4 a = dx32[2 * i], b = dx32[2 * i + 1];
+    const __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y),
+                                 __floats2bfloat162_rn(a.z, a.w),
+                                 __floats2bfloat162_rn(b.x, b.y),
+                                 __floats2bfloat162_rn(b.z, b.w)};
+    dx[i] = *reinterpret_cast<const uint4*>(h);
+  }
+}
+
+// dxh: the bf16 dx that the fp32 sums in dx are rounded into (bf16 only);
+// fast: the bf16 fast route (bf16 only).
 template <int VEC, typename T, typename TO>
 cudaError_t launch(const T* dcols, const T* x, const TO* offset,
                    const T* mask, float* dx, bf16* dxh, TO* doffset,
                    T* dmask, float* part, int B, const Shape& g, int n_split,
-                   int smem, cudaStream_t stream) {
+                   int smem, bool fast, cudaStream_t stream) {
   auto* kern = deform_col2im_tile_kernel<VEC, T, TO>;
+  int threads = THREADS;
+  if constexpr (!kF32<T>) {
+    if (fast) {
+      kern = deform_col2im_bf16_fast_kernel<TO>;
+      threads = F_THREADS;
+    }
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
+  [[maybe_unused]] const int64_t n_dx =
+      static_cast<int64_t>(B) * g.H * g.W * g.Cin;
+  if constexpr (!kF32<T>) {                  // dx32 zeroed, rounded after
+    if (!(kDrop<T> & 16)) {
+      e = cudaMemsetAsync(dx, 0, n_dx * sizeof(float), stream);
+      if (e != cudaSuccess) return e;
+    }
+  }
   const int tiles_y = (g.Ho + g.ty - 1) / g.ty;
   const dim3 grid(tiles_y * g.tiles_x, B, n_split);
-  kern<<<grid, THREADS, smem, stream>>>(dcols, x, offset, mask, dx, doffset,
+  kern<<<grid, threads, smem, stream>>>(dcols, x, offset, mask, dx, doffset,
                                         dmask, part, g);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -561,31 +1030,63 @@ cudaError_t launch(const T* dcols, const T* x, const TO* offset,
     if (e != cudaSuccess) return e;
   }
   if constexpr (!kF32<T>) {
-    const int64_t n = static_cast<int64_t>(B) * g.H * g.W * g.Cin;
-    deform_col2im_round_kernel<<<static_cast<unsigned>(
-                                     std::min<int64_t>((n + 255) / 256, 4096)),
-                                 256, 0, stream>>>(dx, dxh, n);
-    e = cudaGetLastError();
+    if (!(kDrop<T> & 16) && fast) {
+      const int64_t n8 = n_dx / 8;
+      deform_col2im_round8_kernel<<<static_cast<unsigned>(std::min<int64_t>(
+                                        (n8 + 255) / 256, 4096)),
+                                    256, 0, stream>>>(
+          reinterpret_cast<const float4*>(dx), reinterpret_cast<uint4*>(dxh),
+          n8);
+      e = cudaGetLastError();
+    } else if (!(kDrop<T> & 16)) {
+      deform_col2im_round_kernel<<<static_cast<unsigned>(std::min<int64_t>(
+                                       (n_dx + 255) / 256, 4096)),
+                                   256, 0, stream>>>(dx, dxh, n_dx);
+      e = cudaGetLastError();
+    }
   }
   return e;
 }
 
+// Whether the bf16 fast route can take a call (deform_col2im.py:
+// col2im_fast): Cin a multiple of 8, dcols, x, dx32 and dx 16-byte aligned,
+// x and dcols indexed by 32-bit offsets.
+bool fast_fits(const void* dcols, const void* x, const void* dx32,
+               const void* dx, int B, int H, int W, int Cin, int Ho, int Wo,
+               int K) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return Cin % 8 == 0 && aligned(dcols) && aligned(x) && aligned(dx32) &&
+         aligned(dx) &&
+         static_cast<int64_t>(B) * H * W * Cin < (int64_t{1} << 31) &&
+         static_cast<int64_t>(B) * Ho * Wo * K * Cin < (int64_t{1} << 31);
+}
+
 // Check the arguments and the plan (see the entries below) and launch.
+// route: 0 the general kernel, 1 the bf16 fast route (refused where
+// fast_fits does not hold).
 template <typename T, typename TO>
 int run(const T* dcols, const T* x, const TO* offset, const T* mask,
         float* dx, bf16* dxh, TO* doffset, T* dmask, float* part, int B,
         int H, int W, int Cin, int Ho, int Wo, int kh, int kw, int stride,
         int dilation, int radius, int ty, int tx, int fh, int fw,
-        int n_split, int smem, void* stream) {
+        int n_split, int smem, int route, void* stream) {
+  const bool fast = route == 1;
   if (B < 0 || H <= 0 || W <= 0 || Cin <= 0 || Ho < 0 || Wo < 0 || kh <= 0 ||
       kw <= 0 || stride <= 0 || dilation <= 0 || radius <= 0 || ty <= 0 ||
       tx <= 0 || n_split <= 0 || (mask == nullptr) != (dmask == nullptr) ||
-      (n_split > 1) != (part != nullptr) ||
+      (n_split > 1) != (part != nullptr) || route < 0 || route > 1 ||
       fh < (ty - 1) * stride + (kh - 1) * dilation + 2 * radius + 2 ||
-      fw < (tx - 1) * stride + (kw - 1) * dilation + 2 * radius + 2 ||
-      smem < ((fh * fw + ty * tx * kh * kw) * (CC + 2) +
-              ty * tx * kh * kw * (4 * GEO + 4 + 3 + 1) + 2 * fh * fw + 2) *
-                 static_cast<int>(sizeof(float)))
+      fw < (tx - 1) * stride + (kw - 1) * dilation + 2 * radius + 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fast ? kF32<T> || !fast_fits(dcols, x, dx, dxh, B, H, W, Cin, Ho, Wo,
+                                   kh * kw) ||
+                 smem < fast_smem(fh * fw, ty * tx * kh * kw)
+           : smem < ((fh * fw + ty * tx * kh * kw) * (CC + 2) +
+                     ty * tx * kh * kw * (4 * GEO + 4 + 3 + 1) +
+                     2 * fh * fw + 2) *
+                        static_cast<int>(sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Ho == 0 || Wo == 0) return static_cast<int>(cudaSuccess);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -600,9 +1101,9 @@ int run(const T* dcols, const T* x, const TO* offset, const T* mask,
                        reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   const cudaError_t e =
       aligned ? launch<4>(dcols, x, offset, mask, dx, dxh, doffset, dmask,
-                          part, B, g, n_split, smem, s)
+                          part, B, g, n_split, smem, fast, s)
               : launch<1>(dcols, x, offset, mask, dx, dxh, doffset, dmask,
-                          part, B, g, n_split, smem, s);
+                          part, B, g, n_split, smem, false, s);
   return static_cast<int>(e);
 }
 
@@ -627,23 +1128,25 @@ extern "C" int stmask_deform_col2im(const float* dcols, const float* x,
                                     int n_split, int smem, void* stream) {
   return run<float, float>(dcols, x, offset, mask, dx, nullptr, doffset,
                            dmask, part, B, H, W, Cin, Ho, Wo, kh, kw, stride,
-                           dilation, radius, ty, tx, fh, fw, n_split, smem,
+                           dilation, radius, ty, tx, fh, fw, n_split, smem, 0,
                            stream);
 }
 
 // As stmask_deform_col2im with dcols, x, mask, offset, dx, d_offset and
-// d_mask bf16; dx32: [B, H, W, Cin] fp32, zeroed by the caller, where dx
-// sums before it is rounded into dx.
+// d_mask bf16; dx32: [B, H, W, Cin] fp32 scratch, zeroed here, where dx
+// sums before it is rounded into dx.  route: the wrapper's (col2im_fast),
+// 1 the fast route and its plan, 0 the general kernel; a fast route that
+// fast_fits refuses returns cudaErrorInvalidValue and launches nothing.
 extern "C" int stmask_deform_col2im_bf16(
     const __nv_bfloat16* dcols, const __nv_bfloat16* x,
     const __nv_bfloat16* offset, const __nv_bfloat16* mask, float* dx32,
     __nv_bfloat16* dx, __nv_bfloat16* doffset, __nv_bfloat16* dmask,
     float* part, int B, int H, int W, int Cin, int Ho, int Wo, int kh,
     int kw, int stride, int dilation, int radius, int ty, int tx, int fh,
-    int fw, int n_split, int smem, void* stream) {
+    int fw, int n_split, int smem, int route, void* stream) {
   return run(dcols, x, offset, mask, dx32, dx, doffset, dmask, part, B, H, W,
              Cin, Ho, Wo, kh, kw, stride, dilation, radius, ty, tx, fh, fw,
-             n_split, smem, stream);
+             n_split, smem, route, stream);
 }
 
 // As stmask_deform_col2im_bf16 with fp32 offsets and d_offset (FCB's
@@ -654,8 +1157,8 @@ extern "C" int stmask_deform_col2im_bf16_f32off(
     float* doffset, __nv_bfloat16* dmask, float* part, int B, int H, int W,
     int Cin, int Ho, int Wo, int kh, int kw, int stride, int dilation,
     int radius, int ty, int tx, int fh, int fw, int n_split, int smem,
-    void* stream) {
+    int route, void* stream) {
   return run(dcols, x, offset, mask, dx32, dx, doffset, dmask, part, B, H, W,
              Cin, Ho, Wo, kh, kw, stride, dilation, radius, ty, tx, fh, fw,
-             n_split, smem, stream);
+             n_split, smem, route, stream);
 }

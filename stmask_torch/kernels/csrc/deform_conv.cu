@@ -78,7 +78,7 @@
 // R101 and FCB.  Its bound on an H100 is the same (the bf16 product at 989
 // TFLOP/s, the gather's fp32 flops), but the gather sets its time: a
 // build without the gather takes under half the whole kernel's time
-// (kernels/conv_split.py; PERF.md).  Each sample asks L2 for 4 corner
+// (kernels/split.py; PERF.md).  Each sample asks L2 for 4 corner
 // runs (8 bytes a (site, column), once per tile column) and each tile row
 // for the weight's rows: at the measured times that is 5-6 TB/s asked of
 // L2, so L2's bandwidth may be what limits the gather; no counter of L2
@@ -109,7 +109,7 @@
 #include "deform_gather.cuh"
 #include "wgmma.cuh"
 
-// Measurement builds only (stmask_torch/kernels/conv_split.py; the
+// Measurement builds only (stmask_torch/kernels/split.py; the
 // library's own build leaves it 0): STMASK_DCONV_DROP leaves parts of the
 // bf16 kernels out, bit 1 the products, 2 the gather (A zero), 4 the output
 // stores (kept behind a test that never holds, so that the products stay),

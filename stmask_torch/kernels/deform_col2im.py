@@ -23,12 +23,22 @@ integer offset the two differ (``csrc/deform_col2im.cu`` has the formulas).
 The bf16 entries (bf16 ``dcols``, ``x`` and mask; the offsets bf16, or fp32
 beside bf16 data) compute in fp32 from the values as read and round each
 gradient to its input's type, as the JAX package's VJP types them: dx and
-d_mask bf16, d_offset bf16 or fp32.  dx sums in an fp32 buffer first.
+d_mask bf16, d_offset bf16 or fp32.  dx sums in an fp32 buffer first,
+which the entry zeroes and rounds into dx.  They have two routes.  The
+fast route (``col2im_fast``: Cin a multiple of 8, ``dcols``, ``x``, dx and
+its fp32 buffer 16-byte aligned; every DCN site of R50, R101 and FCB) keeps
+the bf16 rows in shared memory, copied by ``cp.async`` into a ring of two
+chunks, and takes tiles of up to 8 x 8 sites (``col2im_plan(...,
+fast=True)``).  Every other bf16 call takes the general route, the fp32
+kernel's design on bf16.  The wrapper alone chooses the route and hands it
+to the bf16 entry, which launches it, or refuses a fast call that the
+fast route cannot take.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -40,12 +50,12 @@ from .deform_conv import check_types
 _INTS = [ctypes.c_int] * 17 + [ctypes.c_void_p]
 KERNEL = CudaKernel('deform_col2im', 'stmask_deform_col2im',
                     [ctypes.c_void_p] * 8 + _INTS)
-# the bf16 entries take one more pointer: dx's fp32 sums
-KERNEL_BF16 = CudaKernel('deform_col2im', 'stmask_deform_col2im_bf16',
-                         [ctypes.c_void_p] * 9 + _INTS)
+# the bf16 entries take one more pointer, dx's fp32 sums, and the route (1
+# the fast route, 0 the general one) before the stream
+_BF16 = [ctypes.c_void_p] * 9 + _INTS[:-1] + [ctypes.c_int, ctypes.c_void_p]
+KERNEL_BF16 = CudaKernel('deform_col2im', 'stmask_deform_col2im_bf16', _BF16)
 KERNEL_BF16_F32OFF = CudaKernel('deform_col2im',
-                                'stmask_deform_col2im_bf16_f32off',
-                                [ctypes.c_void_p] * 9 + _INTS)
+                                'stmask_deform_col2im_bf16_f32off', _BF16)
 
 CHUNK = 32                    # channels a block stages at a time (csrc CC)
 SMEM_LIMIT = 232448           # shared memory one block may take on sm_90
@@ -53,13 +63,23 @@ SMEM_TARGET = 65536           # at most this much lets 3 blocks share an SM
 BLOCKS = 4 * 132              # 4 blocks on each of the H100's 132 SMs
 TILES = ((8, 16), (8, 8), (4, 8), (4, 4), (2, 8), (2, 4), (2, 2), (1, 2),
          (1, 1))
+# The bf16 fast route (csrc F_*): tiles of at most FAST_TILE x FAST_TILE
+# sites, FAST_STAGES chunks in the ring, blocks of 512 threads, two an SM
+# where their shared memory allows (the SM's SMEM_SM bytes, 1024 of them
+# reserved a block).  A block's set-up (the items' geometry and their sort)
+# takes about FAST_SETUP chunks' time: the channel split weighs it.
+FAST_TILE, FAST_STAGES, FAST_SETUP = 8, 2, 1
+SMS, SMEM_SM = 132, 233472
+FAST_SMEM = SMEM_SM // 2 - 1024
 
 
 @dataclass(frozen=True)
 class Col2imPlan:
     """How K4 cuts one call: tiles of ``ty`` x ``tx`` output sites, each
     with a footprint of ``fh`` x ``fw`` input pixels; ``n_split`` blocks
-    share a tile's channel chunks; ``smem`` bytes of shared memory."""
+    share a tile's channel chunks; ``smem`` bytes of shared memory;
+    ``route`` 'general' or (bf16) 'fast', with ``stages`` chunks in its
+    ring."""
     ty: int
     tx: int
     fh: int
@@ -67,6 +87,8 @@ class Col2imPlan:
     n_split: int
     smem: int
     blocks: int
+    route: str = 'general'
+    stages: int = 1
 
 
 def footprint(ty: int, tx: int, kh: int, kw: int, stride: int,
@@ -85,13 +107,78 @@ def footprint_origin(oy0: int, ox0: int, kh: int, kw: int, stride: int,
             ox0 * stride - (kw - 1) // 2 * dilation - radius)
 
 
+def fast_smem(npix: int, items: int) -> int:
+    """Shared memory of a fast-route block (csrc ``fast_smem``): the ring of
+    bf16 rows (the footprint's pixels and the items, CHUNK channels each),
+    per item its anchor weights, 9 corner sums, packed word and bucket
+    slot, per row its source, per pixel a bucket's start and cursor."""
+    rows = npix + items
+    return (FAST_STAGES * rows * CHUNK * 2 + items * (16 + 4 * 9 + 4 + 4)
+            + rows * 4 + (2 * npix + 1) * 4)
+
+
+def col2im_fast(cin: int, x_numel: int, dcols_numel: int,
+                *ptrs: int) -> bool:
+    """Whether a bf16 call takes the fast route: Cin a multiple of 8, every
+    pointer in ``ptrs`` (dcols, x, dx's fp32 sums and dx; byte addresses)
+    16-byte aligned, and x and dcols indexed by 32-bit offsets."""
+    return (cin % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+            and x_numel < 2 ** 31 and dcols_numel < 2 ** 31)
+
+
+@functools.lru_cache(maxsize=256)
+def _fast_plan(b, ho, wo, cin, kh, kw, stride, dilation,
+               radius) -> Col2imPlan:
+    """The tile of at most FAST_TILE x FAST_TILE sites that cuts the map
+    into the fewest tiles while two blocks share an SM (else 1 x 1), the
+    smaller on a tie, evened out over the map (each as small as its count
+    of tiles allows); then the channel split with the fewest waves of
+    blocks times chunks a block (and its set-up), the smaller on a tie."""
+    def even(t, n):
+        return -(-n // -(-n // t)) if n else 1
+
+    def smem(ty, tx):
+        fh, fw = footprint(ty, tx, kh, kw, stride, dilation, radius)
+        return fast_smem(fh * fw, ty * tx * kh * kw)
+
+    def tiles_of(t):
+        return -(-max(ho, 1) // t[0]) * -(-max(wo, 1) // t[1])
+
+    fits = [(even(ty, ho), even(tx, wo))
+            for ty in range(1, FAST_TILE + 1) for tx in range(1, FAST_TILE + 1)
+            if smem(even(ty, ho), even(tx, wo)) <= FAST_SMEM]
+    ty, tx = min(fits or [(1, 1)], key=lambda t: (tiles_of(t), smem(*t)))
+    fh, fw = footprint(ty, tx, kh, kw, stride, dilation, radius)
+    if smem(ty, tx) > SMEM_LIMIT:
+        raise ValueError(
+            f'deform_col2im_cuda: a {fh}x{fw} footprint ({kh}x{kw} taps, '
+            f'dilation {dilation}, radius {radius}) needs {smem(ty, tx)} B '
+            f'of shared memory, over the {SMEM_LIMIT} B a block may take')
+    tiles = b * -(-ho // ty) * -(-wo // tx)
+    chunks = -(-cin // CHUNK)
+    per_sm = min(2, SMEM_SM // (smem(ty, tx) + 1024))
+
+    def cost(s):
+        return (-(-tiles * s // (SMS * per_sm))
+                * (-(-chunks // s) + FAST_SETUP))
+
+    n_split = min(range(1, chunks + 1), key=lambda s: (cost(s), s))
+    n_split = -(-chunks // -(-chunks // n_split))   # no split without a chunk
+    return Col2imPlan(ty, tx, fh, fw, n_split, smem(ty, tx), tiles * n_split,
+                      'fast', FAST_STAGES)
+
+
 def col2im_plan(b: int, ho: int, wo: int, cin: int, kh: int, kw: int,
-                stride: int = 1, dilation: int = 1,
-                radius: int = 2) -> Col2imPlan:
-    """The largest tile of ``TILES`` whose shared memory lets 3 or 4
-    blocks share an SM (else 1x1), then a channel split into as few parts
-    as give ``BLOCKS`` blocks, or one per chunk.  Raises if the tile's
+                stride: int = 1, dilation: int = 1, radius: int = 2,
+                fast: bool = False) -> Col2imPlan:
+    """The general route's plan: the largest tile of ``TILES`` whose shared
+    memory lets 3 or 4 blocks share an SM (else 1x1), then a channel split
+    into as few parts as give ``BLOCKS`` blocks, or one per chunk.  With
+    ``fast``, the bf16 fast route's (``_fast_plan``).  Raises if the tile's
     footprint does not fit a block's shared memory."""
+    if fast:
+        return _fast_plan(b, ho, wo, cin, kh, kw, stride, dilation, radius)
+
     def smem(ty, tx):     # a chunk of x over the footprint and of dcols,
         # and each row's source (8 bytes); per (site, tap) 20 words of corner
         # weights, 3 sums and a bucket slot; per footprint pixel a bucket's
@@ -227,7 +314,14 @@ def deform_col2im_cuda(dcols: torch.Tensor, x: torch.Tensor,
                          f'not {(b, ho, wo, k)}')
     if radius < 1:
         raise ValueError(f'deform_col2im_cuda: radius {radius} < 1')
-    plan = col2im_plan(b, ho, wo, cin, kh, kw, stride, dilation, radius)
+    dx = torch.zeros_like(x) if dt == torch.float32 else torch.empty_like(x)
+    dx32 = (None if dt == torch.float32 else
+            torch.empty(x.shape, dtype=torch.float32, device=x.device))
+    fast = dx32 is not None and col2im_fast(
+        cin, x.numel(), dcols.numel(), dcols.data_ptr(), x.data_ptr(),
+        dx32.data_ptr(), dx.data_ptr())
+    plan = col2im_plan(b, ho, wo, cin, kh, kw, stride, dilation, radius,
+                       fast)
     d_offset = torch.empty_like(offset)
     d_mask = None if mask is None else torch.empty_like(mask)
     part = (torch.empty(plan.n_split, b * ho * wo * k, 3, device=x.device)
@@ -238,16 +332,14 @@ def deform_col2im_cuda(dcols: torch.Tensor, x: torch.Tensor,
             None if d_mask is None else d_mask.data_ptr(),
             None if part is None else part.data_ptr(),
             b, h, w, cin, ho, wo, kh, kw, stride, dilation, radius, plan.ty,
-            plan.tx, plan.fh, plan.fw, plan.n_split, plan.smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            plan.tx, plan.fh, plan.fw, plan.n_split, plan.smem)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     if dt == torch.float32:
-        dx = torch.zeros_like(x)
-        KERNEL(*ptrs, dx.data_ptr(), *outs)
+        KERNEL(*ptrs, dx.data_ptr(), *outs, stream)
     else:
-        dx32 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        dx = torch.empty_like(x)
         kernel = KERNEL_BF16 if offset.dtype == dt else KERNEL_BF16_F32OFF
-        kernel(*ptrs, dx32.data_ptr(), dx.data_ptr(), *outs)
+        kernel(*ptrs, dx32.data_ptr(), dx.data_ptr(), *outs, int(fast),
+               stream)
     return dx, d_offset, d_mask
 
 

@@ -1,0 +1,122 @@
+"""Where a kernel's time goes, on the card: builds with parts left out.
+
+A kernel source that takes part in a split reads a preprocessor macro
+whose bits leave parts of its bf16 work out (measurement builds only: the
+library's own build leaves it 0).  ``build_variants`` builds one library
+per part at once (one nvcc each); ``split`` times the wrapper at the sites
+it is given while each variant stands in for the wrapper's entry, beside
+the library's own build ('whole').  A part's share is the time the whole
+build takes beyond the build without it; the parts overlap, so the shares
+need not add up to the whole.
+
+Two kernels take part:
+
+- ``CONV``: the bf16 fused deformable conv (``csrc/deform_conv.cu``,
+  ``STMASK_DCONV_DROP``): bit 1 the products, 2 the gather, 4 the output
+  stores, 8 the cluster's reduction.
+- ``COL2IM``: K4's bf16 entries (``csrc/deform_col2im.cu``,
+  ``STMASK_COL2IM_DROP``): bit 1 the copies into shared memory, 2 the
+  dot-product pass (d_offset and d_mask), 4 the dx pass, 8 the dx
+  reductions into device memory, 16 the zeroing and rounding of dx's fp32
+  sums.
+
+Each kernel has a fast route and a general one (the design every call took
+before the fast route); the wrapper's route predicate decides, and
+``split`` measures the general route by having the predicate say no.
+``chip_smoke.py`` prints both splits of both kernels once a run, 8 frames
+at the flagship's 7 DCN sites and at FCB's 48x80 3x5 site:
+
+    build_variants(COL2IM)
+    rows = split(COL2IM, K4, sites, call, time_ms, 'fast')
+    print_split(COL2IM, 'fast', rows, smi, frames=8)
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Callable, Sequence, Tuple
+
+from .build import CudaKernel, build
+
+
+@dataclass(frozen=True)
+class Parts:
+    """A kernel's split: the library, its drop macro, the parts ((bit,
+    label), ...), the wrapper's bf16 entry that a variant stands in for
+    and the wrapper's route predicate."""
+    library: str
+    macro: str
+    parts: Tuple[Tuple[int, str], ...]
+    entry: str
+    predicate: str
+
+
+CONV = Parts('deform_conv', 'STMASK_DCONV_DROP',
+             ((1, 'no products'), (2, 'no gather'), (4, 'no output stores'),
+              (8, 'no cluster reduction')),
+             'KERNEL_BF16', 'conv_fast')
+COL2IM = Parts('deform_col2im', 'STMASK_COL2IM_DROP',
+               ((1, 'no copies'), (2, 'no dot products'), (4, 'no dx pass'),
+                (8, 'no dx reductions'), (16, 'no dx zeroing and rounding')),
+               'KERNEL_BF16', 'col2im_fast')
+
+
+def _defines(spec: Parts, bits: int) -> tuple:
+    return (f'{spec.macro}={bits}',) if bits else ()
+
+
+def labels(spec: Parts) -> list:
+    return ['whole'] + [label for _, label in spec.parts]
+
+
+def build_variants(spec: Parts) -> float:
+    """Build the library and every variant of ``spec`` at once (one nvcc
+    each); returns the wall seconds."""
+    import time
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(spec.parts) + 1) as pool:
+        list(pool.map(lambda b: build([spec.library], _defines(spec, b)),
+                      [0] + [bits for bits, _ in spec.parts]))
+    return time.perf_counter() - t0
+
+
+def split(spec: Parts, module, sites: Sequence, call: Callable,
+          time_ms: Callable, route: str) -> dict:
+    """{site: {label: device ms}} of the library and each variant of
+    ``spec`` on ``route`` ('fast' or 'general').  ``sites`` holds (label,
+    arguments of ``call``), which calls the wrapper in ``module`` whose
+    entry ``spec.entry`` the variants stand in for (on the general route
+    with ``spec.predicate`` saying no); ``time_ms(fn)`` gives the device
+    ms of one call of ``fn``."""
+    own = getattr(module, spec.entry)
+    fast = getattr(module, spec.predicate)
+    kernels = {label: CudaKernel(spec.library, own.symbol, own.argtypes,
+                                 _defines(spec, bits))
+               for bits, label in ((0, 'whole'),) + spec.parts}
+    rows = {}
+    try:
+        if route == 'general':
+            setattr(module, spec.predicate, lambda *a: False)
+        for site, args in sites:
+            rows[site] = {}
+            for label, kern in kernels.items():
+                setattr(module, spec.entry, kern)
+                rows[site][label] = time_ms(lambda: call(*args))
+    finally:
+        setattr(module, spec.entry, own)
+        setattr(module, spec.predicate, fast)
+    return rows
+
+
+def print_split(spec: Parts, route: str, rows: dict, smi: str,
+                frames: int) -> None:
+    """One ``[split]`` line a site and one for their sum."""
+    names = labels(spec)
+    total = {label: sum(r[label] for r in rows.values()) for label in names}
+    for site, r in list(rows.items()) + [('all sites summed', total)]:
+        whole = r['whole']
+        parts = '; '.join(f'{label} {r[label]:.5f} ms ({whole - r[label]:+.5f})'
+                          for label in names[1:])
+        print(f'[split] {spec.library} {route} route, {site}, {frames} '
+              f'frames: whole {whole:.5f} ms; {parts} ({smi})', flush=True)

@@ -1252,3 +1252,132 @@ def test_fused_bf16_entry_refuses_fast_off_route(device, monkeypatch, case):
         with pytest.raises(RuntimeError, match='CUDA error'):
             KD.deform_conv_cuda(x, off.to(od), wt, mask, bias, 1, dil)
         assert kern.launches == n
+
+
+# ---- K4's bf16 fast route (bf16 rows staged by cp.async in a ring) ------
+
+def _col2im_routed(dcols, x, off, mask, kh, kw, stride, dil=1):
+    """K4's bf16 entry of the offsets' type, launched twice through the
+    wrapper: each output within _bf16_err of the plain version, d_offset
+    and d_mask bit for bit over the two launches (dx sums by atomics).
+    Returns the route handed to the entry (recorded around the launch: 1
+    the fast route, 0 the general one; the entry refuses a fast call it
+    cannot take)."""
+    name = ('KERNEL_BF16' if off.dtype == torch.bfloat16
+            else 'KERNEL_BF16_F32OFF')
+    kern = getattr(K4, name)
+    routes = []
+
+    def record(*args):
+        routes.append(args[-2])
+        return kern(*args)
+
+    n = kern.launches
+    setattr(K4, name, record)
+    try:
+        got = K4.deform_col2im_cuda(dcols, x, off, mask, kh, kw, stride, dil)
+        again = K4.deform_col2im_cuda(dcols, x, off, mask, kh, kw, stride,
+                                      dil)
+    finally:
+        setattr(K4, name, kern)
+    assert kern.launches == n + 2 and len(routes) == 2
+    assert routes[0] == routes[1]
+    want = K4.deform_col2im_reference(dcols, x, off, mask, kh, kw, stride,
+                                      dil)
+    torch.cuda.synchronize()
+    assert want[1].dtype == off.dtype and got[0].dtype == torch.bfloat16
+    _bf16_err(got[0], again[0], want[0], same=False)
+    _bf16_err(got[1], again[1], want[1])
+    assert (got[2] is None) == (mask is None)
+    if mask is not None:
+        _bf16_err(got[2], again[2], want[2])
+    return 'fast' if routes[0] == 1 else 'general'
+
+
+def _col2im_bf16_inputs(device, h, w, cin, stride, kind, seed, kh=3, kw=3,
+                        frames=8, dil=1):
+    """bf16 (dcols, x, offsets clamped to +-2, mask) at one site: random,
+    zero or integer (+-1, +-2) offsets, as chip_smoke's K4 inputs."""
+    from chip_smoke import _dcn_train_inputs
+    if dil == 1:
+        t = _dcn_train_inputs(torch, device, h, w, cin, stride, frames,
+                              kind, seed, kh, kw)
+    else:
+        t = _col2im_case(device, h, w, cin, stride, kind, seed, kh, kw, dil)
+    return tuple(v.bfloat16() for v in t)
+
+
+@pytest.mark.parametrize('kind', ['random', 'zero', 'integer'])
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('site', BF16_FAST_SITES,
+                         ids=lambda s: 'x'.join(map(str, s)))
+def test_col2im_bf16_fast_route(device, site, off_dtype, kind):
+    """Every R50, R101 and FCB training site at 8 frames, with bf16 and
+    fp32 offsets, with and without the mask: the fast route."""
+    h, w, cin, kh, kw, stride = site
+    dcols, x, off, mask = _col2im_bf16_inputs(device, h, w, cin, stride,
+                                              kind, 60, kh, kw)
+    for m in (mask, None):
+        assert _col2im_routed(dcols, x, off.to(off_dtype), m, kh, kw,
+                              stride) == 'fast'
+
+
+# (H, W, Cin, stride, kh, kw, dilation) on the fast route beside the sites:
+# a ragged last chunk (Cin 48, 40, 8), dilation 2, H and W off the tile, and
+# images inside the border band (each footprint past every edge)
+COL2IM_FAST_SHAPES = [(19, 37, 48, 2, 3, 3, 1), (24, 40, 64, 1, 3, 3, 2),
+                      (13, 21, 40, 1, 5, 3, 1), (3, 4, 8, 1, 3, 3, 1),
+                      (2, 3, 16, 2, 3, 5, 1)]
+
+
+@pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', COL2IM_FAST_SHAPES, ids=str)
+def test_col2im_bf16_fast_route_other_shapes(device, shape, off_dtype):
+    h, w, cin, stride, kh, kw, dil = shape
+    for kind in ('random', 'integer'):
+        dcols, x, off, mask = _col2im_bf16_inputs(device, h, w, cin, stride,
+                                                  kind, 61, kh, kw, 2, dil)
+        for m in (mask, None):
+            assert _col2im_routed(dcols, x, off.to(off_dtype), m, kh, kw,
+                                  stride, dil) == 'fast'
+
+
+def _col2im_off_route(device, case):
+    """bf16 (dcols, x, offsets, mask) of a call off the fast route: Cin 6,
+    or x or dcols one element into its buffer."""
+    cin = 6 if case == 'cin6' else 64
+    dcols, x, off, mask = _col2im_bf16_inputs(device, 13, 17, cin, 1,
+                                              'random', 62, frames=2)
+    if case in ('x_unaligned', 'dcols_unaligned'):
+        t = x if case == 'x_unaligned' else dcols
+        buf = torch.empty(t.numel() + 1, device=device, dtype=t.dtype)
+        t = buf[1:].view(t.shape).copy_(t)
+        x, dcols = (t, dcols) if case == 'x_unaligned' else (x, t)
+    return dcols, x, off, mask
+
+
+@pytest.mark.parametrize('case', ['cin6', 'x_unaligned', 'dcols_unaligned'])
+def test_col2im_bf16_off_route(device, case):
+    """Calls off the fast route take the general route (the fp32 kernel's
+    design on bf16), with both offset types, and are right."""
+    dcols, x, off, mask = _col2im_off_route(device, case)
+    for od in (torch.bfloat16, torch.float32):
+        for m in (mask, None):
+            assert _col2im_routed(dcols, x, off.to(od), m, 3, 3,
+                                  1) == 'general'
+
+
+@pytest.mark.parametrize('case', ['cin6', 'x_unaligned', 'dcols_unaligned'])
+def test_col2im_bf16_entry_refuses_fast_off_route(device, monkeypatch,
+                                                   case):
+    """The bf16 entry launches the route the wrapper names and checks it:
+    handed the fast route for a call that it cannot take, it raises and
+    launches nothing (no fallback to the general route)."""
+    dcols, x, off, mask = _col2im_off_route(device, case)
+    monkeypatch.setattr(K4, 'col2im_fast', lambda *a: True)
+    for od, kern in ((torch.bfloat16, K4.KERNEL_BF16),
+                     (torch.float32, K4.KERNEL_BF16_F32OFF)):
+        n = kern.launches
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            K4.deform_col2im_cuda(dcols, x, off.to(od), mask, 3, 3)
+        assert kern.launches == n

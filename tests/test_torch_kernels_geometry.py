@@ -27,12 +27,14 @@ def _tiles(ho, wo, ty, tx):
             for ox0 in range(0, wo, tx)]
 
 
-@pytest.mark.parametrize('kh,kw,stride,dilation', [
-    (3, 3, 1, 1), (3, 3, 2, 1), (3, 5, 1, 1), (5, 3, 1, 1), (3, 3, 1, 2)])
-def test_footprint_holds_every_corner(kh, kw, stride, dilation):
-    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+def check_footprint(kh, kw, stride, dilation, fast=False, hw=(H, W)):
+    """Every corner the plain col2im touches from a tile of the plan's lies
+    in the tile's footprint (the general plan, or with ``fast`` the bf16
+    fast route's), on an ``hw`` image of one channel."""
+    h, w = hw
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     k = kh * kw
-    plan = col2im_plan(1, ho, wo, 1, kh, kw, stride, dilation, RADIUS)
+    plan = col2im_plan(1, ho, wo, 1, kh, kw, stride, dilation, RADIUS, fast)
     assert (plan.fh, plan.fw) == footprint(plan.ty, plan.tx, kh, kw, stride,
                                            dilation, RADIUS)
     rng = np.random.RandomState(kh * 10 + kw + stride + dilation)
@@ -48,19 +50,19 @@ def test_footprint_holds_every_corner(kh, kw, stride, dilation):
     for oy0, ox0 in tiles:
         y0, x0 = footprint_origin(oy0, ox0, kh, kw, stride, dilation,
                                   RADIUS)
-        inside = torch.zeros(1, H, W, 1, dtype=torch.bool)
+        inside = torch.zeros(1, h, w, 1, dtype=torch.bool)
         inside[0, max(y0, 0):max(y0 + plan.fh, 0),
                max(x0, 0):max(x0 + plan.fw, 0)] = True
         site = torch.zeros(1, ho, wo, 1, dtype=torch.float64)
         site[0, oy0:oy0 + plan.ty, ox0:ox0 + plan.tx] = 1.0
         dcols = site.expand(1, ho, wo, k).reshape(ho * wo, k)
-        x_out = torch.from_numpy(rng.uniform(1.0, 2.0, (1, H, W, 1)))
+        x_out = torch.from_numpy(rng.uniform(1.0, 2.0, (1, h, w, 1)))
         x_out = x_out * ~inside
         for off in offsets:
             off = torch.from_numpy(off)
             # scatter: dcols of the tile's sites only, all positive
             dx, _, _ = deform_col2im_reference(
-                dcols, torch.zeros(1, H, W, 1, dtype=torch.float64), off,
+                dcols, torch.zeros(1, h, w, 1, dtype=torch.float64), off,
                 mask, kh, kw, stride, dilation, RADIUS)
             assert float(dx[~inside].abs().sum()) == 0.0, (oy0, ox0)
             scattered += float(dx.sum()) > 0.0
@@ -71,6 +73,13 @@ def test_footprint_holds_every_corner(kh, kw, stride, dilation):
             assert float(d_off[sl].abs().max()) == 0.0, (oy0, ox0)
             assert float(d_mask[sl].abs().max()) == 0.0, (oy0, ox0)
     assert scattered > len(tiles)
+    return plan
+
+
+@pytest.mark.parametrize('kh,kw,stride,dilation', [
+    (3, 3, 1, 1), (3, 3, 2, 1), (3, 5, 1, 1), (5, 3, 1, 1), (3, 3, 1, 2)])
+def test_footprint_holds_every_corner(kh, kw, stride, dilation):
+    check_footprint(kh, kw, stride, dilation)
 
 
 @pytest.mark.parametrize('shape,stride', TRAIN_SITES)
