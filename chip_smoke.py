@@ -12,7 +12,8 @@ Phases, in order (any failure raises and exits non-zero):
   2. the frame resize (``resize_u8``) on the card against the machine's cv2
      INTER_LINEAR, bit for bit, at the sizes of RESIZES; K1 (correlation)
      against its plain PyTorch version, main-path and ragged shapes, with
-     fp32 and with bf16 inputs;
+     fp32 and with bf16 inputs (the bf16 route printed: the eval shape on
+     the fast route, C 5 and an unaligned map on the general one);
   3. K2 (deformable gather) against its plain version at the 7 DCN sites'
      shapes of a 384x640 input, alone and after the fp32 matmul; then the
      fused deformable conv against its plain version at the 7 sites and at
@@ -36,7 +37,8 @@ Phases, in order (any failure raises and exits non-zero):
   5. kernel times (CUDA events) beside their plain versions and bounds;
      per DCN site the fused kernel beside K2 + matmul + bias (the path it
      replaced) and, as a size reference only, a dense cuDNN 3x3 conv; the
-     bf16 K1 and the bf16 fused conv (8 frames) beside their fp32 siblings;
+     bf16 K1 (beside its general route, with the split of both routes) and
+     the bf16 fused conv (8 frames) beside their fp32 siblings;
   6. the training step of STMask_plus_resnet50 at 360x640 (seeded random
      weights, 4 clips = 8 frames a step, synthetic batches in ClipLoader's
      format) through build_train_step: 6 steps (2 warm-up), launch counts
@@ -75,16 +77,22 @@ Phases, in order (any failure raises and exits non-zero):
      deform_wgrad and K4 22 times a step) with the card against the CPU
      path, and 4 _ali steps (ROADMAP C.7); the kernels' times at FCB's
      sites;
- 10. the mAP* NMS family and the legacy YOLACT preset: B5 (greedy NMS)
-     against its plain version, bit for bit, at GREEDY_SHAPES, and its
-     times; the flagship's fp32 eval step over phase 4's videos under
-     per_class, greedy and cc + nms_as_miou beside phase 4's cc
-     (greedy_nms once a frame under greedy), with each family's
-     detect_frame, and cc's, on the card against the CPU path; YOLACT_legacy_resnet50 at full depth and width (no DCN, no TF:
+ 10. the mAP* NMS family and the legacy YOLACT preset: B5 (greedy NMS),
+     both entries (the IoU matrix; the boxes, IoUs formed in the kernel)
+     against their plain versions, bit for bit, at GREEDY_SHAPES, the
+     boxes entry also on near-threshold and degenerate boxes; the split of
+     the greedy path before the boxes entry (the caller's IoU formation,
+     the matrix entry's rows and scan) and of the boxes entry, and both
+     entries' times; the flagship's fp32 eval step over phase 4's videos
+     under per_class, greedy and cc + nms_as_miou beside phase 4's cc
+     (greedy_nms_boxes once a frame under greedy), with each family's
+     detect_frame, and cc's, on the card against the CPU path, and the
+     greedy step exported and run against the live one;
+     YOLACT_legacy_resnet50 at full depth and width (no DCN, no TF:
      the simple tracker), its fp32 eval step (no deformable conv or
      correlation launch) with a profile and the model against the CPU
      path, and the eval CLI's defaults with --nms greedy over phase 7's
-     set (greedy_nms 32 times a chunk);
+     set (greedy_nms_boxes 32 times a chunk);
  11. the rest of the model surface: (a) the fp32 eval step of
      STMask_resnet50_gn and STMask_darknet53 at full depth and width over
      phase 4's videos (K1 once a frame, no deformable conv), each model
@@ -1550,13 +1558,12 @@ def _fcb_times(torch, dev, smi: str) -> dict:
     return dict(acc=acc, sgemm=sgemm)
 
 
-def _greedy_inputs(torch, dev, g: int, k: int, seed: int):
-    """Phase 10a's inputs: _plus_one_iou of seeded boxes at 640
-    (max(pad_w, pad_h)), as greedy_nms_per_class forms them: random boxes,
-    and in every third group a chain (box i overlaps i + 1 at IoU 0.6 and
+def _greedy_boxes(torch, dev, g: int, k: int, seed: int):
+    """Phase 10a's boxes [g, k, 4] at 640 (max(pad_w, pad_h)), as
+    greedy_nms_per_class forms them, and valid [g, k]: random boxes, and
+    in every third group a chain (box i overlaps i + 1 at IoU 0.6 and
     i + 2 at 0.33, so i suppresses i + 1, which then cannot suppress
     i + 2); 10% invalid slots, group 0 all invalid."""
-    from stmask_torch.ops.nms import _plus_one_iou
     gen = torch.Generator(device=dev).manual_seed(seed)
     lo = torch.rand(g, k, 2, device=dev, generator=gen) * 0.7
     wh = 0.05 + torch.rand(g, k, 2, device=dev, generator=gen) * 0.25
@@ -1566,15 +1573,142 @@ def _greedy_inputs(torch, dev, g: int, k: int, seed: int):
                                step * 0 + 40], dim=-1)
     valid = torch.rand(g, k, device=dev, generator=gen) < 0.9
     valid[0] = False
+    return boxes, valid
+
+
+def _near_threshold_boxes(g: int, k: int, seed: int):
+    """Boxes [g, k, 4] (fp32 pixels, numpy) and valid [g, k] whose +1-pixel
+    IoUs lie within a few ulps of 0.5 for many pairs: chains of four boxes
+    with one top-left corner and one height whose widths halve (each
+    neighbour pair nested at IoU ~0.5), each right edge moved by -4..4
+    ulps, the slots of a group shuffled.  A contracted FMA or another order
+    of operations flips some of these verdicts."""
+    rng = np.random.RandomState(seed)
+    boxes = np.empty((g, k, 4), np.float32)
+    for gi in range(g):
+        rows = []
+        while len(rows) < k:
+            x1, y1 = rng.uniform(0, 300, 2).astype(np.float32)
+            w = np.float32(rng.choice([64, 96, 128, 160, 200, 256]))
+            y2 = np.float32(y1 + np.float32(rng.uniform(10, 200)) - 1)
+            for step in range(4):
+                x2 = np.float32(x1 + w / 2 ** step - 1)
+                x2 = np.float32(x2 + rng.randint(-4, 5) * np.spacing(x2))
+                rows.append((x1, y1, x2, y2))
+        boxes[gi] = np.array(rows[:k], np.float32)[rng.permutation(k)]
+    return boxes, rng.rand(g, k) < 0.95
+
+
+def _degenerate_boxes(g: int, k: int, seed: int):
+    """Boxes [g, k, 4] (fp32 pixels, numpy) and valid [g, k] of the
+    degenerate kinds, mixed: zero width and height under the +1 convention
+    (x2 = x1 - 1), one-pixel boxes (x2 = x1), points, identical boxes,
+    boxes fully nested in others, boxes of negative area."""
+    rng = np.random.RandomState(seed)
+    lo = rng.uniform(0, 400, (g, k, 2)).astype(np.float32)
+    wh = rng.uniform(1, 120, (g, k, 2)).astype(np.float32)
+    kind = rng.randint(0, 6, (g, k))
+    wh[kind == 0] = -1.0                              # zero area
+    wh[kind == 1] = 0.0                               # one pixel
+    wh[kind == 2, 0] = 0.0                            # one column
+    wh[kind == 5] = -rng.uniform(2, 20, ((kind == 5).sum(), 2))
+    boxes = np.concatenate([lo, lo + wh], -1).astype(np.float32)
+    for gi in range(g):                               # identical, nested
+        src = rng.randint(0, k, k)
+        dup = kind[gi] == 3
+        boxes[gi, dup] = boxes[gi, src[dup]]
+        nest = kind[gi] == 4
+        inner = boxes[gi, src[nest]].copy()
+        inner[:, 2:] = inner[:, :2] + (inner[:, 2:] - inner[:, :2]) * 0.5
+        boxes[gi, nest] = inner
+    return boxes, rng.rand(g, k) < 0.9
+
+
+def _greedy_inputs(torch, dev, g: int, k: int, seed: int):
+    """Phase 10a's IoU matrix: _plus_one_iou of _greedy_boxes, and
+    valid."""
+    from stmask_torch.ops.nms import _plus_one_iou
+    boxes, valid = _greedy_boxes(torch, dev, g, k, seed)
     return _plus_one_iou(boxes).contiguous(), valid
 
 
-def _greedy_checks(torch, dev, smi: str, err: dict) -> dict:
-    """Phase 10a: B5 against its plain version, bit for bit, at
-    GREEDY_SHAPES (and the same over two launches); then its times at the
-    path's shape [40, 200] and at [320, 200] beside the plain version and
-    the bound."""
+def _greedy_split(torch, dev, smi: str) -> dict:
+    """Phase 10a's split of the greedy path's time at [40, 200] and [320,
+    200] (kernels/split.py): the caller's IoU formation (_plus_one_iou on
+    the card, its launches counted under torch.profiler), then B5's entry
+    that reads the matrix, whole, without its suppression rows and
+    without its scan."""
     from stmask_torch.kernels import greedy_nms as KG
+    from stmask_torch.kernels import split as KS
+    from stmask_torch.ops.nms import _plus_one_iou
+    KS.build_variants(KS.GREEDY)
+    out = {}
+    for g, k in (GREEDY_PATH_SHAPE, (320, 200)):
+        boxes, valid = _greedy_boxes(torch, dev, g, k, seed=1)
+        iou = _plus_one_iou(boxes).contiguous()
+        # a profiler session after earlier ones misses its first launches:
+        # count over 10 calls
+        n_iou = round(sum(c for _, c, _ in _device_events(
+            lambda: [_plus_one_iou(boxes) for _ in range(10)], 1)) / 10)
+        iou_ms = _device_ms(lambda: _plus_one_iou(boxes), 40)
+        site = f'[G {g}, K {k}]'
+        r = KS.split(KS.GREEDY, KG, [(site, (iou, valid, 0.5))],
+                     KG.greedy_nms_cuda, lambda fn: _device_ms(fn, 200),
+                     'general')[site]
+        print(f'[B5 split] {site}: IoU formation (_plus_one_iou, {n_iou} '
+              f'kernels) {iou_ms:.5f} ms (device); B5 (matrix entry) whole '
+              f'{r["whole"]:.5f} ms, without the suppression rows '
+              f'{r["no suppression rows"]:.5f} (rows '
+              f'{r["whole"] - r["no suppression rows"]:+.5f}), without the '
+              f'scan {r["no scan"]:.5f} (scan '
+              f'{r["whole"] - r["no scan"]:+.5f}); IoU formation + B5 '
+              f'{iou_ms + r["whole"]:.5f} ms ({smi})', flush=True)
+        out[(g, k)] = dict(iou_ms=iou_ms, iou_kernels=n_iou, matrix=r,
+                           before_ms=iou_ms + r['whole'])
+    return out
+
+
+def _corr_split(torch, dev, smi: str, routes) -> dict:
+    """K1 bf16's split (kernels/split.py, CORR) at one lane-frame of the
+    eval CLI, [1, 24, 40, 256] bf16, patch 11, on each route of
+    ``routes``."""
+    from stmask_torch.kernels import correlation as K1
+    from stmask_torch.kernels import split as KS
+    KS.build_variants(KS.CORR)
+    g = torch.Generator(device=dev).manual_seed(40)
+    x1 = torch.randn(1, 24, 40, 256, device=dev, generator=g).bfloat16()
+    x2 = torch.randn(1, 24, 40, 256, device=dev, generator=g).bfloat16()
+    sites = [('[1,24,40,256] P 11', (x1, x2, 11))]
+    out = {}
+    for route in routes:
+        out[route] = KS.split(KS.CORR, K1, sites, K1.correlate_cuda,
+                              lambda fn: _device_ms(fn, 200), route)
+        KS.print_split(KS.CORR, route, out[route], smi, 1)
+    return out
+
+
+def _boxes_args(torch, dev, boxes, valid):
+    """The boxes entry's arguments for [G, K, 4] pixel boxes: the flat
+    boxes [G * K, 4] in reversed slot order, idx [G, K] reversed into them
+    (so that the gather matters), valid, scale 1 and thr 0.5."""
+    g, k, _ = boxes.shape
+    boxes = torch.as_tensor(boxes).to(dev)
+    return (boxes.flip(1).reshape(-1, 4).contiguous(),
+            torch.arange(g * k, device=dev).reshape(g, k).flip(1),
+            torch.as_tensor(valid).to(dev), 1.0, 0.5)
+
+
+def _greedy_checks(torch, dev, smi: str, err: dict) -> dict:
+    """Phase 10a: B5's two entries against their plain versions, bit for
+    bit, at GREEDY_SHAPES (and the same over two launches): the matrix
+    entry on _greedy_inputs, the boxes entry on their boxes (normalized,
+    scaled by 640 in the kernel), on boxes with many IoUs within a few
+    ulps of 0.5 and on degenerate boxes; then the split of the greedy
+    path's time before the boxes entry (_greedy_split) and the boxes
+    entry's; then each entry's times at the path's shape [40, 200] and at
+    [320, 200] beside the plain versions and the bounds."""
+    from stmask_torch.kernels import greedy_nms as KG
+    from stmask_torch.kernels import split as KS
     for g, k in GREEDY_SHAPES:
         iou, valid = _greedy_inputs(torch, dev, g, k, seed=g + k)
         n0 = KG.KERNEL.launches
@@ -1591,6 +1725,35 @@ def _greedy_checks(torch, dev, smi: str, err: dict) -> dict:
         assert n_diff == 0 and torch.equal(got, again), (g, k)
         assert not got[0].any()
         err['greedy_nms'] = max(err['greedy_nms'], float(n_diff))
+    cases = []
+    for g, k in GREEDY_SHAPES:
+        boxes, valid = _greedy_boxes(torch, dev, g, k, seed=g + k)
+        cases.append((f'[G {g}, K {k}]', (
+            boxes.reshape(-1, 4) / 640.0,
+            torch.arange(g * k, device=dev).reshape(g, k), valid, 640.0,
+            0.5)))
+    for g, k in ((40, 200), (320, 200), (7, 1024)):
+        for kind, make in (('near 0.5', _near_threshold_boxes),
+                           ('degenerate', _degenerate_boxes)):
+            cases.append((f'[G {g}, K {k}] {kind}', _boxes_args(
+                torch, dev, *make(g, k, seed=g + k))))
+    for label, args in cases:
+        n0 = KG.KERNEL_BOXES.launches
+        got = KG.greedy_nms_boxes_cuda(*args)
+        again = KG.greedy_nms_boxes_cuda(*args)
+        want = KG.greedy_nms_plus_one_reference(*args)
+        torch.cuda.synchronize()
+        assert KG.KERNEL_BOXES.launches == n0 + 2
+        n_diff = int((got != want).sum())
+        print(f'[B5 boxes] greedy_nms_boxes {label}: {n_diff} keep flags '
+              f'differ from the plain version (must be 0), {int(got.sum())} '
+              f'of {int(args[2].sum())} valid kept; bit-identical over two '
+              'launches', flush=True)
+        assert n_diff == 0 and torch.equal(got, again), label
+        err['greedy_nms_boxes'] = max(err['greedy_nms_boxes'], float(n_diff))
+
+    before = _greedy_split(torch, dev, smi)
+    KS.build_variants(KS.GREEDY_BOXES)
     times = {}
     for g, k in (GREEDY_PATH_SHAPE, (320, 200)):
         iou, valid = _greedy_inputs(torch, dev, g, k, seed=1)
@@ -1609,6 +1772,43 @@ def _greedy_checks(torch, dev, smi: str, err: dict) -> dict:
               f'(device), per wrapper call {call:.5f} ms, plain {plain:.5f} '
               f'ms, bound {bound:.5f} ms ({by}; {nbytes} B) ({smi})',
               flush=True)
+        # the boxes entry on the same boxes, normalized and scaled by 640
+        # in the kernel as greedy_nms_per_class hands them over
+        boxes, valid = _greedy_boxes(torch, dev, g, k, seed=1)
+        args = (boxes.reshape(-1, 4) / 640.0,
+                torch.arange(g * k, device=dev).reshape(g, k), valid, 640.0,
+                0.5)
+        site = f'[G {g}, K {k}]'
+        split = KS.split(KS.GREEDY_BOXES, KG, [(site, args)],
+                         KG.greedy_nms_boxes_cuda,
+                         lambda fn: _device_ms(fn, 200), 'general')[site]
+        b_ms = split['whole']
+        b_call = _time_ms(lambda: KG.greedy_nms_boxes_cuda(*args), 500)
+        b_plain = _time_ms(lambda: KG.greedy_nms_plus_one_reference(*args),
+                           3, warmup=1)
+        # the group's boxes (16 B), indices (8 B) and valid flags read once,
+        # keep written once; ~15 fp32 operations and one division for each
+        # IoU above the diagonal, at the fp32 peak
+        b_bytes = g * k * (16 + 8 + 1 + 1)
+        b_bound, b_by = _bound_ms(b_bytes, 16 * g * k * (k - 1) / 2)
+        bef = before[(g, k)]
+        times[(g, k)].update(
+            boxes_ms=b_ms, boxes_call_ms=b_call, boxes_plain_ms=b_plain,
+            boxes_bound_ms=b_bound, boxes_bound_by=b_by,
+            boxes_split=split, before_ms=bef['before_ms'],
+            iou_ms=bef['iou_ms'], iou_kernels=bef['iou_kernels'])
+        print(f'[time] greedy_nms_boxes {site}: kernel {b_ms:.5f} ms '
+              f'(device), per wrapper call {b_call:.5f} ms, plain '
+              f'{b_plain:.5f} ms, bound {b_bound:.5f} ms ({b_by}; {b_bytes} '
+              f'B); before (IoU formation {bef["iou_ms"]:.5f} + matrix entry '
+              f'{bef["matrix"]["whole"]:.5f}) {bef["before_ms"]:.5f} ms, '
+              f'{bef["before_ms"] / b_ms:.1f}x; split: without the IoUs and '
+              f'rows {split["no IoUs or suppression rows"]:.5f} '
+              f'({b_ms - split["no IoUs or suppression rows"]:+.5f}), '
+              f'without the scan {split["no scan"]:.5f} '
+              f'({b_ms - split["no scan"]:+.5f}), without the box reads '
+              f'{split["no box reads"]:.5f} '
+              f'({b_ms - split["no box reads"]:+.5f}) ({smi})', flush=True)
     return times
 
 
@@ -1725,8 +1925,9 @@ def _print_profile(rows, n: int = 8) -> None:
 def _mapstar_eval(torch, dev, smi: str, name: str, cc_ms: float) -> dict:
     """Phase 10b: the flagship's fp32 eval step (phase 4's two videos, one
     stream) under each NMS family of NMS_METHODS, beside phase 4's cc
-    median ``cc_ms``: ms/frame and launches (greedy_nms once a frame under
-    greedy, never otherwise) and detect_frame alone (cc's too); then each
+    median ``cc_ms``: ms/frame and launches (B5's boxes entry once a frame
+    under greedy, never otherwise; its matrix entry never) and detect_frame
+    alone (cc's too); the greedy step exported (_greedy_export); then each
     family's detect_frame, and cc's, on the card against the CPU path at
     96x128."""
     from stmask_torch.config import get_config
@@ -1771,7 +1972,7 @@ def _mapstar_eval(torch, dev, smi: str, name: str, cc_ms: float) -> dict:
         want = dict.fromkeys(r['launches'], 0)
         want.update(deform_conv=_dcn_sites(cfg) * n_frames,
                     correlation=n_frames,
-                    greedy_nms=n_frames if method == 'greedy' else 0)
+                    greedy_nms_boxes=n_frames if method == 'greedy' else 0)
         print(f'[mAP*] STMask_plus_resnet50 {tag}: launches {r["launches"]} '
               f'over {n_frames} frames', flush=True)
         assert r['launches'] == want, (tag, r['launches'], want)
@@ -1782,10 +1983,65 @@ def _mapstar_eval(torch, dev, smi: str, name: str, cc_ms: float) -> dict:
         res[tag] = dict(ms=r['ms'], launches=r['launches'],
                         detect_ms=detect, busy=r['busy'],
                         launches_per_frame=r['launches_per_frame'])
+        if method == 'greedy':
+            res['export'] = _greedy_export(torch, dev, smi, name, cfg, model,
+                                           clips)
     del model
     for method, miou in (('cc', False),) + NMS_METHODS:
         _nms_vs_cpu(torch, dev, base, method, miou)
     return res
+
+
+def _greedy_export(torch, dev, smi: str, name: str, cfg, model,
+                   clips) -> dict:
+    """Phase 10b: the fp32 video step under greedy NMS exported with
+    torch.export (export.export_video_step), its program holding B5's
+    boxes op (stmask::greedy_nms_plus_one_keep) and not the matrix op, run
+    in this process over ``clips`` against the live greedy step (keep and
+    obj_id equal, box / score / mask within EXPORT_ATOL): the boxes entry
+    once a frame, the matrix entry never."""
+    from stmask_torch.export import ExportedStep, export_video_step
+    from stmask_torch.inference import build_video_step
+    from stmask_torch.kernels import KERNELS
+    t0 = time.perf_counter()
+    program, meta = export_video_step(cfg, model, device=dev)
+    export_s = time.perf_counter() - t0
+    targets = [str(n_.target) for n_ in program.graph.nodes
+               if n_.op == 'call_function']
+    n_op = targets.count('stmask.greedy_nms_plus_one_keep.default')
+    assert n_op == 1 and 'stmask.greedy_nms_keep.default' not in targets, \
+        targets
+    step = ExportedStep(program, meta, dev)
+    live, init = build_video_step(cfg, model, uint8_input=True, device=dev)
+    worst = 0.0
+    launches = dict.fromkeys(KERNELS, 0)      # the artifact's launches only
+    for clip in clips:
+        sa, sl = step.init_state(), init()
+        for f, frame in enumerate(clip):
+            n0 = {n: k_.launches for n, k_ in KERNELS.items()}
+            sa, got = step(sa, frame, f == 0)
+            for n, k_ in KERNELS.items():
+                launches[n] += k_.launches - n0[n]
+            sl, want = live(sl, frame, f == 0)
+            for fld in ('keep', 'obj_id'):
+                assert torch.equal(getattr(got, fld), getattr(want, fld)), fld
+            for fld in ('box', 'score', 'mask'):
+                worst = max(worst, float((getattr(got, fld).float()
+                                          - getattr(want, fld).float())
+                                         .abs().max()))
+    n_frames = sum(len(c) for c in clips)
+    want_l = dict.fromkeys(launches, 0)
+    want_l.update(deform_conv=_dcn_sites(cfg) * n_frames,
+                  correlation=n_frames, greedy_nms_boxes=n_frames)
+    print(f'[mAP* export] {cfg.name} fp32 greedy step exported in '
+          f'{export_s:.1f} s: one stmask::greedy_nms_plus_one_keep node, no '
+          f'stmask::greedy_nms_keep; over {n_frames} frames against the live '
+          f'greedy step: keep and obj_id equal, box / score / mask max|diff| '
+          f'{worst:.3e} (atol {EXPORT_ATOL}); launches {launches} ({name}, '
+          f'{smi})', flush=True)
+    assert launches == want_l, (launches, want_l)
+    assert worst <= EXPORT_ATOL, worst
+    return dict(export_s=export_s, launches=launches, worst=worst)
 
 
 def _legacy_eval_step(torch, dev, smi: str, name: str) -> dict:
@@ -1822,8 +2078,8 @@ def _legacy_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
                      tmp: str) -> dict:
     """Phase 10c: the eval CLI's defaults (bf16, 8 lanes x 4-frame chunks)
     with --config YOLACT_legacy_resnet50 --nms greedy over phase 7's set:
-    greedy_nms once a lane-frame (32 a chunk), no other kernel; frames/s
-    end to end and device-only."""
+    B5's boxes entry once a lane-frame (32 a chunk), no other kernel;
+    frames/s end to end and device-only."""
     import math
 
     from stmask_torch import eval as cli
@@ -1842,7 +2098,7 @@ def _legacy_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
     print(f'[legacy cli] launches {launches} over {stats["n_chunks"]} chunks '
           f'and the warm-up chunk', flush=True)
     want = dict.fromkeys(KERNELS, 0)
-    want['greedy_nms'] = EVAL_LANES * EVAL_CHUNK * chunks
+    want['greedy_nms_boxes'] = EVAL_LANES * EVAL_CHUNK * chunks
     assert launches == want, (launches, want)
     for key in ('mAP', 'AP50', 'AP75', 'AR'):
         assert math.isfinite(stats[key]), stats
@@ -1856,7 +2112,7 @@ def _legacy_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
           f'{EVAL_LANES} streams x {EVAL_CHUNK}-frame chunks: '
           f'{stats["e2e_fps"]:.2f} frames/s end to end, '
           f'{timed["device_fps"]:.2f} frames/s device-only '
-          f'({timed["device_ms_per_chunk"]:.3f} ms a chunk), greedy_nms '
+          f'({timed["device_ms_per_chunk"]:.3f} ms a chunk), greedy_nms_boxes '
           f'{EVAL_LANES * EVAL_CHUNK} launches a chunk, peak memory '
           f'{peak / 2**20:.1f} MiB, {n_tracks} tracks, mAP '
           f'{stats["mAP"]:.6f} ({name}, {smi})', flush=True)
@@ -3827,20 +4083,34 @@ def main() -> int:
 
     # K1 on bf16 inputs: the batched eval's shape (one lane-frame) and
     # ragged ones; both sides round every product to bf16 and sum in fp32,
-    # so only the order of the fp32 sum differs
-    for shape, patch in (((1, 24, 40, 256), 11), ((2, 7, 9, 96), 11),
-                         ((2, 7, 9, 96), 5), ((1, 5, 70, 40), 11),
-                         ((1, 3, 2, 5), 11)):
-        x1 = torch.randn(shape, device=dev, generator=g).bfloat16()
+    # so only the order of the fp32 sum differs.  C a multiple of 8 with
+    # aligned maps takes the fast route (the eval shape must), C 5 and a
+    # map one element into its buffer the general one; a second launch
+    # gives the same bits.
+    for shape, patch, off in (((1, 24, 40, 256), 11, 0),
+                              ((2, 7, 9, 96), 11, 0), ((2, 7, 9, 96), 5, 0),
+                              ((1, 5, 70, 40), 11, 0), ((1, 3, 2, 5), 11, 0),
+                              ((1, 24, 40, 256), 11, 1)):
+        n_el = int(np.prod(shape))
+        buf = torch.randn(n_el + 1, device=dev, generator=g).bfloat16()
+        x1 = buf[off:off + n_el].view(shape)
         x2 = torch.randn(shape, device=dev, generator=g).bfloat16()
+        route = ('fast' if K1.corr_fast(shape[-1], x1.data_ptr(),
+                                        x2.data_ptr()) else 'general')
+        assert route == ('fast' if shape[-1] % 8 == 0 and off == 0
+                         else 'general'), (shape, off, route)
         got = K1.correlate_cuda(x1, x2, patch)
+        again = K1.correlate_cuda(x1, x2, patch)
         want = K1.correlate_reference(x1, x2, patch)
         torch.cuda.synchronize()
         d = float((got - want).abs().max())
         err['correlation_bf16'] = max(err['correlation_bf16'], d)
-        print(f'[K1 bf16] correlation {shape} patch {patch}: max|diff| '
-              f'{d:.3e} (atol 1e-5, rtol 1e-5)', flush=True)
+        print(f'[K1 bf16] correlation {shape} patch {patch}'
+              f'{" (x1 one element into its buffer)" if off else ""}, '
+              f'{route} route: max|diff| {d:.3e} (atol 1e-5, rtol 1e-5), '
+              'bit-identical over two launches', flush=True)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        assert torch.equal(got, again), (shape, 'K1 bf16 varies')
 
     # K3 at the training shape (4 clips at 384x640) and ragged ones: two
     # column tiles (W > 64), H and W below the patch, C 40 and 5 (not a
@@ -4285,15 +4555,22 @@ def main() -> int:
     # the bf16 variants.  K1 on bf16 [1,24,40,256] (one lane-frame of the
     # batched eval): half the input bytes, the same fp32 flops.
     x1b, x2b = x1.bfloat16(), x2.bfloat16()
+    assert K1.corr_fast(256, x1b.data_ptr(), x2b.data_ptr())
     k1b_ms = _device_ms(lambda: K1.correlate_cuda(x1b, x2b, 11), 200)
     k1b_call = _time_ms(lambda: K1.correlate_cuda(x1b, x2b, 11), 500)
     k1b_plain = _time_ms(lambda: K1.correlate_reference(x1b, x2b, 11), 50)
     k1b_bound, k1b_by = _bound_ms(2 * 2 * x1.numel() + 4 * 960 * 121,
                                   2 * 960 * 121 * 256)
+    # where the bf16 kernel's time goes on each route (kernels/split.py:
+    # builds with a part left out); the general route is the design every
+    # bf16 call took before the fast route
+    k1_split = _corr_split(torch, dev, smi, ('fast', 'general'))
+    k1b_general = _split_sum(k1_split['general'], 1)
     print(f'[time] correlation bf16 [1,24,40,256] P 11: kernel {k1b_ms:.5f} '
-          f'ms (device), per wrapper call {k1b_call:.5f} ms, plain '
-          f'{k1b_plain:.5f} ms, bound {k1b_bound:.5f} ms ({k1b_by}); fp32 '
-          f'sibling {k1_ms:.5f} ms')
+          f'ms (device, fast route), per wrapper call {k1b_call:.5f} ms, '
+          f'plain {k1b_plain:.5f} ms, bound {k1b_bound:.5f} ms ({k1b_by}); '
+          f'general route {k1b_general:.5f} ms, fp32 sibling {k1_ms:.5f} ms '
+          f'({smi})')
     # the fused conv at the 7 sites with 8 frames (one step of the batched
     # eval): bf16 beside fp32 on the same inputs.  Bound of bf16: x,
     # offset, mask, weight, bias read once and out written once at 2 bytes;
@@ -4678,6 +4955,8 @@ def main() -> int:
          'max_abs_err': err['correlation_bf16'], 'ms': k1b_ms,
          'call_ms': k1b_call, 'plain_ms': k1b_plain, 'bound_ms': k1b_bound,
          'bound_by': k1b_by, 'library_ms': None, 'fp32_ms': k1_ms,
+         'kernel_path': 'fast (packed bf16x2 products)',
+         'general_route_ms': k1b_general,
          'shape': 'x1, x2 [1,24,40,256] bf16, patch 11, fp32 out; one '
                   'launch'},
         {'name': 'deform_im2col', 'route': 'cuda',
@@ -4930,6 +5209,7 @@ def main() -> int:
         f'streams x {EVAL_CHUNK}-frame chunks), '
         f'{legacy_cli["stats"]["n_chunks"]} chunks and a warm-up chunk')
     gt_ = greedy_t[GREEDY_PATH_SHAPE]
+    g320 = greedy_t[(320, 200)]
     table['kernels'].append({
         'name': 'greedy_nms', 'route': 'cuda',
         'source': 'stmask_torch/kernels/csrc/greedy_nms.cu',
@@ -4937,7 +5217,9 @@ def main() -> int:
                     'fori_loop vmapped by greedy_nms_per_class :155; not '
                     'Pallas)',
         'launches': legacy_cli['launches']['greedy_nms'],
-        'launches_path': legacy_cli_path,
+        'launches_path': legacy_cli_path + '; the matrix entry, on no path '
+                         'since the boxes entry (greedy_nms_mask(..., iou=) '
+                         'alone calls it)',
         'max_abs_err': err['greedy_nms'],
         'max_abs_err_is': 'keep flags that differ from the plain version',
         'ms': gt_['ms'], 'call_ms': gt_['call_ms'],
@@ -4945,8 +5227,29 @@ def main() -> int:
         'bound_by': gt_['bound_by'], 'library_ms': None,
         'shape': 'iou [40,200,200] fp32, valid [40,200]: one frame\'s 40 '
                  'classes at nms_top_k 200; one launch',
-        'ms_320': greedy_t[(320, 200)]['ms'],
-        'call_ms_320': greedy_t[(320, 200)]['call_ms']})
+        'ms_320': g320['ms'], 'call_ms_320': g320['call_ms']})
+    table['kernels'].append({
+        'name': 'greedy_nms_boxes', 'route': 'cuda',
+        'source': 'stmask_torch/kernels/csrc/greedy_nms.cu',
+        'replaces': 'stmask_tpu/ops/nms.py:117 (greedy_nms_mask, an XLA '
+                    'fori_loop vmapped by greedy_nms_per_class :155; not '
+                    'Pallas) with _plus_one_iou :140',
+        'launches': legacy_cli['launches']['greedy_nms_boxes'],
+        'launches_path': legacy_cli_path,
+        'max_abs_err': err['greedy_nms_boxes'],
+        'max_abs_err_is': 'keep flags that differ from the plain version',
+        'ms': gt_['boxes_ms'], 'call_ms': gt_['boxes_call_ms'],
+        'plain_ms': gt_['boxes_plain_ms'], 'bound_ms': gt_['boxes_bound_ms'],
+        'bound_by': gt_['boxes_bound_by'], 'library_ms': None,
+        'before_ms': gt_['before_ms'],
+        'before_is': f'the caller\'s IoU formation (_plus_one_iou, '
+                     f'{gt_["iou_kernels"]} kernels, {gt_["iou_ms"]:.5f} ms) '
+                     '+ the matrix entry',
+        'shape': 'boxes [8000,4] fp32 (scaled by 640 in the kernel), idx '
+                 '[40,200] int64, valid [40,200]: one frame\'s 40 classes at '
+                 'nms_top_k 200; one launch',
+        'ms_320': g320['boxes_ms'], 'call_ms_320': g320['boxes_call_ms'],
+        'before_ms_320': g320['before_ms']})
     for row in table['kernels']:
         row['legacy_cli_launches'] = legacy_cli['launches'][row['name']]
         row['legacy_eval_launches'] = legacy['launches'][row['name']]
@@ -4984,6 +5287,7 @@ def main() -> int:
            'deform_conv_bf16': 'stmask::deform_conv',
            'deform_conv_bf16_f32off': 'stmask::deform_conv',
            'greedy_nms': 'stmask::greedy_nms_keep',
+           'greedy_nms_boxes': 'stmask::greedy_nms_plus_one_keep',
            'deform_im2col': 'ctypes (on no path)'}
     for row in table['kernels']:
         n_ = row['name']
@@ -5011,7 +5315,11 @@ def main() -> int:
         mb=r['mb'], bench_fps=r['bench']['value'], ms_per_call=r['ms'],
         max_abs_diff=r['worst']) for tag, r in exp.items()}
     table['export']['live_fp32_ms_per_frame'] = med
-    table['mapstar'] = {tag: r['ms'] for tag, r in mapstar.items()}
+    table['mapstar'] = {tag: r['ms'] for tag, r in mapstar.items()
+                        if tag != 'export'}
+    table['mapstar']['detect_ms'] = {tag: r['detect_ms']
+                                     for tag, r in mapstar.items()
+                                     if tag != 'export'}
     table['legacy'] = dict(
         eval_ms_per_frame=legacy['ms'], eval_busy_ms=legacy['busy'],
         eval_launches_per_frame=legacy['launches_per_frame'],

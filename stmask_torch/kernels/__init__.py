@@ -2,9 +2,10 @@
 PyTorch version.  Nothing is built or loaded at import time.
 
 Importing the package registers the custom ops ``stmask::correlate``,
-``stmask::deform_conv`` and ``stmask::greedy_nms_keep`` (the kernel on
-CUDA tensors, the plain version on CPU tensors, and a fake implementation
-for ``torch.export``), which an exported program calls."""
+``stmask::deform_conv``, ``stmask::greedy_nms_keep`` and
+``stmask::greedy_nms_plus_one_keep`` (the kernel on CUDA tensors, the plain
+version on CPU tensors, and a fake implementation for ``torch.export``),
+which an exported program calls."""
 
 from . import (correlation, correlation_bwd, deform_col2im, deform_conv,
                deform_im2col, deform_wgrad, greedy_nms)
@@ -25,4 +26,5 @@ KERNELS = {'correlation': correlation.KERNEL,
            'deform_wgrad': deform_wgrad.KERNEL,
            'deform_wgrad_bf16': deform_wgrad.KERNEL_BF16,
            'deform_wgrad_bf16_f32off': deform_wgrad.KERNEL_BF16_F32OFF,
-           'greedy_nms': greedy_nms.KERNEL}
+           'greedy_nms': greedy_nms.KERNEL,
+           'greedy_nms_boxes': greedy_nms.KERNEL_BOXES}

@@ -9,6 +9,11 @@ arithmetic), CUDA tensors take the kernel of their type in
 ``csrc/correlation.cu`` or raise.  Being an op, it is traced by
 ``torch.export`` (its fake implementation gives the output's shape) and
 called by an exported program.
+
+bf16 calls with C a multiple of 8 and 16-byte aligned x1 and x2 (every TF
+site of the port) take the kernel's fast route (packed bf16x2 products,
+``corr_fast``); the others its general route.  The wrapper decides and
+hands the bf16 entry the route, which refuses a fast call it cannot take.
 """
 
 from __future__ import annotations
@@ -22,7 +27,16 @@ from .build import CudaKernel, check_cuda, records_grad
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL = CudaKernel('correlation', 'stmask_correlation', _ARGTYPES)
-KERNEL_BF16 = CudaKernel('correlation', 'stmask_correlation_bf16', _ARGTYPES)
+# the bf16 entry takes the route (1 fast, 0 general) before the stream
+KERNEL_BF16 = CudaKernel('correlation', 'stmask_correlation_bf16',
+                         _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p])
+
+
+def corr_fast(c: int, *ptrs: int) -> bool:
+    """Whether a bf16 call takes the fast route: C a multiple of 8 and
+    every pointer in ``ptrs`` (x1 and x2; byte addresses) 16-byte
+    aligned."""
+    return c % 8 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 def correlate_reference(x1: torch.Tensor, x2: torch.Tensor,
@@ -70,10 +84,14 @@ def correlate_cuda(x1: torch.Tensor, x2: torch.Tensor, patch_size: int = 11,
     b, h, w, c = x1.shape
     out = torch.empty((b, h, w, patch_size * patch_size),
                       dtype=torch.float32, device=x1.device)
-    kernel = KERNEL_BF16 if x1.dtype == torch.bfloat16 else KERNEL
-    kernel(x1.data_ptr(), x2.data_ptr(), out.data_ptr(), b, h, w, c,
-           patch_size, int(apply_activation),
-           torch.cuda.current_stream(x1.device).cuda_stream)
+    args = (x1.data_ptr(), x2.data_ptr(), out.data_ptr(), b, h, w, c,
+            patch_size, int(apply_activation))
+    stream = torch.cuda.current_stream(x1.device).cuda_stream
+    if x1.dtype == torch.bfloat16:
+        KERNEL_BF16(*args, int(corr_fast(c, x1.data_ptr(), x2.data_ptr())),
+                    stream)
+    else:
+        KERNEL(*args, stream)
     return out
 
 

@@ -19,6 +19,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "bf16x2.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -191,26 +192,11 @@ __device__ __forceinline__ float bf16_sample(const float (&w)[4],
   return rbf(rbf(s) * m);
 }
 
-// bf16 pairs: two channels in a 32-bit word, the lower channel in the low
-// half.
+// bf16 pairs (bf16x2.cuh): two channels in a 32-bit word, the lower
+// channel in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float bf16_lo(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
-// a * b of both halves, each rounded once (a * b + -0: the product of two
-// bf16 values is exact in fp32, so this is rbf of the fp32 product)
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-      : "=r"(d)
-      : "r"(a), "r"(b), "r"(0x80008000u));
-  return d;
 }
 
 // Two channels of a bf16 sample, the same value as bf16_sample gives each:

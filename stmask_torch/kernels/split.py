@@ -1,15 +1,15 @@
 """Where a kernel's time goes, on the card: builds with parts left out.
 
 A kernel source that takes part in a split reads a preprocessor macro
-whose bits leave parts of its bf16 work out (measurement builds only: the
-library's own build leaves it 0).  ``build_variants`` builds one library
-per part at once (one nvcc each); ``split`` times the wrapper at the sites
-it is given while each variant stands in for the wrapper's entry, beside
-the library's own build ('whole').  A part's share is the time the whole
-build takes beyond the build without it; the parts overlap, so the shares
-need not add up to the whole.
+whose bits leave parts of the measured entry's work out (measurement
+builds only: the library's own build leaves it 0).  ``build_variants``
+builds one library per part at once (one nvcc each); ``split`` times the
+wrapper at the sites it is given while each variant stands in for the
+wrapper's entry, beside the library's own build ('whole').  A part's share
+is the time the whole build takes beyond the build without it; the parts
+overlap, so the shares need not add up to the whole.
 
-Two kernels take part:
+The kernels that take part:
 
 - ``CONV``: the bf16 fused deformable conv (``csrc/deform_conv.cu``,
   ``STMASK_DCONV_DROP``): bit 1 the products, 2 the gather, 4 the output
@@ -19,12 +19,22 @@ Two kernels take part:
   dot-product pass (d_offset and d_mask), 4 the dx pass, 8 the dx
   reductions into device memory, 16 the zeroing and rounding of dx's fp32
   sums.
+- ``CORR``: K1's bf16 entry (``csrc/correlation.cu``, ``STMASK_CORR_DROP``):
+  bit 1 the copies into shared memory, 2 the products, 4 the butterfly
+  over the channel slices, 8 the output stores.
+- ``GREEDY`` and ``GREEDY_BOXES``: B5's two entries, one route each
+  (``csrc/greedy_nms.cu``, ``STMASK_NMS_DROP``): bit 1 the suppression rows
+  (in the boxes entry with their IoUs), 2 the scan, 4 (boxes entry) the
+  reads of the boxes and their indices.
 
-Each kernel has a fast route and a general one (the design every call took
-before the fast route); the wrapper's route predicate decides, and
-``split`` measures the general route by having the predicate say no.
-``chip_smoke.py`` prints both splits of both kernels once a run, 8 frames
-at the flagship's 7 DCN sites and at FCB's 48x80 3x5 site:
+A kernel with a fast route and a general one (the design every call took
+before the fast route) names the wrapper's route predicate, and ``split``
+measures the general route by having the predicate say no; a kernel with
+one route names none and is split on the route 'general'.
+``chip_smoke.py`` prints the splits once a run (``CONV`` at 8 frames of the
+flagship's 7 DCN sites and FCB's 48x80 3x5 site, ``COL2IM`` likewise in
+training, ``CORR`` at one lane-frame of the eval CLI, B5's at one and at 8
+frames' classes):
 
     build_variants(COL2IM)
     rows = split(COL2IM, K4, sites, call, time_ms, 'fast')
@@ -35,7 +45,7 @@ from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 from .build import CudaKernel, build
 
@@ -43,13 +53,13 @@ from .build import CudaKernel, build
 @dataclass(frozen=True)
 class Parts:
     """A kernel's split: the library, its drop macro, the parts ((bit,
-    label), ...), the wrapper's bf16 entry that a variant stands in for
-    and the wrapper's route predicate."""
+    label), ...), the wrapper's entry that a variant stands in for and the
+    wrapper's route predicate (None: the kernel has one route)."""
     library: str
     macro: str
     parts: Tuple[Tuple[int, str], ...]
     entry: str
-    predicate: str
+    predicate: Optional[str] = None
 
 
 CONV = Parts('deform_conv', 'STMASK_DCONV_DROP',
@@ -60,6 +70,15 @@ COL2IM = Parts('deform_col2im', 'STMASK_COL2IM_DROP',
                ((1, 'no copies'), (2, 'no dot products'), (4, 'no dx pass'),
                 (8, 'no dx reductions'), (16, 'no dx zeroing and rounding')),
                'KERNEL_BF16', 'col2im_fast')
+CORR = Parts('correlation', 'STMASK_CORR_DROP',
+             ((1, 'no copies'), (2, 'no products'), (4, 'no butterfly'),
+              (8, 'no output stores')),
+             'KERNEL_BF16', 'corr_fast')
+GREEDY = Parts('greedy_nms', 'STMASK_NMS_DROP',
+               ((1, 'no suppression rows'), (2, 'no scan')), 'KERNEL')
+GREEDY_BOXES = Parts('greedy_nms', 'STMASK_NMS_DROP',
+                     ((1, 'no IoUs or suppression rows'), (2, 'no scan'),
+                      (4, 'no box reads')), 'KERNEL_BOXES')
 
 
 def _defines(spec: Parts, bits: int) -> tuple:
@@ -87,16 +106,20 @@ def split(spec: Parts, module, sites: Sequence, call: Callable,
     ``spec`` on ``route`` ('fast' or 'general').  ``sites`` holds (label,
     arguments of ``call``), which calls the wrapper in ``module`` whose
     entry ``spec.entry`` the variants stand in for (on the general route
-    with ``spec.predicate`` saying no); ``time_ms(fn)`` gives the device
-    ms of one call of ``fn``."""
+    with ``spec.predicate``, if any, saying no); ``time_ms(fn)`` gives the
+    device ms of one call of ``fn``.  A kernel without a predicate has
+    only the general route."""
+    if spec.predicate is None and route != 'general':
+        raise ValueError(f'{spec.library}: one route, the general one; '
+                         f'asked for {route!r}')
     own = getattr(module, spec.entry)
-    fast = getattr(module, spec.predicate)
+    fast = getattr(module, spec.predicate) if spec.predicate else None
     kernels = {label: CudaKernel(spec.library, own.symbol, own.argtypes,
                                  _defines(spec, bits))
                for bits, label in ((0, 'whole'),) + spec.parts}
     rows = {}
     try:
-        if route == 'general':
+        if route == 'general' and spec.predicate:
             setattr(module, spec.predicate, lambda *a: False)
         for site, args in sites:
             rows[site] = {}
@@ -105,18 +128,21 @@ def split(spec: Parts, module, sites: Sequence, call: Callable,
                 rows[site][label] = time_ms(lambda: call(*args))
     finally:
         setattr(module, spec.entry, own)
-        setattr(module, spec.predicate, fast)
+        if spec.predicate:
+            setattr(module, spec.predicate, fast)
     return rows
 
 
 def print_split(spec: Parts, route: str, rows: dict, smi: str,
-                frames: int) -> None:
-    """One ``[split]`` line a site and one for their sum."""
+                frames) -> None:
+    """One ``[split]`` line a site and one for their sum; ``frames`` (a
+    count of frames, or words) says what a site holds."""
     names = labels(spec)
+    what = f'{frames} frames' if isinstance(frames, int) else frames
     total = {label: sum(r[label] for r in rows.values()) for label in names}
     for site, r in list(rows.items()) + [('all sites summed', total)]:
         whole = r['whole']
         parts = '; '.join(f'{label} {r[label]:.5f} ms ({whole - r[label]:+.5f})'
                           for label in names[1:])
-        print(f'[split] {spec.library} {route} route, {site}, {frames} '
-              f'frames: whole {whole:.5f} ms; {parts} ({smi})', flush=True)
+        print(f'[split] {spec.library} {route} route, {site}, {what}: '
+              f'whole {whole:.5f} ms; {parts} ({smi})', flush=True)

@@ -7,7 +7,8 @@ Invalid slots carry score ``NEG_INF`` and a ``valid`` mask rides along
 instead of shrinking tensors.  Top-k is a stable descending sort, so tied
 scores keep the lower index first, as ``jax.lax.top_k`` does.  The greedy
 scan is kernel B5 on the card (``kernels/greedy_nms.py``), one launch for
-all the classes of a frame.
+all the classes of a frame; ``greedy_nms_per_class`` hands it the boxes,
+and it forms their +1-pixel IoUs itself.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.greedy_nms import greedy_nms_keep
+from ..kernels.greedy_nms import greedy_nms_keep, greedy_nms_plus_one_keep
+from ..kernels.greedy_nms import plus_one_iou as _plus_one_iou
 from .boxes import jaccard
 
 NEG_INF = -1e10
@@ -128,22 +130,6 @@ def greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
     return keep.reshape(valid.shape)
 
 
-def _plus_one_iou(boxes: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU [..., K, K] of [..., K, 4] pixel boxes with the Cython
-    NMS convention: areas ``(x2 - x1 + 1) * (y2 - y1 + 1)``
-    (utils/cython_nms.pyx:31,67-70), in ``nms.py:140``'s order of ops."""
-    x1, y1, x2, y2 = boxes.unbind(-1)
-    area = (x2 - x1 + 1.0) * (y2 - y1 + 1.0)
-    ix1 = torch.maximum(x1[..., :, None], x1[..., None, :])
-    iy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
-    ix2 = torch.minimum(x2[..., :, None], x2[..., None, :])
-    iy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
-    iw = torch.clamp(ix2 - ix1 + 1.0, min=0.0)
-    ih = torch.clamp(iy2 - iy1 + 1.0, min=0.0)
-    inter = iw * ih
-    return inter / (area[..., :, None] + area[..., None, :] - inter)
-
-
 def greedy_nms_per_class(boxes: torch.Tensor, scores_c: torch.Tensor,
                          iou_threshold: float = 0.5,
                          conf_thresh: float = 0.05, top_k: int = 200,
@@ -153,15 +139,14 @@ def greedy_nms_per_class(boxes: torch.Tensor, scores_c: torch.Tensor,
     detection.py:265-312): Cython greedy semantics per class, with the
     boxes scaled by ``scale`` (``cfg.max_size``) and +1-pixel areas, then
     a global score sort capped at ``max_dets``.  All classes go through
-    one launch of kernel B5 on the card.
+    one launch of kernel B5's boxes entry on the card, which gathers and
+    scales the boxes and forms their IoUs (``_plus_one_iou``'s) itself.
 
     Args:
       boxes: [P, 4] normalized point form; scores_c: [C-1, P].
     """
-    num_fg = scores_c.shape[0]
     masked = torch.where(scores_c > conf_thresh, scores_c, NEG_INF)
     top_scores, idx = _top_k_padded(masked, top_k)            # [C-1, K]
-    boxes_k = boxes[idx.reshape(-1)].reshape(num_fg, top_k, 4) * scale
-    keep = greedy_nms_mask(boxes_k, top_scores > NEG_INF / 2, iou_threshold,
-                           iou=_plus_one_iou(boxes_k))
+    keep = greedy_nms_plus_one_keep(boxes, idx, top_scores > NEG_INF / 2,
+                                    scale, iou_threshold)
     return _best_over_classes(keep, top_scores, idx, max_dets)

@@ -75,6 +75,26 @@ def test_opcheck_greedy_nms(k):
     assert torch.equal(keep, greedy_nms.greedy_nms_keep(*args))
 
 
+@pytest.mark.parametrize('k', [1, 6, 65])
+def test_opcheck_greedy_nms_plus_one(k):
+    """B5's boxes entry: boxes [P, 4], idx [G, K] into them, scale, thr."""
+    g = torch.Generator().manual_seed(3)
+    lo = torch.rand(40, 2, generator=g) * 0.7
+    boxes = torch.cat([lo, lo + 0.05 + torch.rand(40, 2, generator=g) * 0.3],
+                      -1)
+    idx = torch.randint(0, 40, (3, k), generator=g)
+    valid = torch.rand(3, k, generator=g) > 0.2
+    args = (boxes, idx, valid, 640.0, 0.5)
+    torch.library.opcheck(
+        torch.ops.stmask.greedy_nms_plus_one_keep.default, args)
+    keep = torch.ops.stmask.greedy_nms_plus_one_keep(*args)
+    assert keep.dtype == torch.bool and keep.shape == (3, k)
+    want = greedy_nms.greedy_nms_mask_reference(
+        greedy_nms.plus_one_iou(boxes[idx] * 640.0), valid, 0.5)
+    assert torch.equal(keep, want)
+    assert torch.equal(keep, greedy_nms.greedy_nms_plus_one_keep(*args))
+
+
 def test_wrappers_differentiate_through_the_plain_version():
     """With autograd recording, the wrappers skip the op (which has no
     autograd formula) and take the plain version: the gradient is the

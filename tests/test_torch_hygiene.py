@@ -191,7 +191,8 @@ def test_unported_paths_raise():
 @pytest.mark.parametrize('name', sorted(
     ['correlation', 'correlation_bf16', 'deform_im2col', 'deform_conv',
      'deform_conv_bf16', 'deform_conv_bf16_f32off', 'correlation_bwd',
-     'deform_col2im', 'deform_wgrad', 'greedy_nms', 'correlation_bwd_bf16',
+     'deform_col2im', 'deform_wgrad', 'greedy_nms', 'greedy_nms_boxes',
+     'correlation_bwd_bf16',
      'deform_col2im_bf16', 'deform_col2im_bf16_f32off', 'deform_wgrad_bf16',
      'deform_wgrad_bf16_f32off']))
 def test_kernel_argtypes_match_the_c_launchers(name):

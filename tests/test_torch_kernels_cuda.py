@@ -12,7 +12,9 @@ import torch
 # B5's shapes and inputs are chip_smoke.py phase 10a's; the bf16 backward
 # entries' check is its phase 14a's (one bf16 ulp of each value plus 2^-12
 # of max|ref|, bit for bit over two launches where no atomics sum)
-from chip_smoke import GREEDY_SHAPES, _bf16_err, _greedy_inputs
+from chip_smoke import (GREEDY_SHAPES, _bf16_err, _boxes_args,
+                        _degenerate_boxes, _greedy_boxes, _greedy_inputs,
+                        _near_threshold_boxes)
 from stmask_torch.kernels import correlation as K1
 from stmask_torch.kernels import correlation_bwd as K3
 from stmask_torch.kernels import deform_col2im as K4
@@ -177,6 +179,75 @@ def test_correlation_kernel_bf16(device, shape, patch):
         torch.cuda.synchronize()
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# K1 bf16's fast route: the eval shape, C 8, 16 and 264, W below and above
+# the 64-column tile, H below the patch
+CORR_FAST_SHAPES = [(1, 24, 40, 256), (2, 7, 9, 8), (1, 5, 70, 16),
+                    (1, 6, 9, 264), (2, 3, 130, 8)]
+
+
+@pytest.mark.parametrize('shape', CORR_FAST_SHAPES)
+@pytest.mark.parametrize('patch', [1, 5, 11, 31])
+def test_correlation_kernel_bf16_fast_route(device, shape, patch):
+    """The fast route (C % 8 == 0, aligned maps) against the plain version
+    at the fp32 tolerance, bit for bit over two launches."""
+    g = torch.Generator(device=device).manual_seed(7)
+    x1 = torch.randn(shape, device=device, generator=g).bfloat16()
+    x2 = torch.randn(shape, device=device, generator=g).bfloat16()
+    assert K1.corr_fast(shape[-1], x1.data_ptr(), x2.data_ptr())
+    for act in (True, False):
+        got = K1.correlate_cuda(x1, x2, patch, act)
+        again = K1.correlate_cuda(x1, x2, patch, act)
+        want = K1.correlate_reference(x1, x2, patch, act)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('shape', [(1, 24, 40, 256), (2, 7, 9, 8)])
+def test_correlation_kernel_bf16_unaligned_takes_the_general_route(device,
+                                                                   shape):
+    """Maps one element into their buffers go to the general route (the
+    predicate says no), and it agrees with the plain version; the entry
+    refuses a fast call such maps, or C % 8 != 0, cannot take."""
+    n = torch.Size(shape).numel()
+    g = torch.Generator(device=device).manual_seed(8)
+    buf = torch.randn(2 * n + 2, device=device, generator=g).bfloat16()
+    x1, x2 = buf[1:n + 1].view(shape), buf[n + 1:2 * n + 1].view(shape)
+    assert not K1.corr_fast(shape[-1], x1.data_ptr(), x2.data_ptr())
+    got = K1.correlate_cuda(x1, x2, 11)
+    want = K1.correlate_reference(x1, x2, 11)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    out = torch.empty(shape[:3] + (121,), device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        K1.KERNEL_BF16(x1.data_ptr(), x2.data_ptr(), out.data_ptr(),
+                       *shape, 11, 1, 1, stream)
+    y = torch.zeros(1, 4, 5, 12, device=device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        K1.KERNEL_BF16(y.data_ptr(), y.data_ptr(), out.data_ptr(), 1, 4, 5,
+                       12, 11, 1, 1, stream)
+
+
+def test_correlation_fast_and_general_routes_agree(device):
+    """At the eval shape the two routes sum in other orders: both within
+    the fp32 tolerance of the plain version and of each other."""
+    g = torch.Generator(device=device).manual_seed(9)
+    x1 = torch.randn(1, 24, 40, 256, device=device,
+                     generator=g).bfloat16()
+    x2 = torch.randn(1, 24, 40, 256, device=device,
+                     generator=g).bfloat16()
+    fast = K1.correlate_cuda(x1, x2, 11)
+    own = K1.corr_fast
+    try:
+        K1.corr_fast = lambda *a: False
+        general = K1.correlate_cuda(x1, x2, 11)
+    finally:
+        K1.corr_fast = own
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fast, general, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize('off_dtype', [torch.bfloat16, torch.float32])
@@ -666,8 +737,12 @@ def test_greedy_nms_kernel(device, shape):
         assert got[1].sum() < chain_valid.sum()
 
 
-def test_greedy_nms_per_class_takes_the_kernel(device):
-    """One launch for all the classes of a frame, equal to the CPU."""
+@pytest.mark.parametrize('layout', ['rows', 'transposed'])
+def test_greedy_nms_per_class_takes_the_kernel(device, layout):
+    """One launch of the boxes entry for all the classes of a frame (the
+    matrix entry none), equal to the CPU; also with the scores a
+    transposed view, as detect_frame hands them over (its top-k slices
+    come out strided)."""
     from stmask_torch.kernels import greedy_nms as KG
     from stmask_torch.ops.nms import greedy_nms_per_class
     gen = torch.Generator().manual_seed(3)
@@ -675,12 +750,79 @@ def test_greedy_nms_per_class_takes_the_kernel(device):
     boxes = torch.cat([lo, lo + 0.05 + torch.rand(2000, 2, generator=gen)
                        * 0.25], dim=-1)
     scores = torch.rand(40, 2000, generator=gen) ** 4
-    n0 = KG.KERNEL.launches
-    got = greedy_nms_per_class(boxes.to(device), scores.to(device))
-    assert KG.KERNEL.launches == n0 + 1
+    on_card = scores.to(device)
+    if layout == 'transposed':
+        on_card = on_card.t().contiguous().t()
+    n0 = KG.KERNEL_BOXES.launches, KG.KERNEL.launches
+    got = greedy_nms_per_class(boxes.to(device), on_card)
+    assert (KG.KERNEL_BOXES.launches, KG.KERNEL.launches) == (n0[0] + 1,
+                                                              n0[1])
     want = greedy_nms_per_class(boxes, scores)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize('shape', GREEDY_SHAPES)
+def test_greedy_nms_boxes_kernel(device, shape):
+    """The boxes entry bit for bit the plain version, and the same over two
+    launches, on phase 10a's boxes (normalized here and scaled by 640 in
+    the kernel)."""
+    from stmask_torch.kernels import greedy_nms as KG
+    g, k = shape
+    boxes, valid = _greedy_boxes(torch, device, g, k, seed=g + k)
+    args = (boxes.reshape(-1, 4) / 640.0,
+            torch.arange(g * k, device=device).reshape(g, k), valid, 640.0,
+            0.5)
+    n0 = KG.KERNEL_BOXES.launches
+    got = KG.greedy_nms_boxes_cuda(*args)
+    again = KG.greedy_nms_boxes_cuda(*args)
+    want = KG.greedy_nms_plus_one_reference(*args)
+    torch.cuda.synchronize()
+    assert KG.KERNEL_BOXES.launches == n0 + 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert not got[0].any()
+    # the matrix entry over the plain IoUs of the same scaled boxes agrees
+    iou = KG.plus_one_iou(args[0][args[1]] * 640.0).contiguous()
+    assert torch.equal(got, KG.greedy_nms_cuda(iou, valid, 0.5))
+
+
+@pytest.mark.parametrize('kind', ['near', 'degenerate'])
+@pytest.mark.parametrize('g,k', [(40, 200), (320, 200), (7, 1024),
+                                 (40, 65)])
+def test_greedy_nms_boxes_kernel_exact_cases(device, kind, g, k):
+    """Boxes with many IoUs within a few ulps of 0.5 (a contracted FMA or
+    another order of operations flips verdicts there), and degenerate
+    boxes: bit for bit the plain version, through a reversed index."""
+    from stmask_torch.kernels import greedy_nms as KG
+    make = _near_threshold_boxes if kind == 'near' else _degenerate_boxes
+    flat, idx, valid, scale, thr = _boxes_args(torch, device,
+                                               *make(g, k, seed=g + k))
+    got = KG.greedy_nms_boxes_cuda(flat, idx, valid, scale, thr)
+    want = KG.greedy_nms_plus_one_reference(flat.cpu(), idx.cpu(),
+                                            valid.cpu(), scale, thr)
+    assert torch.equal(got.cpu(), want)
+    if kind == 'near':
+        iou = KG.plus_one_iou(flat[idx].cpu())
+        near = ((iou - 0.5).abs() <= 4 * 2.0 ** -24).triu(1)
+        assert int(near.sum()) > g * k // 20
+
+
+def test_greedy_nms_boxes_rejects_bad_inputs(device):
+    from stmask_torch.kernels import greedy_nms as KG
+    boxes = torch.rand(10, 4, device=device)
+    idx = torch.zeros(2, 5, dtype=torch.int64, device=device)
+    valid = torch.ones(2, 5, dtype=torch.bool, device=device)
+    with pytest.raises(TypeError):
+        KG.greedy_nms_boxes_cuda(boxes, idx.int(), valid, 1.0, 0.5)
+    with pytest.raises(ValueError):
+        KG.greedy_nms_boxes_cuda(boxes[:, :3].contiguous(), idx, valid, 1.0,
+                                 0.5)
+    with pytest.raises(ValueError):
+        KG.greedy_nms_boxes_cuda(boxes, idx, valid[:, :4], 1.0, 0.5)
+    with pytest.raises(ValueError):
+        KG.greedy_nms_boxes_cuda(
+            boxes, torch.zeros(2, 1025, dtype=torch.int64, device=device),
+            torch.ones(2, 1025, dtype=torch.bool, device=device), 1.0, 0.5)
 
 
 def test_greedy_nms_rejects_bad_inputs(device):
@@ -775,6 +917,7 @@ def _op_cases(device):
     om = torch.cat([om[..., :18] * 2.0, torch.sigmoid(om[..., 18:])], -1)
     off, mask = om[..., :18], om[..., 18:]
     iou, valid = _greedy_inputs(torch, device, 40, 200, seed=33)
+    boxes, _ = _greedy_boxes(torch, device, 40, 200, seed=33)
     bf = torch.bfloat16
     dcn = torch.ops.stmask.deform_conv
     return [
@@ -789,7 +932,11 @@ def _op_cases(device):
         (dcn, (x.to(bf), off, wt.to(bf), None, None, 1, 1),
          KD.deform_conv_cuda, KD.KERNEL_BF16_F32OFF),
         (torch.ops.stmask.greedy_nms_keep, (iou, valid, 0.5),
-         KG.greedy_nms_cuda, KG.KERNEL)]
+         KG.greedy_nms_cuda, KG.KERNEL),
+        (torch.ops.stmask.greedy_nms_plus_one_keep,
+         (boxes.reshape(-1, 4), torch.arange(8000, device=device).reshape(
+             40, 200).flip(1), valid, 1.0, 0.5),
+         KG.greedy_nms_boxes_cuda, KG.KERNEL_BOXES)]
 
 
 def test_custom_ops_are_the_kernels(device):
