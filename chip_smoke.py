@@ -159,7 +159,10 @@ Phases, in order (any failure raises and exits non-zero):
      route handed to the entry asserted), beside the general route and
      the fp32 kernel on the same inputs, off it (Cin 6, an unaligned x:
      the general route), and the split of both routes (kernels/split.py:
-     builds with a part left out); (b) the flagship's
+     builds with a part left out); K3 bf16's fast route against the plain
+     version and bit for bit against its general route, both routes
+     timed beside the fp32 entry on the same values, and the split of
+     both routes (CORR_BWD); (b) the flagship's
      training step over phase 6's batches in each mode of
      build_train_step (fp32, remat, bf16, bf16 + remat): launches a step,
      ms/step, peak memory above the first step's start, the bf16 step's
@@ -3448,19 +3451,24 @@ def _col2im_route(K4, args) -> str:
 
 
 @contextlib.contextmanager
-def _col2im_general(K4):
-    """K4's bf16 calls take the general route (the wrapper's predicate says
-    no), as every call did before the fast route."""
-    fast = K4.col2im_fast
-    K4.col2im_fast = lambda *a: False
+def _general_route(module, predicate: str):
+    """The bf16 calls of a kernel's wrapper in ``module`` take the general
+    route (its route predicate ``predicate`` says no), as every call did
+    before the fast route."""
+    fast = getattr(module, predicate)
+    setattr(module, predicate, lambda *a: False)
     try:
         yield
     finally:
-        K4.col2im_fast = fast
+        setattr(module, predicate, fast)
 
 
 _COL2IM_FAST_PATH = ('fast (bf16 rows staged by cp.async in a two-chunk '
                      'ring, tiles of up to 8 x 8 sites)')
+
+
+_CORR_BWD_FAST_PATH = ('fast (bf16 source rows staged by cp.async in a '
+                       'four-row ring)')
 
 
 def _bf16_conv_time(torch, KD, args, flops: float, iters: int) -> dict:
@@ -3578,9 +3586,12 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
     from stmask_torch.kernels import deform_wgrad as KW
     from stmask_torch.kernels import split as KS
     from stmask_torch.kernels.deform_conv import deform_cols_bf16
-    # K4's split variants build while the entries are checked
+    # K4's and K3's split variants build while the entries are checked
     builds = threading.Thread(target=KS.build_variants, args=(KS.COL2IM,))
     builds.start()
+    k3_builds = threading.Thread(target=KS.build_variants,
+                                 args=(KS.CORR_BWD,))
+    k3_builds.start()
     bf = torch.bfloat16
     frames = 2 * TRAIN_CLIPS
     acc = {k: {} for k in ('deform_wgrad_bf16', 'deform_col2im_bf16',
@@ -3653,7 +3664,7 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
         b4, by4 = _tally(acc[ck], ms4, call4, plain4, nb4, fl4)
         # the general route (the design every call took before the fast
         # route) and the fp32 kernel on the same inputs
-        with _col2im_general(K4):
+        with _general_route(K4, 'col2im_fast'):
             gen4 = _device_ms(lambda: K4.deform_col2im_cuda(*args4), 20)
         f32in = tuple(None if t is None else t.float()
                       for t in (dcols, x, off, mask))
@@ -3785,15 +3796,25 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
                        2 * TRAIN_CLIPS)
     del split_sites
 
+    # K3 bf16 at the training shape: the fast route (the one training
+    # takes) against the plain version and, bit for bit, against the
+    # general route (the design before it); both routes' times beside the
+    # fp32 entry's on the same values, then where each route's time goes
     tshape = (TRAIN_CLIPS, 24, 40, 256)
     gen = torch.Generator(device=dev).manual_seed(1600)
     up, x1, x2, out = _corr_bwd_inputs(torch, dev, tshape, 11, gen)
     x1, x2 = x1.to(bf), x2.to(bf)
     got = K3.correlation_bwd_cuda(up, x1, x2, 11, out)
+    assert K3.corr_bwd_fast(tshape[-1], x1.data_ptr(), x2.data_ptr(),
+                            *(d.data_ptr() for d in got))
     again = K3.correlation_bwd_cuda(up, x1, x2, 11, out)
+    with _general_route(K3, 'corr_bwd_fast'):
+        general = K3.correlation_bwd_cuda(up, x1, x2, 11, out)
     want = K3.correlation_bwd_reference(up, x1, x2, 11, out)
     torch.cuda.synchronize()
     e3 = max(_bf16_err(a, a2, b) for a, a2, b in zip(got, again, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, general))
+    assert same, 'K3 bf16: the fast route differs from the general route'
     err['correlation_bwd_bf16'] = max(err['correlation_bwd_bf16'], e3)
     k3 = {}
     ms = _device_ms(lambda: K3.correlation_bwd_cuda(up, x1, x2, 11, out),
@@ -3802,15 +3823,34 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
                     200)
     plain = _time_ms(lambda: K3.correlation_bwd_reference(
         up, x1, x2, 11, out), 5)
+    with _general_route(K3, 'corr_bwd_fast'):
+        gen_ms = _device_ms(lambda: K3.correlation_bwd_cuda(
+            up, x1, x2, 11, out), 200)
+    x1f, x2f = x1.float(), x2.float()
+    f32_ms = _device_ms(lambda: K3.correlation_bwd_cuda(up, x1f, x2f, 11,
+                                                        out), 200)
+    del x1f, x2f
     b, h_, w_, c = tshape
     nb = 4 * 2 * b * h_ * w_ * 121 + 2 * 4 * b * h_ * w_ * c
     bound, by = _tally(k3, ms, call, plain, nb, _corr_bwd_cost(tshape, 11)[1])
+    k3.update(general_ms=gen_ms, fp32_ms=f32_ms, routes_bit_identical=same)
     print(f'[bf16 bwd] correlation_bwd_bf16 {list(tshape)} P 11 (bf16 x1, '
-          f'x2, dx1, dx2; fp32 g, out): {ms:.5f} ms (device), call '
-          f'{call:.5f}, plain {plain:.5f}, bound {bound:.5f} ({by}), '
-          f'max|diff| {e3:.3e} of max|ref|, bit-identical over two launches',
-          flush=True)
+          f'x2, dx1, dx2; fp32 g, out): fast route {ms:.5f} ms (device), '
+          f'call {call:.5f}, the general route {gen_ms:.5f} ms, the fp32 '
+          f'entry on the same values {f32_ms:.5f} ms, plain {plain:.5f}, '
+          f'bound {bound:.5f} ({by}), max|diff| {e3:.3e} of max|ref|, the '
+          f'two routes bit for bit the same: {same}, bit-identical over two '
+          f'launches ({smi})', flush=True)
     acc['correlation_bwd_bf16'] = k3
+    k3_builds.join()
+    k3_split = {}
+    for route in ('general', 'fast'):
+        k3_split[route] = KS.split(
+            KS.CORR_BWD, K3, [(f'{list(tshape)} P 11', (up, x1, x2, 11,
+                                                         out))],
+            K3.correlation_bwd_cuda, lambda fn: _device_ms(fn, 200), route)
+        KS.print_split(KS.CORR_BWD, route, k3_split[route], smi,
+                       'one bf16 training step\'s call')
     for key, a in acc.items():
         print(f'[bf16 bwd] summed, {key}: {a["ms"]:.5f} ms (device), per call '
               f'{a["call_ms"]:.5f} ms, plain {a["plain_ms"]:.5f} ms, bound '
@@ -3822,7 +3862,7 @@ def _bf16_backward(torch, dev, smi: str, err: dict) -> dict:
     print(f'[bf16 bwd] the bf16 GEMM g^T @ cols alone (cuBLAS), summed: 7 '
           f'sites {lib["sites"]:.5f} ms, FCB 15 sites {lib["fcb"]:.5f} ms '
           f'(device) ({smi})', flush=True)
-    return dict(acc=acc, lib=lib, k4_split=k4_split)
+    return dict(acc=acc, lib=lib, k4_split=k4_split, k3_split=k3_split)
 
 
 def _train_modes(torch, dev, smi: str, name: str, hosts) -> dict:
@@ -5131,9 +5171,13 @@ def main() -> int:
             row['library_is'] = ('cuBLAS\'s bf16 GEMM g^T @ cols alone '
                                  '(the columns gathered beforehand)')
         if 'general_ms' in a_:
-            row.update(kernel_path=_COL2IM_FAST_PATH,
+            row.update(kernel_path=_CORR_BWD_FAST_PATH
+                       if key == 'correlation_bwd_bf16'
+                       else _COL2IM_FAST_PATH,
                        general_ms=a_['general_ms'],
                        fp32_same_inputs_ms=a_['fp32_ms'])
+            if 'routes_bit_identical' in a_:
+                row['routes_bit_identical'] = a_['routes_bit_identical']
         elif 'fp32_ms' in a_:
             row.update(kernel_path='fast (bf16 wgmma)',
                        fp32_same_inputs_ms=a_['fp32_ms'])

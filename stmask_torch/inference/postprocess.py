@@ -37,12 +37,8 @@ def postprocess_frame(cfg: STMaskConfig, frame_out: FrameOutput,
     if idx.numel() == 0:
         return results
 
-    hp, wp = frame_out.mask.shape[1:]
-    crop_h = int(img_h / pad_h * hp)
-    crop_w = int(img_w / pad_w * wp)
-    masks = frame_out.mask[idx, :crop_h, :crop_w].float()
-    masks = F.interpolate(masks[:, None], size=(img_h, img_w),
-                          mode='bilinear', align_corners=False)[:, 0]
+    masks = upsampled_masks(frame_out.mask[idx], (img_h, img_w),
+                            (pad_h, pad_w))
     masks = (masks > 0.5).to(torch.uint8).cpu().numpy()
     boxes = frame_out.box[idx].cpu().numpy()
     scores = frame_out.score[idx].cpu().numpy()
@@ -62,6 +58,18 @@ def postprocess_frame(cfg: STMaskConfig, frame_out: FrameOutput,
             'category': cfg.classes[int(c) - 1],
         }
     return results
+
+
+def upsampled_masks(masks: torch.Tensor, img_hw, pad_hw) -> torch.Tensor:
+    """Masks [n, Hp, Wp] cropped to the un-padded region and upsampled to
+    the image size, in fp32 before the 0.5 threshold: [n, img_h, img_w]."""
+    (img_h, img_w), (pad_h, pad_w) = img_hw[:2], pad_hw[:2]
+    hp, wp = masks.shape[1:]
+    crop_h = int(img_h / pad_h * hp)
+    crop_w = int(img_w / pad_w * wp)
+    masks = masks[:, :crop_h, :crop_w].float()
+    return F.interpolate(masks[:, None], size=(img_h, img_w),
+                         mode='bilinear', align_corners=False)[:, 0]
 
 
 def results2json_videoseg(results: List[Dict],

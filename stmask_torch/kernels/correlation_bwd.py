@@ -11,7 +11,12 @@ activation's derivative to ``g`` themselves, with JAX's rule: slope 1 where
 
 The bf16 entry takes bf16 x1 and x2 with the fp32 ``g`` and ``out`` of K1's
 bf16 entry, whose output is fp32; it sums in fp32 and rounds dx1 and dx2 to
-bf16, the type of the JAX package's cotangents of its bf16 features.
+bf16, the type of the JAX package's cotangents of its bf16 features.  Calls
+with C a multiple of 8 and x1, x2, dx1 and dx2 16-byte aligned (every
+training site) take its fast route (``corr_bwd_fast``: bf16 source rows
+staged by ``cp.async``), the others its general route; the two give the
+same bits.  The wrapper decides and hands the bf16 entry the route, which
+refuses a fast call it cannot take.
 """
 
 from __future__ import annotations
@@ -26,8 +31,16 @@ from .build import CudaKernel, check_cuda
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL = CudaKernel('correlation_bwd', 'stmask_correlation_bwd', _ARGTYPES)
+# the bf16 entry takes the route (1 fast, 0 general) before the stream
 KERNEL_BF16 = CudaKernel('correlation_bwd', 'stmask_correlation_bwd_bf16',
-                         _ARGTYPES)
+                         _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p])
+
+
+def corr_bwd_fast(c: int, *ptrs: int) -> bool:
+    """Whether a bf16 call takes the fast route: C a multiple of 8 and
+    every pointer in ``ptrs`` (x1, x2, dx1 and dx2; byte addresses)
+    16-byte aligned."""
+    return c % 8 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 def correlation_bwd_reference(g: torch.Tensor, x1: torch.Tensor,
@@ -110,11 +123,14 @@ def correlation_bwd_cuda(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
                          f'and evenly spaced pixels, got strides {g.stride()}')
     dx1 = torch.empty_like(x1)
     dx2 = torch.empty_like(x2)
-    kernel = KERNEL if dt == torch.float32 else KERNEL_BF16
-    kernel(g.data_ptr(), None if out is None else out.data_ptr(),
-           x1.data_ptr(), x2.data_ptr(), dx1.data_ptr(), dx2.data_ptr(),
-           ldg, b, h, w, c, patch_size,
-           torch.cuda.current_stream(x1.device).cuda_stream)
+    ptrs = (x1.data_ptr(), x2.data_ptr(), dx1.data_ptr(), dx2.data_ptr())
+    args = (g.data_ptr(), None if out is None else out.data_ptr(), *ptrs,
+            ldg, b, h, w, c, patch_size)
+    stream = torch.cuda.current_stream(x1.device).cuda_stream
+    if dt == torch.bfloat16:
+        KERNEL_BF16(*args, int(corr_bwd_fast(c, *ptrs)), stream)
+    else:
+        KERNEL(*args, stream)
     return dx1, dx2
 
 

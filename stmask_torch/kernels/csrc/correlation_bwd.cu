@@ -64,29 +64,65 @@
 // 22%, of a dense [tile, tile + 2r] product, and the path is fp32 with TF32
 // off, so it would need 3xTF32 products: more work than the band itself.
 //
-// The bf16 entry is the same kernel with the source rows converted to fp32
-// as they are staged (plain loads of 4 channels at a time, since cp.async
-// copies bytes as they are, and S stays fp32), the sums in fp32 as above
-// and each output rounded to bf16 once, when it is written.  Its loads do
-// not overlap the previous row's math the way cp.async does: a first
-// version, right and simple (ROADMAP B lists its second pass).
+// The bf16 entry has two routes, the wrapper's choice
+// (kernels/correlation_bwd.py::corr_bwd_fast), with the same blocks, the
+// same thread for each output and the same order of its fp32 FMAs (dy,
+// then e), so that they agree bit for bit:
+// - the general route is the kernel above with the source rows widened to
+//   fp32 as they are staged (plain loads of 4 channels at a time, since
+//   cp.async copies bytes as they are; S stays fp32): those loads do not
+//   overlap the previous row's math;
+// - the fast route (C % 8 == 0, x1, x2, dx1 and dx2 16-byte aligned: every
+//   training site) keeps S in bf16: raw source rows copied by 16-byte
+//   cp.async into a ring of FSTAGES rows, FSTAGES - 1 of them in flight
+//   while one is read, the first ones issued before the prologue so that
+//   they land while G is formed; the window widens its bf16 channels to
+//   fp32 in registers as it slides (a shift or a mask, csrc/bf16x2.cuh).
+//   Its prologue forms G from g and out read straight into registers,
+//   sixteen values a thread in flight, without a staging buffer; the
+//   channel slices of a column tile, which read the same G, run as one
+//   thread-block cluster, each block forming a share of G's slabs and
+//   writing them into every block's shared memory.
+// Both sum in fp32 and round each output to bf16 once, when it is
+// written.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 #include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
+#include "bf16x2.cuh"
 #include "common.cuh"
+
+// Measurement builds only (stmask_torch/kernels/split.py; the library's own
+// build leaves it 0): STMASK_CORRBWD_DROP leaves parts of the bf16 entry's
+// work out, on both routes: bit 1 the source rows' staging, 2 the
+// prologue's G formation, 4 the FMAs (and their shared-memory reads), 8
+// the output stores (kept behind a test that never holds, so that the sums
+// stay).  The fp32 entry ignores it.
+#ifndef STMASK_CORRBWD_DROP
+#define STMASK_CORRBWD_DROP 0
+#endif
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int TX = 4;            // columns of a thread's register tile
 constexpr int MAX_TILE = 64;     // columns per block
 constexpr int MAX_CQ = 32;       // channel quads per block (128 channels)
 constexpr int G_BYTES = 64 * 1024;   // most shared memory G may take
+
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+// the parts a measurement build leaves out of the entry of type T
+template <typename T>
+constexpr int kDrop = kF32<T> ? 0 : STMASK_CORRBWD_DROP;
+// A value no output takes: dropped stores are kept behind v == NEVER.
+constexpr float NEVER = -1.2345e-38f;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
@@ -139,7 +175,8 @@ __device__ __forceinline__ void stage_row(const Args<T>& a, float* S,
   if constexpr (std::is_same<T, bf16>::value) {
     const int cs = 4 * a.cq;
     const int per = a.vec ? a.cq : cs;    // loads a staged row
-    for (int e = threadIdx.x; e < rows * per; e += blockDim.x) {
+    for (int e = threadIdx.x; !(kDrop<T> & 1) && e < rows * per;
+         e += blockDim.x) {
       const int k = e / per, c = c0 + (a.vec ? 4 * (e % per) : e % per);
       const int xs = x0 - R + k;
       const bool ok = xs >= 0 && xs < a.W && c < a.C;
@@ -183,6 +220,7 @@ template <int P, typename T>
 __device__ __forceinline__ void fill_g(const Args<T>& a, float* G, float* raw,
                                        bool second, int b, int y, int x0) {
   constexpr int R = (P - 1) / 2;
+  if constexpr ((kDrop<T> & 2) != 0) return;
   const int rows = a.tile + 2 * R;
   const int npix = second ? rows : a.tile;
   const int gx0 = second ? x0 - R : x0;
@@ -265,6 +303,7 @@ __global__ void correlation_bwd_kernel(const Args<T> a) {
     __syncthreads();            // s's row landed; s - 1's math done
     if (s + 1 < s1)
       stage_row<P, T>(a, S + (buf ^ 1) * s_elems, X, b, s + 1, x0, c0);
+    if constexpr ((kDrop<T> & 4) != 0) continue;   // without the FMAs
     if (active) {
       // out[i0 + t] += G[dy][e][i0 + t] * S[i0 + t + e]: a window of TX
       // rows of S slides over e, each G float4 feeds TX columns
@@ -314,6 +353,9 @@ __global__ void correlation_bwd_kernel(const Args<T> a) {
         c;
     const float4 v = make_float4(acc[t].x / fc, acc[t].y / fc, acc[t].z / fc,
                                  acc[t].w / fc);
+    if constexpr ((kDrop<T> & 8) != 0) {
+      if (v.x != NEVER) continue;
+    }
     if constexpr (std::is_same<T, bf16>::value) {
       if (a.vec) {
         if (c < a.C) {
@@ -344,17 +386,230 @@ __global__ void correlation_bwd_kernel(const Args<T> a) {
   }
 }
 
-template <int P, typename T>
-cudaError_t launch(const Args<T>& base, int B, cudaStream_t stream) {
+// ---- bf16 fast route -------------------------------------------------------
+
+constexpr int FSTAGES = 4;   // source rows in the ring
+static_assert(FSTAGES >= 2, "a row is read while the next ones land");
+
+// Four bf16 channels in shared memory (8-byte aligned) widened to fp32.
+__device__ __forceinline__ float4 widen4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(raw.x), bf16_hi(raw.x), bf16_lo(raw.y),
+                     bf16_hi(raw.y));
+}
+
+// Copy source row s's tile of columns x0 - r ... (channels c0 ... of the
+// slice, as bf16) into the ring's buffer S with 16-byte cp.async,
+// zero-filled outside the image; one commit group, empty when s lies past
+// the last source row.
+template <int P>
+__device__ __forceinline__ void fast_stage(const Args<bf16>& a, bf16* S,
+                                           const bf16* X, int b, int s,
+                                           int s1, int x0, int c0, int lds) {
   constexpr int R = (P - 1) / 2;
-  Args<T> a = base;
-  // equal column tiles of at most MAX_TILE columns, each a whole number
-  // of TX, with G within G_BYTES
+  const int rows = a.tile + 2 * R;
+  const int per_log2 = a.cq_log2 - 1;      // 8 channels a copy
+  const int64_t row = (static_cast<int64_t>(b) * a.H + s) * a.W;
+  for (int e = threadIdx.x; !(kDrop<bf16> & 1) && s < s1 &&
+                            e < (rows << per_log2);
+       e += blockDim.x) {
+    const int k = e >> per_log2;
+    const int c = c0 + 8 * (e & ((1 << per_log2) - 1));
+    const int xs = x0 - R + k;
+    const bool ok = xs >= 0 && xs < a.W && c < a.C;
+    cp_async16(S + k * lds + c - c0, ok ? X + (row + xs) * a.C + c : X, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One value of G's slab dy, as fill_g forms it, read straight from g (and
+// out) without the staging.  The slab's elements n walk g's order (the P
+// channels of a pixel next to each other): pixel k = n / P, channel dy * P
+// + m with m = n % P.  dx1's pixel k is x0 + k and gives G[dy][m][k]; dx2's
+// is x0 - r + k and gives G[dy][P - 1 - m][k - (P - 1 - m)].  dst: the
+// index into G, -1 where that column lies outside the tile.
+template <int P>
+__device__ __forceinline__ float g_value(const Args<bf16>& a, bool second,
+                                         int b, int y, int x0, int dy, int n,
+                                         int& dst) {
+  constexpr int R = (P - 1) / 2;
+  const int k = n / P, m = n - k * P;
+  const int e = second ? P - 1 - m : m;
+  const int i = second ? k - e : k;
+  dst = -1;
+  if (i < 0 || i >= a.tile) return 0.f;
+  dst = (dy * P + e) * a.tile + i;
+  const int s = second ? y - dy + R : y;
+  const int gx = (second ? x0 - R : x0) + k;
+  if (gx < 0 || gx >= a.W) return 0.f;
+  const int64_t pix = (static_cast<int64_t>(b) * a.H + s) * a.W + gx;
+  float v = __ldg(a.g + pix * a.ldg + dy * P + m);
+  if (a.out && !(__ldg(a.out + pix * (P * P) + dy * P + m) >= 0.f)) v *= 0.1f;
+  return v;
+}
+
+constexpr int GU = 16;   // values of G a thread holds in flight
+constexpr int MAX_CLUSTER = 8;   // the portable cluster size
+
+// fill_g's G without the staging, shared by the blocks of a cluster (the
+// channel slices of one column tile, which read the same G): block `rank`
+// of `cs` forms the slabs dy = d0 + rank, d0 + rank + cs, ... of [d0, d1)
+// (every slab the main loop reads) and writes each into the G of every
+// block of the cluster; GU values a thread a round, each round's loads
+// before its stores.
+template <int P>
+__device__ __forceinline__ void fast_fill_g(const Args<bf16>& a, float* G,
+                                            cg::cluster_group& cluster,
+                                            bool second, int b, int y,
+                                            int x0) {
+  constexpr int R = (P - 1) / 2;
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int per_dy = (second ? a.tile + 2 * R : a.tile) * P;
+  const int d0 = second ? max(0, y + R - a.H + 1) : max(0, R - y);
+  const int d1 = second ? min(P, y + R + 1) : min(P, a.H + R - y);
+  const int mine = max(0, (d1 - d0 - rank + cs - 1) / cs);
+  const int total = mine * per_dy;
+  for (int n0 = threadIdx.x; n0 < total; n0 += GU * blockDim.x) {
+    float v[GU];
+    int dst[GU];
+#pragma unroll
+    for (int u = 0; u < GU; ++u) {
+      const int n = n0 + u * blockDim.x;
+      v[u] = 0.f;
+      dst[u] = -1;
+      if (n < total)
+        v[u] = g_value<P>(a, second, b, y, x0,
+                          d0 + rank + cs * (n / per_dy), n % per_dy, dst[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < GU; ++u)
+      if (dst[u] >= 0)
+        for (int r = 0; r < cs; ++r)
+          *cluster.map_shared_rank(G + dst[u], r) = v[u];
+  }
+}
+
+template <int P>
+__global__ void correlation_bwd_bf16_fast_kernel(const Args<bf16> a) {
+  constexpr int R = (P - 1) / 2;
+  constexpr int DROP = kDrop<bf16>;
+  extern __shared__ __align__(16) float smem[];
+  const int rows = a.tile + 2 * R;
+  const int lds = 4 * a.cq + 8;      // bf16 row stride: 16 bytes of padding
+  const int s_elems = rows * lds;
+  // G [P (dy)][P (e)][tile] fp32, then the ring [FSTAGES][rows][lds] bf16
+  float* const G = smem;
+  bf16* const S = reinterpret_cast<bf16*>(G + P * P * a.tile);
+
+  const int slice = blockIdx.x % a.nslice;
+  const int x0 = (blockIdx.x / a.nslice) * a.tile;
+  const int c0 = slice * 4 * a.cq;
+  const int y = blockIdx.y;
+  const int b = blockIdx.z >> 1;
+  const bool second = blockIdx.z & 1;          // dx2
+  const bf16* const X = second ? a.x1 : a.x2;
+  const int ncol = min(a.tile, a.W - x0);
+  const int s0 = max(0, y - R);
+  const int s1 = min(a.H, y + R + 1);
+
+  // another block's shared memory may be written only once every block of
+  // the cluster has started: arrive now, wait before G's first write
+  cg::cluster_group cluster = cg::this_cluster();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // the first rows' copies land while G is formed
+#pragma unroll
+  for (int k = 0; k < FSTAGES - 1; ++k)
+    fast_stage<P>(a, S + k * s_elems, X, b, s0 + k, s1, x0, c0, lds);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (!(DROP & 2)) fast_fill_g<P>(a, G, cluster, second, b, y, x0);
+  cluster.sync();              // every slab of G is in every block
+
+  const int grp = threadIdx.x >> a.cq_log2;
+  const int q = threadIdx.x & (a.cq - 1);
+  const int i0 = TX * grp;
+  const bool active = i0 < ncol;
+
+  float4 acc[TX];
+#pragma unroll
+  for (int t = 0; t < TX; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int s = s0; s < s1; ++s) {
+    const int k = s - s0;
+    // row s landed (the FSTAGES - 2 later ones may still be in flight);
+    // row s - 1's math, which read the buffer refilled next, is done
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(FSTAGES - 2));
+    __syncthreads();
+    fast_stage<P>(a, S + ((k + FSTAGES - 1) % FSTAGES) * s_elems, X, b,
+                  s + FSTAGES - 1, s1, x0, c0, lds);
+    if (active && !(DROP & 4)) {
+      // the general route's window and FMAs, on rows widened from bf16
+      const int dy = second ? y - s + R : s - y + R;
+      const float* const gs = G + dy * P * a.tile + i0;
+      const bf16* const sp = S + (k % FSTAGES) * s_elems + i0 * lds + 4 * q;
+      float4 win[TX];
+#pragma unroll
+      for (int t = 0; t < TX - 1; ++t) win[t + 1] = widen4(sp + t * lds);
+#pragma unroll
+      for (int e = 0; e < P; ++e) {
+#pragma unroll
+        for (int t = 0; t < TX - 1; ++t) win[t] = win[t + 1];
+        win[TX - 1] = widen4(sp + (e + TX - 1) * lds);
+        float w[TX];
+#pragma unroll
+        for (int t = 0; t < TX; t += 4) {
+          const float4 w4 =
+              *reinterpret_cast<const float4*>(gs + e * a.tile + t);
+          w[t] = w4.x;
+          w[t + 1] = w4.y;
+          w[t + 2] = w4.z;
+          w[t + 3] = w4.w;
+        }
+#pragma unroll
+        for (int t = 0; t < TX; ++t) {
+          acc[t].x += w[t] * win[t].x;
+          acc[t].y += w[t] * win[t].y;
+          acc[t].z += w[t] * win[t].z;
+          acc[t].w += w[t] * win[t].w;
+        }
+      }
+    }
+  }
+
+  if (!active) return;
+  bf16* const D = second ? a.dx2 : a.dx1;
+  const float fc = static_cast<float>(a.C);
+  const int c = c0 + 4 * q;
+  if (c >= a.C) return;
+#pragma unroll
+  for (int t = 0; t < TX; ++t) {
+    if (i0 + t >= ncol) break;
+    const float4 v = make_float4(acc[t].x / fc, acc[t].y / fc, acc[t].z / fc,
+                                 acc[t].w / fc);
+    if ((DROP & 8) && v.x != NEVER) continue;
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const unsigned*>(&lo);
+    raw.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(
+        D + ((static_cast<int64_t>(b) * a.H + y) * a.W + x0 + i0 + t) * a.C +
+        c) = raw;
+  }
+}
+
+// ---- launch ----------------------------------------------------------------
+
+// The blocks of both entries and routes: equal column tiles of at most
+// MAX_TILE columns, each a whole number of TX, with G within G_BYTES, and
+// channel slices of cq quads (a power of two up to MAX_CQ, so that the
+// threads of one column group fill whole quarter-warps or divide them).
+// Returns the number of column tiles.
+template <int P, typename T>
+int plan(Args<T>& a) {
   const int max_tile = std::min(MAX_TILE, G_BYTES / (P * P * 4) / TX * TX);
   const int ntile = (a.W + max_tile - 1) / max_tile;
   a.tile = ((a.W + ntile - 1) / ntile + TX - 1) / TX * TX;
-  // channel quads per block: a power of two up to MAX_CQ, so that the
-  // threads of one column group fill whole quarter-warps or divide them
   const int quads = (a.C + 3) / 4;
   a.cq = 1;
   a.cq_log2 = 0;
@@ -364,6 +619,14 @@ cudaError_t launch(const Args<T>& base, int B, cudaStream_t stream) {
   }
   a.nslice = (quads + a.cq - 1) / a.cq;
   a.ldc = 4 * a.cq + 4;
+  return ntile;
+}
+
+template <int P, typename T>
+cudaError_t launch(const Args<T>& base, int B, cudaStream_t stream) {
+  constexpr int R = (P - 1) / 2;
+  Args<T> a = base;
+  const int ntile = plan<P>(a);
   // the prologue's g and out overlay the two source rows: as many slabs a
   // round as fit, at least one (then the overlay is larger)
   const int rows = a.tile + 2 * R;
@@ -384,11 +647,58 @@ cudaError_t launch(const Args<T>& base, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int P>
+cudaError_t launch_fast(const Args<bf16>& base, int B, cudaStream_t stream) {
+  constexpr int R = (P - 1) / 2;
+  Args<bf16> a = base;
+  const int ntile = plan<P>(a);
+  const size_t smem =
+      static_cast<size_t>(P) * P * a.tile * sizeof(float) +
+      static_cast<size_t>(FSTAGES) * (a.tile + 2 * R) * (4 * a.cq + 8) *
+          sizeof(bf16);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        correlation_bwd_bf16_fast_kernel<P>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  // the channel slices of a column tile share G: one cluster (at most
+  // MAX_CLUSTER blocks, else each block forms G alone)
+  const int cs = a.nslice <= MAX_CLUSTER ? a.nslice : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ntile * a.nslice, a.H, 2 * B);
+  cfg.blockDim = dim3(a.tile / TX * a.cq, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, correlation_bwd_bf16_fast_kernel<P>, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int P, typename T>
+cudaError_t dispatch(const Args<T>& a, int B, int route, cudaStream_t s) {
+  if constexpr (!kF32<T>) {
+    if (route) return launch_fast<P>(a, B, s);
+  }
+  return launch<P>(a, B, s);
+}
+
 // Check the arguments and launch the kernel of patch size P; `align`: the
 // byte alignment the vectorized loads and stores need (4 channels).
+// route: 1 the bf16 fast route (refused unless C % 8 == 0 and x1, x2, dx1,
+// dx2 are 16-byte aligned), 0 the general one.
 template <typename T>
 int run(const float* g, const float* out, const T* x1, const T* x2, T* dx1,
-        T* dx2, int ldg, int B, int H, int W, int C, int P, void* stream) {
+        T* dx2, int ldg, int B, int H, int W, int C, int P, int route,
+        void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || P <= 0 || P % 2 == 0 ||
       P > 31 || ldg < P * P || H > 65535 || B > 32767)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -398,27 +708,34 @@ int run(const float* g, const float* out, const T* x1, const T* x2, T* dx1,
                    reinterpret_cast<uintptr_t>(x2) % align == 0 &&
                    reinterpret_cast<uintptr_t>(dx1) % align == 0 &&
                    reinterpret_cast<uintptr_t>(dx2) % align == 0;
+  const bool fast_fits = C % 8 == 0 &&
+                         reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(x2) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(dx1) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(dx2) % 16 == 0;
+  if (route != 0 && (kF32<T> || route != 1 || !fast_fits))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args<T> a{g, out, x1, x2, dx1, dx2, ldg, H, W, C, 0, 0, 0, 0, 0,
                   vec ? 1 : 0};
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (P) {
-    case 1: e = launch<1>(a, B, s); break;
-    case 3: e = launch<3>(a, B, s); break;
-    case 5: e = launch<5>(a, B, s); break;
-    case 7: e = launch<7>(a, B, s); break;
-    case 9: e = launch<9>(a, B, s); break;
-    case 11: e = launch<11>(a, B, s); break;
-    case 13: e = launch<13>(a, B, s); break;
-    case 15: e = launch<15>(a, B, s); break;
-    case 17: e = launch<17>(a, B, s); break;
-    case 19: e = launch<19>(a, B, s); break;
-    case 21: e = launch<21>(a, B, s); break;
-    case 23: e = launch<23>(a, B, s); break;
-    case 25: e = launch<25>(a, B, s); break;
-    case 27: e = launch<27>(a, B, s); break;
-    case 29: e = launch<29>(a, B, s); break;
-    default: e = launch<31>(a, B, s); break;
+    case 1: e = dispatch<1>(a, B, route, s); break;
+    case 3: e = dispatch<3>(a, B, route, s); break;
+    case 5: e = dispatch<5>(a, B, route, s); break;
+    case 7: e = dispatch<7>(a, B, route, s); break;
+    case 9: e = dispatch<9>(a, B, route, s); break;
+    case 11: e = dispatch<11>(a, B, route, s); break;
+    case 13: e = dispatch<13>(a, B, route, s); break;
+    case 15: e = dispatch<15>(a, B, route, s); break;
+    case 17: e = dispatch<17>(a, B, route, s); break;
+    case 19: e = dispatch<19>(a, B, route, s); break;
+    case 21: e = dispatch<21>(a, B, route, s); break;
+    case 23: e = dispatch<23>(a, B, route, s); break;
+    case 25: e = dispatch<25>(a, B, route, s); break;
+    case 27: e = dispatch<27>(a, B, route, s); break;
+    case 29: e = dispatch<29>(a, B, route, s); break;
+    default: e = dispatch<31>(a, B, route, s); break;
   }
   return static_cast<int>(e);
 }
@@ -434,17 +751,21 @@ extern "C" int stmask_correlation_bwd(const float* g, const float* out,
                                       float* dx1, float* dx2, int ldg, int B,
                                       int H, int W, int C, int P,
                                       void* stream) {
-  return run<float>(g, out, x1, x2, dx1, dx2, ldg, B, H, W, C, P, stream);
+  return run<float>(g, out, x1, x2, dx1, dx2, ldg, B, H, W, C, P, 0, stream);
 }
 
 // As stmask_correlation_bwd with x1, x2, dx1 and dx2 bf16 (g and out
-// fp32): the sums in fp32, each output rounded to bf16.
+// fp32): the sums in fp32, each output rounded to bf16.  route: 1 the fast
+// route, 0 the general one (both give the same bits); a fast route the
+// call cannot take (C % 8 != 0, or a pointer of x1, x2, dx1, dx2 not
+// 16-byte aligned) is refused with cudaErrorInvalidValue.
 extern "C" int stmask_correlation_bwd_bf16(const float* g, const float* out,
                                            const __nv_bfloat16* x1,
                                            const __nv_bfloat16* x2,
                                            __nv_bfloat16* dx1,
                                            __nv_bfloat16* dx2, int ldg, int B,
                                            int H, int W, int C, int P,
-                                           void* stream) {
-  return run<bf16>(g, out, x1, x2, dx1, dx2, ldg, B, H, W, C, P, stream);
+                                           int route, void* stream) {
+  return run<bf16>(g, out, x1, x2, dx1, dx2, ldg, B, H, W, C, P, route,
+                   stream);
 }

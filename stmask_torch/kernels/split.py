@@ -22,6 +22,9 @@ The kernels that take part:
 - ``CORR``: K1's bf16 entry (``csrc/correlation.cu``, ``STMASK_CORR_DROP``):
   bit 1 the copies into shared memory, 2 the products, 4 the butterfly
   over the channel slices, 8 the output stores.
+- ``CORR_BWD``: K3's bf16 entry (``csrc/correlation_bwd.cu``,
+  ``STMASK_CORRBWD_DROP``): bit 1 the source rows' staging, 2 the
+  prologue's G formation, 4 the FMAs, 8 the output stores.
 - ``GREEDY`` and ``GREEDY_BOXES``: B5's two entries, one route each
   (``csrc/greedy_nms.cu``, ``STMASK_NMS_DROP``): bit 1 the suppression rows
   (in the boxes entry with their IoUs), 2 the scan, 4 (boxes entry) the
@@ -34,7 +37,7 @@ one route names none and is split on the route 'general'.
 ``chip_smoke.py`` prints the splits once a run (``CONV`` at 8 frames of the
 flagship's 7 DCN sites and FCB's 48x80 3x5 site, ``COL2IM`` likewise in
 training, ``CORR`` at one lane-frame of the eval CLI, B5's at one and at 8
-frames' classes):
+frames' classes, ``CORR_BWD`` at the training shape [4, 24, 40, 256]):
 
     build_variants(COL2IM)
     rows = split(COL2IM, K4, sites, call, time_ms, 'fast')
@@ -74,6 +77,10 @@ CORR = Parts('correlation', 'STMASK_CORR_DROP',
              ((1, 'no copies'), (2, 'no products'), (4, 'no butterfly'),
               (8, 'no output stores')),
              'KERNEL_BF16', 'corr_fast')
+CORR_BWD = Parts('correlation_bwd', 'STMASK_CORRBWD_DROP',
+                 ((1, 'no source-row staging'), (2, 'no G formation'),
+                  (4, 'no FMAs'), (8, 'no output stores')),
+                 'KERNEL_BF16', 'corr_bwd_fast')
 GREEDY = Parts('greedy_nms', 'STMASK_NMS_DROP',
                ((1, 'no suppression rows'), (2, 'no scan')), 'KERNEL')
 GREEDY_BOXES = Parts('greedy_nms', 'STMASK_NMS_DROP',

@@ -39,11 +39,13 @@ on the fp32 parameters, as JAX's ``temporal_net_fn`` and ``maskiou_fn``
 close over the uncast ones.  The casts are differentiable, so every
 gradient reaches its fp32 parameter in fp32 (after the bf16 rounding of
 the weight cotangent); the norm, the clip, the skip, the update and the
-sum over ranks stay fp32.
+sum over ranks stay fp32.  On the CPU the bf16 step runs its forward and
+backward with oneDNN off (``without_onednn``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from itertools import chain
 from typing import Callable, Dict, List, NamedTuple, Tuple
 
@@ -130,12 +132,17 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
                                 **kw)
         return sum(losses.values()), losses
 
+    # the CPU's bf16 step without oneDNN (see without_onednn)
+    onednn = (without_onednn if dev.type == 'cpu'
+              and compute_dtype == torch.bfloat16 else contextlib.nullcontext)
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict]:
         for p in params:
             p.grad = None
-        total, losses = loss_fn(batch)
-        total.backward()
+        with onednn():
+            total, losses = loss_fn(batch)
+            total.backward()
         with torch.no_grad():
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in params]
@@ -169,6 +176,26 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
                           torch.zeros((), dtype=torch.long, device=dev), 0)
 
     return train_step, init_state
+
+
+@contextlib.contextmanager
+def without_onednn():
+    """oneDNN off while the context is open: the bf16 step's forward and
+    backward on the CPU.
+
+    oneDNN v3.12.0 (torch 2.13.0+cpu, AVX512) computes the weight gradient
+    of a bf16 channels-last conv with a 5x3 kernel and padding (2, 1) over a
+    1x1 map (an FCA bank's 5x3 kernel at P7 of a 96x128 input) from memory
+    it never wrote: values up to 1e34, or inf, that change from call to
+    call.  3x3, 3x5 and 1x1 kernels, and larger maps, are right.  torch's
+    own CPU convolutions are used instead.  On the card cuDNN runs them.
+    """
+    before = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = before
 
 
 def _sum_over_ranks(params: List[torch.Tensor], grads: List[torch.Tensor],

@@ -23,7 +23,9 @@ from stmask_torch.convert import state_dict_from_flax
 from stmask_torch.data import COCOAsVideos, COCODataset
 from stmask_torch.data.synthetic import write_coco_set
 
-from torch_eval_common import JCFG, TCFG, flax_params, same_tracks
+from torch_eval_common import (JCFG, TCFG, flax_params, refuses_corrupted,
+                               same_tracks)
+from torch_eval_common import port_mask_values  # noqa: F401
 from torch_eval_common import few_torch_threads  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
@@ -112,7 +114,8 @@ def test_coco_as_videos_matches_jax(coco_json):
     assert len(gt['annotations']) == 3 and len(gt['categories']) == 2
 
 
-def test_coco_eval_matches_jax_eval_script(tmp_path, monkeypatch):
+def test_coco_eval_matches_jax_eval_script(tmp_path, monkeypatch,
+                                           port_mask_values):
     """``--coco --fp32 --eval_metrics`` (2 lanes x 2-frame chunks over 5
     one-frame videos) against JAX's ``evaluate_dataset_batched`` with
     ``--coco``: the same tracks, scores within 1e-4, the same metrics."""
@@ -134,7 +137,9 @@ def test_coco_eval_matches_jax_eval_script(tmp_path, monkeypatch):
                                        weights, '--device', 'cpu',
                                        '--mask_det_file', str(t_out)])
     tracks = json.loads(t_out.read_text())
-    same_tracks(tracks, json.loads(j_out.read_text()), 1e-4)
+    want = json.loads(j_out.read_text())
+    same_tracks(tracks, want, 1e-4, port_mask_values)
+    refuses_corrupted(tracks, want, 1e-4, port_mask_values)
     assert {t['video_id'] for t in tracks} <= {1, 2, 3, 4, 5}
     assert all(len(t['segmentations']) == 1 for t in tracks)
     assert t_stats['n_frames'] == 5 and t_stats['n_chunks'] == 2

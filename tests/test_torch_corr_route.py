@@ -77,8 +77,8 @@ def test_wrapper_routes_calls(monkeypatch, shape, off):
     assert args[3:9] == tuple(shape) + (11, 0)
 
 
-@pytest.mark.parametrize('spec', [KS.CONV, KS.COL2IM, KS.CORR, KS.GREEDY,
-                                  KS.GREEDY_BOXES],
+@pytest.mark.parametrize('spec', [KS.CONV, KS.COL2IM, KS.CORR, KS.CORR_BWD,
+                                  KS.GREEDY, KS.GREEDY_BOXES],
                          ids=lambda s: f'{s.library}.{s.entry}')
 def test_split_specs(spec):
     """Each spec's labels are 'whole' and its parts', its bits distinct

@@ -4,7 +4,9 @@ set (3 videos of 3 PNG frames at 192x256, resized 2x down to the reduced
 flagship's 96x128; gt at 96x128) and the same weights:
 
 * ``--sequential`` without ``--fp32`` runs in fp32, as JAX's sequential
-  eval does (it casts nothing): JAX's ``evaluate_dataset`` tracks;
+  eval does (it casts nothing): JAX's ``evaluate_dataset`` tracks, their
+  masks equal but for pixels within ``MASK_MARGIN`` of the threshold
+  (``torch_eval_common``), as in every JSON comparison here;
 * ``--display --display_lincomb --display_fpn_outs``: JAX's JSON, its
   file set, overlays equal on at least 99.5% of their pixels (boxes are
   cut to int and scores printed to 2 decimals, so an fp32 ulp can move an
@@ -33,8 +35,10 @@ from stmask_torch.convert import state_dict_from_flax
 from stmask_torch.data.synthetic import write_ytvis_set
 from stmask_torch.utils.logger import ProgressBar, StageTimer
 
-from torch_eval_common import JCFG, TCFG, flax_params, same_tracks
+from torch_eval_common import (JCFG, TCFG, flax_params, refuses_corrupted,
+                               same_tracks)
 from torch_eval_common import few_torch_threads  # noqa: F401
+from torch_eval_common import port_mask_values  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 
@@ -103,7 +107,7 @@ def _equal_share(a_path, b_path) -> float:
     return float((a == b).all(-1).mean())
 
 
-def test_sequential_runs_fp32_like_jax(setup):
+def test_sequential_runs_fp32_like_jax(setup, port_mask_values):
     """``--sequential`` without ``--fp32``: the JAX sequential eval's
     tracks (it runs in the fp32 parameters' dtype whatever --bf16 says)."""
     j_out, t_out = setup['root'] / 'jax_seq.json', setup['root'] / 'seq.json'
@@ -111,14 +115,15 @@ def test_sequential_runs_fp32_like_jax(setup):
                    '--eval_metrics', '--mask_det_file', str(j_out))
     t_stats = _port(setup, *_data(setup), '--sequential', '--eval_metrics',
                     '--mask_det_file', str(t_out))
-    same_tracks(json.loads(t_out.read_text()), json.loads(j_out.read_text()),
-                SCORE_ATOL)
+    got, want = json.loads(t_out.read_text()), json.loads(j_out.read_text())
+    same_tracks(got, want, SCORE_ATOL, port_mask_values)
+    refuses_corrupted(got, want, SCORE_ATOL, port_mask_values)
     assert t_stats['n_frames'] == 9
     for k in ('mAP', 'AP50', 'AP75', 'AR'):
         assert abs(t_stats[k] - j_stats[k]) <= 1e-6, k
 
 
-def test_display_matches_jax(setup, jax_display):
+def test_display_matches_jax(setup, jax_display, port_mask_values):
     """--display --display_lincomb --display_fpn_outs: the same JSON, the
     same files (an overlay, three proto/ grids and five fpn/ grids a
     frame), overlays equal on 99.5% of pixels, grids within 2 levels."""
@@ -128,8 +133,10 @@ def test_display_matches_jax(setup, jax_display):
                   '--display_dir', str(out), '--mask_det_file',
                   str(out / 'r.json'))
     assert stats['n_frames'] == 6
-    same_tracks(json.loads((out / 'r.json').read_text()),
-                json.loads((jax_display / 'r.json').read_text()), SCORE_ATOL)
+    got = json.loads((out / 'r.json').read_text())
+    want = json.loads((jax_display / 'r.json').read_text())
+    same_tracks(got, want, SCORE_ATOL, port_mask_values)
+    refuses_corrupted(got, want, SCORE_ATOL, port_mask_values)
     files = _files(out)
     assert files == _files(jax_display)
     frames = [f for f in files if os.sep not in f]
@@ -154,7 +161,7 @@ def test_display_matches_jax(setup, jax_display):
     assert p3.shape == (4 * TCFG.pad_h // 8, 4 * TCFG.pad_w // 8)
 
 
-def test_video_dir_matches_jax(setup):
+def test_video_dir_matches_jax(setup, port_mask_values):
     """--video_dir over one video's frames with --display: JAX's
     ``evaluate_video_dir`` tracks, overlay names and 99.5% of pixels."""
     frames = os.path.join(setup['prefix'], 'video002')
@@ -166,8 +173,9 @@ def test_video_dir_matches_jax(setup):
     assert stats['n_frames'] == 3 and stats['e2e_fps'] > 0
     tracks = json.loads((t_dir / 'r.json').read_text())
     assert {t['video_id'] for t in tracks} == {0}
-    same_tracks(tracks, json.loads((j_dir / 'r.json').read_text()),
-                SCORE_ATOL)
+    want = json.loads((j_dir / 'r.json').read_text())
+    same_tracks(tracks, want, SCORE_ATOL, port_mask_values)
+    refuses_corrupted(tracks, want, SCORE_ATOL, port_mask_values)
     files = _files(t_dir)
     assert files == _files(j_dir) == [f'00000_{f:04d}.png' for f in range(3)]
     for f in files:

@@ -13,8 +13,8 @@ import torch
 # entries' check is its phase 14a's (one bf16 ulp of each value plus 2^-12
 # of max|ref|, bit for bit over two launches where no atomics sum)
 from chip_smoke import (GREEDY_SHAPES, _bf16_err, _boxes_args,
-                        _degenerate_boxes, _greedy_boxes, _greedy_inputs,
-                        _near_threshold_boxes)
+                        _degenerate_boxes, _general_route, _greedy_boxes,
+                        _greedy_inputs, _near_threshold_boxes)
 from stmask_torch.kernels import correlation as K1
 from stmask_torch.kernels import correlation_bwd as K3
 from stmask_torch.kernels import deform_col2im as K4
@@ -1024,6 +1024,81 @@ def test_correlation_bwd_kernel_bf16(device, shape, patch, act):
     for a, a2, b in zip(got, again, want):
         assert b.dtype == torch.bfloat16
         _bf16_err(a, a2, b)
+
+
+# CORR_BWD_SHAPES where K3's bf16 fast route applies (C % 8 == 0)
+CORR_BWD_FAST = [(s, p) for s, p in CORR_BWD_SHAPES if s[-1] % 8 == 0]
+
+
+@pytest.mark.parametrize('slice_g', [False, True], ids=['g', 'g_slice'])
+@pytest.mark.parametrize('act', [True, False])
+@pytest.mark.parametrize('shape,patch', CORR_BWD_FAST)
+def test_correlation_bwd_bf16_fast_route_is_the_general_route(
+        device, shape, patch, act, slice_g):
+    """K3 bf16's fast route (C % 8 == 0, every map 16-byte aligned) gives
+    the general route's dx1 and dx2 bit for bit, with and without the
+    forward's output and with g a channel slice of a wider gradient (pixel
+    stride above P^2, as torch.cat's backward hands it over); the same
+    bits on a second launch; one launch a call."""
+    up, x1, x2, out = _corr_bwd_case(device, shape, patch, seed=11)
+    x1, x2 = x1.bfloat16(), x2.bfloat16()
+    out = out if act else None
+    if slice_g:
+        wide = torch.randn(shape[:3] + (patch * patch + 7,), device=device)
+        wide[..., 3:3 + patch * patch] = up
+        up = wide[..., 3:3 + patch * patch]
+        assert K3.pixel_stride(up) == patch * patch + 7
+    launches = K3.KERNEL_BF16.launches
+    fast = K3.correlation_bwd_cuda(up, x1, x2, patch, out=out)
+    assert K3.KERNEL_BF16.launches == launches + 1
+    assert K3.corr_bwd_fast(shape[-1], x1.data_ptr(), x2.data_ptr(),
+                            *(d.data_ptr() for d in fast))
+    again = K3.correlation_bwd_cuda(up, x1, x2, patch, out=out)
+    with _general_route(K3, 'corr_bwd_fast'):
+        general = K3.correlation_bwd_cuda(up, x1, x2, patch, out=out)
+    want = K3.correlation_bwd_reference(up, x1, x2, patch, out=out)
+    torch.cuda.synchronize()
+    for a, a2, gen, b in zip(fast, again, general, want):
+        assert torch.equal(a, gen)
+        assert torch.equal(a, a2)
+        _bf16_err(a, a2, b)
+
+
+@pytest.mark.parametrize('case', ['c12', 'c40_x1_unaligned',
+                                  'c256_maps_unaligned'])
+def test_correlation_bwd_bf16_off_route(device, case):
+    """A call the fast route cannot take (C % 8 != 0, or a map one element
+    into its buffer) goes to the general route, which agrees with the
+    plain version; the bf16 entry refuses a fast call for it."""
+    shape = {'c12': (1, 6, 5, 12), 'c40_x1_unaligned': (1, 5, 7, 40),
+             'c256_maps_unaligned': (2, 6, 9, 256)}[case]
+    up, x1, x2, out = _corr_bwd_case(device, shape, 5, seed=12)
+    n = x1.numel()
+    buf = torch.empty(2 * n + 2, device=device, dtype=torch.bfloat16)
+    lead = 1 if case.endswith('unaligned') else 0
+    x1b = buf[lead:lead + n].view(shape)
+    x2b = buf[n + lead:2 * n + lead].view(shape)
+    if case == 'c40_x1_unaligned':
+        x2b = x2.bfloat16()
+    x1b.copy_(x1)
+    x2b.copy_(x2)
+    dx = torch.empty(shape, device=device, dtype=torch.bfloat16)
+    assert not K3.corr_bwd_fast(shape[-1], x1b.data_ptr(), x2b.data_ptr(),
+                                dx.data_ptr(), dx.data_ptr())
+    launches = K3.KERNEL_BF16.launches
+    got = K3.correlation_bwd_cuda(up, x1b, x2b, 5, out=out)
+    again = K3.correlation_bwd_cuda(up, x1b, x2b, 5, out=out)
+    assert K3.KERNEL_BF16.launches == launches + 2
+    want = K3.correlation_bwd_reference(up, x1b, x2b, 5, out=out)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, again, want):
+        _bf16_err(a, a2, b)
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        K3.KERNEL_BF16(up.data_ptr(), out.data_ptr(), x1b.data_ptr(),
+                       x2b.data_ptr(), dx.data_ptr(), dx.data_ptr(), 25,
+                       *shape, 5, 1, stream)
+    assert K3.KERNEL_BF16.launches == launches + 2
 
 
 def _bf16_case(x, off, mask, off_dtype):
