@@ -173,6 +173,22 @@ Phases, in order (any failure raises and exits non-zero):
      STMask_plus_resnet50_ali (the f32off entries), finite losses and
      peak memory.
 
+ 15. training through the exact deformable gather (window radius 0): (a)
+     K5 (the exact gather's backward: dx, d_offset, d_mask) against its
+     plain version at the 7 DCN sites and FCB's 15 x 8 frames, at zero,
+     integer-edge (rows and columns -1, 0, H-1, H) and N(0, 6) offsets,
+     with and without the mask, fp32 and both bf16 entries (d_offset and
+     d_mask bit for bit over two launches), then its times and bounds at
+     each site; (b) deform_wgrad at N(0, 6) offsets against its plain
+     version, fast and general paths, fp32 and bf16; (c) the flagship with
+     dcn_window_radius 0 and STMask_plus_resnet50_ada with
+     fcb_window_radius 0 on the card against the CPU at 96x128, and ROADMAP
+     C.15's third run (_ada with FCB's offsets kept inside +-2), the five
+     worst parameters of each beside phase 9's radius-2 comparison; (d) the
+     training steps at 360x640 with both radii 0 (flagship and _ada fp32,
+     _ada remat, bf16 and bf16 + remat, _ali bf16): launches a step, finite
+     losses, ms/step, peak memory.
+
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
 K3 at the shapes of CORR_BWD_SHAPES with and without the forward's output
@@ -221,7 +237,8 @@ TRAIN_LAUNCHES = {'deform_conv': 7, 'deform_wgrad': 7, 'deform_im2col': 0,
                   'deform_col2im': 7, 'correlation': 1, 'correlation_bwd': 1}
 KERNEL_NAMES = ('correlation', 'deform_im2col', 'deform_conv',
                 'correlation_bwd', 'deform_col2im',
-                'deform_wgrad', 'greedy_nms')         # the libraries
+                'deform_wgrad', 'greedy_nms',
+                'deform_exact_bwd')                    # the libraries
 # deform_wgrad against its fp32 plain version, relative to max|ref| (sums
 # over up to 30720 sites): 3xTF32 holds ~1e-6 there, a single TF32 product
 # ~8e-4 (the control); fixed before the kernel's first run
@@ -600,13 +617,15 @@ def _bf16_model_vs_cpu(torch, dev, cfg, tag: str = '') -> None:
 
 
 def _train_step_vs_cpu(torch, dev, cfg, tag: str = '', p3: bool = False,
-                       keys=None) -> dict:
+                       keys=None, prepare=None, hold: bool = True) -> dict:
     """One training step at 96x128, full depth, on the card against the
     CPU path.  Losses rtol 2e-3; gradients: relative L2 error 2e-3 over all
     parameters and 2e-2 per parameter (cuDNN and CPU convolutions sum in
     another order, the fused conv is 3xTF32 and K4 adds with atomics, so a
     ReLU whose input lies within rounding of 0 can switch on one side).
-    ``keys``: the loss keys the step must give, each finite.  Returns each
+    ``keys``: the loss keys the step must give, each finite.  ``prepare``:
+    called on each device's model before its step.  ``hold`` False prints
+    the comparison without holding it (a diagnostic run).  Returns each
     parameter's relative error."""
     from stmask_torch.data.transforms import prepare_batch
     from stmask_torch.models import build_model
@@ -616,6 +635,8 @@ def _train_step_vs_cpu(torch, dev, cfg, tag: str = '', p3: bool = False,
     res = {}
     for d_ in (torch.device('cpu'), dev):
         mdl = build_model(small, d_, seed=0)
+        if prepare is not None:
+            prepare(mdl)
         st_, in_ = build_train_step(small, mdl, d_)
         _, m = st_(in_(), prepare_batch(small, host, d_))
         # a parameter outside every loss (the centerness banks under the
@@ -633,7 +654,7 @@ def _train_step_vs_cpu(torch, dev, cfg, tag: str = '', p3: bool = False,
     for k in cm:
         print(f'[check] {tag}train card vs CPU {k}: {gm[k]:.6f} vs '
               f'{cm[k]:.6f}')
-        assert abs(gm[k] - cm[k]) <= 2e-3 * abs(cm[k]) + 1e-7, k
+        assert not hold or abs(gm[k] - cm[k]) <= 2e-3 * abs(cm[k]) + 1e-7, k
     rel = {n: float((gg[n] - cg[n]).norm() / cg[n].norm().clamp(min=1e-30))
            for n in cg}
     tot = float(sum((gg[n] - cg[n]).norm() ** 2 for n in cg) ** 0.5
@@ -641,9 +662,16 @@ def _train_step_vs_cpu(torch, dev, cfg, tag: str = '', p3: bool = False,
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
     print(f'[check] {tag}train card vs CPU gradients: relative L2 error '
           f'over {len(cg)} parameters {tot:.3e} (limit 2e-3); worst '
-          f'{[(n, round(v, 6)) for n, v in worst]} (limit 2e-2 each)',
-          flush=True)
-    assert tot <= 2e-3 and worst[0][1] <= 2e-2, (tot, worst)
+          f'{[(n, round(v, 6)) for n, v in worst]} (limit 2e-2 each)'
+          + ('' if hold else '; a diagnostic run, not held'), flush=True)
+    # where each of the worst differs: the share of its squared difference
+    # in its largest output row (one unit that tips moves one row)
+    for n, _ in worst:
+        d2 = (gg[n] - cg[n]).reshape(len(cg[n]), -1).pow(2).sum(dim=1)
+        print(f'[check] {tag}  {n}: largest row {int(d2.argmax())} holds '
+              f'{float(d2.max() / d2.sum().clamp(min=1e-300)):.3f} of the '
+              'squared difference', flush=True)
+    assert not hold or (tot <= 2e-3 and worst[0][1] <= 2e-2), (tot, worst)
     return rel
 
 
@@ -1456,7 +1484,8 @@ def _fcb_train(torch, dev, smi: str, name: str) -> dict:
     print(f'[fcb train] STMask_plus_resnet50_ali: {ALI_TRAIN_STEPS} steps '
           f'with finite losses, all steps {[round(t, 3) for t in ali_ms]} '
           f'ms ({name}, {smi})', flush=True)
-    return dict(ms=med, peak=peak, base=base, busy=busy, launches=launches)
+    return dict(ms=med, peak=peak, base=base, busy=busy, launches=launches,
+                rel=rel)
 
 
 def _fcb_times(torch, dev, smi: str) -> dict:
@@ -4036,6 +4065,489 @@ def _ali_bf16_remat(torch, dev, smi: str, name: str, hosts) -> dict:
                 metrics=metrics)
 
 
+# K5 (the exact gather's backward) and the radius-0 training paths: the
+# offsets K5 is checked at (all 0; integers placing every sample at a row in
+# {-1, 0, H-1, H} and a column in {-1, 0, W-1, W}; N(0, 6), far off the
+# image) and timed at (N(0, 1.5), as a training step's offsets spread);
+# its tolerances, fixed before its first run in the form of K4's: fp32
+# relative to max|ref| (dx adds with atomics), bf16 BF16_REL_ATOL of
+# max|ref|
+EXACT_KINDS = ('zero', 'edge', 'normal6')
+EXACT_RTOL = 1e-5
+EXACT_STEPS = 2
+# launches a step of each radius-0 training run of phase 15 (both window
+# radii 0); remat runs the forward twice
+_EXACT_FP32 = {'deform_conv': 7, 'deform_wgrad': 7, 'deform_exact_bwd': 7,
+               'correlation': 1, 'correlation_bwd': 1}
+_EXACT_BF16 = {'deform_conv_bf16': 22, 'deform_wgrad_bf16': 22,
+               'deform_exact_bwd_bf16': 22, 'correlation_bf16': 1,
+               'correlation_bwd_bf16': 1}
+EXACT_LAUNCHES = {
+    ('STMask_plus_resnet50', 'fp32'): _EXACT_FP32,
+    ('STMask_plus_resnet50_ada', 'fp32'): {
+        n_: 22 if n_.startswith('deform') else v
+        for n_, v in _EXACT_FP32.items()},
+    ('STMask_plus_resnet50_ada', 'remat'): {
+        n_: 44 if n_ == 'deform_conv' else 2 if n_ == 'correlation'
+        else 22 if n_.startswith('deform') else v
+        for n_, v in _EXACT_FP32.items()},
+    ('STMask_plus_resnet50_ada', 'bf16'): _EXACT_BF16,
+    ('STMask_plus_resnet50_ada', 'bf16_remat'): dict(
+        _EXACT_BF16, deform_conv_bf16=44, correlation_bf16=2),
+    ('STMask_plus_resnet50_ali', 'bf16'): {
+        'deform_conv_bf16': 7, 'deform_conv_bf16_f32off': FCB_PER_FRAME,
+        'deform_wgrad_bf16': 7, 'deform_wgrad_bf16_f32off': FCB_PER_FRAME,
+        'deform_exact_bwd_bf16': 7,
+        'deform_exact_bwd_bf16_f32off': FCB_PER_FRAME,
+        'correlation_bf16': 1, 'correlation_bwd_bf16': 1}}
+
+
+def _radius0(cfg, fcb_only: bool = False):
+    """``cfg`` with FCB's window radius 0 and, unless ``fcb_only``, the
+    backbone DCN's too: the exact gather in training."""
+    import dataclasses
+    if fcb_only:
+        return cfg.replace(fcb_window_radius=0)
+    return cfg.replace(backbone=dataclasses.replace(
+        cfg.backbone, dcn_window_radius=0), fcb_window_radius=0)
+
+
+def _exact_inputs(torch, dev, h, w, cin, stride, frames, kind, seed, kh=3,
+                  kw=3, dilation=1):
+    """K5's inputs at one site (dcols, x, offset, mask; fp32): x, dcols and
+    the mask random, the offsets of ``kind`` (EXACT_KINDS, or 'random':
+    N(0, 1.5))."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    k = kh * kw
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(frames, h, w, cin, device=dev, generator=g)
+    shape = (frames, ho, wo, 2 * k)
+    if kind == 'zero':
+        off = torch.zeros(shape, device=dev)
+    elif kind == 'edge':
+        oy = torch.arange(ho, device=dev) * stride - (kh - 1) // 2 * dilation
+        ox = torch.arange(wo, device=dev) * stride - (kw - 1) // 2 * dilation
+        ky = torch.arange(kh, device=dev) * dilation
+        kx = torch.arange(kw, device=dev) * dilation
+        rows = (oy[:, None, None, None] + ky[None, None, :, None]).expand(
+            ho, wo, kh, kw).reshape(ho, wo, k)
+        cols = (ox[None, :, None, None] + kx[None, None, None, :]).expand(
+            ho, wo, kh, kw).reshape(ho, wo, k)
+        pick = (frames, ho, wo, k)
+        ty = torch.tensor([-1, 0, h - 1, h], device=dev)[torch.randint(
+            0, 4, pick, device=dev, generator=g)]
+        tx = torch.tensor([-1, 0, w - 1, w], device=dev)[torch.randint(
+            0, 4, pick, device=dev, generator=g)]
+        off = torch.stack([ty - rows, tx - cols], -1).reshape(shape).float()
+    else:
+        std = 6.0 if kind == 'normal6' else 1.5
+        off = torch.randn(shape, device=dev, generator=g) * std
+    mask = torch.rand(frames, ho, wo, k, device=dev, generator=g)
+    dcols = torch.randn(frames * ho * wo, k * cin, device=dev, generator=g)
+    return dcols, x, off, mask
+
+
+def _exact_typed(torch, args, entry: str):
+    """K5's inputs in the types of ``entry`` ('fp32', 'bf16': all bf16,
+    'bf16_f32off': bf16 with fp32 offsets)."""
+    if entry == 'fp32':
+        return args
+    dcols, x, off, mask = args
+    b16 = torch.bfloat16
+    return (dcols.to(b16), x.to(b16), off if entry == 'bf16_f32off'
+            else off.to(b16), None if mask is None else mask.to(b16))
+
+
+def _exact_check(torch, args, kh, kw, stride, dilation=1) -> float:
+    """K5 on ``args`` (dcols, x, offset, mask) against its plain version,
+    each output in its input's type, within EXACT_RTOL (fp32) or
+    BF16_REL_ATOL (bf16) of its max|ref|; d_offset and d_mask the same bit
+    for bit over two launches.  Returns the largest max|diff| / max|ref|."""
+    from stmask_torch.kernels import deform_exact_bwd as K5
+    got = K5.deform_exact_bwd_cuda(*args, kh, kw, stride, dilation)
+    again = K5.deform_exact_bwd_cuda(*args, kh, kw, stride, dilation)
+    want = K5.deform_exact_bwd_reference(*args, kh, kw, stride, dilation)
+    torch.cuda.synchronize()
+    tol = EXACT_RTOL if args[1].dtype == torch.float32 else BF16_REL_ATOL
+    worst = 0.0
+    for out_name, a, b in zip(('dx', 'd_offset', 'd_mask'), got, want):
+        if b is None:
+            assert a is None, out_name
+            continue
+        assert a.dtype == b.dtype, (out_name, a.dtype, b.dtype)
+        scale = max(float(b.float().abs().max()), 1e-30)
+        d = float((a.float() - b.float()).abs().max()) / scale
+        assert d <= tol, (out_name, d, tol)
+        worst = max(worst, d)
+    assert torch.equal(got[1], again[1]), 'K5 d_offset varies'
+    assert got[2] is None or torch.equal(got[2], again[2]), \
+        'K5 d_mask varies'
+    return worst
+
+
+def _exact_cost(torch, x, off, mask, kh, kw, stride, dilation=1):
+    """(bytes, flops) of K5 for these inputs: dcols, x, offset and (v2) mask
+    read once, dx, d_offset and (v2) d_mask written once, each in its type;
+    per channel 2 flops for each corner a sample reads (its weight or a
+    derivative not 0: the dot product S) and 2 more for each corner it adds
+    to dx (its weight not 0)."""
+    from stmask_torch.kernels.deform_exact_bwd import exact_geometry
+    _, h, w, cin = x.shape
+    rows, cols = exact_geometry(off, h, w, kh, kw, stride, dilation)
+    n_s = n_w = 0
+    for _, wy, dwy in rows:
+        for _, wx, dwx in cols:
+            wgt = wy * wx
+            n_s += int(((wgt != 0) | (dwy * wx != 0) | (wy * dwx != 0)).sum())
+            n_w += int((wgt != 0).sum())
+    items = off.numel() // 2
+    nbytes = (x.element_size() * (items * cin + 2 * x.numel()
+                                  + (2 * items if mask is not None else 0))
+              + off.element_size() * 2 * off.numel())
+    return nbytes, 2 * cin * (n_s + n_w)
+
+
+def _exact_sites():
+    """(label, H, W, Cin, stride, kh, kw, modulated): the flagship's 7 DCN
+    sites (v2) and FCB's 15 (v1) at 384x640."""
+    return ([(site, h, w, cin, stride, 3, 3, True)
+             for site, (h, w, cin), stride in DCN_SITES]
+            + [(f'FCB {h}x{w} {kh}x{kw}', h, w, 256, 1, kh, kw, False)
+               for h, w, kh, kw in FCB_SITES])
+
+
+def _exact_kernel(torch, dev, smi: str, err: dict) -> dict:
+    """Phase 15a: K5 against its plain version at the 7 DCN sites and FCB's
+    15 x 8 frames, at EXACT_KINDS' offsets, with and without the mask, in
+    fp32 and both bf16 entries; then its time (device, per call, plain)
+    and bound at each site with N(0, 1.5) offsets, v2 at the DCN sites and
+    v1 at FCB's (the training step's calls): fp32 and bf16 at both, bf16
+    with fp32 offsets at FCB's (_ali's)."""
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.kernels import deform_exact_bwd as K5
+    frames = 2 * TRAIN_CLIPS
+    entries = ('fp32', 'bf16', 'bf16_f32off')
+    worst = {e: 0.0 for e in entries}
+    t0 = time.perf_counter()
+    for i, (label, h, w, cin, stride, kh, kw, _) in enumerate(
+            _exact_sites()):
+        for kind in EXACT_KINDS:
+            args = _exact_inputs(torch, dev, h, w, cin, stride, frames, kind,
+                                 1500 + i, kh, kw)
+            for masked in (True, False):
+                a_ = args if masked else args[:3] + (None,)
+                for e in entries:
+                    d = _exact_check(torch, _exact_typed(torch, a_, e), kh,
+                                     kw, stride)
+                    worst[e] = max(worst[e], d)
+            del args, a_
+        print(f'[K5] {label} x {(frames, h, w, cin)} stride {stride} '
+              f'{kh}x{kw}: offsets {"/".join(EXACT_KINDS)}, with and without '
+              f'the mask, fp32 / bf16 / bf16 with fp32 offsets: max|diff| / '
+              f'max|ref| so far {worst["fp32"]:.3e} / {worst["bf16"]:.3e} / '
+              f'{worst["bf16_f32off"]:.3e} (limits {EXACT_RTOL}, '
+              f'{BF16_REL_ATOL:.4f}); d_offset, d_mask bit-identical over '
+              'two launches', flush=True)
+    names = {'fp32': 'deform_exact_bwd', 'bf16': 'deform_exact_bwd_bf16',
+             'bf16_f32off': 'deform_exact_bwd_bf16_f32off'}
+    for e, n_ in names.items():
+        err[n_] = max(err[n_], worst[e])
+    print(f'[K5] checks: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    acc = {}
+    for i, (label, h, w, cin, stride, kh, kw, v2) in enumerate(
+            _exact_sites()):
+        args = _exact_inputs(torch, dev, h, w, cin, stride, frames, 'random',
+                             1600 + i, kh, kw)
+        if not v2:
+            args = args[:3] + (None,)
+        fcb = label.startswith('FCB')
+        for e in (entries if fcb else entries[:2]):
+            a_ = _exact_typed(torch, args, e)
+            n0 = KERNELS[names[e]].launches
+
+            def fn():
+                return K5.deform_exact_bwd_cuda(*a_, kh, kw, stride)
+            ms = _device_ms(fn, 20)
+            call = _time_ms(fn, 20)
+            plain = _time_ms(lambda: K5.deform_exact_bwd_reference(
+                *a_, kh, kw, stride), 3, warmup=1)
+            assert KERNELS[names[e]].launches > n0
+            nbytes, flops = _exact_cost(torch, a_[1], a_[2], a_[3], kh, kw,
+                                        stride)
+            key = names[e] + ('_fcb' if fcb and e != 'bf16_f32off' else '')
+            bound, by = _tally(acc.setdefault(key, {}), ms, call, plain,
+                               nbytes, flops)
+            print(f'[K5 time] {names[e]} {label} x {(frames, h, w, cin)} '
+                  f'{"v2" if v2 else "v1"}: kernel {ms:.5f} ms (device), '
+                  f'per wrapper call {call:.5f} ms, plain {plain:.5f} ms, '
+                  f'bound {bound:.5f} ms ({by}; {nbytes} B, {flops} flop)',
+                  flush=True)
+        del args
+    for key, a_ in acc.items():
+        print(f'[K5 time] {key}: sum over the sites {a_["ms"]:.5f} ms '
+              f'(device), per call {a_["call_ms"]:.5f} ms, plain '
+              f'{a_["plain_ms"]:.5f} ms, bound {a_["bound_ms"]:.5f} ms '
+              f'({_by_of(a_)}) ({smi})', flush=True)
+    return acc
+
+
+def _wgrad_far(torch, dev, err: dict) -> None:
+    """Phase 15b: deform_wgrad at N(0, 6) offsets (most samples far off the
+    image, the rest anywhere) against deform_wgrad_reference: its fast path
+    at the 7 DCN sites and FCB's 15 x 8 frames, fp32 and bf16; its general
+    path at Cin 48 / Cout 5 and at a DCN site with x one element into its
+    buffer; fp32 within WGRAD_RTOL, bf16 within BF16_REL_ATOL of max|ref|,
+    bit for bit over two launches."""
+    from stmask_torch.kernels import deform_wgrad as KW
+    frames = 2 * TRAIN_CLIPS
+    cases = [(label, h, w, cin, cin if v2 else 256, stride, kh, kw, v2,
+              False) for label, h, w, cin, stride, kh, kw, v2
+             in _exact_sites()]
+    cases += [('ragged Cin 48 Cout 5', 19, 37, 48, 5, 1, 3, 3, True, False),
+              ('ragged Cin 48 Cout 5 stride 2 3x5', 19, 37, 48, 5, 2, 3, 5,
+               False, False),
+              ('layer2_2, x one element into its buffer', 24, 40, 256, 256,
+               1, 3, 3, True, True)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (label, h, w, cin, cout, stride, kh, kw, v2, shift) in enumerate(
+            cases):
+        _, x, off, mask = _exact_inputs(torch, dev, h, w, cin, stride,
+                                        frames, 'normal6', 1700 + i, kh, kw)
+        if shift:
+            buf = torch.empty(x.numel() + 1, device=dev)
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(x.shape)
+        g = torch.Generator(device=dev).manual_seed(1800 + i)
+        gg = torch.randn(off.shape[0] * off.shape[1] * off.shape[2], cout,
+                         device=dev, generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            args = tuple(None if t is None else t.to(dt) for t in (
+                gg, x, off, mask if v2 else None))
+            if shift and dt == torch.bfloat16:
+                buf16 = torch.empty(x.numel() + 1, dtype=dt, device=dev)
+                buf16[1:] = x.reshape(-1).to(dt)
+                args = (args[0], buf16[1:].view(x.shape)) + args[2:]
+            route = 'fast' if KW.wgrad_fast(cin, cout, args[1].data_ptr(),
+                                            args[0].data_ptr()) else 'general'
+            assert route == ('general' if cin % 32 or cout % 128 or shift
+                             else 'fast'), (label, route)
+            got = KW.deform_wgrad_cuda(*args, kh, kw, stride)
+            again = KW.deform_wgrad_cuda(*args, kh, kw, stride)
+            want = KW.deform_wgrad_reference(*args, kh, kw, stride)
+            torch.cuda.synchronize()
+            scale = max(float(want.float().abs().max()), 1e-30)
+            d = float((got.float() - want.float()).abs().max()) / scale
+            tol = WGRAD_RTOL if dt == torch.float32 else BF16_REL_ATOL
+            assert d <= tol, (label, dt, d)
+            assert torch.equal(got, again), (label, dt, 'd_w varies')
+            worst[dt] = max(worst[dt], d)
+        print(f'[wgrad far] {label} x {(frames, h, w, cin)} Cout {cout} '
+              f'{kh}x{kw} stride {stride}, N(0, 6) offsets, {route} path: '
+              f'max|diff| / max|ref| fp32 {worst[torch.float32]:.3e} (limit '
+              f'{WGRAD_RTOL}), bf16 {worst[torch.bfloat16]:.3e} (limit '
+              f'{BF16_REL_ATOL:.4f}) so far; bit-identical over two launches',
+              flush=True)
+        del x, off, mask, gg
+    err['deform_wgrad'] = max(err['deform_wgrad'], worst[torch.float32])
+    err['deform_wgrad_bf16'] = max(err['deform_wgrad_bf16'],
+                                   worst[torch.bfloat16])
+
+
+def _exact_train(torch, dev, smi: str, name: str, hosts) -> dict:
+    """Phase 15c-d: the training steps through the exact gather at 360x640
+    over phase 6's batches, EXACT_STEPS steps each (both window radii 0):
+    the flagship and STMask_plus_resnet50_ada in fp32, _ada in remat, bf16
+    and bf16 + remat, _ali in bf16 (K5's fp32-offset entry): launches a step
+    (EXACT_LAUNCHES), finite losses, gradients on every offset predictor,
+    ms/step and peak memory above the first step's start."""
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.models import build_model
+    from stmask_torch.train.train_step import build_train_step
+    res = {}
+    for (cfg_name, mode), per in EXACT_LAUNCHES.items():
+        cfg = _radius0(get_config(cfg_name))
+        model = build_model(cfg, dev, seed=0)
+        kw = {'fp32': {}, 'remat': dict(remat=True),
+              'bf16': dict(compute_dtype=torch.bfloat16),
+              'bf16_remat': dict(compute_dtype=torch.bfloat16,
+                                 remat=True)}[mode]
+        step, init = build_train_step(cfg, model, dev, **kw)
+        batches = [prepare_batch(cfg, h_, dev) for h_ in hosts[:EXACT_STEPS]]
+        state = init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for k in KERNELS.values():
+            k.launches = 0
+        ms, metrics = [], []
+        for b_ in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b_)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() - base
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({n_: v * EXACT_STEPS for n_, v in per.items()})
+        assert launches == want, (cfg_name, mode, launches, want)
+        for m in metrics:
+            assert all(np.isfinite(v) for v in m.values()), (cfg_name, m)
+        offs = {n: float(p.grad.abs().max())
+                for n, p in model.named_parameters()
+                if 'conv_offset' in n and p.grad is not None}
+        n_off = 2 * len(DCN_SITES) + (
+            3 if cfg.use_dcn_class and cfg.use_pred_offset else 0)
+        assert len(offs) == n_off and min(offs.values()) > 0, (cfg_name,
+                                                                offs)
+        print(f'[exact train] {cfg_name} {mode} (both window radii 0), '
+              f'{EXACT_STEPS} steps of {TRAIN_CLIPS} clips at '
+              f'{cfg.img_h}x{cfg.img_w}: steps {[round(t, 3) for t in ms]} '
+              f'ms; peak {peak / 2**20:.1f} MiB above the {base / 2**20:.1f} '
+              f'MiB allocated at the first step\'s start; losses '
+              f'{metrics[-1]}; launches a step '
+              f'{ {n_: v // EXACT_STEPS for n_, v in launches.items() if v} }'
+              f' ({name}, {smi})', flush=True)
+        res[(cfg_name, mode)] = dict(ms=ms, peak=peak, base=base,
+                                     launches=launches)
+        del model, step, state, batches
+        torch.cuda.empty_cache()
+    return res
+
+
+# ROADMAP C.15: a decision that the card and the CPU take apart must lie
+# this close to its boundary on both (a tie that summation order tips:
+# 2.98e-7 and 8.34e-7 in the runs that classified it)
+DECISION_MARGIN = 2e-6
+
+
+def _c15_decisions(torch, dev) -> None:
+    """ROADMAP C.15: the discrete decisions of the backbone's training
+    forward of STMask_plus_resnet50_ada at 96x128 (seed 0, _train_step_vs
+    _cpu's batch) that the card and the CPU take apart: ReLU inputs of
+    opposite sign (each bottleneck's three ReLUs) and DCN offsets whose
+    K4 cell differs (floor of the clamped offset, on an integer or not,
+    clamped or not), printed per block; each must lie within
+    DECISION_MARGIN of its boundary on both devices."""
+    from stmask_torch.config import get_config
+    from stmask_torch.data.transforms import prepare_batch
+    from stmask_torch.models import build_model
+    from stmask_torch.models.backbone import Bottleneck, DCNConv
+    small = get_config('STMask_plus_resnet50_ada').replace(img_h=96,
+                                                          img_w=128)
+    host = _train_batch(small, 99, clips=1)
+    r = small.backbone.dcn_window_radius
+    seen = []
+    for d_ in (torch.device('cpu'), dev):
+        mdl = build_model(small, d_, seed=0).train()
+        mdl.to(memory_format=torch.channels_last)   # as build_train_step
+        rec, hooks = {}, []
+        for bname, blk in mdl.backbone.named_modules():
+            if not isinstance(blk, Bottleneck):
+                continue
+
+            def keep(key):
+                def hook(mod, inp, out):
+                    rec[key] = out.detach().float().cpu()
+                return hook
+            hooks.append(blk.bn1.register_forward_hook(keep(f'{bname} relu1')))
+            hooks.append(blk.bn2.register_forward_hook(keep(f'{bname} relu2')))
+
+            hooks.append(blk.bn3.register_forward_hook(keep(f'{bname} bn3')))
+            if blk.downsample is not None:
+                hooks.append(blk.downsample.register_forward_hook(
+                    keep(f'{bname} residual')))
+
+            def relu3(mod, inp, out, bname=bname):
+                res = rec.pop(f'{bname} residual', None)
+                res = inp[0].detach().float().cpu() if res is None else res
+                rec[f'{bname} relu3'] = rec.pop(f'{bname} bn3') + res
+            hooks.append(blk.register_forward_hook(relu3))
+            if isinstance(blk.conv2, DCNConv):
+                hooks.append(blk.conv2.conv_offset_mask.register_forward_hook(
+                    keep(f'{bname} offsets')))
+        with torch.no_grad():
+            mdl(prepare_batch(small, host, d_)['images'], train=True)
+        for h_ in hooks:
+            h_.remove()
+        seen.append(rec)
+        del mdl
+    cpu, card = seen
+    for key in cpu:
+        a, b = cpu[key], card[key]
+        if key.endswith('offsets'):
+            a = a.permute(0, 2, 3, 1)[..., :18].clamp(-r, r)
+            b = b.permute(0, 2, 3, 1)[..., :18].clamp(-r, r)
+            cell = [(torch.floor(t), t == torch.floor(t), t.abs() >= r)
+                    for t in (a, b)]
+            apart = ((cell[0][0] != cell[1][0]) | (cell[0][1] != cell[1][1])
+                     | (cell[0][2] != cell[1][2]))
+            near = torch.maximum((a - a.round()).abs(), (b - b.round()).abs())
+        else:
+            apart = (a > 0) != (b > 0)
+            near = torch.maximum(a.abs(), b.abs())
+        n = int(apart.sum())
+        assert n == 0 or float(near[apart].max()) <= DECISION_MARGIN, (
+            key, float(near[apart].max()))
+        if n:
+            print(f'[C.15] {key}: {n} of {a.numel()} decisions apart '
+                  f'between the card and the CPU; the CPU\'s values there '
+                  f'{[round(float(v), 9) for v in a[apart][:6]]}, the '
+                  f'card\'s {[round(float(v), 9) for v in b[apart][:6]]} '
+                  f'(limit {DECISION_MARGIN} from the boundary)', flush=True)
+    print('[C.15] decisions compared: every bottleneck\'s three ReLUs and '
+          'every DCN site\'s window offsets; those apart are ties',
+          flush=True)
+
+
+def _exact_vs_cpu(torch, dev, c15_r2: dict) -> dict:
+    """Phase 15c: the radius-0 training steps on the card against the CPU
+    path at 96x128, full depth, at _train_step_vs_cpu's limits: the
+    flagship with dcn_window_radius 0, and STMask_plus_resnet50_ada with
+    fcb_window_radius 0.  Then ROADMAP C.15's third run: _ada at FCB's
+    radius 2 with its conv_offset scaled by 1/4 on both devices, so that no
+    FCB offset reaches +-2 (asserted: none is clamped); printed beside
+    phase 9's radius-2 comparison and the radius-0 one (the five worst
+    parameters each), not held; then the decisions the two devices take
+    apart (_c15_decisions)."""
+    from stmask_torch.config import get_config
+    from stmask_torch.models.heads import FeatureAlign
+    flag = get_config('STMask_plus_resnet50')
+    ada = get_config('STMask_plus_resnet50_ada')
+    out = {'flagship_r0': _train_step_vs_cpu(
+        torch, dev, _radius0(flag), 'radius-0 flagship ')}
+    out['ada_fcb_r0'] = _train_step_vs_cpu(
+        torch, dev, _radius0(ada, fcb_only=True), 'FCB radius-0 _ada ')
+
+    largest = []
+
+    def nudge(model):
+        for m in model.modules():
+            if isinstance(m, FeatureAlign):
+                with torch.no_grad():
+                    m.conv_offset.weight.mul_(0.25)
+                m.conv_offset.register_forward_hook(
+                    lambda mod, inp, o: largest.append(
+                        float(o.detach().abs().max())))
+    out['ada_r2_nudged'] = _train_step_vs_cpu(
+        torch, dev, ada, 'C.15 nudged _ada ', prepare=nudge, hold=False)
+    print(f'[C.15] nudged _ada: largest |FCB offset| {max(largest):.4f} '
+          f'(window radius {ada.fcb_window_radius}: none clamped)',
+          flush=True)
+    assert max(largest) < ada.fcb_window_radius, max(largest)
+    out['ada_r2'] = c15_r2
+    _c15_decisions(torch, dev)
+    for tag in ('ada_r2', 'ada_fcb_r0', 'ada_r2_nudged', 'flagship_r0'):
+        rel = out[tag]
+        worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+        print(f'[C.15] {tag}: five worst parameters (card vs CPU, relative '
+              f'L2) {[(n, round(v, 6)) for n, v in worst]}', flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4966,6 +5478,14 @@ def main() -> int:
     tmodes = _train_modes(torch, dev, smi, name, hosts)
     ali16 = _ali_bf16_remat(torch, dev, smi, name, hosts)
 
+    # ---- 15. training through the exact gather (window radius 0) ---------
+    mark(15)
+    torch.cuda.empty_cache()
+    k5 = _exact_kernel(torch, dev, smi, err)
+    _wgrad_far(torch, dev, err)
+    exact_cpu = _exact_vs_cpu(torch, dev, fcb_train['rel'])
+    exact = _exact_train(torch, dev, smi, name, hosts)
+
     by_of = _by_of
     sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
              'are their sum')
@@ -5386,6 +5906,52 @@ def main() -> int:
             r101['busy'],
         'ada_cli_e2e_fps': ada_cli['stats']['e2e_fps'],
         'ada_cli_device_fps': ada_cli['stats']['device_fps']}
+    # K5's rows: the training step through the exact gather (phase 15)
+    k5_src = 'stmask_torch/kernels/csrc/deform_exact_bwd.cu'
+    k5_replaces = ('stmask_tpu/ops/deform_conv.py:31 (the autodiff of '
+                   'deform_conv2d\'s gather through ops/sampling.py:48 '
+                   'bilinear_sample_block; XLA, not Pallas)')
+    exact_path = ('training step through the exact gather (both window '
+                  'radii 0) of {}, {} steps of {} clips'.format)
+    for n_, run, shape, fcb_key in (
+            ('deform_exact_bwd', ('STMask_plus_resnet50', 'fp32'),
+             sites.replace('one 384x640 frame', '8 384x640 frames')
+             + '; N(0, 1.5) offsets', 'deform_exact_bwd_fcb'),
+            ('deform_exact_bwd_bf16', ('STMask_plus_resnet50_ada', 'bf16'),
+             sites.replace('one 384x640 frame', '8 384x640 frames')
+             + '; bf16 dcols, x, offset, mask and their gradients, N(0, '
+               '1.5) offsets', 'deform_exact_bwd_bf16_fcb'),
+            ('deform_exact_bwd_bf16_f32off',
+             ('STMask_plus_resnet50_ali', 'bf16'),
+             fcb_sites.replace('one 384x640 frame', '8 384x640 frames')
+             + '; bf16 dcols, x and dx, fp32 offsets and d_offset, N(0, '
+               '1.5) offsets', None)):
+        a_ = k5[n_]
+        row = {'name': n_, 'route': 'cuda', 'source': k5_src,
+               'replaces': k5_replaces,
+               'launches': exact[run]['launches'][n_],
+               'launches_path': exact_path(f'{run[0]} ({run[1]})',
+                                           EXACT_STEPS, TRAIN_CLIPS),
+               'max_abs_err': err[n_],
+               'max_abs_err_is': 'relative to max|ref|', 'ms': a_['ms'],
+               'call_ms': a_['call_ms'], 'plain_ms': a_['plain_ms'],
+               'bound_ms': a_['bound_ms'], 'bound_by': _by_of(a_),
+               'library_ms': None, 'shape': shape}
+        if fcb_key is not None:
+            f_ = k5[fcb_key]
+            row.update(fcb_ms=f_['ms'], fcb_call_ms=f_['call_ms'],
+                       fcb_plain_ms=f_['plain_ms'],
+                       fcb_bound_ms=f_['bound_ms'], fcb_bound_by=_by_of(f_),
+                       fcb_shape=fcb_sites.replace(
+                           'one 384x640 frame', '8 384x640 frames'))
+        row['ada_launches'] = exact[('STMask_plus_resnet50_ada',
+                                     'fp32')]['launches'][n_]
+        table['kernels'].append(row)
+    table['exact'] = dict(
+        {f'{c_}_{m_}_ms': r['ms'] for (c_, m_), r in exact.items()},
+        **{f'{c_}_{m_}_peak_mib_above_start': r['peak'] / 2**20
+           for (c_, m_), r in exact.items()},
+        c15_worst={tag: max(rel.values()) for tag, rel in exact_cpu.items()})
     mark('end')
     print(json.dumps(table))
     print(smi)

@@ -8,7 +8,7 @@ version on CPU tensors, and a fake implementation for ``torch.export``),
 which an exported program calls."""
 
 from . import (correlation, correlation_bwd, deform_col2im, deform_conv,
-               deform_im2col, deform_wgrad, greedy_nms)
+               deform_exact_bwd, deform_im2col, deform_wgrad, greedy_nms)
 
 # name -> CudaKernel, for launch counts (the bf16 variants are kernels of
 # the same libraries, counted apart)
@@ -26,5 +26,9 @@ KERNELS = {'correlation': correlation.KERNEL,
            'deform_wgrad': deform_wgrad.KERNEL,
            'deform_wgrad_bf16': deform_wgrad.KERNEL_BF16,
            'deform_wgrad_bf16_f32off': deform_wgrad.KERNEL_BF16_F32OFF,
+           'deform_exact_bwd': deform_exact_bwd.KERNEL,
+           'deform_exact_bwd_bf16': deform_exact_bwd.KERNEL_BF16,
+           'deform_exact_bwd_bf16_f32off':
+               deform_exact_bwd.KERNEL_BF16_F32OFF,
            'greedy_nms': greedy_nms.KERNEL,
            'greedy_nms_boxes': greedy_nms.KERNEL_BOXES}

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from ..config import BackboneConfig
 from ..kernels.deform_conv import deform_conv
-from ..ops.deform_conv import dcn_v2_offsets, deform_conv_window
+from ..ops.deform_conv import (dcn_v2_offsets, deform_conv_exact,
+                               deform_conv_window)
 from .layers import FrozenBatchNorm
 
 
@@ -26,8 +27,9 @@ class DCNConv(nn.Module):
     """Modulated deformable conv v2, 3x3, as in CharlesShang DCNv2
     (parameters ``weight`` [out, in, 3, 3], ``bias`` and the offset+mask
     predictor ``conv_offset_mask``).  ``radius`` 0 takes the exact
-    unclamped gather (the JAX package's eval path); ``radius`` > 0 the
-    window-clamped one with its backward (training, or eval under
+    unclamped gather (the JAX package's eval path; in training, at
+    ``dcn_window_radius`` 0, with the exact gather's backward); ``radius``
+    > 0 the window-clamped one with its backward (training, or eval under
     ``dcn_window_eval``; ``backbone.py:127``).
 
     The fused kernel reads ``weight`` as [out, 3, 3, in]; in the
@@ -46,7 +48,8 @@ class DCNConv(nn.Module):
                                           padding=dilation,
                                           dilation=dilation)
 
-    def forward(self, x: torch.Tensor, radius: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, radius: int = 0,
+                train: bool = False) -> torch.Tensor:
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)     # NHWC
         offset, mask = dcn_v2_offsets(om, 9)
         x = x.permute(0, 2, 3, 1).contiguous()
@@ -54,6 +57,9 @@ class DCNConv(nn.Module):
         if radius > 0:
             out = deform_conv_window(x, offset, weight, mask, self.bias,
                                      self.stride, self.dilation, radius)
+        elif train:
+            out = deform_conv_exact(x, offset, weight, mask, self.bias,
+                                    self.stride, self.dilation)
         else:
             out = deform_conv(x, offset, weight, mask, self.bias,
                               self.stride, self.dilation)
@@ -83,9 +89,10 @@ class Bottleneck(nn.Module):
                           bias=False),
                 FrozenBatchNorm(planes * 4))
 
-    def forward(self, x: torch.Tensor, radius: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, radius: int = 0,
+                train: bool = False) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
-        conv2 = self.conv2(out, radius) if isinstance(
+        conv2 = self.conv2(out, radius, train) if isinstance(
             self.conv2, DCNConv) else self.conv2(out)
         out = F.relu(self.bn2(conv2))
         out = self.bn3(self.conv3(out))
@@ -122,27 +129,20 @@ class ResNetBackbone(nn.Module):
                 in_ch = planes * 4
             self.layers.append(nn.Sequential(*mods))
             planes *= 2
-        self.has_dcn = any(isinstance(m, DCNConv) for m in self.modules())
         self.channels = tuple(256 * 2 ** s for s in range(len(cfg.layers)))
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, ...]:
-        # training always takes the window-clamped DCN; eval opts in via
+        # training takes the window-clamped DCN, or the exact gather at
+        # dcn_window_radius 0; eval opts in to the window via
         # dcn_window_eval (reference backbone.py:127)
         c = self.cfg
         radius = c.dcn_window_radius if (train or c.dcn_window_eval) else 0
-        if train and radius < 1 and self.has_dcn:
-            # the JAX package trains the exact gather by autodiff; the
-            # fused kernel has no backward (check_cuda refuses it on the
-            # card), so both devices refuse
-            raise NotImplementedError(
-                'training the DCN through the exact gather '
-                '(dcn_window_radius 0) is not ported (ROADMAP A.9e)')
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for layer in self.layers:
             for block in layer:
-                x = block(x, radius)
+                x = block(x, radius, train)
             outs.append(x)
         return tuple(outs)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..config import STMaskConfig
 from ..kernels.deform_conv import deform_conv
-from ..ops.deform_conv import deform_conv_window
+from ..ops.deform_conv import deform_conv_exact, deform_conv_window
 
 
 def _ali_offsets(shape: torch.Tensor, ks: Tuple[int, int]) -> torch.Tensor:
@@ -94,9 +94,10 @@ class FeatureAlign(nn.Module):
 
     Eval takes the exact gather (``kernels.deform_conv.deform_conv``, no
     clamp; the JAX package ignores ``dcn_window_eval`` here); training the
-    window-clamped op at ``radius`` with its backward.  The fused kernel
-    reads the weight as [Cout, kh, kw, Cin]: the channels-last OIHW
-    parameter's view, no copy."""
+    window-clamped op at ``radius`` with its backward, or at ``radius`` 0
+    the exact gather with its own (``ops.deform_conv.deform_conv_exact``).
+    The fused kernel reads the weight as [Cout, kh, kw, Cin]: the
+    channels-last OIHW parameter's view, no copy."""
 
     def __init__(self, channels: int, out_channels: int,
                  kernel_size: Tuple[int, int], use_pred_offset: bool,
@@ -130,9 +131,7 @@ class FeatureAlign(nn.Module):
             out = deform_conv_window(xh, offset, weight, None, None,
                                      radius=self.radius)
         else:
-            raise NotImplementedError(
-                'training FCB through the exact gather (fcb_window_radius '
-                '0) is not ported (ROADMAP A.9e)')
+            out = deform_conv_exact(xh, offset, weight, None, None)
         return self.conv(F.relu(out.permute(0, 3, 1, 2)))
 
 
@@ -141,9 +140,6 @@ class PredictionHead(nn.Module):
 
     def __init__(self, cfg: STMaskConfig, in_channels: int = 256):
         super().__init__()
-        if not (cfg.train_centerness and cfg.train_track):
-            raise NotImplementedError(
-                'the ported FCA head always has centerness and track banks')
         self.cfg = cfg
         ch = cfg.extra_head_net_channels
         n_scales = len(cfg.pred_scales[0])
@@ -173,7 +169,10 @@ class PredictionHead(nn.Module):
                 for kh, kw in cfg.head_kernel_sizes])
 
         self.bbox_layer = bank(n_scales * 4)
-        self.centerness_layer = bank(n_scales)
+        # the centerness banks only under train_centerness; the track banks
+        # always, as the JAX package builds them (heads.py:169-172, :192-203)
+        if cfg.train_centerness:
+            self.centerness_layer = bank(n_scales)
         self.conf_layer = bank(n_scales * cfg.num_classes, cfg.use_dcn_class)
         self.track_layer = bank(n_scales * cfg.embed_dim, cfg.use_dcn_track)
         self.mask_layer = bank(n_scales * cfg.mask_proto_n, cfg.use_dcn_mask)
@@ -181,7 +180,9 @@ class PredictionHead(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Dict[str, torch.Tensor]:
         """x: [B, C, H, W] -> flat [B, H*W*A, D] outputs plus ``T2S_feat``
-        (NCHW).  ``train`` takes FCB's window-clamped deformable conv."""
+        (NCHW); ``centerness`` only under ``train_centerness`` and ``track``
+        only under ``train_track`` (``heads.py:232-244``).  ``train`` takes
+        FCB's training deformable conv."""
         c = self.cfg
         b, _, h, w = x.shape
         n_scales = len(c.pred_scales[0])
@@ -205,19 +206,24 @@ class PredictionHead(nn.Module):
             banks = [bk.reshape(b, h * w, n_scales, dim) for bk in banks]
             return torch.stack(banks, dim=2).reshape(b, -1, dim)
 
-        # Reference quirk kept for checkpoint parity: centerness banks are
-        # concatenated along H (bank-major over the whole level), NOT
-        # position-interleaved like every other branch.
-        cent = torch.cat(nhwc(self.centerness_layer, bbox_x), dim=1)
-        track = interleave(nhwc(self.track_layer, track_x), c.embed_dim)
-        return {
+        out = {
             'loc': interleave([bb.permute(0, 2, 3, 1) for bb in bbox], 4),
             'conf': interleave(nhwc(self.conf_layer, conf_x), c.num_classes),
             'mask_coeff': interleave(nhwc(self.mask_layer, mask_x),
                                      c.mask_proto_n),
-            'centerness': torch.tanh(cent.reshape(b, -1, 1)),
-            'track': track / torch.clamp(
-                torch.linalg.vector_norm(track, dim=-1, keepdim=True),
-                min=1e-12),
             'T2S_feat': x,
         }
+        if c.train_centerness:
+            # Reference quirk kept for checkpoint parity: centerness banks
+            # are concatenated along H (bank-major over the whole level),
+            # NOT position-interleaved like every other branch.
+            cent = torch.cat(nhwc(self.centerness_layer, bbox_x), dim=1)
+            out['centerness'] = torch.tanh(cent.reshape(b, -1, 1))
+        if c.train_track:
+            # (without it the banks stay, unused: JAX builds them and
+            # drops their output, so their gradient is zero)
+            track = interleave(nhwc(self.track_layer, track_x), c.embed_dim)
+            out['track'] = track / torch.clamp(
+                torch.linalg.vector_norm(track, dim=-1, keepdim=True),
+                min=1e-12)
+        return out

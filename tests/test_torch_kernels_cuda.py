@@ -1,7 +1,8 @@
 """CUDA kernels K1 (correlation, fp32 and bf16), K2 (deformable gather),
 the fused deformable conv (fp32 and bf16), K3 (correlation backward), K4
-(deformable col2im), the DCN weight gradient (deform_wgrad) and B5 (greedy
-NMS) against their plain PyTorch versions, on the card.  Marked
+(deformable col2im), the DCN weight gradient (deform_wgrad), K5 (the
+exact gather's backward) and B5 (greedy NMS) against their plain PyTorch
+versions, on the card.  Marked
 ``cuda``; without a GPU every test skips with its reason.  Run on a GPU
 machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
@@ -13,7 +14,8 @@ import torch
 # entries' check is its phase 14a's (one bf16 ulp of each value plus 2^-12
 # of max|ref|, bit for bit over two launches where no atomics sum)
 from chip_smoke import (GREEDY_SHAPES, _bf16_err, _boxes_args,
-                        _degenerate_boxes, _general_route, _greedy_boxes,
+                        _degenerate_boxes, _exact_check, _exact_inputs,
+                        _exact_typed, _general_route, _greedy_boxes,
                         _greedy_inputs, _near_threshold_boxes)
 from stmask_torch.kernels import correlation as K1
 from stmask_torch.kernels import correlation_bwd as K3
@@ -22,7 +24,8 @@ from stmask_torch.kernels import deform_conv as KD
 from stmask_torch.kernels import deform_im2col as K2
 from stmask_torch.kernels import deform_wgrad as KW
 from stmask_torch.ops.correlation import correlate
-from stmask_torch.ops.deform_conv import deform_conv2d, deform_conv_window
+from stmask_torch.ops.deform_conv import (deform_conv2d, deform_conv_exact,
+                                          deform_conv_window)
 
 pytestmark = pytest.mark.cuda
 
@@ -694,8 +697,8 @@ def test_fcb_sites_backward_kernels(device, site):
 def test_kernel_output_under_grad_raises(device):
     """No kernel output silently drops a gradient (ROADMAP C.6): with
     autograd recording, the fused conv refuses any input that requires
-    one, and the training forward refuses radius 0 on the card as on the
-    CPU; the window op differentiates."""
+    one; the window op differentiates, and the training forward at radius 0
+    takes the exact op, whose backward reaches FCB's offset predictor."""
     x, off, _, wt, bias = _dcn_case(device, 6, 10, 256, 256, 3, 5, 1, 1, 24)
     for i in range(4):
         args = [x, off, wt, bias]
@@ -709,13 +712,94 @@ def test_kernel_output_under_grad_raises(device):
     assert float(xg.grad.abs().max()) > 0
 
     from stmask_torch.config import get_config
-    from stmask_torch.models import STMask
+    from stmask_torch.models import build_model
     cfg = get_config('STMask_plus_resnet50_ada').replace(
         img_h=96, img_w=128, fcb_window_radius=0)
-    model = STMask(cfg).to(device)
-    with pytest.raises(NotImplementedError, match='ROADMAP A.9e'):
-        model(torch.zeros(1, 2, cfg.pad_h, cfg.pad_w, 3, device=device),
-              train=True)
+    model = build_model(cfg, device, seed=0)
+    clip = torch.randn(1, 2, cfg.pad_h, cfg.pad_w, 3, device=device)
+    out = model(clip, train=True)
+    (out['loc'].square().sum() + out['conf'].square().sum()).backward()
+    grad = model.prediction_layers[0].conf_layer[0].conv_offset.weight.grad
+    assert grad is not None and bool(torch.isfinite(grad).all())
+    assert float(grad.abs().max()) > 0
+
+
+# K5's shapes (H, W, Cin, stride, kh, kw, dilation): ragged Cin (one
+# channel a lane), 1-pixel dimensions, stride 2, FCB's 3x5 / 5x3 taps,
+# dilation 2, and DCN / FCB sites
+EXACT_SHAPES = [(9, 11, 6, 1, 3, 3, 1), (9, 11, 8, 2, 3, 3, 1),
+                (1, 7, 8, 1, 3, 3, 1), (6, 1, 8, 1, 3, 3, 1),
+                (1, 1, 4, 1, 3, 3, 1), (24, 40, 64, 1, 3, 5, 1),
+                (12, 20, 256, 1, 5, 3, 1), (13, 7, 64, 1, 3, 3, 2),
+                (48, 80, 128, 1, 3, 3, 1), (24, 40, 512, 2, 3, 3, 1)]
+
+
+@pytest.mark.parametrize('entry', ['fp32', 'bf16', 'bf16_f32off'])
+@pytest.mark.parametrize('kind', ['zero', 'edge', 'normal6'])
+@pytest.mark.parametrize('shape', EXACT_SHAPES)
+def test_deform_exact_bwd_kernel(device, shape, kind, entry):
+    """K5 against its plain version (chip_smoke.py phase 15a's check), with
+    and without the mask."""
+    h, w, cin, stride, kh, kw, dil = shape
+    args = _exact_inputs(torch, device, h, w, cin, stride, 2, kind, 5, kh,
+                         kw, dil)
+    for masked in (True, False):
+        a = args if masked else args[:3] + (None,)
+        _exact_check(torch, _exact_typed(torch, a, entry), kh, kw, stride,
+                     dil)
+
+
+@pytest.mark.parametrize('entry', ['fp32', 'bf16'])
+def test_deform_exact_bwd_unaligned(device, entry):
+    """x one element into its buffer: the one-channel-a-lane route."""
+    args = list(_exact_typed(torch, _exact_inputs(
+        torch, device, 12, 20, 64, 1, 2, 'normal6', 6), entry))
+    x = args[1]
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+    buf[1:] = x.reshape(-1)
+    args[1] = buf[1:].view(x.shape)
+    _exact_check(torch, tuple(args), 3, 3, 1)
+
+
+def test_deform_exact_bwd_rejects_bad_inputs(device):
+    from stmask_torch.kernels import deform_exact_bwd as K5
+    dcols, x, off, mask = _exact_inputs(torch, device, 6, 7, 8, 1, 1,
+                                        'zero', 0)
+    with pytest.raises(ValueError, match='dcols'):
+        K5.deform_exact_bwd_cuda(dcols[:-1], x, off, mask, 3, 3)
+    with pytest.raises(ValueError, match='mask'):
+        K5.deform_exact_bwd_cuda(dcols, x, off, mask[..., :4].contiguous(),
+                                 3, 3)
+    with pytest.raises(TypeError, match='offsets'):
+        K5.deform_exact_bwd_cuda(dcols, x, off.bfloat16(), mask, 3, 3)
+    with pytest.raises(ValueError, match='CUDA'):
+        K5.deform_exact_bwd_cuda(dcols.cpu(), x, off, mask, 3, 3)
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+def test_deform_conv_exact_matches_cpu(device, stride):
+    """The exact op (fused forward, deform_wgrad, a matmul and K5) on the
+    card against its CPU plain path, at N(0, 3) offsets with samples on
+    integer rows and columns: five gradients."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 24, 40, 64, generator=g)
+    ho, wo = (24 - 1) // stride + 1, (40 - 1) // stride + 1
+    off = torch.randn(2, ho, wo, 18, generator=g) * 3.0
+    off[0, :2] = torch.randint(-3, 4, (2, wo, 18), generator=g).float()
+    mask = torch.rand(2, ho, wo, 9, generator=g)
+    wt = torch.randn(64, 3, 3, 64, generator=g) / 24
+    bias = torch.randn(64, generator=g)
+    cot = torch.randn(2, ho, wo, 64, generator=g)
+    grads = []
+    for dev in ('cpu', device):
+        ts = [t.detach().to(dev).requires_grad_(True)
+              for t in (x, off, wt, mask, bias)]
+        (deform_conv_exact(*ts, stride=stride) * cot.to(dev)).sum(
+            ).backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a, b, atol=2e-4 * max(
+            float(b.abs().max()), 1.0), rtol=0)
 
 
 @pytest.mark.parametrize('shape', GREEDY_SHAPES)
