@@ -7,8 +7,8 @@ Phases, in order (any failure raises and exits non-zero):
   1. build the CUDA kernels from stmask_torch/kernels/csrc with nvcc (one
      process per source, in parallel) and print ptxas's registers, shared
      memory and spills of every kernel (K4, among them its two bf16 fast
-     instantiations, the fused conv's fast route and deform_wgrad must
-     not spill);
+     instantiations, the fused conv's fast route, K5's three fast
+     instantiations and deform_wgrad must not spill);
   2. the frame resize (``resize_u8``) on the card against the machine's cv2
      INTER_LINEAR, bit for bit, at the sizes of RESIZES; K1 (correlation)
      against its plain PyTorch version, main-path and ragged shapes, with
@@ -176,11 +176,17 @@ Phases, in order (any failure raises and exits non-zero):
  15. training through the exact deformable gather (window radius 0): (a)
      K5 (the exact gather's backward: dx, d_offset, d_mask) against its
      plain version at the 7 DCN sites and FCB's 15 x 8 frames, at zero,
-     integer-edge (rows and columns -1, 0, H-1, H) and N(0, 6) offsets,
-     with and without the mask, fp32 and both bf16 entries (d_offset and
-     d_mask bit for bit over two launches), then its times and bounds at
-     each site; (b) deform_wgrad at N(0, 6) offsets against its plain
-     version, fast and general paths, fp32 and bf16; (c) the flagship with
+     integer-edge (rows and columns -1, 0, H-1, H), N(0, 6) and N(0, 1.5)
+     offsets, with and without the mask, fp32 and both bf16 entries, on
+     its fast route (asserted at every site) and its general route, each
+     against the other (d_offset and d_mask bit for bit over two launches
+     on each), with the share of the fast route's overflow items of each
+     kind (none at zero offsets, asserted); then both routes' times and
+     the bound at each site (the fast route's sum below the general's,
+     asserted), and the split of both routes of the fp32 and bf16 entries
+     (kernels/split.py, EXACT_BWD_F32 and EXACT_BWD); (b) deform_wgrad at
+     N(0, 6) offsets against its plain version, fast and general paths,
+     fp32 and bf16; (c) the flagship with
      dcn_window_radius 0 and STMask_plus_resnet50_ada with
      fcb_window_radius 0 on the card against the CPU at 96x128, and ROADMAP
      C.15's third run (_ada with FCB's offsets kept inside +-2), the five
@@ -4158,31 +4164,66 @@ def _exact_typed(torch, args, entry: str):
             else off.to(b16), None if mask is None else mask.to(b16))
 
 
-def _exact_check(torch, args, kh, kw, stride, dilation=1) -> float:
-    """K5 on ``args`` (dcols, x, offset, mask) against its plain version,
-    each output in its input's type, within EXACT_RTOL (fp32) or
-    BF16_REL_ATOL (bf16) of its max|ref|; d_offset and d_mask the same bit
-    for bit over two launches.  Returns the largest max|diff| / max|ref|."""
+def _exact_route(K5, args, kh, kw, stride, dilation=1) -> str:
+    """The route on which ``K5.deform_exact_bwd_cuda`` launches ``args``:
+    read from the route the wrapper hands the entry (1 fast, 0 general; the
+    entry refuses a fast call that the fast route cannot take).  Launches
+    it once."""
+    name = ('KERNEL' if args[1].element_size() == 4
+            else 'KERNEL_BF16' if args[2].dtype == args[1].dtype
+            else 'KERNEL_BF16_F32OFF')
+    kern = getattr(K5, name)
+    routes = []
+
+    def record(*a):
+        routes.append(a[-9])
+        return kern(*a)
+
+    setattr(K5, name, record)
+    try:
+        K5.deform_exact_bwd_cuda(*args, kh, kw, stride, dilation)
+    finally:
+        setattr(K5, name, kern)
+    return 'fast' if routes[0] == 1 else 'general'
+
+
+def _exact_check(torch, args, kh, kw, stride, dilation=1):
+    """K5 on ``args`` (dcols, x, offset, mask) on the route its wrapper
+    takes and on the general route, each against the plain version and
+    against each other, every output in its input's type, within EXACT_RTOL
+    (fp32) or BF16_REL_ATOL (bf16) of the plain version's max|ref|;
+    d_offset and d_mask the same bit for bit over two launches on each
+    route.  Returns (the largest max|diff| / max|ref|, the route)."""
     from stmask_torch.kernels import deform_exact_bwd as K5
-    got = K5.deform_exact_bwd_cuda(*args, kh, kw, stride, dilation)
-    again = K5.deform_exact_bwd_cuda(*args, kh, kw, stride, dilation)
+    route = _exact_route(K5, args, kh, kw, stride, dilation)
+    runs = [K5.deform_exact_bwd_cuda(*args, kh, kw, stride, dilation)
+            for _ in range(2)]
+    with _general_route(K5, 'exact_bwd_fast'):
+        runs += [K5.deform_exact_bwd_cuda(*args, kh, kw, stride, dilation)
+                 for _ in range(2)]
     want = K5.deform_exact_bwd_reference(*args, kh, kw, stride, dilation)
     torch.cuda.synchronize()
     tol = EXACT_RTOL if args[1].dtype == torch.float32 else BF16_REL_ATOL
     worst = 0.0
-    for out_name, a, b in zip(('dx', 'd_offset', 'd_mask'), got, want):
+    for i, out_name in enumerate(('dx', 'd_offset', 'd_mask')):
+        b = want[i]
         if b is None:
-            assert a is None, out_name
+            assert all(r[i] is None for r in runs), out_name
             continue
-        assert a.dtype == b.dtype, (out_name, a.dtype, b.dtype)
         scale = max(float(b.float().abs().max()), 1e-30)
-        d = float((a.float() - b.float()).abs().max()) / scale
-        assert d <= tol, (out_name, d, tol)
-        worst = max(worst, d)
-    assert torch.equal(got[1], again[1]), 'K5 d_offset varies'
-    assert got[2] is None or torch.equal(got[2], again[2]), \
-        'K5 d_mask varies'
-    return worst
+        for tag, a in (('route', runs[0][i]), ('general', runs[2][i]),
+                       ('route vs general', runs[2][i])):
+            ref = runs[0][i] if tag == 'route vs general' else b
+            assert a.dtype == b.dtype, (out_name, a.dtype, b.dtype)
+            d = float((a.float() - ref.float()).abs().max()) / scale
+            assert d <= tol, (out_name, tag, route, d, tol)
+            worst = max(worst, d)
+        if i:
+            assert torch.equal(runs[0][i], runs[1][i]), \
+                f'K5 {out_name} varies ({route} route)'
+            assert torch.equal(runs[2][i], runs[3][i]), \
+                f'K5 {out_name} varies (general route)'
+    return worst, route
 
 
 def _exact_cost(torch, x, off, mask, kh, kw, stride, dilation=1):
@@ -4216,43 +4257,98 @@ def _exact_sites():
                for h, w, kh, kw in FCB_SITES])
 
 
+def _exact_overflow(torch, args, kh, kw, stride) -> float:
+    """The share of the (site, tap)s of ``args`` whose block lies outside
+    their tile's footprint on K5's fast route (its overflow items)."""
+    from stmask_torch.kernels import deform_exact_bwd as K5
+    _, x, off, _ = args
+    b, h, w, cin = x.shape
+    _, ho, wo, _ = off.shape
+    plan = K5.exact_bwd_plan(b, ho, wo, cin, kh, kw, stride, 1,
+                             x.element_size())
+    inside = K5.exact_bwd_inside(off, h, w, kh, kw, stride, 1, plan)
+    return 1.0 - float(inside.float().mean())
+
+
+def _exact_split_sites(torch, dev, entry: str) -> list:
+    """(label, arguments of deform_exact_bwd_cuda) of K5's split in the
+    types of ``entry`` ('fp32', 'bf16'): the 7 DCN sites (v2) and FCB's
+    48x80 3x5 site (v1), 2 * TRAIN_CLIPS frames, N(0, 1.5) offsets."""
+    frames = 2 * TRAIN_CLIPS
+    out = []
+    for i, (site, (h, w, cin), stride) in enumerate(DCN_SITES):
+        args = _exact_inputs(torch, dev, h, w, cin, stride, frames, 'random',
+                             1600 + i)
+        out.append((site, _exact_typed(torch, args, entry) + (3, 3, stride)))
+    args = _exact_inputs(torch, dev, 48, 80, 256, 1, frames, 'random', 1610,
+                         3, 5)
+    out.append(('FCB 48x80 3x5', _exact_typed(torch, args[:3] + (None,),
+                                              entry) + (3, 5, 1)))
+    return out
+
+
 def _exact_kernel(torch, dev, smi: str, err: dict) -> dict:
     """Phase 15a: K5 against its plain version at the 7 DCN sites and FCB's
-    15 x 8 frames, at EXACT_KINDS' offsets, with and without the mask, in
-    fp32 and both bf16 entries; then its time (device, per call, plain)
-    and bound at each site with N(0, 1.5) offsets, v2 at the DCN sites and
-    v1 at FCB's (the training step's calls): fp32 and bf16 at both, bf16
-    with fp32 offsets at FCB's (_ali's)."""
+    15 x 8 frames, at EXACT_KINDS' and N(0, 1.5) offsets, with and without
+    the mask, in fp32 and both bf16 entries, on the fast route (asserted:
+    every site takes it) and on the general route, each against the other
+    (_exact_check), with the share of overflow items of each kind; then
+    the time of both routes (device, per call, plain) and the bound at
+    each site with N(0, 1.5) offsets, v2 at the DCN sites and v1 at FCB's
+    (the training step's calls): fp32 and bf16 at both, bf16 with fp32
+    offsets at FCB's (_ali's); then the split of both routes of the fp32
+    and bf16 entries (kernels/split.py: builds with a part left out)."""
     from stmask_torch.kernels import KERNELS
     from stmask_torch.kernels import deform_exact_bwd as K5
+    from stmask_torch.kernels import split as KS
+    t_phase = time.perf_counter()
+    # the split's variants build while the kernel is checked
+    builds = threading.Thread(target=KS.build_variants,
+                              args=(KS.EXACT_BWD,))
+    builds.start()
     frames = 2 * TRAIN_CLIPS
     entries = ('fp32', 'bf16', 'bf16_f32off')
+    kinds = EXACT_KINDS + ('random',)
     worst = {e: 0.0 for e in entries}
+    over = {kind: [0.0, 0] for kind in kinds}
     t0 = time.perf_counter()
     for i, (label, h, w, cin, stride, kh, kw, _) in enumerate(
             _exact_sites()):
-        for kind in EXACT_KINDS:
+        shares = {}
+        for kind in kinds:
             args = _exact_inputs(torch, dev, h, w, cin, stride, frames, kind,
                                  1500 + i, kh, kw)
+            shares[kind] = _exact_overflow(torch, args, kh, kw, stride)
+            n_items = args[2].numel() // 2
+            over[kind][0] += shares[kind] * n_items
+            over[kind][1] += n_items
             for masked in (True, False):
                 a_ = args if masked else args[:3] + (None,)
                 for e in entries:
-                    d = _exact_check(torch, _exact_typed(torch, a_, e), kh,
-                                     kw, stride)
+                    d, route = _exact_check(torch, _exact_typed(torch, a_, e),
+                                            kh, kw, stride)
+                    assert route == 'fast', (label, kind, e, route)
                     worst[e] = max(worst[e], d)
             del args, a_
+        assert shares['zero'] == 0.0, (label, shares)
         print(f'[K5] {label} x {(frames, h, w, cin)} stride {stride} '
-              f'{kh}x{kw}: offsets {"/".join(EXACT_KINDS)}, with and without '
-              f'the mask, fp32 / bf16 / bf16 with fp32 offsets: max|diff| / '
-              f'max|ref| so far {worst["fp32"]:.3e} / {worst["bf16"]:.3e} / '
+              f'{kh}x{kw}: offsets {"/".join(kinds)} (overflow items '
+              f'{" / ".join(f"{shares[k_]:.4f}" for k_ in kinds)}), with and '
+              'without the mask, fp32 / bf16 / bf16 with fp32 offsets, the '
+              'fast route and the general route against the plain version '
+              f'and each other: max|diff| / max|ref| so far '
+              f'{worst["fp32"]:.3e} / {worst["bf16"]:.3e} / '
               f'{worst["bf16_f32off"]:.3e} (limits {EXACT_RTOL}, '
               f'{BF16_REL_ATOL:.4f}); d_offset, d_mask bit-identical over '
-              'two launches', flush=True)
+              'two launches on each route', flush=True)
     names = {'fp32': 'deform_exact_bwd', 'bf16': 'deform_exact_bwd_bf16',
              'bf16_f32off': 'deform_exact_bwd_bf16_f32off'}
     for e, n_ in names.items():
         err[n_] = max(err[n_], worst[e])
-    print(f'[K5] checks: {time.perf_counter() - t0:.1f} s', flush=True)
+    print(f'[K5] the share of overflow items (block outside the tile\'s '
+          f'footprint, halo {K5.FAST_HALO}) over the 22 sites: '
+          + ', '.join(f'{k_} {o_[0] / o_[1]:.5f}' for k_, o_ in over.items())
+          + f'; checks: {time.perf_counter() - t0:.1f} s', flush=True)
 
     acc = {}
     for i, (label, h, w, cin, stride, kh, kw, v2) in enumerate(
@@ -4270,6 +4366,8 @@ def _exact_kernel(torch, dev, smi: str, err: dict) -> dict:
                 return K5.deform_exact_bwd_cuda(*a_, kh, kw, stride)
             ms = _device_ms(fn, 20)
             call = _time_ms(fn, 20)
+            with _general_route(K5, 'exact_bwd_fast'):
+                gen_ms = _device_ms(fn, 20)
             plain = _time_ms(lambda: K5.deform_exact_bwd_reference(
                 *a_, kh, kw, stride), 3, warmup=1)
             assert KERNELS[names[e]].launches > n0
@@ -4278,17 +4376,35 @@ def _exact_kernel(torch, dev, smi: str, err: dict) -> dict:
             key = names[e] + ('_fcb' if fcb and e != 'bf16_f32off' else '')
             bound, by = _tally(acc.setdefault(key, {}), ms, call, plain,
                                nbytes, flops)
+            acc[key]['general_ms'] = acc[key].get('general_ms', 0.0) + gen_ms
             print(f'[K5 time] {names[e]} {label} x {(frames, h, w, cin)} '
-                  f'{"v2" if v2 else "v1"}: kernel {ms:.5f} ms (device), '
-                  f'per wrapper call {call:.5f} ms, plain {plain:.5f} ms, '
-                  f'bound {bound:.5f} ms ({by}; {nbytes} B, {flops} flop)',
+                  f'{"v2" if v2 else "v1"}: fast route {ms:.5f} ms (device), '
+                  f'per wrapper call {call:.5f} ms, general route '
+                  f'{gen_ms:.5f} ms, plain {plain:.5f} ms, bound '
+                  f'{bound:.5f} ms ({by}; {nbytes} B, {flops} flop)',
                   flush=True)
         del args
     for key, a_ in acc.items():
-        print(f'[K5 time] {key}: sum over the sites {a_["ms"]:.5f} ms '
-              f'(device), per call {a_["call_ms"]:.5f} ms, plain '
+        print(f'[K5 time] {key}: sum over the sites: fast route '
+              f'{a_["ms"]:.5f} ms (device), per call {a_["call_ms"]:.5f} ms, '
+              f'general route {a_["general_ms"]:.5f} ms, plain '
               f'{a_["plain_ms"]:.5f} ms, bound {a_["bound_ms"]:.5f} ms '
               f'({_by_of(a_)}) ({smi})', flush=True)
+        assert a_['ms'] < a_['general_ms'], (key, a_)
+
+    # where each entry's time goes on the general route (the design before
+    # the fast route) and on the fast one
+    builds.join()
+    for e, spec in (('fp32', KS.EXACT_BWD_F32), ('bf16', KS.EXACT_BWD)):
+        sites = _exact_split_sites(torch, dev, e)
+        for route in ('general', 'fast'):
+            rows = KS.split(spec, K5, sites, K5.deform_exact_bwd_cuda,
+                            lambda fn: _device_ms(fn, 20), route)
+            KS.print_split(spec, route, rows, smi,
+                           f'{frames} frames, {e} entry')
+        del sites
+    print(f'[K5] phase 15a: {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
     return acc
 
 
@@ -4610,6 +4726,17 @@ def main() -> int:
         elif 'spill' in ln and 'bf16_fast_kernel' in entry:
             fast.append(ln)
     assert len(fast) == 2 and all(
+        re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
+        for ln in fast), fast
+    # K5's fast route: its three instantiations (fp32, bf16, bf16 with fp32
+    # offsets)
+    entry, fast = '', []
+    for ln in build.ptxas_report('deform_exact_bwd'):
+        if 'entry function' in ln:
+            entry = ln
+        elif 'spill' in ln and 'fast_kernel' in entry:
+            fast.append(ln)
+    assert len(fast) == 3 and all(
         re.search(r'(^|\s)0 bytes spill stores, 0 bytes spill loads', ln)
         for ln in fast), fast
 
@@ -5936,10 +6063,14 @@ def main() -> int:
                'max_abs_err_is': 'relative to max|ref|', 'ms': a_['ms'],
                'call_ms': a_['call_ms'], 'plain_ms': a_['plain_ms'],
                'bound_ms': a_['bound_ms'], 'bound_by': _by_of(a_),
-               'library_ms': None, 'shape': shape}
+               'library_ms': None, 'shape': shape,
+               'path': 'fast route (tiles in shared memory, overflow items '
+                       'in device memory)',
+               'general_ms': a_['general_ms']}
         if fcb_key is not None:
             f_ = k5[fcb_key]
             row.update(fcb_ms=f_['ms'], fcb_call_ms=f_['call_ms'],
+                       fcb_general_ms=f_['general_ms'],
                        fcb_plain_ms=f_['plain_ms'],
                        fcb_bound_ms=f_['bound_ms'], fcb_bound_by=_by_of(f_),
                        fcb_shape=fcb_sites.replace(

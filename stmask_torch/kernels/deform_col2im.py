@@ -126,20 +126,17 @@ def col2im_fast(cin: int, x_numel: int, dcols_numel: int,
             and x_numel < 2 ** 31 and dcols_numel < 2 ** 31)
 
 
-@functools.lru_cache(maxsize=256)
-def _fast_plan(b, ho, wo, cin, kh, kw, stride, dilation,
-               radius) -> Col2imPlan:
-    """The tile of at most FAST_TILE x FAST_TILE sites that cuts the map
-    into the fewest tiles while two blocks share an SM (else 1 x 1), the
-    smaller on a tie, evened out over the map (each as small as its count
-    of tiles allows); then the channel split with the fewest waves of
-    blocks times chunks a block (and its set-up), the smaller on a tie."""
+def fast_tiling(b: int, ho: int, wo: int, chunks: int, smem
+                ) -> Tuple[int, int, int]:
+    """(ty, tx, n_split) of a fast route (K4's bf16 one, K5's) whose block
+    of a ty x tx tile takes ``smem(ty, tx)`` bytes: the tile of at most
+    FAST_TILE x FAST_TILE sites that cuts the map into the fewest tiles
+    while two blocks share an SM (else 1 x 1), the smaller on a tie, evened
+    out over the map (each as small as its count of tiles allows); then the
+    channel split with the fewest waves of blocks times chunks a block (and
+    its set-up), the smaller on a tie, never a split without a chunk."""
     def even(t, n):
         return -(-n // -(-n // t)) if n else 1
-
-    def smem(ty, tx):
-        fh, fw = footprint(ty, tx, kh, kw, stride, dilation, radius)
-        return fast_smem(fh * fw, ty * tx * kh * kw)
 
     def tiles_of(t):
         return -(-max(ho, 1) // t[0]) * -(-max(wo, 1) // t[1])
@@ -148,6 +145,26 @@ def _fast_plan(b, ho, wo, cin, kh, kw, stride, dilation,
             for ty in range(1, FAST_TILE + 1) for tx in range(1, FAST_TILE + 1)
             if smem(even(ty, ho), even(tx, wo)) <= FAST_SMEM]
     ty, tx = min(fits or [(1, 1)], key=lambda t: (tiles_of(t), smem(*t)))
+    tiles = b * -(-ho // ty) * -(-wo // tx)
+    per_sm = max(1, min(2, SMEM_SM // (smem(ty, tx) + 1024)))
+
+    def cost(s):
+        return (-(-tiles * s // (SMS * per_sm))
+                * (-(-chunks // s) + FAST_SETUP))
+
+    n_split = min(range(1, chunks + 1), key=lambda s: (cost(s), s))
+    return ty, tx, -(-chunks // -(-chunks // n_split))
+
+
+@functools.lru_cache(maxsize=256)
+def _fast_plan(b, ho, wo, cin, kh, kw, stride, dilation,
+               radius) -> Col2imPlan:
+    """The bf16 fast route's plan (``fast_tiling``)."""
+    def smem(ty, tx):
+        fh, fw = footprint(ty, tx, kh, kw, stride, dilation, radius)
+        return fast_smem(fh * fw, ty * tx * kh * kw)
+
+    ty, tx, n_split = fast_tiling(b, ho, wo, -(-cin // CHUNK), smem)
     fh, fw = footprint(ty, tx, kh, kw, stride, dilation, radius)
     if smem(ty, tx) > SMEM_LIMIT:
         raise ValueError(
@@ -155,15 +172,6 @@ def _fast_plan(b, ho, wo, cin, kh, kw, stride, dilation,
             f'dilation {dilation}, radius {radius}) needs {smem(ty, tx)} B '
             f'of shared memory, over the {SMEM_LIMIT} B a block may take')
     tiles = b * -(-ho // ty) * -(-wo // tx)
-    chunks = -(-cin // CHUNK)
-    per_sm = min(2, SMEM_SM // (smem(ty, tx) + 1024))
-
-    def cost(s):
-        return (-(-tiles * s // (SMS * per_sm))
-                * (-(-chunks // s) + FAST_SETUP))
-
-    n_split = min(range(1, chunks + 1), key=lambda s: (cost(s), s))
-    n_split = -(-chunks // -(-chunks // n_split))   # no split without a chunk
     return Col2imPlan(ty, tx, fh, fw, n_split, smem(ty, tx), tiles * n_split,
                       'fast', FAST_STAGES)
 

@@ -25,6 +25,12 @@ The kernels that take part:
 - ``CORR_BWD``: K3's bf16 entry (``csrc/correlation_bwd.cu``,
   ``STMASK_CORRBWD_DROP``): bit 1 the source rows' staging, 2 the
   prologue's G formation, 4 the FMAs, 8 the output stores.
+- ``EXACT_BWD`` and ``EXACT_BWD_F32``: K5's bf16 and fp32 entries (one
+  macro for every entry of ``csrc/deform_exact_bwd.cu``,
+  ``STMASK_EXACTBWD_DROP``): bit 1 the corner reads of x and the dot
+  products S, 2 the dx reductions into device memory, 4 the reads of dcols,
+  8 (bf16 only) the zeroing and rounding of dx's fp32 sums, 16 (the fast
+  route's) the footprint pass (the inside items' dx and dot products).
 - ``GREEDY`` and ``GREEDY_BOXES``: B5's two entries, one route each
   (``csrc/greedy_nms.cu``, ``STMASK_NMS_DROP``): bit 1 the suppression rows
   (in the boxes entry with their IoUs), 2 the scan, 4 (boxes entry) the
@@ -37,7 +43,8 @@ one route names none and is split on the route 'general'.
 ``chip_smoke.py`` prints the splits once a run (``CONV`` at 8 frames of the
 flagship's 7 DCN sites and FCB's 48x80 3x5 site, ``COL2IM`` likewise in
 training, ``CORR`` at one lane-frame of the eval CLI, B5's at one and at 8
-frames' classes, ``CORR_BWD`` at the training shape [4, 24, 40, 256]):
+frames' classes, ``CORR_BWD`` at the training shape [4, 24, 40, 256],
+K5's two at the training sites of ``COL2IM`` with N(0, 1.5) offsets):
 
     build_variants(COL2IM)
     rows = split(COL2IM, K4, sites, call, time_ms, 'fast')
@@ -81,6 +88,13 @@ CORR_BWD = Parts('correlation_bwd', 'STMASK_CORRBWD_DROP',
                  ((1, 'no source-row staging'), (2, 'no G formation'),
                   (4, 'no FMAs'), (8, 'no output stores')),
                  'KERNEL_BF16', 'corr_bwd_fast')
+_EXACT_PARTS = ((1, 'no x reads or dot products'), (2, 'no dx reductions'),
+                (4, 'no dcols reads'), (16, 'no footprint pass (fast route)'))
+EXACT_BWD = Parts('deform_exact_bwd', 'STMASK_EXACTBWD_DROP',
+                  _EXACT_PARTS + ((8, 'no dx zeroing and rounding'),),
+                  'KERNEL_BF16', 'exact_bwd_fast')
+EXACT_BWD_F32 = Parts('deform_exact_bwd', 'STMASK_EXACTBWD_DROP',
+                      _EXACT_PARTS, 'KERNEL', 'exact_bwd_fast')
 GREEDY = Parts('greedy_nms', 'STMASK_NMS_DROP',
                ((1, 'no suppression rows'), (2, 'no scan')), 'KERNEL')
 GREEDY_BOXES = Parts('greedy_nms', 'STMASK_NMS_DROP',

@@ -739,26 +739,95 @@ EXACT_SHAPES = [(9, 11, 6, 1, 3, 3, 1), (9, 11, 8, 2, 3, 3, 1),
 @pytest.mark.parametrize('shape', EXACT_SHAPES)
 def test_deform_exact_bwd_kernel(device, shape, kind, entry):
     """K5 against its plain version (chip_smoke.py phase 15a's check), with
-    and without the mask."""
+    and without the mask, on the route its wrapper takes (the fast one
+    where H, W >= 2 and Cin is a multiple of 4 in fp32, of 8 in bf16) and
+    on the general route."""
     h, w, cin, stride, kh, kw, dil = shape
     args = _exact_inputs(torch, device, h, w, cin, stride, 2, kind, 5, kh,
                          kw, dil)
+    fast = min(h, w) >= 2 and cin % (4 if entry == 'fp32' else 8) == 0
     for masked in (True, False):
         a = args if masked else args[:3] + (None,)
-        _exact_check(torch, _exact_typed(torch, a, entry), kh, kw, stride,
-                     dil)
+        _, route = _exact_check(torch, _exact_typed(torch, a, entry), kh,
+                                kw, stride, dil)
+        assert route == ('fast' if fast else 'general'), (shape, entry)
+
+
+# K5's fast route (H, W, Cin, stride, kh, kw, kinds): the maps hold twice
+# a footprint, so that 'away' can move every block past its tile's
+# footprint; Cin 256 at 12 x 20 splits the channels
+EXACT_FAST = [(48, 80, 64, 1, 3, 3, ('zero', 'away', 'random')),
+              (80, 96, 32, 2, 3, 3, ('zero', 'away', 'random')),
+              (48, 80, 64, 1, 3, 5, ('zero', 'away', 'random')),
+              (48, 80, 64, 1, 5, 3, ('zero', 'away', 'random')),
+              (12, 20, 256, 1, 3, 3, ('zero', 'random'))]
+
+
+def _exact_away(args, kh, kw, stride, plan):
+    """``args`` with every sample moved a footprint and 0.3 of a pixel away
+    from its grid position, down (right) in the map's first half, up (left)
+    in its second, so that no block lies in its tile's footprint."""
+    dcols, x, off, mask = args
+    _, h, w, _ = x.shape
+    _, ho, wo, _ = off.shape
+    dev = off.device
+    oy = torch.arange(ho, device=dev) * stride - (kh - 1) // 2
+    ox = torch.arange(wo, device=dev) * stride - (kw - 1) // 2
+    by = (oy[:, None, None, None] + torch.arange(kh, device=dev)[
+        None, None, :, None]).expand(ho, wo, kh, kw).reshape(ho, wo, -1)
+    bx = (ox[None, :, None, None] + torch.arange(kw, device=dev)[
+        None, None, None, :]).expand(ho, wo, kh, kw).reshape(ho, wo, -1)
+    dy = torch.where(by < h // 2, plan.fh + 0.3, -plan.fh - 0.3)
+    dxo = torch.where(bx < w // 2, plan.fw + 0.3, -plan.fw - 0.3)
+    away = torch.stack([dy, dxo], -1).reshape(1, ho, wo, -1).expand_as(off)
+    return dcols, x, away.contiguous().float(), mask
+
+
+@pytest.mark.parametrize('entry', ['fp32', 'bf16', 'bf16_f32off'])
+@pytest.mark.parametrize('case', [(s[:6], kind) for s in EXACT_FAST
+                                  for kind in s[6]], ids=str)
+def test_deform_exact_bwd_fast_route(device, case, entry):
+    """K5's fast route (asserted) against the plain version and against
+    the general route (_exact_check), with and without the mask, at offsets
+    that keep every block inside its tile's footprint (zero), move every
+    one past it (away: all overflow items), and N(0, 1.5) (mixed); the
+    share of overflow items asserted from exact_bwd_inside."""
+    from stmask_torch.kernels import deform_exact_bwd as K5
+    (h, w, cin, stride, kh, kw), kind = case
+    args = _exact_inputs(torch, device, h, w, cin, stride, 2,
+                         'zero' if kind == 'away' else kind, 7, kh, kw)
+    ho, wo = args[2].shape[1:3]
+    plan = K5.exact_bwd_plan(2, ho, wo, cin, kh, kw, stride, 1, 4)
+    if kind == 'away':
+        assert 2 * plan.fh + 2 <= h and 2 * plan.fw + 2 <= w
+        args = _exact_away(args, kh, kw, stride, plan)
+    inside = K5.exact_bwd_inside(args[2], h, w, kh, kw, stride, 1, plan)
+    share = 1.0 - float(inside.float().mean())
+    if kind == 'zero':
+        assert share == 0.0
+    elif kind == 'away':
+        assert share == 1.0
+    else:
+        assert 0.0 < share < 0.2
+    for masked in (True, False):
+        a = args if masked else args[:3] + (None,)
+        _, route = _exact_check(torch, _exact_typed(torch, a, entry), kh,
+                                kw, stride)
+        assert route == 'fast'
 
 
 @pytest.mark.parametrize('entry', ['fp32', 'bf16'])
 def test_deform_exact_bwd_unaligned(device, entry):
-    """x one element into its buffer: the one-channel-a-lane route."""
+    """x one element into its buffer: the general route, one channel a
+    lane, against the plain version."""
     args = list(_exact_typed(torch, _exact_inputs(
         torch, device, 12, 20, 64, 1, 2, 'normal6', 6), entry))
     x = args[1]
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
     buf[1:] = x.reshape(-1)
     args[1] = buf[1:].view(x.shape)
-    _exact_check(torch, tuple(args), 3, 3, 1)
+    _, route = _exact_check(torch, tuple(args), 3, 3, 1)
+    assert route == 'general'
 
 
 def test_deform_exact_bwd_rejects_bad_inputs(device):
