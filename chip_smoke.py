@@ -53,7 +53,8 @@ Phases, in order (any failure raises and exits non-zero):
      lockstep streams x 4-frame chunks) over a synthetic YouTube-VIS set of
      16 videos x 12 PNG frames at 1280x720, with --eval_metrics, then again
      with --time_device: launch counts (the bf16 fused conv 7 times a step
-     of 8 frames, the bf16 K1 once a lane-frame), frames/s end to end and
+     of 8 frames, the bf16 K1 once a step over the 8 lanes), frames/s end
+     to end and
      device-only, peak memory, mAP; a profile of steady chunks (idle share,
      launches a frame); one bf16 batched chunk on the card against the CPU
      path at 96x128;
@@ -92,7 +93,7 @@ Phases, in order (any failure raises and exits non-zero):
      the simple tracker), its fp32 eval step (no deformable conv or
      correlation launch) with a profile and the model against the CPU
      path, and the eval CLI's defaults with --nms greedy over phase 7's
-     set (greedy_nms_boxes 32 times a chunk);
+     set (greedy_nms_boxes once a step over the 8 lanes, 4 a chunk);
  11. the rest of the model surface: (a) the fp32 eval step of
      STMask_resnet50_gn and STMask_darknet53 at full depth and width over
      phase 4's videos (K1 once a frame, no deformable conv), each model
@@ -142,7 +143,7 @@ Phases, in order (any failure raises and exits non-zero):
      loaded in a fresh process that imports no model code and run over
      phase 4's videos against the live step (ids and kept slots equal,
      box / score / mask within EXPORT_ATOL; launches: 7 fused conv and 1
-     K1 a frame, 14 bf16 fused conv and 4 bf16 K1 a chunk), with the
+     K1 a frame, 14 bf16 fused conv and 2 bf16 K1 a chunk), with the
      export, save and load seconds, the artifact's size and the CLI's
      --bench frames/s beside phase 4's step.
  14. bf16 training and remat: (a) the bf16 entries of deform_wgrad, K4
@@ -194,6 +195,20 @@ Phases, in order (any failure raises and exits non-zero):
      training steps at 360x640 with both radii 0 (flagship and _ada fp32,
      _ada remat, bf16 and bf16 + remat, _ali bf16): launches a step, finite
      losses, ms/step, peak memory.
+ 16. the lane axis and the scan: (a) K1 at [8, 24, 40, 256] in fp32 and
+     bf16 (fast route) against its plain version and bit for bit against 8
+     one-lane launches; (b) B5's boxes entry at G = 8 x 40 over
+     lane-offset indices into [8 * P, 4] boxes against its plain version
+     and 8 one-lane launches, bit for bit; (c) one fp32 chunk of 8 lanes x
+     4 frames of the flagship (a lane starting a new video mid-chunk, an
+     idle lane) through build_video_step_batched, held against the
+     per-lane wrappers applied lane by lane to the same forward outputs
+     (ids, keep and classes equal; box, score and mask within LANE_ATOL);
+     (d) its launches a step (the fused conv 7, K1 1); (e) device busy ms
+     and launches of a chunk under torch.profiler, the lane axis beside the
+     lane loop on the same frames; (f) build_video_scan over phase 4's
+     videos in chunks of 6 (two chunks span a video boundary) against
+     build_video_step, bit for bit.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -926,7 +941,8 @@ def _eval_cli(torch, dev, smi: str, name: str, tmp: str) -> dict:
           flush=True)
     assert launches['deform_conv_bf16'] == _dcn_sites(cfg) * steps, \
         launches
-    assert launches['correlation_bf16'] == EVAL_LANES * steps, launches
+    assert launches['correlation_bf16'] == _lane_count(
+        'eval CLI', 'correlation_bf16', steps, EVAL_LANES), launches
     assert sum(v for n, v in launches.items() if not n.endswith('bf16')) \
         == 0, launches
     assert stats['n_frames'] == n_vid * n_fr, stats
@@ -1385,7 +1401,9 @@ def _fcb_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
     want = dict.fromkeys(KERNELS, 0)
     want.update(deform_conv_bf16=_dcn_sites(cfg) * steps,
                 deform_conv_bf16_f32off=FCB_PER_FRAME * steps,
-                correlation_bf16=EVAL_LANES * steps)
+                correlation_bf16=_lane_count('_ali eval CLI',
+                                             'correlation_bf16', steps,
+                                             EVAL_LANES))
     assert launches == want, (launches, want)
     for key in ('mAP', 'AP50', 'AP75', 'AR'):
         assert math.isfinite(stats[key]), stats
@@ -1707,21 +1725,21 @@ def _greedy_split(torch, dev, smi: str) -> dict:
 
 
 def _corr_split(torch, dev, smi: str, routes) -> dict:
-    """K1 bf16's split (kernels/split.py, CORR) at one lane-frame of the
-    eval CLI, [1, 24, 40, 256] bf16, patch 11, on each route of
-    ``routes``."""
+    """K1 bf16's split (kernels/split.py, CORR) at one step of the eval
+    CLI, [8, 24, 40, 256] bf16, patch 11, on each route of ``routes``."""
     from stmask_torch.kernels import correlation as K1
     from stmask_torch.kernels import split as KS
     KS.build_variants(KS.CORR)
     g = torch.Generator(device=dev).manual_seed(40)
-    x1 = torch.randn(1, 24, 40, 256, device=dev, generator=g).bfloat16()
-    x2 = torch.randn(1, 24, 40, 256, device=dev, generator=g).bfloat16()
-    sites = [('[1,24,40,256] P 11', (x1, x2, 11))]
+    shape = (EVAL_LANES, 24, 40, 256)
+    x1 = torch.randn(shape, device=dev, generator=g).bfloat16()
+    x2 = torch.randn(shape, device=dev, generator=g).bfloat16()
+    sites = [(f'[{EVAL_LANES},24,40,256] P 11', (x1, x2, 11))]
     out = {}
     for route in routes:
         out[route] = KS.split(KS.CORR, K1, sites, K1.correlate_cuda,
                               lambda fn: _device_ms(fn, 200), route)
-        KS.print_split(KS.CORR, route, out[route], smi, 1)
+        KS.print_split(KS.CORR, route, out[route], smi, EVAL_LANES)
     return out
 
 
@@ -2116,7 +2134,8 @@ def _legacy_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
                      tmp: str) -> dict:
     """Phase 10c: the eval CLI's defaults (bf16, 8 lanes x 4-frame chunks)
     with --config YOLACT_legacy_resnet50 --nms greedy over phase 7's set:
-    B5's boxes entry once a lane-frame (32 a chunk), no other kernel;
+    B5's boxes entry once a step over the 8 lanes (4 a chunk), no other
+    kernel;
     frames/s end to end and device-only."""
     import math
 
@@ -2136,7 +2155,9 @@ def _legacy_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
     print(f'[legacy cli] launches {launches} over {stats["n_chunks"]} chunks '
           f'and the warm-up chunk', flush=True)
     want = dict.fromkeys(KERNELS, 0)
-    want['greedy_nms_boxes'] = EVAL_LANES * EVAL_CHUNK * chunks
+    want['greedy_nms_boxes'] = _lane_count(
+        'legacy eval CLI --nms greedy', 'greedy_nms_boxes',
+        EVAL_CHUNK * chunks, EVAL_LANES)
     assert launches == want, (launches, want)
     for key in ('mAP', 'AP50', 'AP75', 'AR'):
         assert math.isfinite(stats[key]), stats
@@ -2151,7 +2172,8 @@ def _legacy_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
           f'{stats["e2e_fps"]:.2f} frames/s end to end, '
           f'{timed["device_fps"]:.2f} frames/s device-only '
           f'({timed["device_ms_per_chunk"]:.3f} ms a chunk), greedy_nms_boxes '
-          f'{EVAL_LANES * EVAL_CHUNK} launches a chunk, peak memory '
+          f'{EVAL_CHUNK} launches a chunk (once a step for all {EVAL_LANES} '
+          f'lanes), peak memory '
           f'{peak / 2**20:.1f} MiB, {n_tracks} tracks, mAP '
           f'{stats["mAP"]:.6f} ({name}, {smi})', flush=True)
     return dict(stats=stats, timed=timed, launches=launches, peak=peak,
@@ -2325,9 +2347,9 @@ def _flag_surface(torch, dev, smi: str, name: str) -> dict:
     with torch.inference_mode():
         preds = card(normalize_pad(small, torch.from_numpy(clip[0]))[None]
                      .to(dev))
-        got = detect_and_rescore(small, card, preds, 0, priors.to(dev))
+        got = detect_and_rescore(small, card, preds, priors.to(dev))
         want = detect_and_rescore(small, host, {k: v.cpu() for k, v in preds.items()},
-                       0, priors)
+                       priors)
     got = type(got)(*(t.cpu() for t in got))
     same = bool(torch.equal(got.valid, want.valid)
                 and torch.equal(got.cls[want.valid], want.cls[want.valid]))
@@ -2385,7 +2407,7 @@ def _ada_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
     """C.7: the eval CLI's defaults with --config STMask_plus_resnet50_ada
     over phase 7's set, with --time_device: the bf16 fused conv (bf16
     offsets) at the 7 DCN and 15 FCB sites a step, the bf16 K1 once a
-    lane-frame; frames/s end to end and device-only, peak memory, mAP."""
+    step; frames/s end to end and device-only, peak memory, mAP."""
     import math
 
     from stmask_torch import eval as cli
@@ -2406,7 +2428,9 @@ def _ada_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
           f'and the warm-up chunk ({steps} steps)', flush=True)
     want = dict.fromkeys(KERNELS, 0)
     want.update(deform_conv_bf16=(7 + FCB_PER_FRAME) * steps,
-                correlation_bf16=EVAL_LANES * steps)
+                correlation_bf16=_lane_count('_ada eval CLI',
+                                             'correlation_bf16', steps,
+                                             EVAL_LANES))
     assert launches == want, (launches, want)
     for key in ('mAP', 'AP50', 'AP75', 'AR'):
         assert math.isfinite(stats[key]), stats
@@ -2421,6 +2445,14 @@ def _ada_eval_cli(torch, dev, smi: str, name: str, ann: str, prefix: str,
           f'memory {peak / 2**20:.1f} MiB, {n_tracks} tracks, mAP '
           f'{stats["mAP"]:.6f} ({name}, {smi})', flush=True)
     return dict(stats=stats, launches=launches, peak=peak)
+
+
+def _lane_count(where: str, kernel: str, n: int, lanes: int) -> int:
+    """The expected launches ``n`` of ``kernel`` once a step over the lane
+    axis, printed beside the lane loop's ``lanes`` x ``n``."""
+    print(f'[launches] {where} {kernel}: expected {n} (once a step over the '
+          f'lanes; the lane loop launched {lanes * n})', flush=True)
+    return n
 
 
 def _counted(torch, fn, *args):
@@ -2583,7 +2615,8 @@ def _other_modes(torch, dev, smi: str, name: str, ann: str, prefix: str,
     steps = (coco['n_chunks'] + 1) * EVAL_CHUNK       # and the warm-up
     assert coco['n_frames'] == COCO_SET[0], coco
     assert launches['deform_conv_bf16'] == sites * steps, launches
-    assert launches['correlation_bf16'] == EVAL_LANES * steps, launches
+    assert launches['correlation_bf16'] == _lane_count(
+        '--coco', 'correlation_bf16', steps, EVAL_LANES), launches
     assert sum(v for n_, v in launches.items()
                if not n_.endswith('bf16')) == 0, launches
     for key in ('mAP', 'AP50', 'AP75', 'AR'):
@@ -3322,7 +3355,9 @@ def _export_phase(torch, dev, smi: str, name: str, clips, live_ms: float,
             _fp32_step_only(launches, 7, frames_, 'fp32 artifact')
         else:
             assert launches['deform_conv_bf16'] == 7 * n_calls * k_b, launches
-            assert launches['correlation_bf16'] == frames_, launches
+            assert launches['correlation_bf16'] == _lane_count(
+                'bf16 batched artifact', 'correlation_bf16', n_calls * k_b,
+                n_b), launches
             assert sum(v for n_, v in launches.items() if n_ not in (
                 'deform_conv_bf16', 'correlation_bf16')) == 0, launches
         result[tag] = dict(cli[tag], launches=launches, worst=worst,
@@ -4664,6 +4699,356 @@ def _exact_vs_cpu(torch, dev, c15_r2: dict) -> dict:
     return out
 
 
+# phase 16: the lane axis and the scan.  The chunk's lanes: 6 videos from
+# step 0, one video of 2 frames then a new one from step 2 (is_first
+# mid-chunk), and an idle lane (zero frames, as the eval CLI feeds it)
+LANE_CHUNK = 4
+LANE_RESTART, LANE_IDLE = 6, 7
+# box, score and mask of a step of the lane axis against the per-lane
+# wrappers from the same state.  On the CPU the two are bit for bit the
+# same; on the card cuBLAS and cuDNN sum the batched products (RoIAlign's
+# contractions, the TemporalNet, the masks' lincomb) in another order
+# than the one-lane ones, and the random TemporalNet and prototypes grow
+# that: box 3.8e-5 and mask 4.0e-5 on an H100 (with the TemporalNet at
+# the lane axis's batch too: box 3.8e-5, mask 2.1e-5), past 1e-5.  Held
+# at the tolerances tests/test_torch_eval_batched.py holds the batched
+# step to against JAX; scores (gathered) at 1e-5
+LANE_ATOL = {'box': 1e-4, 'score': 1e-5, 'mask': 1e-3}
+SCAN_CHUNK = 6                  # build_video_scan over phase 4's videos
+# the lane loop's eval CLI chunk (bf16, 8 x 4) as PERF.md section 5
+# records it: device busy ms, wall ms, launches a frame
+LANE_LOOP_CLI = (118.933, 435.551, 658.9)
+
+
+def _lane_chunk_inputs(cfg):
+    """[K, B] uint8 frames and is_first of phase 16c's chunk."""
+    k, b = LANE_CHUNK, EVAL_LANES
+    frames = np.zeros((k, b, cfg.img_h, cfg.img_w, 3), np.uint8)
+    first = np.zeros((k, b), bool)
+    for lane in range(b):
+        if lane == LANE_IDLE:
+            continue
+        clip = _synthetic_clip(cfg.img_h, cfg.img_w, k, seed=160 + lane)
+        if lane == LANE_RESTART:
+            new = _synthetic_clip(cfg.img_h, cfg.img_w, 2, seed=170)
+            clip = np.concatenate([clip[:2], new])
+            first[2, lane] = True
+        frames[:, lane] = clip
+        first[0, lane] = True
+    return frames, first
+
+
+def _lane_axis(torch, dev, smi: str, name: str, clips, err: dict) -> dict:
+    """Phase 16: the lane axis and the scan on the card.  (a) K1 at [8, 24,
+    40, 256] fp32 and bf16 (the fast route asserted) against its plain
+    version and against 8 launches of one lane each, bit for bit; (b) B5's
+    boxes entry at G = 8 x 40 over lane-offset indices into [8 * P, 4]
+    boxes against its plain version and against 8 launches of one lane's
+    40 classes, bit for bit; (c) one fp32 8-lane 4-frame chunk of the
+    flagship (a lane that starts a new video mid-chunk, an idle lane)
+    through build_video_step_batched, and the lane-batched detect +
+    tracker against the per-lane wrappers applied lane by lane (the lane
+    loop) to the same forward outputs; (d) the chunk's launches a step;
+    (e) device busy ms and launches of a chunk under torch.profiler,
+    lane axis beside lane loop in this run; (f) build_video_scan over
+    phase 4's videos in chunks of 6 against build_video_step, bit for
+    bit."""
+    from stmask_torch.config import get_config
+    from stmask_torch.inference import build_video_scan, build_video_step
+    from stmask_torch.inference.candidates import detect_frame
+    from stmask_torch.inference.pipeline import (build_video_step_batched,
+                                                 detect_and_rescore,
+                                                 normalize_pad)
+    from stmask_torch.inference.tracker import (TrackState, track_step_tf,
+                                                track_step_tf_lanes)
+    from stmask_torch.kernels import KERNELS
+    from stmask_torch.kernels import correlation as K1
+    from stmask_torch.kernels import greedy_nms as KG
+    from stmask_torch.models import build_model
+    from stmask_torch.ops.anchors import all_priors
+    from stmask_torch.ops.nms import NEG_INF, _top_k_padded
+    from stmask_torch.ops.roi_align import roi_align
+
+    t_phase = time.perf_counter()
+    cfg = get_config('STMask_plus_resnet50')
+    b = EVAL_LANES
+    res = {}
+
+    # (a) K1 over the lanes
+    g = torch.Generator(device=dev).manual_seed(16)
+    x1 = torch.randn(b, 24, 40, 256, device=dev, generator=g)
+    x2 = torch.randn(b, 24, 40, 256, device=dev, generator=g)
+    for kname, dt in (('correlation', torch.float32),
+                      ('correlation_bf16', torch.bfloat16)):
+        a1, a2 = x1.to(dt), x2.to(dt)
+        if dt == torch.bfloat16:
+            assert K1.corr_fast(256, a1.data_ptr(), a2.data_ptr())
+        got = K1.correlate_cuda(a1, a2, 11)
+        want = K1.correlate_reference(a1, a2, 11)
+        lanes = torch.cat([K1.correlate_cuda(a1[i:i + 1], a2[i:i + 1], 11)
+                           for i in range(b)])
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        err[kname] = max(err[kname], d)
+        print(f'[lanes] K1 {kname} [{b},24,40,256] patch 11: max|diff| '
+              f'{d:.3e} against the plain version (atol 1e-5, rtol 1e-5); '
+              f'bit for bit {b} launches of one lane each', flush=True)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        assert torch.equal(got, lanes), kname
+
+    # (b) B5's boxes entry over lane-offset indices: boxes clustered around
+    # a few centres a lane (so that suppression happens), the eval path's
+    # P, 40 classes and nms_top_k 200
+    p, c, k = cfg.num_priors, cfg.num_classes - 1, cfg.nms_top_k
+    gen = torch.Generator(device=dev).manual_seed(17)
+    ctr = torch.rand(b, 12, 2, device=dev, generator=gen) * 0.8 + 0.1
+    pick = torch.randint(0, 12, (b, p), device=dev, generator=gen)
+    cxy = torch.gather(ctr, 1, pick[..., None].expand(-1, -1, 2)) + \
+        torch.randn(b, p, 2, device=dev, generator=gen) * 0.01
+    wh = 0.05 + torch.rand(b, p, 2, device=dev, generator=gen) * 0.1
+    boxes = torch.cat([cxy - wh / 2, cxy + wh / 2], dim=-1)      # [B, P, 4]
+    scores = torch.rand(b, c, p, device=dev, generator=gen) ** 4
+    masked = torch.where(scores > cfg.nms_conf_thresh, scores, NEG_INF)
+    top, idx = _top_k_padded(masked, k)                          # [B, C, K]
+    valid = top > NEG_INF / 2
+    off = torch.arange(b, device=dev).reshape(b, 1, 1) * p
+    scale = float(max(cfg.pad_w, cfg.pad_h))
+    args = (boxes.reshape(-1, 4).contiguous(),
+            (idx + off).reshape(b * c, k).contiguous(),
+            valid.reshape(b * c, k).contiguous(), scale, cfg.nms_thresh)
+    n0 = KG.KERNEL_BOXES.launches
+    got = KG.greedy_nms_boxes_cuda(*args)
+    assert KG.KERNEL_BOXES.launches == n0 + 1
+    want = KG.greedy_nms_plus_one_reference(*args)
+    lanes = torch.cat([KG.greedy_nms_boxes_cuda(
+        boxes[i].contiguous(), idx[i].contiguous(), valid[i].contiguous(),
+        scale, cfg.nms_thresh) for i in range(b)])
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    err['greedy_nms_boxes'] = max(err['greedy_nms_boxes'], float(n_diff))
+    kept, cand = int(got.sum()), int(valid.sum())
+    print(f'[lanes] B5 greedy_nms_boxes G {b} x {c} = {b * c}, K {k}, '
+          f'boxes [{b} x {p}, 4] with lane-offset indices: {n_diff} keep '
+          f'flags differ from the plain version, {kept} kept of {cand} '
+          f'valid candidates; bit for bit {b} launches of one lane\'s {c} '
+          'classes', flush=True)
+    assert n_diff == 0 and torch.equal(got, lanes) and 0 < kept < cand
+
+    # (c) one fp32 chunk: the lane axis against the lane loop
+    model = build_model(cfg, dev, seed=0)
+    chunk, make_states = build_video_step_batched(
+        cfg, model, b, LANE_CHUNK, uint8_input=True, device=dev)
+    frames_np, first_np = _lane_chunk_inputs(cfg)
+    frames = torch.from_numpy(frames_np).to(dev)
+    first = torch.from_numpy(first_np).to(dev)
+    torch.cuda.synchronize()
+    for kk in KERNELS.values():
+        kk.launches = 0
+    states, outs = chunk(make_states(), frames, first)
+    torch.cuda.synchronize()
+    launches = {n: kk.launches for n, kk in KERNELS.items()}
+    next_ids = states.next_id.tolist()
+
+    priors = torch.as_tensor(all_priors(cfg), device=dev)
+    x = normalize_pad(cfg, frames)
+    keys = ('loc', 'conf', 'mask_coeff', 'track', 'centerness')
+    # each step of the lane axis against the per-lane wrappers from the
+    # same state (held), with the TemporalNet at the lane axis's batch and
+    # at the lane's own; and against the lane loop along its own
+    # trajectory (printed: the random TemporalNet, fed back its own
+    # shifted boxes, grows the rounding differences step by step)
+    fields = ('box', 'score', 'mask')
+    s_cap = min(cfg.shift_capacity, cfg.track_capacity)
+    worst = dict.fromkeys(fields, 0.0)
+    worst_net = dict.fromkeys(fields, 0.0)
+    # the batched products alone, on this run's card: the TemporalNet over
+    # B * S rows against one lane's S, RoIAlign over B lanes against one
+    with torch.inference_mode():
+        pooled = torch.relu(torch.randn(b * s_cap, 7, 7, 633, device=dev,
+                                        generator=g))
+        nets = (model.temporal_shift(pooled),
+                model.temporal_shift(pooled[:s_cap]))
+        net_d = [float((a[:s_cap] - o).abs().max()) for a, o in zip(*nets)]
+        feats = torch.randn(b, 24, 40, 633, device=dev, generator=g)
+        lo = torch.rand(b, s_cap, 2, device=dev, generator=g) * 16
+        rboxes = torch.cat([lo, lo + 2 + torch.rand(
+            b, s_cap, 2, device=dev, generator=g) * 8], dim=-1)
+        roi_d = float((roi_align(feats, rboxes)[0]
+                       - roi_align(feats[0], rboxes[0])).abs().max())
+    print(f'[lanes] 16c batched against one lane on the card: the '
+          f'TemporalNet over {b} x {s_cap} rows against {s_cap}, max|diff| '
+          f'box shift {net_d[0]:.3e}, coefficient shift {net_d[1]:.3e}; '
+          f'RoIAlign over {b} lanes against one, {roi_d:.3e}', flush=True)
+    drift = [dict.fromkeys(fields, 0.0) for _ in range(LANE_CHUNK)]
+    flips = 0
+    lane_state = make_states()
+    singles = [TrackState(*(f[i] for f in lane_state)) for i in range(b)]
+    n_kept = 0
+
+    def diff(a, w, fld):
+        return float((getattr(a, fld) - getattr(w, fld)).abs().max())
+
+    def net_at_lane(i):
+        """The TemporalNet over lane i's S rows inside B * S rows."""
+        def fn(pooled):
+            buf = pooled.new_zeros((b * s_cap,) + tuple(pooled.shape[1:]))
+            buf[i * s_cap:(i + 1) * s_cap] = pooled
+            return tuple(t[i * s_cap:(i + 1) * s_cap]
+                         for t in model.temporal_shift(buf))
+        return fn
+
+    with torch.inference_mode():
+        for step in range(LANE_CHUNK):
+            preds = model(x[step])
+            det = detect_and_rescore(cfg, model, preds, priors)
+            prev = lane_state
+            lane_state, lane_out = track_step_tf_lanes(
+                cfg, model.temporal_shift, prev, det, preds['proto'],
+                preds['fpn_feat'], preds['T2S_feat'], first[step])
+            for f, (a, o) in enumerate(zip(lane_out, outs)):
+                assert torch.equal(a, o[step]), ('chunk', step, f)
+            for i in range(b):
+                one = detect_frame(cfg, {kk: preds[kk][i] for kk in keys},
+                                   priors, proto=preds['proto'][i])
+                args = (one, preds['proto'][i], preds['fpn_feat'][i],
+                        preds['T2S_feat'][i], first[step, i])
+                got = type(lane_out)(*(t[i] for t in lane_out))
+                lane_prev = TrackState(*(f[i] for f in prev))
+                for net, acc in ((net_at_lane(i), worst),
+                                 (model.temporal_shift, worst_net)):
+                    _, want = track_step_tf(cfg, net, lane_prev, *args)
+                    for fld in ('obj_id', 'keep', 'cls'):
+                        assert torch.equal(getattr(got, fld),
+                                           getattr(want, fld)), (step, i, fld)
+                    for fld in fields:
+                        acc[fld] = max(acc[fld], diff(got, want, fld))
+                n_kept += int(want.keep.sum())
+                singles[i], loop = track_step_tf(
+                    cfg, model.temporal_shift, singles[i], *args)
+                flips += sum(int((getattr(got, fld) != getattr(loop, fld))
+                                 .sum()) for fld in ('obj_id', 'keep', 'cls'))
+                for fld in fields:
+                    drift[step][fld] = max(drift[step][fld],
+                                           diff(got, loop, fld))
+    print(f'[lanes] 16c fp32 chunk of {b} lanes x {LANE_CHUNK} frames (lane '
+          f'{LANE_RESTART} starts a new video at step 2, lane {LANE_IDLE} '
+          f'idle): each step of the lane axis against the per-lane wrappers '
+          f'lane by lane from the same state and forward outputs: obj_id, '
+          f'keep and cls equal; max|diff| with the TemporalNet at the lane\'s '
+          f'own {s_cap} rows: box {worst_net["box"]:.3e}, score '
+          f'{worst_net["score"]:.3e}, mask {worst_net["mask"]:.3e}; at the '
+          f'lane axis\'s batch: box {worst["box"]:.3e}, score '
+          f'{worst["score"]:.3e}, mask {worst["mask"]:.3e} (atol '
+          f'{LANE_ATOL}); {n_kept} kept tracks; the lanes\' next ids after '
+          f'the chunk {next_ids}; the chunk\'s outputs equal the functions\' '
+          'bit for bit', flush=True)
+    print('[lanes] 16c the lane loop along its own trajectory, max|diff| a '
+          'step (box, score, mask): ' + '; '.join(
+              f'{d["box"]:.3e}, {d["score"]:.3e}, {d["mask"]:.3e}'
+              for d in drift) + f'; {flips} obj_id / keep / cls entries '
+          'differ', flush=True)
+    for acc in (worst, worst_net):
+        assert all(acc[f] <= LANE_ATOL[f] for f in fields), acc
+    assert n_kept > 0
+    for t in outs:
+        if t.is_floating_point():
+            assert bool(torch.isfinite(t).all())
+
+    # (d) launches a step
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(deform_conv=_dcn_sites(cfg) * LANE_CHUNK,
+                correlation=LANE_CHUNK)
+    print(f'[lanes] 16d launches of the chunk: {launches}; a step: '
+          f'deform_conv {launches["deform_conv"] // LANE_CHUNK}, correlation '
+          f'{launches["correlation"] // LANE_CHUNK} (the lane loop launched '
+          f'K1 {b} times a step)', flush=True)
+    assert launches == want, (launches, want)
+
+    # (e) a steady chunk's device time and launches under torch.profiler:
+    # the lane axis, then the lane loop (the network once on all lanes, then
+    # detect and track lane by lane through the per-lane wrappers, the
+    # design before the lane axis) on the same frames
+    def lane_loop():
+        nonlocal singles
+        with torch.inference_mode():
+            for step in range(LANE_CHUNK):
+                preds = model(x[step])
+                for i in range(b):
+                    one = detect_frame(cfg, {kk: preds[kk][i] for kk in keys},
+                                       priors, proto=preds['proto'][i])
+                    singles[i], _ = track_step_tf(
+                        cfg, model.temporal_shift, singles[i], one,
+                        preds['proto'][i], preds['fpn_feat'][i],
+                        preds['T2S_feat'][i], first[step, i])
+
+    def lane_axis():
+        nonlocal states
+        states, _ = chunk(states, frames, first)
+
+    prof = {}
+    for tag, fn in (('lane axis', lane_axis), ('lane loop', lane_loop)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rows = _device_events(fn, 1)
+        busy = sum(us for _, _, us in rows) / 1e3 if rows else None
+        n_kern = sum(cnt for _, cnt, _ in rows) if rows else None
+        prof[tag] = dict(wall_ms=wall, busy_ms=busy, launches=n_kern)
+        if rows:
+            print(f'[lanes] 16e {tag}, fp32 chunk of {b} x {LANE_CHUNK}: '
+                  f'device busy {busy:.3f} ms of {wall:.3f} ms wall (idle '
+                  f'share {1 - busy / wall:.3f}), {n_kern} kernel launches '
+                  f'({n_kern / (b * LANE_CHUNK):.1f} a lane-frame) '
+                  f'({name}, {smi})', flush=True)
+        else:
+            print(f'[lanes] 16e {tag}: torch.profiler recorded no device '
+                  f'time: device busy ms not measured; {wall:.3f} ms wall',
+                  flush=True)
+    print(f'[lanes] 16e beside the lane loop\'s eval CLI chunk in PERF.md '
+          f'section 5: bf16 8 x 4, busy {LANE_LOOP_CLI[0]} ms of '
+          f'{LANE_LOOP_CLI[1]} ms wall, {LANE_LOOP_CLI[2]} launches a frame '
+          '(phase 7 prints the lane axis\'s)', flush=True)
+    res['chunk'] = dict(launches=launches, worst=worst, prof=prof)
+    del chunk, states, outs, lane_state, singles
+
+    # (f) the scan against the step over phase 4's videos and the first
+    # two frames of video 0 again (a third video), in chunks of 6
+    stream = [(v, f) for v, clip in enumerate(clips)
+              for f in range(len(clip))] + [(0, 0), (0, 1)]
+    assert len(stream) % SCAN_CHUNK == 0
+    scan, make_state = build_video_scan(cfg, model, chunk_size=SCAN_CHUNK,
+                                        uint8_input=True, device=dev)
+    step, make_one = build_video_step(cfg, model, uint8_input=True,
+                                      device=dev)
+    state, got = make_state(), []
+    n_span = 0
+    for c0 in range(0, len(stream), SCAN_CHUNK):
+        part = stream[c0:c0 + SCAN_CHUNK]
+        n_span += any(f == 0 for _, f in part[1:])
+        state, out = scan(state, np.stack([clips[v][f] for v, f in part]),
+                          np.array([f == 0 for _, f in part]))
+        got.extend(type(out)(*(t[j] for t in out))
+                   for j in range(SCAN_CHUNK))
+    n_kept = 0
+    for (v, f), o in zip(stream, got):
+        one = make_one() if f == 0 else one
+        one, want = step(one, clips[v][f], f == 0)
+        for fld, a, w in zip(want._fields, o, want):
+            assert torch.equal(a, w), ('scan', v, f, fld)
+        n_kept += int(want.keep.sum())
+    print(f'[lanes] 16f build_video_scan, {len(stream)} frames in chunks of '
+          f'{SCAN_CHUNK} ({n_span} chunks span a video boundary) against '
+          f'build_video_step: every field bit for bit, {n_kept} kept tracks; '
+          f'phase 16 took {time.perf_counter() - t_phase:.1f} s', flush=True)
+    assert n_span >= 2 and n_kept > 0
+    del model, scan, step
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5231,25 +5616,30 @@ def main() -> int:
           f'{kd["bound_ms"]:.5f} ms; dense 3x3 cuDNN conv (not the same '
           f'function) {dense:.5f} ms ({smi})')
 
-    # the bf16 variants.  K1 on bf16 [1,24,40,256] (one lane-frame of the
-    # batched eval): half the input bytes, the same fp32 flops.
-    x1b, x2b = x1.bfloat16(), x2.bfloat16()
+    # the bf16 variants.  K1 on bf16 [8,24,40,256] (one step of the
+    # batched eval, all 8 lanes in one launch): half the input bytes, the
+    # same fp32 flops; the fp32 kernel on the same values beside it
+    x1e = torch.randn(EVAL_LANES, 24, 40, 256, device=dev, generator=g)
+    x2e = torch.randn(EVAL_LANES, 24, 40, 256, device=dev, generator=g)
+    x1b, x2b = x1e.bfloat16(), x2e.bfloat16()
     assert K1.corr_fast(256, x1b.data_ptr(), x2b.data_ptr())
     k1b_ms = _device_ms(lambda: K1.correlate_cuda(x1b, x2b, 11), 200)
     k1b_call = _time_ms(lambda: K1.correlate_cuda(x1b, x2b, 11), 500)
     k1b_plain = _time_ms(lambda: K1.correlate_reference(x1b, x2b, 11), 50)
-    k1b_bound, k1b_by = _bound_ms(2 * 2 * x1.numel() + 4 * 960 * 121,
-                                  2 * 960 * 121 * 256)
+    k1e_ms = _device_ms(lambda: K1.correlate_cuda(x1e, x2e, 11), 200)
+    k1b_bound, k1b_by = _bound_ms(
+        2 * 2 * x1b.numel() + 4 * EVAL_LANES * 960 * 121,
+        2 * EVAL_LANES * 960 * 121 * 256)
     # where the bf16 kernel's time goes on each route (kernels/split.py:
     # builds with a part left out); the general route is the design every
     # bf16 call took before the fast route
     k1_split = _corr_split(torch, dev, smi, ('fast', 'general'))
     k1b_general = _split_sum(k1_split['general'], 1)
-    print(f'[time] correlation bf16 [1,24,40,256] P 11: kernel {k1b_ms:.5f} '
-          f'ms (device, fast route), per wrapper call {k1b_call:.5f} ms, '
-          f'plain {k1b_plain:.5f} ms, bound {k1b_bound:.5f} ms ({k1b_by}); '
-          f'general route {k1b_general:.5f} ms, fp32 sibling {k1_ms:.5f} ms '
-          f'({smi})')
+    print(f'[time] correlation bf16 [{EVAL_LANES},24,40,256] P 11: kernel '
+          f'{k1b_ms:.5f} ms (device, fast route), per wrapper call '
+          f'{k1b_call:.5f} ms, plain {k1b_plain:.5f} ms, bound '
+          f'{k1b_bound:.5f} ms ({k1b_by}); general route {k1b_general:.5f} '
+          f'ms, fp32 sibling on the same values {k1e_ms:.5f} ms ({smi})')
     # the fused conv at the 7 sites with 8 frames (one step of the batched
     # eval): bf16 beside fp32 on the same inputs.  Bound of bf16: x,
     # offset, mask, weight, bias read once and out written once at 2 bytes;
@@ -5613,6 +6003,11 @@ def main() -> int:
     exact_cpu = _exact_vs_cpu(torch, dev, fcb_train['rel'])
     exact = _exact_train(torch, dev, smi, name, hosts)
 
+    # ---- 16. the lane axis and the scan ------------------------------------
+    mark(16)
+    torch.cuda.empty_cache()
+    lanes16 = _lane_axis(torch, dev, smi, name, clips, err)
+
     by_of = _by_of
     sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
              'are their sum')
@@ -5641,11 +6036,11 @@ def main() -> int:
          'launches_path': cli_path,
          'max_abs_err': err['correlation_bf16'], 'ms': k1b_ms,
          'call_ms': k1b_call, 'plain_ms': k1b_plain, 'bound_ms': k1b_bound,
-         'bound_by': k1b_by, 'library_ms': None, 'fp32_ms': k1_ms,
+         'bound_by': k1b_by, 'library_ms': None, 'fp32_ms': k1e_ms,
          'kernel_path': 'fast (packed bf16x2 products)',
          'general_route_ms': k1b_general,
-         'shape': 'x1, x2 [1,24,40,256] bf16, patch 11, fp32 out; one '
-                  'launch'},
+         'shape': f'x1, x2 [{EVAL_LANES},24,40,256] bf16 (one eval CLI step '
+                  'over its lanes), patch 11, fp32 out; one launch'},
         {'name': 'deform_im2col', 'route': 'cuda',
          'source': 'stmask_torch/kernels/csrc/deform_im2col.cu',
          'replaces': 'stmask_tpu/ops/deform_conv.py:31',
@@ -5929,19 +6324,22 @@ def main() -> int:
         'launches_path': legacy_cli_path,
         'max_abs_err': err['greedy_nms_boxes'],
         'max_abs_err_is': 'keep flags that differ from the plain version',
-        'ms': gt_['boxes_ms'], 'call_ms': gt_['boxes_call_ms'],
-        'plain_ms': gt_['boxes_plain_ms'], 'bound_ms': gt_['boxes_bound_ms'],
-        'bound_by': gt_['boxes_bound_by'], 'library_ms': None,
-        'before_ms': gt_['before_ms'],
+        'ms': g320['boxes_ms'], 'call_ms': g320['boxes_call_ms'],
+        'plain_ms': g320['boxes_plain_ms'],
+        'bound_ms': g320['boxes_bound_ms'],
+        'bound_by': g320['boxes_bound_by'], 'library_ms': None,
+        'before_ms': g320['before_ms'],
         'before_is': f'the caller\'s IoU formation (_plus_one_iou, '
-                     f'{gt_["iou_kernels"]} kernels, {gt_["iou_ms"]:.5f} ms) '
-                     '+ the matrix entry',
-        'shape': 'boxes [8000,4] fp32 (scaled by 640 in the kernel), idx '
-                 '[40,200] int64, valid [40,200]: one frame\'s 40 classes at '
-                 'nms_top_k 200; one launch',
-        'ms_320': g320['boxes_ms'], 'call_ms_320': g320['boxes_call_ms'],
-        'before_ms_320': g320['before_ms']})
+                     f'{g320["iou_kernels"]} kernels, {g320["iou_ms"]:.5f} '
+                     'ms) + the matrix entry',
+        'shape': 'boxes [64000,4] fp32 (scaled by 640 in the kernel), idx '
+                 '[320,200] int64, valid [320,200]: the 40 classes of each of '
+                 'the eval CLI\'s 8 lanes at nms_top_k 200, one step; one '
+                 'launch',
+        'ms_40': gt_['boxes_ms'], 'call_ms_40': gt_['boxes_call_ms'],
+        'before_ms_40': gt_['before_ms']})
     for row in table['kernels']:
+        row['lane_chunk_launches'] = lanes16['chunk']['launches'][row['name']]
         row['legacy_cli_launches'] = legacy_cli['launches'][row['name']]
         row['legacy_eval_launches'] = legacy['launches'][row['name']]
         row['mapstar_greedy_eval_launches'] = \

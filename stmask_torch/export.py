@@ -20,8 +20,9 @@ NMS), without the model code or the config.
 Unlike the JAX artifact, a program runs on the device type it was
 exported for (its kernels are that device's); there is no multi-platform
 lowering, and loading it for another device type raises.  A batched
-program takes and returns a list of N per-stream states, as
-``build_video_step_batched`` does.
+program takes and returns one ``TrackState`` whose fields lead with the N
+streams' lane axis, as ``build_video_step_batched`` does; ``meta['state']``
+gives the shapes of one lane.
 
 CLI: ``python -m stmask_torch.export --out model.stmask [--bf16]
 [--batched N --chunk K] [--bench PASSES]`` (``scripts/export_model.py``'s
@@ -90,7 +91,7 @@ def export_video_step(cfg, model, batched: int = 0, chunk_size: int = 1,
 
     The program is ``fn(state, frames, is_first) -> (state, FrameOutput)``.
     ``batched=N`` exports the N-stream ``chunk_size``-frame lockstep step
-    (frames [K, N, ...], is_first [K, N], a list of N states);
+    (frames [K, N, ...], is_first [K, N], a lane-stacked state);
     ``batched=0`` the single-stream step (frame [H, W, 3], is_first a
     0-dim bool).  ``uint8_input`` takes resized uint8 [img_h, img_w, 3]
     frames, normalized and padded inside; else normalized padded float32
@@ -106,8 +107,8 @@ def export_video_step(cfg, model, batched: int = 0, chunk_size: int = 1,
         step, make_states = build_video_step_batched(
             cfg, model, n_videos=batched, chunk_size=chunk_size,
             uint8_input=uint8_input, device=dev, compute_dtype=compute_dtype)
-        states = make_states()
-        state0, lane0 = states, states[0]
+        state0 = make_states()
+        lane0 = TrackState(*(f[0] for f in state0))
         frame_shape = (chunk_size, batched) + hw + (3,)
         first_shape = (chunk_size, batched)
     else:
@@ -176,14 +177,14 @@ class ExportedStep:
             return self._fn(state, frames, first)
 
     def init_state(self):
-        """An empty bank (every field zero), or a list of ``batched``."""
-        def one():
-            return TrackState(**{
-                k: torch.zeros(shape, dtype=getattr(torch, dt),
-                               device=self.device)
-                for k, (shape, dt) in self.meta['state'].items()})
+        """An empty bank (every field zero); ``batched`` banks stacked on a
+        leading lane axis for a batched program."""
         n = int(self.meta['batched'])
-        return [one() for _ in range(n)] if n else one()
+        lanes = [n] if n else []
+        return TrackState(**{
+            k: torch.zeros(lanes + shape, dtype=getattr(torch, dt),
+                           device=self.device)
+            for k, (shape, dt) in self.meta['state'].items()})
 
 
 def load_exported(path: str, device: Optional[torch.device | str] = None

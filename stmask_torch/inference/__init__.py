@@ -8,7 +8,7 @@ their NamedTuples)."""
 import importlib
 
 _LAZY = {'build_video_step': 'pipeline', 'build_video_step_batched':
-         'pipeline', 'cast_model': 'pipeline',
+         'pipeline', 'build_video_scan': 'pipeline', 'cast_model': 'pipeline',
          'postprocess_frame': 'postprocess',
          'results2json_videoseg': 'postprocess'}
 __all__ = sorted(_LAZY)

@@ -1,17 +1,22 @@
 """The video steps (port of ``stmask_tpu/inference/pipeline.py``:
-``build_video_step``, ``build_video_step_batched`` and ``cast_params``).
+``build_video_step``, ``build_video_step_batched``, ``build_video_scan``
+and ``cast_params``).
 
     video_step(state, frame, is_first) -> (state, FrameOutput)
     video_chunk(states, frames[K, B], is_first[K, B])
         -> (states, FrameOutput[K, B])
+    video_scan(state, frames[K], is_first[K]) -> (state, FrameOutput[K])
 
 run the forward pass, decode, NMS, the mask-IoU re-scoring (under
 ``use_maskiou`` with ``rescore_mask`` or ``rescore_bbox``), temporal
 shift and tracking (the simple tracker for models without TF) on the
-device, with the model and
-weights there too.  Nothing in a step waits for the device: the caller
-reads the small per-frame outputs when it needs them (``inference.fetch``,
-``inference.postprocess``).
+device, with the model and weights there too.  The lockstep streams are a
+lane axis written out (the JAX package ``vmap``s them): a step runs the
+network, ``detect_frame_lanes`` and the tracker once over all B lanes, and
+the B states are one ``TrackState`` whose fields lead with [B].  The
+single-stream step runs the same functions at B = 1.  Nothing in a step
+waits for the device: the caller reads the small per-frame outputs when it
+needs them (``inference.fetch``, ``inference.postprocess``).
 
 Compute dtype: ``compute_dtype=torch.bfloat16`` rounds the weights and the
 frozen-BN statistics to bf16 (``cast_model``, as ``cast_params`` does) and
@@ -21,7 +26,7 @@ fp32 and the tracker keeps the bf16 features (``init_state(feat_dtype)``).
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,9 +35,10 @@ from ..config import MEANS, STD, STMaskConfig
 from ..models.stmask import STMask
 from ..ops.anchors import all_priors, check_anchor_count
 from ..utils.device import resolve_device
-from .candidates import Detections, detect_frame, rescore_maskiou
-from .tracker import (FrameOutput, TrackState, init_state, track_step_simple,
-                      track_step_tf)
+from .candidates import (Detections, add_lane, detect_frame_lanes,
+                         drop_lane, rescore_maskiou_lanes)
+from .tracker import (FrameOutput, TrackState, init_state,
+                      track_step_simple_lanes, track_step_tf_lanes)
 
 _DECODE_KEYS = ('loc', 'conf', 'mask_coeff', 'track', 'centerness')
 
@@ -56,16 +62,28 @@ def cast_model(model: STMask, dtype: torch.dtype) -> STMask:
 
 
 def detect_and_rescore(cfg: STMaskConfig, model: STMask, preds: dict,
-                       b: int, priors: torch.Tensor) -> Detections:
-    """Lane ``b`` of a forward's outputs through ``detect_frame`` and, when
-    the config asks for it, ``rescore_maskiou`` (``pipeline.py:48-52``,
-    ``:144-150``)."""
-    proto = preds['proto'][b]
-    det = detect_frame(cfg, {k: preds[k][b] for k in _DECODE_KEYS}, priors,
-                       proto=proto)
+                       priors: torch.Tensor) -> Detections:
+    """Every lane of a forward's outputs through ``detect_frame_lanes``
+    and, when the config asks for it, ``rescore_maskiou_lanes``
+    (``pipeline.py:144-150``): [B, D, ...] detections."""
+    proto = preds['proto']
+    det = detect_frame_lanes(cfg, {k: preds[k] for k in _DECODE_KEYS},
+                             priors, proto=proto)
     if cfg.use_maskiou and (cfg.rescore_mask or cfg.rescore_bbox):
-        det = rescore_maskiou(cfg, model.maskiou, det, proto)
+        det = rescore_maskiou_lanes(cfg, model.maskiou, det, proto)
     return det
+
+
+def _track(cfg: STMaskConfig, model: STMask, state: TrackState,
+           det: Detections, preds: dict, is_first: torch.Tensor
+           ) -> Tuple[TrackState, FrameOutput]:
+    """The tracker of the config over every lane: TF, or the simple one."""
+    if cfg.temporal_fusion_module:
+        return track_step_tf_lanes(cfg, model.temporal_shift, state, det,
+                                   preds['proto'], preds['fpn_feat'],
+                                   preds['T2S_feat'], is_first)
+    return track_step_simple_lanes(cfg, state, det, preds['proto'],
+                                   is_first)
 
 
 def _prepare(cfg: STMaskConfig, model: STMask, device, compute_dtype):
@@ -77,11 +95,11 @@ def _prepare(cfg: STMaskConfig, model: STMask, device, compute_dtype):
                        compute_dtype).eval()
     priors = torch.as_tensor(all_priors(cfg), device=dev)
 
-    def make_init_state() -> TrackState:
+    def make_init_state(lanes: Optional[int] = None) -> TrackState:
         return init_state(cfg, cfg.feature_shapes()[
             cfg.correlation_selected_layer], (cfg.pad_h // 4, cfg.pad_w // 4),
             cfg.fpn.num_features, cfg.embed_dim, device=dev,
-            feat_dtype=compute_dtype)
+            feat_dtype=compute_dtype, lanes=lanes)
 
     return dev, model, priors, make_init_state
 
@@ -103,7 +121,8 @@ def build_video_step(cfg: STMaskConfig, model: STMask,
     ``debug_fpn=True`` returns that dict too, with ``fpn_outs``, the frame's
     P3..P7 as NHWC [h, w, C] maps (``--display_fpn_outs``).  The model is
     moved to ``device`` (default ``cuda``; raises when there is no GPU) and
-    cast to ``compute_dtype``; fp32 runs with TF32 off.
+    cast to ``compute_dtype``; fp32 runs with TF32 off.  The step is the
+    lane-axis step at B = 1 on a per-lane state.
     """
     dev, model, priors, make_init_state = _prepare(cfg, model, device,
                                                    compute_dtype)
@@ -113,20 +132,17 @@ def build_video_step(cfg: STMaskConfig, model: STMask,
                    ) -> Tuple[TrackState, FrameOutput]:
         frame = torch.as_tensor(frame).to(dev, non_blocking=True)
         frame = normalize_pad(cfg, frame) if uint8_input else frame.float()
+        first = torch.as_tensor(is_first, dtype=torch.bool).to(
+            dev, non_blocking=True).reshape(1)
         preds = model(frame[None].to(compute_dtype),
                       return_fpn_outs=debug_fpn)
         check_anchor_count(cfg, preds['loc'].shape[1], priors.shape[0])
-        proto = preds['proto'][0]
-        det = detect_and_rescore(cfg, model, preds, 0, priors)
-        if cfg.temporal_fusion_module:
-            state, out = track_step_tf(cfg, model.temporal_shift, state, det,
-                                       proto, preds['fpn_feat'][0],
-                                       preds['T2S_feat'][0], is_first)
-        else:
-            state, out = track_step_simple(cfg, state, det, proto, is_first)
+        det = detect_and_rescore(cfg, model, preds, priors)
+        state, out = drop_lane(_track(cfg, model, add_lane(state), det, preds,
+                                      first))
         if debug or debug_fpn:
-            dbg = {'proto': proto, 'mask_coeff': det.mask_coeff,
-                   'det_valid': det.valid}
+            dbg = {'proto': preds['proto'][0],
+                   'mask_coeff': det.mask_coeff[0], 'det_valid': det.valid[0]}
             if debug_fpn:
                 dbg['fpn_outs'] = tuple(f[0] for f in preds['fpn_outs'])
             return state, out, dbg
@@ -144,29 +160,31 @@ def build_video_step_batched(cfg: STMaskConfig, model: STMask,
                              uint8_input: bool = False,
                              device: torch.device | str = 'cuda',
                              compute_dtype: torch.dtype = torch.float32
-                             ) -> Tuple[Callable, Callable[[], List]]:
+                             ) -> Tuple[Callable, Callable[[], TrackState]]:
     """Step ``n_videos`` independent video streams in lockstep,
     ``chunk_size`` frames a call (``pipeline.py:111-196``).
 
     Returns (video_chunk, make_init_states):
       video_chunk(states, frames [K, B, H, W, 3], is_first [K, B])
         -> (states, FrameOutput with leading [K, B])
-    where ``states`` is a list of B ``TrackState``s, one per lane.
+    where ``states`` is one ``TrackState`` whose fields lead with [B].
 
-    Each of the K steps runs the network once on all B lanes; decode, NMS
-    and the tracker then run lane by lane (the JAX package ``vmap``s them;
-    the results are the same).  ``is_first[k, b]`` resets lane b's tracker
-    at step k, so a lane starts its next video mid-chunk; a lane with no
-    video steps on a zero frame and its outputs are the caller's to drop.
-    ``uint8_input=True`` takes frames as uint8 [K, B, img_h, img_w, 3]
-    (resized, not normalized) and normalizes and pads them on the device.
+    Each of the K steps runs the network, ``detect_frame_lanes`` (and the
+    mask-IoU re-scoring) and the tracker once on all B lanes, as the JAX
+    package's ``vmap`` does: one correlation launch a step, and under
+    greedy NMS one launch of B5 for every class of every lane.
+    ``is_first[k, b]`` resets lane b's tracker at step k, so a lane starts
+    its next video mid-chunk; a lane with no video steps on a zero frame
+    and its outputs are the caller's to drop.  ``uint8_input=True`` takes
+    frames as uint8 [K, B, img_h, img_w, 3] (resized, not normalized) and
+    normalizes and pads them on the device.
     """
     dev, model, priors, make_init_state = _prepare(cfg, model, device,
                                                    compute_dtype)
 
     @torch.inference_mode()
-    def video_chunk(states: Sequence[TrackState], frames, is_first
-                    ) -> Tuple[List[TrackState], FrameOutput]:
+    def video_chunk(states: TrackState, frames, is_first
+                    ) -> Tuple[TrackState, FrameOutput]:
         frames = torch.as_tensor(frames).to(dev, non_blocking=True)
         first = torch.as_tensor(is_first, dtype=torch.bool).to(
             dev, non_blocking=True)
@@ -177,28 +195,56 @@ def build_video_step_batched(cfg: STMaskConfig, model: STMask,
                 f'{tuple(first.shape)} must lead with ({chunk_size}, '
                 f'{n_videos})')
         x = normalize_pad(cfg, frames) if uint8_input else frames.float()
-        states = list(states)
         steps = []
         for k in range(chunk_size):
             preds = model(x[k].to(compute_dtype))
             check_anchor_count(cfg, preds['loc'].shape[1], priors.shape[0])
-            lanes = []
-            for b in range(n_videos):
-                proto = preds['proto'][b]
-                det = detect_and_rescore(cfg, model, preds, b, priors)
-                if cfg.temporal_fusion_module:
-                    states[b], out = track_step_tf(
-                        cfg, model.temporal_shift, states[b], det, proto,
-                        preds['fpn_feat'][b], preds['T2S_feat'][b],
-                        first[k, b])
-                else:
-                    states[b], out = track_step_simple(cfg, states[b], det,
-                                                       proto, first[k, b])
-                lanes.append(out)
-            steps.append(_stack(lanes))
+            det = detect_and_rescore(cfg, model, preds, priors)
+            states, out = _track(cfg, model, states, det, preds, first[k])
+            steps.append(out)
         return states, _stack(steps)
 
-    def make_init_states() -> List[TrackState]:
-        return [make_init_state() for _ in range(n_videos)]
+    def make_init_states() -> TrackState:
+        return make_init_state(lanes=n_videos)
 
     return video_chunk, make_init_states
+
+
+def build_video_scan(cfg: STMaskConfig, model: STMask, chunk_size: int = 8,
+                     uint8_input: bool = False,
+                     device: torch.device | str = 'cuda',
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> Tuple[Callable, Callable[[], TrackState]]:
+    """Chunked streaming of one video stream, ``chunk_size`` frames a call
+    (``pipeline.py:199-231``; the JAX package's ``lax.scan`` is a loop
+    over ``build_video_step``'s step here).
+
+    ``is_first`` flags ride along per frame, so a chunk may span video
+    boundaries (the tracker state resets mid-chunk).
+
+    Returns (video_chunk, make_init_state):
+      video_chunk(state, frames [K, H, W, 3], is_first [K])
+        -> (state, FrameOutput with leading K axis)
+    with frames as ``build_video_step`` takes them (``uint8_input``); a K
+    other than ``chunk_size`` raises ``ValueError``.
+    """
+    video_step, make_init_state = build_video_step(
+        cfg, model, uint8_input=uint8_input, device=device,
+        compute_dtype=compute_dtype)
+
+    def video_chunk(state: TrackState, frames, is_first
+                    ) -> Tuple[TrackState, FrameOutput]:
+        frames = torch.as_tensor(frames)
+        first = torch.as_tensor(is_first, dtype=torch.bool)
+        if tuple(first.shape) != (chunk_size,) or \
+                frames.shape[0] != chunk_size:
+            raise ValueError(
+                f'video_chunk: frames {tuple(frames.shape)} and is_first '
+                f'{tuple(first.shape)} must lead with {chunk_size}')
+        outs = []
+        for k in range(chunk_size):
+            state, out = video_step(state, frames[k], first[k])
+            outs.append(out)
+        return state, _stack(outs)
+
+    return video_chunk, make_init_state

@@ -119,13 +119,15 @@ def crop(masks: torch.Tensor, boxes: torch.Tensor, padding: int = 1):
     """Zero mask pixels outside each box (reference box_utils.py:340-364).
 
     Args:
-      masks: [h, w, n]; boxes: [n, 4] normalized point form.
+      masks: [..., h, w, n]; boxes: [..., n, 4] normalized point form
+        (the same leading dims, e.g. a lane axis).
     Returns:
-      (crop_mask, cropped_masks), both [h, w, n].
+      (crop_mask, cropped_masks), both [..., h, w, n].
     """
-    h, w, _ = masks.shape
-    x1, x2 = sanitize_coordinates(boxes[:, 0], boxes[:, 2], w, padding)
-    y1, y2 = sanitize_coordinates(boxes[:, 1], boxes[:, 3], h, padding)
+    h, w, _ = masks.shape[-3:]
+    x1, x2 = sanitize_coordinates(boxes[..., 0], boxes[..., 2], w, padding)
+    y1, y2 = sanitize_coordinates(boxes[..., 1], boxes[..., 3], h, padding)
+    x1, x2, y1, y2 = (c[..., None, None, :] for c in (x1, x2, y1, y2))
 
     rows = torch.arange(w, dtype=masks.dtype, device=masks.device)[None, :,
                                                                    None]
@@ -137,13 +139,14 @@ def crop(masks: torch.Tensor, boxes: torch.Tensor, padding: int = 1):
 
 
 def mask_iou(mask1: torch.Tensor, mask2: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU of binary masks [n1, h, w] x [n2, h, w] -> [n1, n2]
-    (reference box_utils.py:435-447); the intersection is one matmul."""
-    m1 = mask1.reshape(mask1.shape[0], -1)
-    m2 = mask2.reshape(mask2.shape[0], -1)
-    inter = m1 @ m2.T
-    a1 = m1.sum(dim=1)[:, None]
-    a2 = m2.sum(dim=1)[None, :]
+    """Pairwise IoU of binary masks [..., n1, h, w] x [..., n2, h, w] ->
+    [..., n1, n2] (reference box_utils.py:435-447); the intersection is one
+    (batched) matmul."""
+    m1 = mask1.flatten(-2)
+    m2 = mask2.flatten(-2)
+    inter = m1 @ m2.transpose(-1, -2)
+    a1 = m1.sum(dim=-1)[..., :, None]
+    a2 = m2.sum(dim=-1)[..., None, :]
     return _safe_div(inter, a1 + a2 - inter)
 
 

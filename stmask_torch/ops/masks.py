@@ -25,17 +25,22 @@ def generate_mask(proto: torch.Tensor, mask_coeff: torch.Tensor,
     """Assemble instance masks from prototypes.
 
     Args:
-      proto: [h, w, k] prototype masks (already through proto activation).
-      mask_coeff: [n, k] raw coefficients (tanh applied here).
-      bbox: optional [n, 4] normalized point-form boxes for cropping.
+      proto: [..., h, w, k] prototype masks (already through proto
+        activation); the leading dims (e.g. a lane axis) are shared with
+        the coefficients and boxes, and the product is one (batched)
+        matmul.
+      mask_coeff: [..., n, k] raw coefficients (tanh applied here).
+      bbox: optional [..., n, 4] normalized point-form boxes for cropping.
     Returns:
-      [n, h, w] soft masks in [0, 1].
+      [..., n, h, w] soft masks in [0, 1].
     """
     if apply_coeff_activation:
         mask_coeff = torch.tanh(mask_coeff)
-    h, w, k = proto.shape
-    masks = (proto.reshape(h * w, k) @ mask_coeff.T).reshape(h, w, -1)
+    lead = proto.shape[:-3]
+    h, w, k = proto.shape[-3:]
+    masks = (proto.reshape(*lead, h * w, k) @ mask_coeff.transpose(-1, -2)
+             ).reshape(*lead, h, w, -1)
     masks = torch.sigmoid(masks)
     if bbox is not None:
         _, masks = crop(masks, bbox)
-    return masks.permute(2, 0, 1)
+    return masks.movedim(-1, -3)

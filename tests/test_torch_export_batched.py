@@ -34,5 +34,7 @@ def test_export_batched(tmp_path):
         device='cpu')
     _, live = chunk(make_states(), frames, is_first)
     states, out = step(step.init_state(), frames, is_first)
-    assert len(states) == b
+    assert all(f.shape[0] == b for f in states)
+    assert [list(f.shape[1:]) for f in states] == [
+        shape for shape, _ in meta2['state'].values()]
     _equal([out], [live])

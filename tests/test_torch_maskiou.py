@@ -127,10 +127,10 @@ def test_rescore_maskiou_matches_jax():
 
 
 def test_video_step_rescores(monkeypatch):
-    """The port's video steps call ``rescore_maskiou`` on each lane-frame's
-    detections under ``use_maskiou`` + ``rescore_mask`` (and not without),
-    with the model's mask-IoU net; the model carries the net's parameters
-    under the flax names."""
+    """The port's video steps call ``rescore_maskiou_lanes`` once a step,
+    on every lane's detections, under ``use_maskiou`` + ``rescore_mask``
+    (and not without), with the model's mask-IoU net; the model carries the
+    net's parameters under the flax names."""
     tcfg = TCFG.replace(use_maskiou=True, rescore_mask=True)
     model = init_random(TSTMask(tcfg), torch.Generator().manual_seed(0))
     assert {k for k in model.state_dict() if k.startswith('maskiou_net.')} \
@@ -140,10 +140,10 @@ def test_video_step_rescores(monkeypatch):
     calls = []
 
     def counted(cfg, fn, det, proto):
-        calls.append(fn)
-        return TC.rescore_maskiou(cfg, fn, det, proto)
+        calls.append((fn, det.score.shape[0]))
+        return TC.rescore_maskiou_lanes(cfg, fn, det, proto)
 
-    monkeypatch.setattr(TP, 'rescore_maskiou', counted)
+    monkeypatch.setattr(TP, 'rescore_maskiou_lanes', counted)
     x = torch.randn(tcfg.pad_h, tcfg.pad_w, 3,
                     generator=torch.Generator().manual_seed(0))
     step, init = TP.build_video_step(tcfg, model, device='cpu')
@@ -151,11 +151,11 @@ def test_video_step_rescores(monkeypatch):
     chunk, inits = TP.build_video_step_batched(tcfg, model, 2, 1,
                                                device='cpu')
     chunk(inits(), x[None, None].expand(1, 2, -1, -1, -1), [[True, True]])
-    assert len(calls) == 3 and all(f == model.maskiou for f in calls)
+    assert calls == [(model.maskiou, 1), (model.maskiou, 2)]
     step, init = TP.build_video_step(tcfg.replace(rescore_mask=False), model,
                                      device='cpu')
     step(init(), x, True)
-    assert len(calls) == 3
+    assert len(calls) == 2
 
 
 @pytest.mark.parametrize('spec', [
