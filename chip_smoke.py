@@ -209,6 +209,16 @@ Phases, in order (any failure raises and exits non-zero):
      lane loop on the same frames; (f) build_video_scan over phase 4's
      videos in chunks of 6 (two chunks span a video boundary) against
      build_video_step, bit for bit.
+ 17. the scripts (stmask_torch/scripts/), each through its run() in
+     process, the form of what each prints checked: (a) mfu, the FLOP
+     count (utils/flops.py) of one flagship fp32 video step at 384x640 and
+     of one fp32 training step of 1 clip at 96x128 on the card equal to
+     the CPU's (the plain versions) exactly, then its three programs'
+     rows (mfu_pct in (0, 100]); (b) trace_step, one-frame and --chunked
+     (8 streams x 4 frames, K1 once a step); (c) trace_train --bf16
+     (deform_wgrad, K4, K3 in its table); (d) profile_step; (e) bench_dcn
+     at fp32 and bf16; (f) dcn_clip_rate at the flax-like init (every
+     share 0) and --mirror; (g) parity_run --dryrun at 96x128.
 
 K3 (correlation backward) and K4 (deformable col2im) are checked against
 their plain versions in phases 2 and 3, beside K1, K2 and the fused conv:
@@ -239,6 +249,12 @@ import threading
 import time
 
 import numpy as np
+
+from stmask_torch.utils.profiling import device_ms as _device_ms
+from stmask_torch.utils.profiling import device_rows as _device_rows
+from stmask_torch.utils.profiling import host_split as _host_split
+from stmask_torch.utils.profiling import nvidia_smi as _nvidia_smi
+from stmask_torch.utils.profiling import profile as _profile
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32, non-tensor-core
@@ -366,13 +382,6 @@ def _wgrad_at(KW, g, x, off, mask, stride: int, tm: int, split: int):
     return dw
 
 
-def _nvidia_smi() -> str:
-    res = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60)
-    return res.stdout.strip() or f'nvidia-smi failed: {res.stderr.strip()}'
-
-
 def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     """ms per call of ``fn`` called back to back (CUDA events): the time a
     caller sees, host launch cost included where it exceeds the device's."""
@@ -389,93 +398,10 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int) -> float:
-    """Device ms per call of ``fn`` (CUDA events), with every call enqueued
-    behind a sleep kernel so that the kernels run back to back and the
-    host's launch cost is hidden.  ``fn`` must launch few kernels (the
-    launch queue holds about a thousand)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    cycles = 20_000_000
-    for _ in range(4):
-        ev[0].record()
-        torch.cuda._sleep(cycles)
-        ev[1].record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        ev[2].record()
-        torch.cuda.synchronize()
-        if ev[0].elapsed_time(ev[1]) > host_ms:   # the queue never drained
-            return ev[1].elapsed_time(ev[2]) / iters
-        cycles *= 4
-    raise RuntimeError('the sleep kernel never outlasted the launches')
-
-
-def _profile(fn, iters: int):
-    """Run ``fn`` once, then ``iters`` times under torch.profiler (host and
-    device activity); returns the profile."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return prof
-
-
-def _device_rows(prof, ranges=()):
-    """The key_averages() rows of device kernels as (name, count, device
-    us); the device-side rows of the ``record_function`` ranges named in
-    ``ranges`` span kernels already counted, and are left out."""
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, 'self_device_time_total', None)
-        if us is None:
-            us = getattr(e, 'self_cuda_time_total', 0)
-        if us > 0 and str(e.device_type).endswith('CUDA') and \
-                e.key not in ranges:
-            rows.append((e.key, e.count, us))
-    return rows
-
-
 def _device_events(fn, iters: int):
     """Run ``fn`` ``iters`` times under torch.profiler; returns the
     key_averages() rows of device kernels as (name, count, device us)."""
     return _device_rows(_profile(fn, iters))
-
-
-def _host_split(prof, span: str):
-    """Where the host time of the ``record_function`` ranges named ``span``
-    goes: (ranges, mean ms a range, {name: (self ms a range, calls a
-    range)}) over the host events of the range's thread that lie inside a
-    range.  The range's own self time (key ``span``) is the Python that no
-    profiled op covers."""
-    import bisect
-    host = [e for e in prof.events()
-            if not str(e.device_type).endswith('CUDA')]
-    ranges = sorted((e.time_range.start, e.time_range.end, e.thread)
-                    for e in host if e.name == span)
-    if not ranges:
-        return 0, 0.0, {}
-    starts = [r[0] for r in ranges]
-    split = {}
-    for e in host:
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i < 0 or e.thread != ranges[i][2] or \
-                e.time_range.end > ranges[i][1]:
-            continue
-        ms, calls = split.get(e.name, (0.0, 0))
-        split[e.name] = (ms + e.self_cpu_time_total / 1e3, calls + 1)
-    n = len(ranges)
-    mean = sum(b - a for a, b, _ in ranges) / n / 1e3
-    return n, mean, {k: (ms / n, c / n) for k, (ms, c) in split.items()}
 
 
 def _print_host_split(tag: str, prof, span: str, top: int = 10) -> None:
@@ -5049,6 +4975,158 @@ def _lane_axis(torch, dev, smi: str, name: str, clips, err: dict) -> dict:
     return res
 
 
+# phase 17: the scripts on the card (stmask_torch/scripts/), each run in
+# process through its run(); the form of what each prints is checked
+SCRIPT_CHUNK = (8, 4)        # trace_step --chunked: streams, frames a chunk
+
+
+def _script_out(fn, *args, **kw):
+    """(fn's result, what it printed); the first 14 lines of the print are
+    echoed with a ``[scripts]`` prefix."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args, **kw)
+    text = buf.getvalue()
+    for ln in text.splitlines()[:14]:
+        print(f'[scripts]   {ln[:150]}')
+    return res, text
+
+
+def _names(rows, pat: str):
+    return [(n, c) for n, c, _ in rows if re.search(pat, n)]
+
+
+def _scripts_phase(torch, dev, smi: str, tmp: str) -> dict:
+    """Phase 17: (a) mfu: the FLOP count of one flagship fp32 video step at
+    384x640 and of one fp32 training step of 1 clip at 96x128, on the card
+    (the kernels) and on the CPU (their plain versions), equal exactly; the
+    three programs' rows, mfu_pct in (0, 100]; (b) trace_step, one-frame
+    and --chunked --streams 8 --chunk 4: the table names the fused conv
+    and K1, and K1 launches once a step in the chunked run; (c)
+    trace_train --bf16: the table names deform_wgrad, K4 and K3; (d)
+    profile_step: four positive times, forward <= full step; (e) bench_dcn
+    at fp32 and bf16, 5 repeats: 7 rows; (f) dcn_clip_rate, one batch: every
+    share 0 at the seeded flax-like init, a share for each of the 7 sites
+    with --mirror; (g) parity_run --dryrun at 96x128: both JSONs and the
+    table."""
+    from stmask_torch.config import get_config
+    from stmask_torch.scripts import (bench_dcn, dcn_clip_rate, mfu,
+                                      parity_run, profile_step, trace_step,
+                                      trace_train)
+    from stmask_torch.scripts._common import frame_call, train_call
+    from stmask_torch.utils import flops
+    cfg = get_config('STMask_plus_resnet50')
+    small = cfg.replace(img_h=96, img_w=128)
+    out = {}
+    t0 = time.perf_counter()
+
+    # (a) the count, kernels against plain versions, then the rows
+    cpu = torch.device('cpu')
+    for tag, build in (
+            ('video step 384x640 fp32',
+             lambda d: frame_call(cfg, d)),
+            ('train step 1 clip 96x128 fp32',
+             lambda d: train_call(small, d, 1, bf16=False))):
+        _, card = flops.count(build(dev))
+        _, host = flops.count(build(cpu))
+        print(f'[scripts] mfu count, {tag}: card {card.flops} FLOPs, cpu '
+              f'{host.flops} FLOPs; card by op {card.flops_by_op}',
+              flush=True)
+        assert card.flops == host.flops > 0, (tag, card, host)
+        assert card.flops_by_op == host.flops_by_op, tag
+        out[f'count {tag}'] = card.flops
+    rows, text = _script_out(mfu.run, cfg, dev, repeats=3)
+    assert len(rows) == 3 and text.count(' | ') >= 40, text[-2000:]
+    for r in rows:
+        assert 0 < r['mfu_pct'] <= 100 and 0 < r['hbm_pct'] <= 100, r
+        print(f'[scripts] mfu {r["program"]}: {r["ms_per_call"]:.3f} ms, '
+              f'{r["gflops_per_call"]:.3f} GFLOP/call, '
+              f'{r["gflops_per_frame"]:.3f} GFLOP/frame, '
+              f'{r["achieved_tflops"]:.3f} TFLOP/s, mfu {r["mfu_pct"]:.3f}% '
+              f'of {r["peak_tflops"]:g}, {r["bytes_per_call_mb"]:.1f} MB '
+              f'(counted ops), hbm {r["hbm_pct"]:.3f}%, '
+              f'{r["arith_intensity"]:.1f} FLOP/B (ridge '
+              f'{r["ridge_flop_per_byte"]:.1f}), {r["bound"]}-bound ({smi})',
+              flush=True)
+    out['mfu'] = rows
+    print(f'[scripts] (a) {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # (b) trace_step
+    res, text = _script_out(trace_step.run, cfg, dev)
+    assert 'frames profiled' in text and 'idle shares' in text
+    assert _names(res['rows'], r'deform_conv') and \
+        _names(res['rows'], r'correlation(_bf16_fast)?_kernel'), res['rows']
+    streams, chunk = SCRIPT_CHUNK
+    (res, text), launches = _counted(
+        torch, lambda: _script_out(trace_step.run, cfg, dev, chunked=True,
+                                   streams=streams, chunk=chunk))
+    steps = 6 * chunk                 # 2 chunks before the window, 4 in it
+    k1 = launches['correlation_bf16'] + launches['correlation']
+    k1_rows = _names(res['rows'], r'correlation(_bf16_fast)?_kernel')
+    print(f'[scripts] trace_step --chunked: {k1} K1 launches over {steps} '
+          f'steps of {streams} lanes; profiler rows {k1_rows}; '
+          f'{res["ms_per_frame"]:.4f} device ms a frame, idle {res["idle"]}',
+          flush=True)
+    assert k1 == steps and k1_rows and _names(res['rows'], r'deform_conv')
+    out['trace_step_chunked_ms_per_frame'] = res['ms_per_frame']
+    out['trace_step_chunked_idle'] = res['idle']
+
+    # (c) trace_train --bf16
+    res, text = _script_out(trace_train.run, cfg, dev, bf16=True)
+    for pat in (r'deform_wgrad', r'deform_col2im', r'correlation_bwd'):
+        assert _names(res['rows'], pat), (pat, res['rows'][:40])
+    print(f'[scripts] trace_train --bf16: {res["step_ms"]:.3f} ms a step; '
+          'host ms a step by range ' + ', '.join(
+              f'{k} {v[0] / trace_train.STEPS:.3f}'
+              for k, v in sorted(res['ranges'].items())), flush=True)
+    out['trace_train_bf16_step_ms'] = res['step_ms']
+    out['trace_train_bf16_ranges'] = {
+        k: v[0] / trace_train.STEPS for k, v in res['ranges'].items()}
+
+    # (d) profile_step
+    res, _ = _script_out(profile_step.run, cfg, dev)
+    assert all(v > 0 for v in res.values()) and len(res) == 4, res
+    assert res['forward'] <= res['full_step'], res
+    out['profile_step'] = res
+    print(f'[scripts] (b-d) {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # (e) bench_dcn
+    for dtype in ('f32', 'bf16'):
+        res, text = _script_out(bench_dcn.run, dev, dtype, repeats=5)
+        assert len(res) == 7 and 'maxdiff=' in text and \
+            'max |exact - window|' in text, text
+        out[f'bench_dcn_{dtype}'] = res
+
+    # (f) dcn_clip_rate
+    data = os.path.join(tmp, 'overfit')
+    for mirror in (False, True):
+        model, source = dcn_clip_rate.load_model(cfg, dev, mirror=mirror)
+        res, text = _script_out(
+            dcn_clip_rate.run, cfg, model,
+            dcn_clip_rate.loader_batches(cfg, data, 1), dev, source)
+        assert len(res) == 7 and 'worst_clip_pct' in text, text
+        if not mirror:
+            assert all(r['clip_pct'] == 0 for r in res), res
+        out[f'clip_rate_{source}'] = {r['site']: r['clip_pct'] for r in res}
+        print(f'[scripts] dcn_clip_rate {source}: ' + ', '.join(
+            f'{r["site"]} {r["clip_pct"]:.4f}% (max {r["max_abs"]:.3f}, '
+            f'p99 {r["p99"]:.3f})' for r in res), flush=True)
+        del model
+
+    # (g) parity_run --dryrun
+    par = os.path.join(tmp, 'parity')
+    (res, text) = _script_out(parity_run.main, [
+        '--dryrun', '--img_h', '96', '--img_w', '128', '--out_dir', par])
+    for f in ('results_cc.json', 'results_per_class.json',
+              'parity_summary.json'):
+        assert os.path.getsize(os.path.join(par, f)) > 2, f
+    assert res == 0 and 'measured  baseline' in text, text[-2000:]
+    out['seconds'] = time.perf_counter() - t0
+    print(f'[scripts] phase 17: {out["seconds"]:.1f} s', flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6008,6 +6086,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lanes16 = _lane_axis(torch, dev, smi, name, clips, err)
 
+    # ---- 17. the scripts on the card ---------------------------------------
+    mark(17)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp17:
+        scripts17 = _scripts_phase(torch, dev, smi, tmp17)
+
     by_of = _by_of
     sites = ('the 7 DCN sites of one 384x640 frame, one launch each; times '
              'are their sum')
@@ -6481,6 +6565,12 @@ def main() -> int:
         **{f'{c_}_{m_}_peak_mib_above_start': r['peak'] / 2**20
            for (c_, m_), r in exact.items()},
         c15_worst={tag: max(rel.values()) for tag, rel in exact_cpu.items()})
+    table['scripts'] = {k: v for k, v in scripts17.items()
+                        if not k.startswith('bench_dcn')}
+    table['scripts']['bench_dcn'] = {
+        dt: [{k: r[k] for k in ('site', 'conv', 'exact', 'window',
+                                'max_diff')} for r in scripts17[f'bench_dcn_{dt}']]
+        for dt in ('f32', 'bf16')}
     mark('end')
     print(json.dumps(table))
     print(smi)

@@ -5,7 +5,11 @@ Importing the package registers the custom ops ``stmask::correlate``,
 ``stmask::deform_conv``, ``stmask::greedy_nms_keep`` and
 ``stmask::greedy_nms_plus_one_keep`` (the kernel on CUDA tensors, the plain
 version on CPU tensors, and a fake implementation for ``torch.export``),
-which an exported program calls."""
+which an exported program calls, and those of the training backward,
+``stmask::correlation_bwd``, ``stmask::deform_wgrad``,
+``stmask::deform_col2im`` and ``stmask::deform_exact_bwd`` (called with
+autograd off, as a backward runs; ``utils/flops.py`` counts each op's
+work whichever implementation runs)."""
 
 from . import (correlation, correlation_bwd, deform_col2im, deform_conv,
                deform_exact_bwd, deform_im2col, deform_wgrad, greedy_nms)

@@ -3,8 +3,9 @@ entries) and its plain version.
 
 Replaces the XLA transpose of ``stmask_tpu/ops/correlation.py::correlate``
 that the JAX package differentiates in training.  ``correlation_bwd``
-dispatches on the device: CPU tensors take ``correlation_bwd_reference``,
-CUDA tensors take the kernel in ``csrc/correlation_bwd.cu`` or raise.  With
+calls the custom op ``stmask::correlation_bwd``, which dispatches on the
+device: CPU tensors take ``correlation_bwd_reference``, CUDA tensors take
+the kernel in ``csrc/correlation_bwd.cu`` or raise.  With
 ``out`` (the forward's output after its leaky ReLU) both apply the
 activation's derivative to ``g`` themselves, with JAX's rule: slope 1 where
 ``out >= 0`` (so at exactly 0), else 0.1.
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .build import CudaKernel, check_cuda
+from .build import CudaKernel, check_cuda, records_grad
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNEL = CudaKernel('correlation_bwd', 'stmask_correlation_bwd', _ARGTYPES)
@@ -134,9 +135,29 @@ def correlation_bwd_cuda(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
     return dx1, dx2
 
 
+@torch.library.custom_op('stmask::correlation_bwd', mutates_args=(),
+                         device_types='cuda')
+def _correlation_bwd_op(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
+                        patch_size: int, out: Optional[torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return correlation_bwd_cuda(g, x1, x2, patch_size, out)
+
+
+@_correlation_bwd_op.register_kernel('cpu')
+def _(g, x1, x2, patch_size, out):
+    return correlation_bwd_reference(g, x1, x2, patch_size, out)
+
+
+@_correlation_bwd_op.register_fake
+def _(g, x1, x2, patch_size, out):
+    return torch.empty_like(x1), torch.empty_like(x2)
+
+
 def correlation_bwd(g: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
                     patch_size: int = 11, out: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if x1.device.type == 'cpu':
-        return correlation_bwd_reference(g, x1, x2, patch_size, out)
-    return correlation_bwd_cuda(g, x1, x2, patch_size, out)
+    if records_grad(g, x1, x2, out):
+        if x1.device.type == 'cpu':
+            return correlation_bwd_reference(g, x1, x2, patch_size, out)
+        return correlation_bwd_cuda(g, x1, x2, patch_size, out)
+    return torch.ops.stmask.correlation_bwd(g, x1, x2, patch_size, out)

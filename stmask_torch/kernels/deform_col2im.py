@@ -4,9 +4,9 @@ K4 (fp32 and bf16 entries) and its plain version.
 Replaces the custom VJP of ``stmask_tpu/ops/deform_conv.py::
 _make_window_gather`` together with the autodiff of the hat weights and the
 modulation in ``deform_conv2d_window`` (``deform_conv.py:152-351``).
-``deform_col2im`` dispatches on the device: CPU tensors take
-``deform_col2im_reference``, CUDA tensors take the kernel in
-``csrc/deform_col2im.cu`` or raise.
+``deform_col2im`` calls the custom op ``stmask::deform_col2im``, which
+dispatches on the device: CPU tensors take ``deform_col2im_reference``,
+CUDA tensors take the kernel in ``csrc/deform_col2im.cu`` or raise.
 
 The kernel accumulates dx in shared memory over the input footprint of a
 tile of output sites; ``col2im_plan`` chooses the tile and computes the
@@ -44,7 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import CudaKernel, check_cuda
+from .build import CudaKernel, check_cuda, records_grad
 from .deform_conv import check_types
 
 _INTS = [ctypes.c_int] * 17 + [ctypes.c_void_p]
@@ -351,13 +351,47 @@ def deform_col2im_cuda(dcols: torch.Tensor, x: torch.Tensor,
     return dx, d_offset, d_mask
 
 
+def _no_mask(mask, grads):
+    """The op's outputs: an empty d_mask stands for None (an op returns
+    tensors only)."""
+    dx, d_offset, d_mask = grads
+    return dx, d_offset, d_mask if mask is not None else dx.new_empty(0)
+
+
+@torch.library.custom_op('stmask::deform_col2im', mutates_args=(),
+                         device_types='cuda')
+def _deform_col2im_op(dcols: torch.Tensor, x: torch.Tensor,
+                      offset: torch.Tensor, mask: Optional[torch.Tensor],
+                      kh: int, kw: int, stride: int, dilation: int,
+                      radius: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _no_mask(mask, deform_col2im_cuda(
+        dcols, x, offset, mask, kh, kw, stride, dilation, radius))
+
+
+@_deform_col2im_op.register_kernel('cpu')
+def _(dcols, x, offset, mask, kh, kw, stride, dilation, radius):
+    return _no_mask(mask, deform_col2im_reference(
+        dcols, x, offset, mask, kh, kw, stride, dilation, radius))
+
+
+@_deform_col2im_op.register_fake
+def _(dcols, x, offset, mask, kh, kw, stride, dilation, radius):
+    return (torch.empty_like(x), torch.empty_like(offset),
+            x.new_empty(0) if mask is None else torch.empty_like(mask))
+
+
 def deform_col2im(dcols: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
                   mask: Optional[torch.Tensor], kh: int, kw: int,
                   stride: int = 1, dilation: int = 1, radius: int = 2
                   ) -> Tuple[torch.Tensor, torch.Tensor,
                              Optional[torch.Tensor]]:
-    if x.device.type == 'cpu':
-        return deform_col2im_reference(dcols, x, offset, mask, kh, kw, stride,
-                                       dilation, radius)
-    return deform_col2im_cuda(dcols, x, offset, mask, kh, kw, stride,
-                              dilation, radius)
+    if records_grad(dcols, x, offset, mask):
+        if x.device.type == 'cpu':
+            return deform_col2im_reference(dcols, x, offset, mask, kh, kw,
+                                           stride, dilation, radius)
+        return deform_col2im_cuda(dcols, x, offset, mask, kh, kw, stride,
+                                  dilation, radius)
+    dx, d_offset, d_mask = torch.ops.stmask.deform_col2im(
+        dcols, x, offset, mask, kh, kw, stride, dilation, radius)
+    return dx, d_offset, d_mask if mask is not None else None

@@ -5,7 +5,8 @@ Replaces the autodiff of ``stmask_tpu/ops/deform_conv.py::deform_conv2d``'s
 gather (``deform_conv.py:31-89``) through ``ops/sampling.py::
 bilinear_sample_block`` (``sampling.py:48-85``): the path the JAX package
 trains its DCN sites and FCB through at window radius 0.
-``deform_exact_bwd`` dispatches on the device: CPU tensors take
+``deform_exact_bwd`` calls the custom op ``stmask::deform_exact_bwd``,
+which dispatches on the device: CPU tensors take
 ``deform_exact_bwd_reference``, CUDA tensors take the kernel in
 ``csrc/deform_exact_bwd.cu`` or raise.
 
@@ -51,7 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import CudaKernel, check_cuda
+from .build import CudaKernel, check_cuda, records_grad
 from .deform_col2im import SMEM_LIMIT, fast_tiling, footprint
 from .deform_conv import check_types
 
@@ -320,13 +321,47 @@ def deform_exact_bwd_cuda(dcols: torch.Tensor, x: torch.Tensor,
     return dx, d_offset, d_mask
 
 
+def _no_mask(mask, grads):
+    """The op's outputs: an empty d_mask stands for None (an op returns
+    tensors only)."""
+    dx, d_offset, d_mask = grads
+    return dx, d_offset, d_mask if mask is not None else dx.new_empty(0)
+
+
+@torch.library.custom_op('stmask::deform_exact_bwd', mutates_args=(),
+                         device_types='cuda')
+def _deform_exact_bwd_op(dcols: torch.Tensor, x: torch.Tensor,
+                         offset: torch.Tensor, mask: Optional[torch.Tensor],
+                         kh: int, kw: int, stride: int, dilation: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    return _no_mask(mask, deform_exact_bwd_cuda(
+        dcols, x, offset, mask, kh, kw, stride, dilation))
+
+
+@_deform_exact_bwd_op.register_kernel('cpu')
+def _(dcols, x, offset, mask, kh, kw, stride, dilation):
+    return _no_mask(mask, deform_exact_bwd_reference(
+        dcols, x, offset, mask, kh, kw, stride, dilation))
+
+
+@_deform_exact_bwd_op.register_fake
+def _(dcols, x, offset, mask, kh, kw, stride, dilation):
+    return (torch.empty_like(x), torch.empty_like(offset),
+            x.new_empty(0) if mask is None else torch.empty_like(mask))
+
+
 def deform_exact_bwd(dcols: torch.Tensor, x: torch.Tensor,
                      offset: torch.Tensor, mask: Optional[torch.Tensor],
                      kh: int, kw: int, stride: int = 1, dilation: int = 1
                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                 Optional[torch.Tensor]]:
-    if x.device.type == 'cpu':
-        return deform_exact_bwd_reference(dcols, x, offset, mask, kh, kw,
-                                          stride, dilation)
-    return deform_exact_bwd_cuda(dcols, x, offset, mask, kh, kw, stride,
-                                 dilation)
+    if records_grad(dcols, x, offset, mask):
+        if x.device.type == 'cpu':
+            return deform_exact_bwd_reference(dcols, x, offset, mask, kh, kw,
+                                              stride, dilation)
+        return deform_exact_bwd_cuda(dcols, x, offset, mask, kh, kw, stride,
+                                     dilation)
+    dx, d_offset, d_mask = torch.ops.stmask.deform_exact_bwd(
+        dcols, x, offset, mask, kh, kw, stride, dilation)
+    return dx, d_offset, d_mask if mask is not None else None

@@ -6,8 +6,9 @@ Replaces, in the training path's DCN backward, K2 (``deform_im2col``) and
 the matmul ``g.t() @ cols`` after it; in the JAX package, the transpose of
 ``jnp.dot(vals, weight.reshape(k*cin, cout))`` in
 ``stmask_tpu/ops/deform_conv.py::deform_conv2d_window`` (``:347``), which
-XLA differentiates.  ``deform_wgrad`` dispatches on the device: CPU tensors
-take ``deform_wgrad_reference``, CUDA tensors take the kernel in
+XLA differentiates.  ``deform_wgrad`` calls the custom op
+``stmask::deform_wgrad``, which dispatches on the device: CPU tensors take
+``deform_wgrad_reference``, CUDA tensors take the kernel in
 ``csrc/deform_wgrad.cu`` or raise.
 
 ``wgrad_plan`` chooses how the kernel cuts a call (its tiles and the
@@ -35,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from .build import CudaKernel, check_cuda
+from .build import CudaKernel, check_cuda, records_grad
 from .deform_conv import check_types, deform_cols_bf16
 from .deform_im2col import deform_im2col_reference
 
@@ -182,10 +183,33 @@ def deform_wgrad_cuda(g: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
     return dw
 
 
+@torch.library.custom_op('stmask::deform_wgrad', mutates_args=(),
+                         device_types='cuda')
+def _deform_wgrad_op(g: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
+                     mask: Optional[torch.Tensor], kh: int, kw: int,
+                     stride: int, dilation: int) -> torch.Tensor:
+    return deform_wgrad_cuda(g, x, offset, mask, kh, kw, stride, dilation)
+
+
+@_deform_wgrad_op.register_kernel('cpu')
+def _(g, x, offset, mask, kh, kw, stride, dilation):
+    return deform_wgrad_reference(g, x, offset, mask, kh, kw, stride,
+                                  dilation)
+
+
+@_deform_wgrad_op.register_fake
+def _(g, x, offset, mask, kh, kw, stride, dilation):
+    return x.new_empty((g.shape[1], kh, kw, x.shape[3]))
+
+
 def deform_wgrad(g: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
                  mask: Optional[torch.Tensor], kh: int, kw: int,
                  stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    if x.device.type == 'cpu':
-        return deform_wgrad_reference(g, x, offset, mask, kh, kw, stride,
-                                      dilation)
-    return deform_wgrad_cuda(g, x, offset, mask, kh, kw, stride, dilation)
+    if records_grad(g, x, offset, mask):
+        if x.device.type == 'cpu':
+            return deform_wgrad_reference(g, x, offset, mask, kh, kw, stride,
+                                          dilation)
+        return deform_wgrad_cuda(g, x, offset, mask, kh, kw, stride,
+                                 dilation)
+    return torch.ops.stmask.deform_wgrad(g, x, offset, mask, kh, kw, stride,
+                                         dilation)

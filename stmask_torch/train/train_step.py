@@ -41,6 +41,10 @@ gradient reaches its fp32 parameter in fp32 (after the bf16 rounding of
 the weight cotangent); the norm, the clip, the skip, the update and the
 sum over ranks stay fp32.  On the CPU the bf16 step runs its forward and
 backward with oneDNN off (``without_onednn``).
+
+The step's parts are ``torch.profiler`` ranges, ``train_step.forward``,
+``.losses``, ``.backward`` and ``.update`` (``scripts/trace_train.py``
+splits the step's host time by them).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.utils.checkpoint
+from torch.profiler import record_function
 
 from ..config import STMaskConfig
 from ..models.layers import set_bn_affine_trainable
@@ -123,14 +128,16 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
                 plain_forward, images, use_reentrant=False)
 
     def loss_fn(batch: Dict[str, torch.Tensor]):
-        preds = forward(batch['images'])
-        gt = {k: batch[k].reshape((-1,) + batch[k].shape[2:])
-              for k in GT_KEYS if k in batch}
-        # the mask-IoU net's loss 'I' only where the model has the net
-        kw = {'maskiou_fn': model.maskiou} if cfg.use_maskiou else {}
-        losses = compute_losses(cfg, preds, gt, priors, model.temporal_shift,
-                                **kw)
-        return sum(losses.values()), losses
+        with record_function('train_step.forward'):
+            preds = forward(batch['images'])
+        with record_function('train_step.losses'):
+            gt = {k: batch[k].reshape((-1,) + batch[k].shape[2:])
+                  for k in GT_KEYS if k in batch}
+            # the mask-IoU net's loss 'I' only where the model has the net
+            kw = {'maskiou_fn': model.maskiou} if cfg.use_maskiou else {}
+            losses = compute_losses(cfg, preds, gt, priors,
+                                    model.temporal_shift, **kw)
+            return sum(losses.values()), losses
 
     # the CPU's bf16 step without oneDNN (see without_onednn)
     onednn = (without_onednn if dev.type == 'cpu'
@@ -142,8 +149,9 @@ def build_train_step(cfg: STMaskConfig, model: STMask,
             p.grad = None
         with onednn():
             total, losses = loss_fn(batch)
-            total.backward()
-        with torch.no_grad():
+            with record_function('train_step.backward'):
+                total.backward()
+        with torch.no_grad(), record_function('train_step.update'):
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in params]
             if world_size() > 1:

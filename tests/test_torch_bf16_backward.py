@@ -29,6 +29,7 @@ from stmask_tpu.ops.deform_conv import deform_conv2d_window as j_window
 
 from stmask_torch.ops.correlation import correlate
 from stmask_torch.ops.deform_conv import deform_conv_window
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 TOL = 2.0 ** -5
 

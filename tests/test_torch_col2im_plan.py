@@ -18,6 +18,7 @@ from stmask_torch.kernels.deform_col2im import (CHUNK, FAST_SETUP, FAST_SMEM,
                                                 col2im_fast, col2im_plan,
                                                 fast_smem, footprint)
 from test_torch_kernels_geometry import check_footprint
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 RADIUS = 2
 FRAMES = 8                   # a training step's 4 clips of 2 frames

@@ -136,3 +136,57 @@ def test_ops_trace_through_export():
         assert targets.count(op) == 1, targets
     for got, want in zip(ep.module()(*args), M()(*args)):
         assert torch.equal(got, want)
+
+
+def _bwd_args(op, dtype, mask=True):
+    """Arguments of a training-backward op at small shapes: g or the
+    column gradient, and the forward's inputs (offsets in the window)."""
+    x, offset, weight, m, _, stride, dilation = _dcn_args(
+        dtype, dtype, mask=mask)
+    g = torch.Generator().manual_seed(3)
+    offset = offset.clamp(-2, 2)
+    b, ho, wo, _ = offset.shape
+    cout, kh, kw, cin = weight.shape
+    if op == 'deform_wgrad':
+        gm = torch.randn(b * ho * wo, cout, generator=g).to(dtype)
+        return gm, x, offset, m, kh, kw, stride, dilation
+    dcols = torch.randn(b * ho * wo, kh * kw * cin, generator=g).to(dtype)
+    args = (dcols, x, offset, m, kh, kw, stride, dilation)
+    return args + (2,) if op == 'deform_col2im' else args
+
+
+@pytest.mark.parametrize('case', [
+    'correlation_bwd', 'correlation_bwd_out', 'correlation_bwd_bf16',
+    'deform_wgrad', 'deform_wgrad_bf16', 'deform_col2im',
+    'deform_col2im_v1', 'deform_exact_bwd', 'deform_exact_bwd_v1'])
+def test_opcheck_backward_ops(case):
+    """The training backward's ops (called with autograd off, as a backward
+    runs): opcheck, and the op, the wrapper and the plain version agree bit
+    for bit; a v1 call (no mask) gives no d_mask through the wrapper."""
+    from stmask_torch.kernels import (correlation_bwd, deform_col2im,
+                                      deform_exact_bwd, deform_wgrad)
+    dtype = torch.bfloat16 if case.endswith('bf16') else torch.float32
+    if case.startswith('correlation_bwd'):
+        x1, x2 = _corr_args(dtype)
+        out = correlation.correlate_reference(x1, x2, 3, True)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(4))
+        args = (g, x1, x2, 3, out if case != 'correlation_bwd' else None)
+        name, mod = 'correlation_bwd', correlation_bwd
+        ref = correlation_bwd.correlation_bwd_reference
+    else:
+        name = case.replace('_bf16', '').replace('_v1', '')
+        mod = {'deform_wgrad': deform_wgrad, 'deform_col2im': deform_col2im,
+               'deform_exact_bwd': deform_exact_bwd}[name]
+        args = _bwd_args(name, dtype, mask=not case.endswith('_v1'))
+        ref = getattr(mod, f'{name}_reference')
+    op = getattr(torch.ops.stmask, name)
+    torch.library.opcheck(op.default, args)
+    got, want, wrapped = op(*args), ref(*args), getattr(mod, name)(*args)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    wrapped = wrapped if isinstance(wrapped, tuple) else (wrapped,)
+    for a, b, c in zip(got, want, wrapped):
+        if b is None:
+            assert c is None and a.numel() == 0
+            continue
+        assert torch.equal(a, b) and torch.equal(c, b)

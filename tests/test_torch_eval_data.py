@@ -24,6 +24,7 @@ from stmask_torch.data.transforms import preprocess_frame_u8
 from stmask_torch.data.ytvis import YTVISDataset
 from stmask_torch.utils import rle
 from stmask_torch.utils.ytvis_eval import evaluate_ytvis
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 FILTERS = {'none': cv2.IMWRITE_PNG_FILTER_NONE,
            'sub': cv2.IMWRITE_PNG_FILTER_SUB,

@@ -28,6 +28,7 @@ from stmask_tpu.ops import nms as JN
 from chip_smoke import _degenerate_boxes, _near_threshold_boxes
 from stmask_torch.kernels import greedy_nms as KG
 from stmask_torch.ops import nms as TN
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 
 def _j_keep(boxes, valid):

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX, no stmask_tpu, and no quiet CPU fallback."""
 
+import json
 import os
 import re
 import subprocess
@@ -9,27 +10,87 @@ from pathlib import Path
 import pytest
 import torch
 
+from torch_eval_common import few_torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 
-_IMPORT_ALL = r'''
-import importlib, pkgutil, sys
-import stmask_torch
-for m in pkgutil.walk_packages(stmask_torch.__path__, 'stmask_torch.'):
-    importlib.import_module(m.name)
-import chip_smoke
-bad = sorted(n for n in sys.modules
-             if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'flax',
-                                            'stmask_tpu')))
-print('BAD', bad)
+# One fresh process imports torch and forks a child for each check, so
+# that each child imports into a process that holds nothing of the
+# package, as a fresh interpreter would, without paying for a Python and a
+# torch each: '*' imports every module and chip_smoke, a name imports that
+# module alone.  Each child reports the jax / flax / stmask_tpu modules,
+# and the model code, that its import pulled in.
+_FORKED_IMPORTS = r'''
+import importlib, json, os, pkgutil, sys
+import torch
+
+def child(name):
+    if name == '*':
+        import stmask_torch
+        for m in pkgutil.walk_packages(stmask_torch.__path__,
+                                       'stmask_torch.'):
+            importlib.import_module(m.name)
+        import chip_smoke
+    else:
+        importlib.import_module(name)
+    return sorted(n for n in sys.modules
+                  if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'flax',
+                                                 'stmask_tpu',
+                                                 'stmask_torch.models')))
+
+out = {}
+for name in sys.argv[1:]:
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            res = child(name)
+        except BaseException as e:
+            res = f'{type(e).__name__}: {e}'
+        os.write(w, json.dumps(res).encode())
+        os._exit(0)
+    os.close(w)
+    data = b''
+    while True:
+        chunk = os.read(r, 65536)
+        if not chunk:
+            break
+        data += chunk
+    os.close(r)
+    os.waitpid(pid, 0)
+    out[name] = json.loads(data)
+print(json.dumps(out))
 '''
 
+STAND_ALONE = [
+    'stmask_torch.parallel', 'stmask_torch.parallel.mesh',
+    'stmask_torch.parallel.collectives', 'stmask_torch.export',
+    'stmask_torch.utils.hostguard', 'stmask_torch.utils.flops',
+    'stmask_torch.utils.profiling'] + [
+    f'stmask_torch.scripts.{n}' for n in (
+        'bbox_recall', 'bench_dcn', 'compute_masks', 'convert_weights',
+        'dcn_clip_rate', 'display_gt_annotations', 'mfu', 'optimize_bboxes',
+        'parity_run', 'profile_step', 'trace_step', 'trace_train')]
 
-def test_import_pulls_in_no_jax():
+
+@pytest.fixture(scope='module')
+def imports():
+    """{check: what its import pulled in}, from one process."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, '-c', _FORKED_IMPORTS, '*']
+                         + STAND_ALONE, cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().splitlines()[-1] == 'BAD []', res.stdout
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_import_pulls_in_no_jax(imports):
+    """Every module of the package and chip_smoke, imported together, pull
+    in no JAX and no stmask_tpu."""
+    assert isinstance(imports['*'], list), imports['*']
+    assert not [n for n in imports['*']
+                if not n.startswith('stmask_torch.models')], imports['*']
 
 
 def test_sources_import_no_jax():
@@ -222,28 +283,27 @@ def test_kernel_argtypes_match_the_c_launchers(name):
     assert kern.argtypes == want, (kern.symbol, params)
 
 
-_IMPORT_ONE = r'''
-import importlib, sys
-importlib.import_module(sys.argv[1])
-print(sorted(n for n in sys.modules
-             if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'flax',
-                                            'stmask_tpu',
-                                            'stmask_torch.models'))))
-'''
+@pytest.mark.parametrize('module', STAND_ALONE)
+def test_new_modules_stand_alone(module, imports):
+    """Each module of the multi-process, export, host-guard and scripts
+    slices, the FLOP count and the profiling helpers imports alone in a
+    fresh process, with no JAX and no stmask_tpu; the artifact's loader
+    (``stmask_torch.export``), the collectives and these also without the
+    model code (the scripts import the package inside their functions)."""
+    assert imports[module] == [], imports[module]
 
 
-@pytest.mark.parametrize('module', [
-    'stmask_torch.parallel', 'stmask_torch.parallel.mesh',
-    'stmask_torch.parallel.collectives', 'stmask_torch.export',
-    'stmask_torch.utils.hostguard'])
-def test_new_modules_stand_alone(module):
-    """Each module of the multi-process, export and host-guard slice
-    imports alone in a fresh process, with no JAX and no stmask_tpu; the
-    artifact's loader (``stmask_torch.export``) and the collectives also
-    without the model code."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, '-c', _IMPORT_ONE, module],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().splitlines()[-1] == '[]', res.stdout
+@pytest.mark.parametrize('script,argv', [
+    ('mfu', ['--skip_train']), ('trace_step', []), ('trace_train', []),
+    ('profile_step', []), ('bench_dcn', []), ('dcn_clip_rate', []),
+    ('compute_masks', ['--ann_file', 'a.json', '--img_prefix', 'p']),
+    ('parity_run', ['--dryrun'])])
+def test_script_default_device_raises_without_gpu(script, argv):
+    """A script that runs the model runs it on the card unless asked for
+    the CPU: without a GPU its main raises before it builds anything."""
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip('a GPU is present: the default device is usable')
+    mod = importlib.import_module(f'stmask_torch.scripts.{script}')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mod.main(argv)

@@ -10,6 +10,7 @@ import torch
 from stmask_torch.kernels.deform_col2im import (SMEM_LIMIT, col2im_plan,
                                                 deform_col2im_reference,
                                                 footprint, footprint_origin)
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 RADIUS = 2
 H, W = 13, 21                # no multiple of any tile: ragged last tiles
@@ -43,33 +44,38 @@ def check_footprint(kh, kw, stride, dilation, fast=False, hw=(H, W)):
     offsets.append(np.stack([np.full((1, ho, wo, k), -2.0),
                              np.full((1, ho, wo, k), 2.0)], -1).reshape(
                                  1, ho, wo, 2 * k))
-    mask = torch.ones(1, ho, wo, k, dtype=torch.float64)
     tiles = _tiles(ho, wo, plan.ty, plan.tx)
     assert len(tiles) > 4
-    scattered = 0                # (tile, offsets) cases with an in-image dx
-    for oy0, ox0 in tiles:
+    # every tile at once, one image each: the plain col2im keeps images
+    # apart, so image i holds what tile i alone gives
+    n = len(tiles)
+    inside = torch.zeros(n, h, w, 1, dtype=torch.bool)
+    site = torch.zeros(n, ho, wo, 1, dtype=torch.float64)
+    x_out = torch.zeros(n, h, w, 1, dtype=torch.float64)
+    for i, (oy0, ox0) in enumerate(tiles):
         y0, x0 = footprint_origin(oy0, ox0, kh, kw, stride, dilation,
                                   RADIUS)
-        inside = torch.zeros(1, h, w, 1, dtype=torch.bool)
-        inside[0, max(y0, 0):max(y0 + plan.fh, 0),
+        inside[i, max(y0, 0):max(y0 + plan.fh, 0),
                max(x0, 0):max(x0 + plan.fw, 0)] = True
-        site = torch.zeros(1, ho, wo, 1, dtype=torch.float64)
-        site[0, oy0:oy0 + plan.ty, ox0:ox0 + plan.tx] = 1.0
-        dcols = site.expand(1, ho, wo, k).reshape(ho * wo, k)
-        x_out = torch.from_numpy(rng.uniform(1.0, 2.0, (1, h, w, 1)))
-        x_out = x_out * ~inside
-        for off in offsets:
-            off = torch.from_numpy(off)
-            # scatter: dcols of the tile's sites only, all positive
-            dx, _, _ = deform_col2im_reference(
-                dcols, torch.zeros(1, h, w, 1, dtype=torch.float64), off,
-                mask, kh, kw, stride, dilation, RADIUS)
-            assert float(dx[~inside].abs().sum()) == 0.0, (oy0, ox0)
-            scattered += float(dx.sum()) > 0.0
-            # reads: x zero inside the footprint, positive outside
-            _, d_off, d_mask = deform_col2im_reference(
-                dcols, x_out, off, mask, kh, kw, stride, dilation, RADIUS)
-            sl = (0, slice(oy0, oy0 + plan.ty), slice(ox0, ox0 + plan.tx))
+        site[i, oy0:oy0 + plan.ty, ox0:ox0 + plan.tx] = 1.0
+        x_out[i] = torch.from_numpy(rng.uniform(1.0, 2.0, (h, w, 1)))
+    x_out = x_out * ~inside
+    mask = torch.ones(n, ho, wo, k, dtype=torch.float64)
+    dcols = site.expand(n, ho, wo, k).reshape(n * ho * wo, k)
+    scattered = 0                # (tile, offsets) cases with an in-image dx
+    for off in offsets:
+        off = torch.from_numpy(off).expand(n, ho, wo, 2 * k).contiguous()
+        # scatter: dcols of the tile's sites only, all positive
+        dx, _, _ = deform_col2im_reference(
+            dcols, torch.zeros(n, h, w, 1, dtype=torch.float64), off,
+            mask, kh, kw, stride, dilation, RADIUS)
+        # reads: x zero inside the footprint, positive outside
+        _, d_off, d_mask = deform_col2im_reference(
+            dcols, x_out, off, mask, kh, kw, stride, dilation, RADIUS)
+        for i, (oy0, ox0) in enumerate(tiles):
+            assert float(dx[i][~inside[i]].abs().sum()) == 0.0, (oy0, ox0)
+            scattered += float(dx[i].sum()) > 0.0
+            sl = (i, slice(oy0, oy0 + plan.ty), slice(ox0, ox0 + plan.tx))
             assert float(d_off[sl].abs().max()) == 0.0, (oy0, ox0)
             assert float(d_mask[sl].abs().max()) == 0.0, (oy0, ox0)
     assert scattered > len(tiles)

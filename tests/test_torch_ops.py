@@ -32,6 +32,7 @@ from stmask_torch.ops.deform_conv import (dcn_v2_offsets as t_dcn_offsets,
                                           deform_conv2d as t_deform)
 from stmask_torch.ops.masks import generate_mask as t_generate_mask
 from stmask_torch.ops.roi_align import roi_align as t_roi_align
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 
 def _t(a):

@@ -36,6 +36,7 @@ from stmask_torch.ops.deform_conv import deform_conv_window as t_dcn_window
 from stmask_torch.ops.masks import coeff_activation as t_coeff_activation
 from stmask_torch.ops.matcher import match as t_match
 from stmask_torch.ops.roi_align import roi_align as t_roi_align
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 CFG = j_get_config('STMask_plus_resnet50')
 G = 6

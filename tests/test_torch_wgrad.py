@@ -19,6 +19,7 @@ from stmask_torch.kernels.deform_wgrad import (BS, MAX_SPLIT, deform_wgrad,
                                                deform_wgrad_reference,
                                                smem_bytes, wgrad_fast,
                                                wgrad_plan)
+from torch_eval_common import few_torch_threads  # noqa: F401
 
 # (stride, kh, kw, dilation, modulated, Cin, Cout): v2 3x3 at strides 1
 # and 2, FCB's v1 3x5 and 5x3, dilation 2; Cin 3 or 6 and Cout 5 (ragged)
