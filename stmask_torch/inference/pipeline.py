@@ -75,13 +75,16 @@ def detect_and_rescore(cfg: STMaskConfig, model: STMask, preds: dict,
 
 
 def _track(cfg: STMaskConfig, model: STMask, state: TrackState,
-           det: Detections, preds: dict, is_first: torch.Tensor
+           det: Detections, preds: dict, is_first: torch.Tensor,
+           record: Optional[dict] = None
            ) -> Tuple[TrackState, FrameOutput]:
-    """The tracker of the config over every lane: TF, or the simple one."""
+    """The tracker of the config over every lane: TF, or the simple one
+    (which records nothing)."""
     if cfg.temporal_fusion_module:
         return track_step_tf_lanes(cfg, model.temporal_shift, state, det,
                                    preds['proto'], preds['fpn_feat'],
-                                   preds['T2S_feat'], is_first)
+                                   preds['T2S_feat'], is_first,
+                                   record=record)
     return track_step_simple_lanes(cfg, state, det, preds['proto'],
                                    is_first)
 
@@ -177,13 +180,18 @@ def build_video_step_batched(cfg: STMaskConfig, model: STMask,
     its next video mid-chunk; a lane with no video steps on a zero frame
     and its outputs are the caller's to drop.  ``uint8_input=True`` takes
     frames as uint8 [K, B, img_h, img_w, 3] (resized, not normalized) and
-    normalizes and pads them on the device.
+    normalizes and pads them on the device.  ``video_chunk(..., record=[])``
+    appends one dict a step: the forward's outputs (``preds``), the
+    detections (``det``), what the TF tracker records
+    (``track_step_tf_lanes``) and the new ``state`` and ``out``, for
+    ``inference/decisions.py`` to hold against another run.
     """
     dev, model, priors, make_init_state = _prepare(cfg, model, device,
                                                    compute_dtype)
 
     @torch.inference_mode()
-    def video_chunk(states: TrackState, frames, is_first
+    def video_chunk(states: TrackState, frames, is_first,
+                    record: Optional[list] = None
                     ) -> Tuple[TrackState, FrameOutput]:
         frames = torch.as_tensor(frames).to(dev, non_blocking=True)
         first = torch.as_tensor(is_first, dtype=torch.bool).to(
@@ -200,7 +208,11 @@ def build_video_step_batched(cfg: STMaskConfig, model: STMask,
             preds = model(x[k].to(compute_dtype))
             check_anchor_count(cfg, preds['loc'].shape[1], priors.shape[0])
             det = detect_and_rescore(cfg, model, preds, priors)
-            states, out = _track(cfg, model, states, det, preds, first[k])
+            rec = None if record is None else {'preds': preds, 'det': det}
+            states, out = _track(cfg, model, states, det, preds, first[k],
+                                 rec)
+            if rec is not None:
+                record.append(dict(rec, state=states, out=out))
             steps.append(out)
         return states, _stack(steps)
 

@@ -361,7 +361,8 @@ class FrameOutput(NamedTuple):
 def track_step_tf_lanes(cfg: STMaskConfig, temporal_net_fn: TemporalNetFn,
                         state: TrackState, det: Detections,
                         cur_proto: torch.Tensor, cur_fpn_feat: torch.Tensor,
-                        cur_t2s_feat: torch.Tensor, is_first: torch.Tensor
+                        cur_t2s_feat: torch.Tensor, is_first: torch.Tensor,
+                        record: Optional[dict] = None
                         ) -> Tuple[TrackState, FrameOutput]:
     """One frame of Track_TF (reference track_TF.py:50-181) in each of B
     lanes: a lane-stacked state, detections [B, D, ...], cur_proto [B, Hp,
@@ -370,7 +371,10 @@ def track_step_tf_lanes(cfg: STMaskConfig, temporal_net_fn: TemporalNetFn,
     ``is_first`` [B] bool resets a lane's bank on the first frame of its
     video.  The shift always runs (one correlation launch a step for all
     the lanes) and a lane keeps it only when its bank had a valid
-    track."""
+    track.  A ``record`` dict receives what the step decides on:
+    ``state_in`` (the bank after the reset), ``shifted`` (after the
+    shift), ``det_masks_soft`` and ``comp``, the match scores [B, D, T+1]
+    (``inference/decisions.py`` reads them)."""
     dev = cur_proto.device
     is_first = torch.as_tensor(is_first, dtype=torch.bool, device=dev)
     empty = TrackState(*(torch.zeros_like(s) for s in state))
@@ -378,10 +382,14 @@ def track_step_tf_lanes(cfg: STMaskConfig, temporal_net_fn: TemporalNetFn,
 
     shifted = candidate_shift_lanes(cfg, temporal_net_fn, state,
                                     cur_fpn_feat, cur_t2s_feat, cur_proto)
-    state = _blend(state.valid.any(dim=-1), shifted, state)
+    state_in, state = state, _blend(state.valid.any(dim=-1), shifted, state)
 
     det_masks_soft = generate_mask(cur_proto, det.mask_coeff, det.box)
     det_masks = (det_masks_soft > 0.5).float()
+    if record is not None:
+        record.update(state_in=state_in, shifted=state,
+                      det_masks_soft=det_masks_soft,
+                      comp=_comp_scores(cfg, det, det_masks, state))
     state = assign_ids_lanes(cfg, det, det_masks, det_masks_soft, state)
 
     # output keep conditions (reference track_TF.py:158-165)
